@@ -1,0 +1,470 @@
+"""Smoke run of petit_kernel_tpu_torch on one NVIDIA Hopper card.
+
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --record out/chip_smoke.json   # keep a record
+
+Phases (any failure raises and the script exits non-zero):
+  1 device   require CUDA; print the card, CUDA, nvcc and nvidia-smi lines
+  2 build    compile csrc/*.cu through ops/_build.py, print the seconds
+  3 kernels  each kernel against its plain PyTorch twin on the card, at the
+             Llama-3-8B serving shapes, with CUDA-event times of both
+  4 parity   a 2-layer Llama-3-8B-width model: one prefill chunk and one
+             decode step on the card (kernels) against the same model on
+             the CPU (plain twins); logits within 2^-5 * max|logits|
+  5 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
+             on the card, Engine(max_batch=4) serving 8 greedy requests of
+             32 new tokens; every kernel's launch count must move
+  6 profile  the serve model's decode step and one 256-token prefill
+             tick under torch.profiler: kernels by device time and the
+             device's idle share (PERF.md section 5)
+
+The line before the last is the card's `nvidia-smi` name and power limit,
+the one before it a JSON object with each kernel's launches (from phase 5),
+max abs error and times (from phase 3). The last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+With --record PATH, every measurement (per-shape GEMM rows included) is
+also written there as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from petit_kernel_tpu_torch.models import llama, serving
+from petit_kernel_tpu_torch.ops import _build
+from petit_kernel_tpu_torch.ops import layout
+from petit_kernel_tpu_torch.ops.kernels import attention, fused
+from petit_kernel_tpu_torch.ops.solution import ElementB
+from petit_kernel_tpu_torch.ops import solution as solution_mod
+from petit_kernel_tpu_torch.numerics import reference as qref
+
+PHASES = ("device", "build", "kernels", "parity", "serve", "profile")
+# the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
+LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+KERNELS = {
+    "fp4_gemm": dict(route="cuda",
+                     source="petit_kernel_tpu_torch/csrc/fp4_gemm.cu",
+                     replaces="petit_kernel_tpu/ops/kernels/fused.py:195",
+                     wrapper=fused.fused_mul),
+    "decode_attention": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/decode_attention.cu",
+        replaces="petit_kernel_tpu/ops/kernels/attention.py:169",
+        wrapper=attention.decode_attention_contiguous),
+    "prefill_attention": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/prefill_attention.cu",
+        replaces="petit_kernel_tpu/ops/kernels/attention.py:445",
+        wrapper=attention.flash_prefill_attention),
+    "kv_append": dict(route="cuda",
+                      source="petit_kernel_tpu_torch/csrc/kv_append.cu",
+                      replaces="petit_kernel_tpu/ops/kernels/attention.py:683",
+                      wrapper=attention.kv_append),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_device(rec):
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script runs only on a CUDA card")
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[-1]
+    rec["device"] = dict(name=torch.cuda.get_device_name(0),
+                         count=torch.cuda.device_count(),
+                         torch=torch.__version__, cuda=torch.version.cuda,
+                         nvcc=ver, smi=smi_line(),
+                         python=sys.version.split()[0])
+    for k, v in rec["device"].items():
+        log(f"[device] {k}: {v}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def phase_build(rec):
+    info = _build.build()
+    _build.library()
+    rec["build_seconds"] = info.seconds
+    log(f"[build] {info.path.name} in {info.seconds:.1f} s "
+        f"({'reused' if info.seconds == 0 else 'compiled'})")
+    for line in info.log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"[build] {line.strip()}")
+
+
+def _close(name, got, want, rtol, atol):
+    """|got - want| <= rtol*|want| + atol; returns max abs err."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = rtol * w.abs() + atol
+    if not torch.isfinite(g).all() or bool((err > bound).any()):
+        raise AssertionError(f"{name}: max abs err {err.max().item():.3e} "
+                             f"exceeds rtol {rtol} / atol {float(atol):.3e}")
+    return err.max().item()
+
+
+def phase_kernels(rec):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows, res = [], {}
+    # --- fused FP4 GEMM -----------------------------------------------------
+    err_g, ms_g, plain_g = 0.0, 0.0, 0.0
+    for fmt in ("nvfp4", "nvfp4p2z"):
+        quant = (qref.quantize_nvfp4 if fmt == "nvfp4"
+                 else qref.quantize_nvfp4_pow2z)
+        for k, n in LLAMA8B_KN:
+            w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+            qw, sc, gs = quant(w)
+            words = layout.repack_fp4_weights(qw, n, k)
+            st = layout.process_fp4_scales(sc, n, k, group_size=16)
+            gs = gs.reshape(1)
+            for m in (1, 8, 256):
+                a = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                sid = solution_mod.choose_default_solution(m, n, k,
+                                                           ElementB.NVFP4)
+                got = fused.fused_mul(a, words, st, gs, sid=sid)
+                want = fused.fused_mul_reference(a, words, st, gs, sid=sid)
+                torch.cuda.synchronize()
+                e = _close(f"gemm {fmt} m={m} k={k} n={n}", got, want,
+                           2 ** -7, 2 ** -8 * want.float().abs().max())
+                t_k = cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
+                                                      sid=sid))
+                t_p = cuda_ms(lambda: fused.fused_mul_reference(
+                    a, words, st, gs, sid=sid), iters=5)
+                rows.append(dict(kernel="fp4_gemm", fmt=fmt, m=m, k=k, n=n,
+                                 tile=[sid.block_m, sid.block_n],
+                                 max_abs_err=e, ms=t_k, plain_ms=t_p))
+                log(f"[kernels] gemm {fmt:8s} m={m:3d} k={k:5d} n={n:5d} "
+                    f"tile={sid.block_m}x{sid.block_n} err={e:.2e} "
+                    f"kernel={t_k:.4f} ms plain={t_p:.4f} ms")
+                err_g = max(err_g, e)
+                if fmt == "nvfp4" and m == 8:
+                    ms_g += t_k
+                    plain_g += t_p
+    res["fp4_gemm"] = dict(max_abs_err=err_g, ms=ms_g, plain_ms=plain_g,
+                           at="nvfp4 m=8, sum of the 4 Llama-3-8B projections")
+    # --- decode attention ---------------------------------------------------
+    B, H, Hkv, d, S = 8, 32, 8, 128, 2048
+    q = torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
+    ck = torch.randn((B, S, Hkv, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    cv = torch.randn((B, S, Hkv, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.tensor([0, 5, 127, 128, 700, 1023, 1500, 2047],
+                       dtype=torch.int32, device=dev)
+    nb = S // 128
+    got = attention.decode_attention_contiguous(q, ck, cv, pos, nb=nb)
+    want = attention.decode_attention_reference(q, ck, cv, pos, nb=nb)
+    torch.cuda.synchronize()
+    e = _close("decode attention", got, want, 2 ** -7, 2 ** -7)
+    t_k = cuda_ms(lambda: attention.decode_attention_contiguous(
+        q, ck, cv, pos, nb=nb))
+    t_p = cuda_ms(lambda: attention.decode_attention_reference(
+        q, ck, cv, pos, nb=nb), iters=5)
+    res["decode_attention"] = dict(max_abs_err=e, ms=t_k, plain_ms=t_p,
+                                   at="B=8 H=32 Hkv=8 d=128 S=2048 ragged pos")
+    log(f"[kernels] decode attention err={e:.2e} kernel={t_k:.4f} ms "
+        f"plain={t_p:.4f} ms")
+    # --- flash prefill ------------------------------------------------------
+    T = 256
+    pos0 = torch.tensor([0, 256], dtype=torch.int32, device=dev)
+    qp = torch.randn((2, T, H, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ns = 4
+    got = attention.flash_prefill_attention(qp, ck[:2], cv[:2], pos0, ns=ns)
+    want = attention.flash_prefill_reference(qp, ck[:2], cv[:2], pos0, ns=ns)
+    torch.cuda.synchronize()
+    e = _close("flash prefill", got, want, 2 ** -7, 2 ** -7)
+    t_k = cuda_ms(lambda: attention.flash_prefill_attention(
+        qp, ck[:2], cv[:2], pos0, ns=ns))
+    t_p = cuda_ms(lambda: attention.flash_prefill_reference(
+        qp, ck[:2], cv[:2], pos0, ns=ns), iters=5)
+    res["prefill_attention"] = dict(max_abs_err=e, ms=t_k, plain_ms=t_p,
+                                    at="B=2 T=256 pos0=(0,256) H=32 Hkv=8 "
+                                       "d=128 S=2048")
+    log(f"[kernels] flash prefill err={e:.2e} kernel={t_k:.4f} ms "
+        f"plain={t_p:.4f} ms")
+    # --- kv append ----------------------------------------------------------
+    kn = torch.randn((B, Hkv, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vn = torch.randn((B, Hkv, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mask = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.int32,
+                        device=dev)
+    ck1, cv1 = ck.clone(), cv.clone()
+    ck2, cv2 = ck.clone(), cv.clone()
+    attention.kv_append(ck1, cv1, kn, vn, pos, mask)
+    attention.kv_append_reference(ck2, cv2, kn, vn, pos, mask)
+    torch.cuda.synchronize()
+    if not (torch.equal(ck1.view(torch.int16), ck2.view(torch.int16))
+            and torch.equal(cv1.view(torch.int16), cv2.view(torch.int16))):
+        raise AssertionError("kv_append: cache bytes differ from the twin")
+    t_k = cuda_ms(lambda: attention.kv_append(ck1, cv1, kn, vn, pos, mask))
+    t_p = cuda_ms(lambda: attention.kv_append_reference(ck2, cv2, kn, vn,
+                                                        pos, mask))
+    res["kv_append"] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                            at="B=8 S=2048 Hkv=8 d=128, mixed mask, "
+                               "bit-exact")
+    log(f"[kernels] kv_append bit-exact kernel={t_k:.4f} ms "
+        f"plain={t_p:.4f} ms")
+    rec["kernel_rows"] = rows
+    rec["kernels"] = res
+
+
+def _random_quantized(cfg, gen, dev):
+    return llama.quantize_params(llama.init_params(cfg, gen, dev), "nvfp4")
+
+
+def phase_parity(rec):
+    """2 layers at full Llama-3-8B width: card (kernels) vs CPU (twins)."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = _random_quantized(cfg, gen, dev)
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(2)
+    T = 64
+    toks = rng.integers(0, cfg.vocab_size, size=(1, T)).astype(np.int64)
+    nxt = rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(np.int64)
+    outs = []
+    for p, d in ((params, dev), (cpu_params, torch.device("cpu"))):
+        cache = llama.init_cache(cfg, 1, device=d)
+        pos = torch.arange(T, device=d)[None]
+        lg1, cache = llama.forward(p, torch.as_tensor(toks, device=d), cfg,
+                                   cache, pos, kv_window=128)
+        lg2, _ = llama.forward(p, torch.as_tensor(nxt, device=d), cfg, cache,
+                               torch.full((1, 1), T, device=d), kv_window=128)
+        outs.append((lg1.float().cpu(), lg2.float().cpu()))
+    errs = []
+    for name, g, w in (("prefill", outs[0][0], outs[1][0]),
+                       ("decode", outs[0][1], outs[1][1])):
+        bound = 2 ** -5 * w.abs().max().item()
+        err = (g - w).abs().max().item()
+        log(f"[parity] {name} logits max abs err {err:.4e} "
+            f"(bound {bound:.4e})")
+        if not math.isfinite(err) or err > bound:
+            raise AssertionError(f"parity {name}: {err} > {bound}")
+        errs.append(err)
+    rec["parity"] = dict(prefill_err=errs[0], decode_err=errs[1])
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+_SERVE_MODEL = {}
+
+
+def _serve_model(cfg, dev):
+    """The full-depth model of the serve phase: random weights from seed 0,
+    quantized nvfp4 on the card. Built once and shared with `profile`."""
+    if "params" not in _SERVE_MODEL:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = {"layers": []}
+        # one layer at a time, so the dense bf16 copy never holds all 32
+        dense = llama.init_params(llama.LlamaConfig.llama3_8b(num_layers=0),
+                                  gen, dev)
+        params.update({k: v for k, v in dense.items() if k != "layers"})
+        one = llama.LlamaConfig.llama3_8b(num_layers=1, vocab_size=16)
+        for _ in range(cfg.num_layers):
+            params["layers"] += _random_quantized(one, gen, dev)["layers"]
+        torch.cuda.synchronize()
+        _SERVE_MODEL.update(params=params, init_s=time.perf_counter() - t0)
+    return _SERVE_MODEL["params"], _SERVE_MODEL["init_s"]
+
+
+def phase_serve(rec):
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, t_init = _serve_model(cfg, dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 301, size=8)
+    lens[1] = 300                       # one prompt takes two chunks
+    reqs = [serving.Request(uid=i, tokens=rng.integers(
+        0, cfg.vocab_size, size=int(n)).astype(np.int32), max_new_tokens=32)
+        for i, n in enumerate(lens)]
+    eng = serving.Engine(params, cfg, max_batch=4)
+    log(f"[serve] params ready in {t_init:.1f} s; prompt lengths "
+        f"{lens.tolist()}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    for info in KERNELS.values():
+        info["wrapper"].launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: info["wrapper"].launches
+                for name, info in KERNELS.items()}
+    if sorted(out) != list(range(8)) or any(len(v) != 32
+                                            for v in out.values()):
+        raise AssertionError(f"serve: bad outputs {out}")
+    if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
+        raise AssertionError("serve: token id out of range")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"serve: a kernel never launched: {launches}")
+    n_tok = sum(len(v) for v in out.values())
+    rec["serve"] = dict(wall_s=wall, new_tokens=n_tok,
+                        tok_per_s=n_tok / wall, launches=launches,
+                        prompt_lens=lens.tolist(), init_s=t_init,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[serve] {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s "
+        f"(includes prefill of {int(lens.sum())} prompt tokens)")
+    log(json.dumps({"launches": launches}))
+
+
+def _kernel_profile(steps):
+    """Run steps() under torch.profiler; returns (wall ms, summed device ms
+    of every kernel, [(kernel name, device ms, calls)] by time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows), rows
+
+
+def phase_profile(rec):
+    """The serve phase's model with 4 slots: one tick that
+    prefills a 256-token chunk beside 3 decoding slots, then decode steps
+    of all 4, timed on the wall clock and under torch.profiler. Device
+    idle share = 1 - (summed kernel time) / wall."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    eng = serving.Engine(params, cfg, max_batch=4)
+    rng = np.random.default_rng(3)
+
+    def request(uid, n):
+        return serving.Request(uid=uid, tokens=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32), max_new_tokens=256)
+
+    for uid in range(3):
+        eng.add_request(request(uid, 200))
+    while not eng.active[:3].all():
+        eng.step()
+    eng.add_request(request(3, 256))
+    out = {}
+
+    def report(name, n_steps, prof):
+        wall, kern, rows = prof
+        out[name] = dict(steps=n_steps, wall_ms=wall, kernel_ms=kern,
+                         idle_share=1 - kern / wall,
+                         top=[dict(kernel=k, ms=ms, calls=c)
+                              for k, ms, c in rows[:15]])
+        log(f"[profile] {name}: {n_steps} step(s) {wall:.1f} ms wall, "
+            f"kernels {kern:.1f} ms, idle {100 * (1 - kern / wall):.1f}%")
+        for k, ms, c in rows[:15]:
+            log(f"[profile]   {ms:9.2f} ms {c:6d}x  {k[:100]}")
+
+    # the 256-token chunk, then the decode step of the 3 running slots
+    report("prefill_tick", 1, _kernel_profile(eng.step))
+    if not eng.active.all():
+        raise AssertionError("profile: a slot is not decoding")
+    for _ in range(2):                                   # warm-up
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng.step()
+    torch.cuda.synchronize()
+    out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    log(f"[profile] decode step, 4 active slots: "
+        f"{out['decode_step_ms']:.2f} ms (wall, 20 steps)")
+    report("decode", 10, _kernel_profile(
+        lambda: [eng.step() for _ in range(10)]))
+    rec["profile"] = out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--record", help="write every measurement to this "
+                    "JSON file")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    rec = {}
+    phase_device(rec)                    # always: no CUDA, no result
+    for name in PHASES[1:]:
+        if name in phases:
+            t0 = time.perf_counter()
+            globals()[f"phase_{name}"](rec)
+            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    if args.record:
+        os.makedirs(os.path.dirname(args.record) or ".", exist_ok=True)
+        with open(args.record, "w") as f:
+            json.dump(rec, f, indent=1)
+    if "kernels" in rec and "serve" in rec:
+        print(json.dumps({"kernels": [
+            dict(name=name, route=info["route"], source=info["source"],
+                 replaces=info["replaces"],
+                 launches=rec["serve"]["launches"][name],
+                 max_abs_err=rec["kernels"][name]["max_abs_err"],
+                 ms=rec["kernels"][name]["ms"],
+                 plain_ms=rec["kernels"][name]["plain_ms"])
+            for name, info in KERNELS.items()]}))
+    print(rec["device"]["smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

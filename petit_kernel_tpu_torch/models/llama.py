@@ -1,0 +1,373 @@
+"""Llama-3 family inference model with NVFP4/MXFP4 weight-only linears
+(torch).
+
+Counterpart of petit_kernel_tpu/models/llama.py. Weights are a plain dict
+tree of tensors, as there:
+  dense linear    : {"w": bf16 (k, n)} (+ optional "b" bias)
+  quantized linear: {"words": int32 (kp/8, n), "scales": bf16 (kp/16, n),
+                     "gs": f32 0-dim tensor}
+Projections run through the FP4 GEMM entries (ops/gemm.py) under
+torch.inference_mode(): there is no gradient path yet. The KV cache is a
+list of per-layer (k, v) flat (B, S, Hkv, d) bf16 tensors that forward
+updates IN PLACE (the JAX package returns new arrays and donates the old).
+On the card the decode step runs the decode-attention and KV-append
+kernels, and cached prefill the flash-prefill kernel; on the CPU their
+plain twins run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..numerics import reference as ref_numerics
+from ..ops import gemm as gemm_mod
+from ..ops import layout as layout_mod
+from ..ops.kernels import attention as attn_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    max_seq_len: int = 2048
+    attn_bias: bool = False     # Qwen2-style bias on q/k/v projections
+
+    @staticmethod
+    def llama3_8b(**kw):
+        return LlamaConfig(**{**dict(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128), **kw})
+
+    @staticmethod
+    def llama3_70b(**kw):
+        return LlamaConfig(**{**dict(
+            vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+            num_layers=80, num_heads=64, num_kv_heads=8, head_dim=128), **kw})
+
+    @staticmethod
+    def qwen2_7b(**kw):
+        """Qwen2/Qwen2.5-7B: Llama architecture + QKV bias, 1e6 rope."""
+        return LlamaConfig(**{**dict(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+            num_layers=28, num_heads=28, num_kv_heads=4, head_dim=128,
+            rope_theta=1e6, rms_eps=1e-6, attn_bias=True), **kw})
+
+    @staticmethod
+    def tiny(**kw):
+        """Small config for tests; same code path."""
+        return LlamaConfig(**{**dict(
+            vocab_size=512, hidden_size=256, intermediate_size=512,
+            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+            max_seq_len=128), **kw})
+
+
+# ---------------------------------------------------------------------------
+# Linear layers
+# ---------------------------------------------------------------------------
+
+_QUANTIZERS = {
+    "nvfp4": (ref_numerics.quantize_nvfp4, 16),
+    "nvfp4p2": (ref_numerics.quantize_nvfp4_pow2, 16),
+    "nvfp4p2z": (ref_numerics.quantize_nvfp4_pow2z, 16),
+    "mxfp4": (ref_numerics.quantize_mxfp4, 32),
+    "mxfp4z": (ref_numerics.quantize_mxfp4z, 32),
+}
+
+_MULS = {
+    "nvfp4": gemm_mod.mul_nvfp4_a16,
+    "nvfp4p2": gemm_mod.mul_nvfp4p2_a16,
+    "nvfp4p2z": gemm_mod.mul_nvfp4p2z_a16,
+    "mxfp4": gemm_mod.mul_mxfp4_a16,
+    "mxfp4z": gemm_mod.mul_mxfp4z_a16,
+}
+
+
+def quantize_linear(w_kn: torch.Tensor, fmt: str = "nvfp4") -> dict:
+    """Dense (k, n) -> quantized FP4 layer dict, on w_kn's device."""
+    if fmt not in _QUANTIZERS:
+        raise ValueError(f"unsupported format {fmt!r}")
+    quantize, group = _QUANTIZERS[fmt]
+    w = w_kn.float().T                     # (n, k): checkpoint orientation
+    qw, scales, gs = quantize(w)
+    n, k = w.shape
+    words = layout_mod.repack_fp4_weights(
+        qw, n, k, pad_to=layout_mod.pad_multiple(group))
+    st = layout_mod.process_fp4_scales(scales, n, k, group_size=group)
+    return {"words": words, "scales": st, "gs": gs.reshape(())}
+
+
+@torch.inference_mode()
+def linear(x: torch.Tensor, layer: dict, *, fmt: str = "nvfp4"
+           ) -> torch.Tensor:
+    """y = x @ W (+ b) for dense or FP4-quantized layer dicts; x (..., k).
+    A bias ("b", Qwen2 QKV) is added in x.dtype after the matmul."""
+    *lead, k = x.shape
+    if "w" in layer:
+        y = torch.matmul(x, layer["w"].to(x.dtype))
+    else:
+        m = math.prod(lead)
+        n = layer["words"].shape[1]
+        y = _MULS[fmt](x.reshape(m, k), layer["words"], layer["scales"],
+                       layer["gs"], m, n, k, -1).reshape(*lead, n)
+    if "b" in layer:
+        y = y + layer["b"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random dense bf16 params from `generator` (on `device`), in the JAX
+    package's tree and scales: normal * 1/sqrt(k) projections, normal * 0.02
+    embedding, lm_head and biases, unit norms."""
+    h, q = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    kv = cfg.num_kv_heads * cfg.head_dim
+    f = cfg.intermediate_size
+
+    def normal(shape, scale):
+        t = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (t * scale).to(torch.bfloat16)
+
+    def dense(k, n, scale=None, bias=False):
+        out = {"w": normal((k, n), scale or 1.0 / math.sqrt(k))}
+        if bias:
+            out["b"] = normal((n,), 0.02)
+        return out
+
+    def ones():
+        return torch.ones((h,), dtype=torch.bfloat16, device=device)
+
+    layers = [{
+        "attn_norm": ones(),
+        "wq": dense(h, q, bias=cfg.attn_bias),
+        "wk": dense(h, kv, bias=cfg.attn_bias),
+        "wv": dense(h, kv, bias=cfg.attn_bias),
+        "wo": dense(q, h),
+        "mlp_norm": ones(),
+        "w_gate": dense(h, f),
+        "w_up": dense(h, f),
+        "w_down": dense(f, h),
+    } for _ in range(cfg.num_layers)]
+    return {
+        "embed": normal((cfg.vocab_size, h), 0.02),
+        "layers": layers,
+        "final_norm": ones(),
+        "lm_head": dense(h, cfg.vocab_size, scale=0.02),
+    }
+
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _fused_projections(lp: dict, fmt: str) -> dict:
+    """wq|wk|wv and w_gate|w_up concatenated along n and quantized as one
+    wide projection each (split back in attention() / mlp())."""
+    out = {
+        "wqkv": quantize_linear(torch.cat(
+            [lp[nm]["w"] for nm in ("wq", "wk", "wv")], dim=1), fmt),
+        "w_gateup": quantize_linear(torch.cat(
+            [lp["w_gate"]["w"], lp["w_up"]["w"]], dim=1), fmt),
+        "wo": quantize_linear(lp["wo"]["w"], fmt),
+        "w_down": quantize_linear(lp["w_down"]["w"], fmt),
+    }
+    if "b" in lp["wq"]:
+        out["wqkv"]["b"] = torch.cat([lp[nm]["b"] for nm in ("wq", "wk",
+                                                              "wv")])
+    return out
+
+
+def quantize_params(params: dict, fmt: str = "nvfp4") -> dict:
+    """Quantize every projection weight to FP4; embed and lm_head stay
+    dense. wq|wk|wv and w_gate|w_up are fused along n, so a layer runs 4
+    GEMM launches instead of 7."""
+    out = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "lm_head": params["lm_head"], "layers": []}
+    for lp in params["layers"]:
+        for nm in _QUANT_KEYS:
+            k, n = lp[nm]["w"].shape
+            if k % 128 or n % 16:
+                raise ValueError(f"{nm} ({k}, {n}): FP4 layers need k % 128 "
+                                 "== 0 and n % 16 == 0")
+        q = {k: v for k, v in lp.items() if k not in _QUANT_KEYS}
+        q.update(_fused_projections(lp, fmt))
+        out["layers"].append(q)
+    return out
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalise in f32, cast to x.dtype, then multiply by the weight (the
+    JAX package's order)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _rope_angles(pos: torch.Tensor, d: int, theta: float):
+    """(cos, sin), each (B, T, 1, d/2) f32, for absolute positions (B, T)."""
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=pos.device) / d))
+    ang = pos[:, :, None, None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rope_apply(x: torch.Tensor, cs) -> torch.Tensor:
+    """Rotary embedding on INTERLEAVED pairs x[..., ::2] / x[..., 1::2];
+    x (B, T, H, d), computed in f32 and cast back."""
+    cos, sin = cs
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    xr1 = x1 * cos - x2 * sin
+    xr2 = x1 * sin + x2 * cos
+    return torch.stack([xr1, xr2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, T, H, d), pos: (B, T) absolute positions."""
+    return _rope_apply(x, _rope_angles(pos, x.shape[-1], theta))
+
+
+def _write_kv(ck, cv, k, v, pos, write_mask):
+    """Write a T-token chunk's K/V at positions pos (B, T), in place. Rows
+    with write_mask[b] False keep their content. T == 1 goes through the
+    kv_append kernel; longer chunks are index writes (glue, as in the JAX
+    package)."""
+    B, T = pos.shape
+    if T == 1:
+        attn_mod.kv_append(ck, cv, k[:, 0], v[:, 0],
+                           pos[:, 0].to(torch.int32), write_mask)
+        return
+    rows = torch.arange(B, device=ck.device)[:, None]
+    p = pos.long()
+    for c, new in ((ck, k), (cv, v)):
+        new = attn_mod.quantize_kv(new, c.dtype)
+        if write_mask is not None:
+            keep = write_mask.bool()[:, None, None, None]
+            new = torch.where(keep, new, c[rows, p])
+        c[rows, p] = new
+
+
+def attention(x, lp, cache, pos, cfg: LlamaConfig, *, fmt: str,
+              kv_window: Optional[int] = None,
+              write_mask: Optional[torch.Tensor] = None, rope_cs=None):
+    """Self-attention block. With a cache (which needs kv_window), a decode
+    step (T == 1) runs decode attention over the first window positions and
+    a chunk (T > 1) runs flash prefill; without one, a causal f32 softmax
+    over the sequence itself."""
+    B, T, _ = x.shape
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cache is not None and kv_window is None:
+        raise ValueError("attention with a cache needs kv_window: the "
+                         "cached path runs only the decode and prefill "
+                         "kernels")
+    if "wqkv" in lp:
+        qkv = linear(x, lp["wqkv"], fmt=fmt)
+        s0, s1 = nq * d, (nq + nkv) * d
+        q = qkv[..., :s0].reshape(B, T, nq, d)
+        k = qkv[..., s0:s1].reshape(B, T, nkv, d)
+        v = qkv[..., s1:].reshape(B, T, nkv, d)
+    else:
+        q = linear(x, lp["wq"], fmt=fmt).reshape(B, T, nq, d)
+        k = linear(x, lp["wk"], fmt=fmt).reshape(B, T, nkv, d)
+        v = linear(x, lp["wv"], fmt=fmt).reshape(B, T, nkv, d)
+    if rope_cs is None:
+        rope_cs = _rope_angles(pos, d, cfg.rope_theta)
+    qk = _rope_apply(torch.cat([q, k], dim=2), rope_cs)
+    q, k = qk[:, :, :nq], qk[:, :, nq:]
+
+    if cache is not None:
+        ck, cv = cache
+        _write_kv(ck, cv, k, v, pos, write_mask)
+        nblk = min(-(-kv_window // 128), -(-ck.shape[1] // 128))
+        pos0 = pos[:, 0].to(torch.int32).contiguous()
+        if T == 1:
+            o = attn_mod.decode_attention_contiguous(
+                q.reshape(B, nq, d), ck, cv, pos0, nb=nblk, page_size=128)
+        else:
+            o = attn_mod.flash_prefill_attention(q, ck, cv, pos0, ns=nblk,
+                                                 block_s=128)
+        o = o.reshape(B, T, nq * d).to(x.dtype)
+        return linear(o, lp["wo"], fmt=fmt)
+    attn_mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                      device=x.device))[None, None]
+    rep = nq // nkv
+    k_all = k.repeat_interleave(rep, dim=2)
+    v_all = v.repeat_interleave(rep, dim=2)
+    qf = q.float() / math.sqrt(d)
+    logits = torch.einsum("bthd,bshd->bhts", qf, k_all.float())
+    logits = torch.where(attn_mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhts,bshd->bthd", p, v_all.float())
+    o = o.reshape(B, T, nq * d).to(x.dtype)
+    return linear(o, lp["wo"], fmt=fmt)
+
+
+def mlp(x, lp, *, fmt: str):
+    """SwiGLU: SiLU in f32, cast back before the multiply by u."""
+    if "w_gateup" in lp:
+        g, u = linear(x, lp["w_gateup"], fmt=fmt).chunk(2, dim=-1)
+    else:
+        g = linear(x, lp["w_gate"], fmt=fmt)
+        u = linear(x, lp["w_up"], fmt=fmt)
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return linear(h, lp["w_down"], fmt=fmt)
+
+
+@torch.inference_mode()
+def forward(params, tokens, cfg: LlamaConfig, cache=None, pos=None, *,
+            fmt: str = "nvfp4", kv_window: Optional[int] = None,
+            write_mask: Optional[torch.Tensor] = None):
+    """tokens (B, T) -> (logits (B, T, V), cache). cache: list of per-layer
+    (k, v) tensors, updated in place and returned, or None for a
+    full-sequence forward. kv_window, required with a cache: attend
+    through the decode (T == 1) or flash-prefill (T > 1) kernel over the
+    first ceil(kv_window/128)*128 positions (engines pass the batch's
+    bucketed max length). write_mask (B,) bool: rows with False keep their KV cache
+    bit-exact."""
+    B, T = tokens.shape
+    x = params["embed"][tokens.long()]
+    if pos is None:
+        pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    rope_cs = _rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    for i, lp in enumerate(params["layers"]):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        x = x + attention(h, lp, None if cache is None else cache[i], pos,
+                          cfg, fmt=fmt, kv_window=kv_window,
+                          write_mask=write_mask, rope_cs=rope_cs)
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + mlp(h, lp, fmt=fmt)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return linear(x, params["lm_head"], fmt=fmt), cache
+
+
+def init_cache(cfg: LlamaConfig, batch: int, device=None):
+    """Flat (B, S, Hkv, d) bf16 KV cache per layer, zeros on `device`. The
+    port has no fp8 (headed) cache yet."""
+    shape = (batch, cfg.max_seq_len, cfg.num_kv_heads, cfg.head_dim)
+    return [(torch.zeros(shape, dtype=torch.bfloat16, device=device),
+             torch.zeros(shape, dtype=torch.bfloat16, device=device))
+            for _ in range(cfg.num_layers)]
+
+
+def cache_is_headed(ck: torch.Tensor, cfg: LlamaConfig) -> bool:
+    """Layout of a contiguous cache: headed (B, Hkv, S, d) vs flat
+    (B, S, Hkv, d); the ambiguous S == num_kv_heads resolves to flat. The
+    port builds flat caches only."""
+    if ck.shape[2] == cfg.num_kv_heads and ck.shape[1] != cfg.num_kv_heads:
+        return False
+    if ck.shape[1] == cfg.num_kv_heads and ck.shape[2] != cfg.num_kv_heads:
+        return True
+    return False

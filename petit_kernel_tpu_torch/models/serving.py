@@ -1,0 +1,285 @@
+"""Continuous-batching serving engine for FP4 models (torch).
+
+Counterpart of petit_kernel_tpu/models/serving.py (Request, the prefill
+buckets, sample_next and Engine with run(decode_block=1)). The JAX engine
+compiles its steps with jit and donates the cache; this one runs eagerly
+and updates the cache tensors in place. Scheduling state lives on the
+host, as numpy arrays: slots, per-slot positions, the chunked-prefill
+queue. Sampled tokens are read back to the host once per step.
+
+Not ported yet: step_block and the pipelined block drain, SpecEngine,
+PagedEngine, custom forward_fn and prefill_fmt.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import llama
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    tokens: np.ndarray          # prompt token ids, (T,)
+    max_new_tokens: int = 32
+    eos_id: int = -1            # -1: never stops on eos
+    temperature: float = 0.0    # 0: greedy; > 0: gumbel-max sampling
+
+
+# Chunked-prefill geometry: prompts advance at most PREFILL_CHUNK tokens per
+# engine tick, each chunk right-padded to a bucket.
+PREFILL_BUCKETS = (16, 32, 64, 128, 256)
+PREFILL_CHUNK = PREFILL_BUCKETS[-1]
+
+
+def _bucket_len(n: int, cap: Optional[int] = None) -> int:
+    """Smallest bucket >= n; with `cap`, the buckets below cap plus cap."""
+    bs = list(PREFILL_BUCKETS)
+    if cap is not None:
+        bs = [b for b in bs if b < cap] + [cap]
+    for b in bs:
+        if n <= b:
+            return b
+    return bs[-1]
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    req: Request
+    slot: int
+    offset: int = 0             # tokens already written to the cache
+
+
+def sample_next(logits: torch.Tensor, generator: torch.Generator,
+                temps: torch.Tensor, top_k: int = 0) -> torch.Tensor:
+    """Per-slot next token from (B, V) logits: greedy where temps[b] == 0,
+    otherwise gumbel-max sampling at temperature temps[b] with noise from
+    `generator` (on the logits' device), optionally within the top_k
+    logits. Returns int32 (B,) on the logits' device."""
+    lg = logits.float()
+    greedy = lg.argmax(dim=-1).to(torch.int32)
+    if top_k:
+        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+        lg = torch.where(lg >= kth, lg, float("-inf"))
+    safe_t = torch.where(temps > 0, temps, 1.0)[:, None]
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    sampled = (lg / safe_t + g).argmax(dim=-1).to(torch.int32)
+    return torch.where(temps > 0, sampled, greedy)
+
+
+class Engine:
+    """Slot-based continuous batching over a llama-family FP4 model."""
+
+    def __init__(self, params, cfg: llama.LlamaConfig, *, max_batch: int = 8,
+                 fmt: str = "nvfp4", top_k: int = 0, seed: int = 0,
+                 prefill_chunk: Optional[int] = None):
+        """The engine runs on the device its params lie on, with a bf16 KV
+        cache (llama.init_cache) of max_batch slots. Sampling: per-request
+        temperature (Request.temperature, 0 = greedy) with an engine-wide
+        top_k; the noise comes from a torch.Generator on the engine's
+        device seeded with `seed`."""
+        self.params = params
+        self.cfg = cfg
+        self.B = max_batch
+        self.fmt = fmt
+        self.device = params["embed"].device
+        self.prefill_chunk = (min(prefill_chunk, cfg.max_seq_len)
+                              if prefill_chunk else None)
+        self.top_k = top_k
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.cache = llama.init_cache(cfg, max_batch, device=self.device)
+        self.pos = np.zeros(max_batch, np.int32)       # next position
+        self.active = np.zeros(max_batch, bool)
+        self.last_tok = np.zeros(max_batch, np.int32)
+        self.temps = np.zeros(max_batch, np.float32)
+        self.slot_req: list[Optional[Request]] = [None] * max_batch
+        self.generated: dict[int, list[int]] = {}
+        self.finished: dict[int, list[int]] = {}
+        self._pf: list[_PrefillJob] = []   # chunked-prefill queue
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def _forward(self, toks, cache, pos, kv_window=None, write_mask=None):
+        return llama.forward(self.params, toks, self.cfg, cache, pos,
+                             fmt=self.fmt, kv_window=kv_window,
+                             write_mask=write_mask)
+
+    # -- scheduling ---------------------------------------------------------
+
+    def has_capacity(self) -> bool:
+        return any(r is None for r in self.slot_req)
+
+    def add_request(self, req: Request) -> int:
+        """Reserve a free slot and queue the prompt for chunked prefill (one
+        chunk per step(); the slot decodes from the tick after its last
+        chunk). Returns the slot index."""
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        if not free:
+            raise RuntimeError("no free slot")
+        slot = free[0]
+        if len(req.tokens) + req.max_new_tokens > self.cfg.max_seq_len:
+            raise ValueError(f"request {req.uid}: prompt + max_new_tokens "
+                             f"exceeds max_seq_len {self.cfg.max_seq_len}")
+        self.temps[slot] = req.temperature
+        self.slot_req[slot] = req
+        self.pos[slot] = 0
+        self._pf.append(_PrefillJob(req, slot))
+        return slot
+
+    def _chunk_key(self, job) -> tuple:
+        """(bucket_len, kv_window) of the job's next chunk: jobs with equal
+        keys are admitted together. The bucket never runs past max_seq_len:
+        the JAX engine's dynamic_update_slice clamps such a chunk's start
+        and overwrites earlier KV (ROADMAP.md, queue 3)."""
+        cap = self.prefill_chunk or PREFILL_CHUNK
+        n = min(len(job.req.tokens) - job.offset, cap)
+        lb = min(_bucket_len(n, self.prefill_chunk),
+                 self.cfg.max_seq_len - job.offset)
+        w = 128
+        while w < job.offset + lb:
+            w *= 2
+        return lb, min(w, self.cfg.max_seq_len)
+
+    def _advance_prefill(self) -> None:
+        """Advance the prefill queue by one chunk: every queued prompt whose
+        next chunk shares the oldest job's (bucket, window) key is admitted
+        in one full-batch forward with write_mask (the weights stream once
+        per chunk shape, not once per prompt); a lone job runs on its own
+        slot's cache rows."""
+        job = self._pf[0]
+        cap = self.prefill_chunk or PREFILL_CHUNK
+        lb, kv_window = self._chunk_key(job)
+        group = [j for j in self._pf if self._chunk_key(j) == (lb, kv_window)]
+        if len(group) >= 2:
+            self._admit_batched(group, lb, kv_window, cap)
+            return
+        toks = np.asarray(job.req.tokens)
+        chunk = toks[job.offset:job.offset + cap]
+        n = len(chunk)
+        padded = np.zeros((1, lb), np.int32)
+        padded[0, :n] = chunk
+        pos = (job.offset + np.arange(lb, dtype=np.int32))[None, :]
+        rows = [(k[job.slot:job.slot + 1], v[job.slot:job.slot + 1])
+                for (k, v) in self.cache]   # views: written in place
+        logits, _ = self._forward(self._dev(padded), rows, self._dev(pos),
+                                  kv_window=kv_window)
+        first = sample_next(logits[:, n - 1], self.generator,
+                            self._dev(self.temps[job.slot:job.slot + 1]),
+                            self.top_k)
+        job.offset += n
+        if job.offset == len(toks):
+            self._pf.pop(0)
+            self._start_decoding(job, int(first[0]))
+
+    def _start_decoding(self, job: _PrefillJob, first: int) -> None:
+        slot = job.slot
+        self.pos[slot] = len(job.req.tokens)
+        self.active[slot] = True
+        self.last_tok[slot] = first
+        self.generated[job.req.uid] = [first]
+
+    def _admit_batched(self, group, lb: int, kv_window: int,
+                       cap: int) -> None:
+        """One full-batch masked-write forward admits one chunk for every job
+        in `group`; the other rows ride along with write_mask False and
+        their sampled tokens are discarded."""
+        B = self.B
+        toks_b = np.zeros((B, lb), np.int32)
+        pos_b = np.zeros((B, lb), np.int32)
+        last_b = np.zeros(B, np.int64)
+        mask_b = np.zeros(B, bool)
+        ns = {}
+        for j in group:
+            chunk = np.asarray(j.req.tokens)[j.offset:j.offset + cap]
+            n = len(chunk)
+            toks_b[j.slot, :n] = chunk
+            pos_b[j.slot] = j.offset + np.arange(lb)
+            last_b[j.slot] = n - 1
+            mask_b[j.slot] = True
+            ns[j.slot] = n
+        logits, _ = self._forward(self._dev(toks_b), self.cache,
+                                  self._dev(pos_b), kv_window=kv_window,
+                                  write_mask=self._dev(mask_b))
+        last = self._dev(last_b)
+        lg = logits[torch.arange(B, device=self.device), last]    # (B, V)
+        first = sample_next(lg, self.generator, self._dev(self.temps),
+                            self.top_k)
+        firsts = None
+        for j in list(group):
+            j.offset += ns[j.slot]
+            if j.offset == len(j.req.tokens):
+                self._pf.remove(j)
+                if firsts is None:
+                    firsts = first.cpu().numpy()   # one read for the batch
+                self._start_decoding(j, int(firsts[j.slot]))
+
+    def _kv_window(self) -> Optional[int]:
+        """Bucketed max attended length over active slots: a power-of-two
+        multiple of 128, so attention traffic tracks the actual context."""
+        if not self.active.any():
+            return None
+        need = int(self.pos[self.active].max()) + 1
+        w = 128
+        while w < need:
+            w *= 2
+        return min(w, self.cfg.max_seq_len)
+
+    def _decode(self) -> np.ndarray:
+        """One batched decode step over every slot (inactive rows keep their
+        cache through write_mask); returns next-token ids on the host."""
+        logits, _ = self._forward(
+            self._dev(self.last_tok)[:, None], self.cache,
+            self._dev(self.pos)[:, None], kv_window=self._kv_window(),
+            write_mask=self._dev(self.active))
+        nxt = sample_next(logits[:, -1], self.generator,
+                          self._dev(self.temps), self.top_k)
+        return nxt.cpu().numpy()
+
+    def _finish(self, slot: int):
+        req = self.slot_req[slot]
+        self.finished[req.uid] = self.generated.pop(req.uid)
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        self.temps[slot] = 0.0
+
+    def step(self) -> int:
+        """One engine tick: advance at most one prefill chunk, then one
+        batched decode step over all active slots; returns #active+queued."""
+        if self._pf:
+            self._advance_prefill()
+        if self.active.any():
+            nxt = self._decode()
+            for slot in np.flatnonzero(self.active):
+                req = self.slot_req[slot]
+                tok = int(nxt[slot])
+                self.generated[req.uid].append(tok)
+                self.pos[slot] += 1
+                self.last_tok[slot] = tok
+                done = (len(self.generated[req.uid]) >= req.max_new_tokens
+                        or tok == req.eos_id
+                        or self.pos[slot] + 1 >= self.cfg.max_seq_len)
+                if done:
+                    self._finish(slot)
+        return int(self.active.sum()) + len(self._pf)
+
+    def run(self, requests: list[Request],
+            decode_block: int = 1) -> dict[int, list[int]]:
+        """Serve requests to completion with continuous batching: new
+        requests join as slots free up, decode proceeds every tick. Only
+        decode_block=1 exists so far (decode blocks are not ported)."""
+        if decode_block != 1:
+            raise NotImplementedError("decode_block > 1 is not ported yet")
+        pending = list(requests)
+        while pending or self.active.any() or self._pf:
+            while pending and self.has_capacity():
+                self.add_request(pending.pop(0))
+            self.step()
+        return dict(self.finished)

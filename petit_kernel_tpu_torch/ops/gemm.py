@@ -1,0 +1,176 @@
+"""Public GEMM entry points and dispatch (torch).
+
+Counterpart of petit_kernel_tpu/ops/gemm.py: validates the problem,
+resolves solution_id (-1 -> heuristic, else an explicit feasible id) and
+runs the fused dequant+GEMM (ops/kernels/fused.py). There is no tuned table
+for the Hopper kernel yet, so -1 always goes to the heuristic. The five
+mul_*_a16 entries differ only in ElementB: the kernel's exact decode and
+bf16 scale multiply serve pow2 and zero-free tensors unchanged.
+
+The high-precision solutions, the W4A8 entries (mul_*_a8) and the
+differentiable mul_fp4_diff have no Hopper kernel yet and raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import layout
+from . import solution as solution_mod
+from .kernels import fused
+from .solution import ElementB, MatmulType, SolutionHints, SolutionId
+
+
+def resolve_solution(m: int, n: int, k: int, element_b: ElementB,
+                     mfma_type: MatmulType = MatmulType.BF16,
+                     high_precision: bool = False, solution_id: int = -1,
+                     hints: Optional[SolutionHints] = None) -> SolutionId:
+    """solution_id -1 -> heuristic; otherwise an explicit SolutionId.repr()
+    that must decode, match element_b, satisfy the hints and be feasible,
+    or ValueError. hints.b_type must agree with element_b, and
+    require_high_precision forces high precision and rejects explicit
+    non-high-precision ids (the JAX package's rules, gemm.py:80-98)."""
+    if hints is not None:
+        if hints.b_type != element_b:
+            raise ValueError(f"hints.b_type {hints.b_type} mismatches "
+                             f"element_b {element_b}")
+        high_precision = high_precision or hints.require_high_precision
+    if solution_id is not None and solution_id >= 0:
+        try:
+            sid = SolutionId.from_repr(solution_id)
+        except ValueError as e:
+            raise ValueError(f"solution id {solution_id}: {e}") from None
+        if sid.element_b != element_b:
+            raise ValueError(f"solution {sid} element_b mismatch "
+                             f"(want {element_b})")
+        if high_precision and not sid.high_precision:
+            raise ValueError(f"solution {sid} is not high-precision but "
+                             "hints require it")
+        if not solution_mod.is_feasible(sid, m, n, k):
+            raise ValueError(f"solution {sid} infeasible for m={m} n={n} "
+                             f"k={k} (kErrorKernelShape)")
+    else:
+        sid = solution_mod.choose_default_solution(
+            m, n, k, element_b, mfma_type, high_precision)
+    return sid
+
+
+def _validate_and_prepare(a, b, s, m, n, k, group: int):
+    """The JAX package's error contract (gemm.py:165-192): ValueError for a
+    wrong shape or dtype. Returns (a, b as int32, s)."""
+    if a.dim() != 2 or tuple(a.shape) != (m, k):
+        raise ValueError(f"a must be (m, k) = {(m, k)}, got {tuple(a.shape)}")
+    if a.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"a dtype must be bf16/f16/f32, got {a.dtype}")
+    if b.dtype not in (torch.int32, torch.uint32):
+        raise ValueError(f"b must be the int32 repacked weights, got {b.dtype}")
+    kp = layout.padded_k(k, layout.pad_multiple(group))
+    if tuple(b.shape) != (kp // 8, n):
+        raise ValueError(f"b must be repack output (k_padded/8, n) = "
+                         f"{(kp // 8, n)}, got {tuple(b.shape)}")
+    if s.dtype != torch.bfloat16:
+        raise ValueError(f"s must be bfloat16 processed scales "
+                         f"(process_*_scales output), got {s.dtype}")
+    if tuple(s.shape) != (kp // 16, n):
+        raise ValueError(f"s must be processed scales (k_padded/16, n) = "
+                         f"{(kp // 16, n)}, got {tuple(s.shape)}")
+    if k % 128 != 0:
+        raise ValueError(f"k = {k} must be a multiple of 128")
+    if b.device != a.device or s.device != a.device:
+        raise ValueError(f"a, b and s must share a device; got {a.device}, "
+                         f"{b.device}, {s.device}")
+    if b.dtype == torch.uint32:
+        b = b.view(torch.int32)
+    return a, b, s
+
+
+def _mul(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
+         element_b: ElementB, hints: Optional[SolutionHints] = None):
+    if size_m == 0 or size_n == 0 or size_k == 0:
+        return torch.zeros((size_m, size_n), dtype=a.dtype, device=a.device)
+    group = 16 if element_b == ElementB.NVFP4 else 32
+    a, b, s = _validate_and_prepare(a, b, s, size_m, size_n, size_k, group)
+    in_dtype = a.dtype
+    mfma = MatmulType.FP16 if in_dtype == torch.float16 else MatmulType.BF16
+    if hints is None and solution_id < 0:
+        hints = solution_mod.default_hints(b_type=element_b)
+    sid = resolve_solution(size_m, size_n, size_k, element_b, mfma,
+                           solution_id=solution_id, hints=hints)
+    if sid.high_precision:
+        raise NotImplementedError(
+            "high-precision FP4 GEMM has no Hopper kernel yet")
+    gs = torch.as_tensor(global_scale, dtype=torch.float32, device=a.device)
+    # fp16 activations compute in bf16 and cast back, as the JAX package does
+    out = fused.fused_mul(a.to(torch.bfloat16), b, s, gs.reshape(1), sid=sid)
+    return out if in_dtype == torch.bfloat16 else out.to(in_dtype)
+
+
+def mul_nvfp4_a16(a, b, s, global_scale, size_m, size_n, size_k,
+                  solution_id: int = -1, *,
+                  hints: Optional[SolutionHints] = None):
+    """c = (a @ dequant_nvfp4(b, s)) * global_scale -> (m, n) in a.dtype.
+    b, s: repack_nvfp4 / process_nvfp4_scales outputs."""
+    return _mul(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
+                ElementB.NVFP4, hints=hints)
+
+
+def mul_mxfp4_a16(a, b, s, global_scale, size_m, size_n, size_k,
+                  solution_id: int = -1, *,
+                  hints: Optional[SolutionHints] = None):
+    """MXFP4 variant (b, s from repack_mxfp4 / process_mxfp4_scales)."""
+    return _mul(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
+                ElementB.MXFP4, hints=hints)
+
+
+def mul_mxfp4z_a16(a, b, s, global_scale, size_m, size_n, size_k,
+                   solution_id: int = -1, *,
+                   hints: Optional[SolutionHints] = None):
+    """Zero-free MXFP4 ("mxfp4z", quantize_mxfp4z tensors)."""
+    return _mul(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
+                ElementB.MXFP4, hints=hints)
+
+
+def mul_nvfp4p2_a16(a, b, s, global_scale, size_m, size_n, size_k,
+                    solution_id: int = -1, *,
+                    hints: Optional[SolutionHints] = None):
+    """NVFP4 with power-of-two scales ("nvfp4p2", quantize_nvfp4_pow2)."""
+    return _mul(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
+                ElementB.NVFP4, hints=hints)
+
+
+def mul_nvfp4p2z_a16(a, b, s, global_scale, size_m, size_n, size_k,
+                     solution_id: int = -1, *,
+                     hints: Optional[SolutionHints] = None):
+    """Zero-free nvfp4p2 ("nvfp4p2z", quantize_nvfp4_pow2z tensors)."""
+    return _mul(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
+                ElementB.NVFP4, hints=hints)
+
+
+def mul_nvfp4_a8(*args, **kwargs):
+    """W4A8 (int8 activations): no Hopper kernel yet."""
+    raise NotImplementedError("mul_nvfp4_a8 has no Hopper kernel yet")
+
+
+def mul_mxfp4_a8(*args, **kwargs):
+    """MXFP4 W4A8: no Hopper kernel yet."""
+    raise NotImplementedError("mul_mxfp4_a8 has no Hopper kernel yet")
+
+
+def mul_fp4_diff(*args, **kwargs):
+    """Differentiable FP4 GEMM: needs the dequant kernel for its backward,
+    which has no Hopper port yet."""
+    raise NotImplementedError("mul_fp4_diff has no Hopper kernel yet")
+
+
+def get_fp4_solutions(size_m: int, size_n: int, size_k: int,
+                      a_type=torch.bfloat16, c_type=torch.bfloat16,
+                      element_b: ElementB = ElementB.NVFP4) -> list[int]:
+    """Feasible solution reprs for a shape. Only solutions with a kernel
+    are listed: no high-precision ones yet."""
+    del c_type
+    mfma = MatmulType.FP16 if a_type == torch.float16 else MatmulType.BF16
+    return [s.repr() for s in solution_mod.get_solutions(
+        size_m, size_n, size_k, element_b, mfma)]

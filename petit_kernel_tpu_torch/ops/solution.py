@@ -1,0 +1,142 @@
+"""Kernel solution space for the Hopper FP4 GEMM: encoding, feasibility,
+heuristic.
+
+Counterpart of petit_kernel_tpu/ops/solution.py. There a SolutionId names
+a Pallas block shape bounded by the TPU's VMEM budget; here it names one of
+the tile shapes compiled into csrc/fp4_gemm.cu. The CUDA kernel walks the
+packed weights 32 word rows (256 k) at a time, so there is no block-k
+parameter: a tile is (block_m, block_n), and the instances built are
+TILE_SHAPES below.
+
+The integer `repr` round-trips (SolutionId.from_repr(sid.repr()) == sid),
+like the reference library's SolutionId::Repr()/FromRepr. The JAX
+package's pow2_scale and zero_free bits have no counterpart: the kernel
+decodes every value exactly and multiplies by its bf16 scale, so one
+instance serves nvfp4, nvfp4p2, nvfp4p2z, mxfp4 and mxfp4z alike.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class ElementB(enum.IntEnum):
+    """Quantized weight format."""
+    INT4 = 0       # reserved, not implemented (parity with the reference)
+    NVFP4 = 1
+    MXFP4 = 2
+
+
+class MatmulType(enum.IntEnum):
+    """Activation/output dtype class. INT8 is the W4A8 path, which has no
+    Hopper kernel yet."""
+    FP16 = 0
+    BF16 = 1
+    INT8 = 2
+
+
+# (block_m, block_n) tiles compiled into csrc/fp4_gemm.cu. block_m = 16
+# serves decode (one m16 MMA row block, narrow n for more CTAs on the
+# weight stream); block_m = 64 serves prefill.
+TILE_SHAPES = ((16, 64), (16, 128), (64, 64), (64, 128))
+BLOCK_M_UNIT = 16
+BLOCK_N_UNIT = 64
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class SolutionId:
+    block_m: int
+    block_n: int
+    element_b: ElementB = ElementB.NVFP4
+    mfma_type: MatmulType = MatmulType.BF16
+    high_precision: bool = False
+
+    def __post_init__(self):
+        if (self.block_m <= 0 or self.block_m % BLOCK_M_UNIT
+                or self.block_n <= 0 or self.block_n % BLOCK_N_UNIT):
+            raise ValueError(f"bad tile ({self.block_m}, {self.block_n})")
+
+    # [n:8][m:8][element_b:3][mfma:2][hp:1]
+    def repr(self) -> int:
+        return ((self.block_n // BLOCK_N_UNIT) << 14
+                | (self.block_m // BLOCK_M_UNIT) << 6
+                | int(self.element_b) << 3
+                | int(self.mfma_type) << 1
+                | int(self.high_precision))
+
+    @classmethod
+    def from_repr(cls, r: int) -> "SolutionId":
+        return cls(
+            block_m=((r >> 6) & 0xFF) * BLOCK_M_UNIT,
+            block_n=((r >> 14) & 0xFF) * BLOCK_N_UNIT,
+            element_b=ElementB((r >> 3) & 0x7),
+            mfma_type=MatmulType((r >> 1) & 0x3),
+            high_precision=bool(r & 1),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SolutionHints:
+    """Soft preferences threaded through solution resolution (the
+    reference's PetitSolutionHints). require_high_precision restricts
+    resolution to high-precision solutions."""
+    a_type: MatmulType = MatmulType.BF16
+    b_type: ElementB = ElementB.NVFP4
+    c_type: MatmulType = MatmulType.BF16
+    require_high_precision: bool = False
+
+
+def default_hints(device_name: str | None = None,
+                  b_type: ElementB = ElementB.NVFP4) -> SolutionHints:
+    """Default hints. The kernel decodes stored zeros to exact 0 and keeps
+    every product exact in bf16, so no card needs the high-precision path
+    for correctness."""
+    del device_name
+    return SolutionHints(b_type=b_type)
+
+
+def is_feasible(sid: SolutionId, m: int, n: int, k: int) -> bool:
+    """Whether the compiled kernel serves sid at (m, n, k). The kernel masks
+    ragged m and n edges and zero-fills A past k, so only the tile set,
+    k % 128 and a soft cap on wasted tile rows and columns apply."""
+    if (sid.block_m, sid.block_n) not in TILE_SHAPES:
+        return False
+    if k % 128 != 0:
+        return False
+    if sid.block_m > 2 * max(m, BLOCK_M_UNIT):
+        return False
+    if sid.block_n > 2 * max(n, BLOCK_N_UNIT):
+        return False
+    return True
+
+
+def get_solutions(m: int, n: int, k: int,
+                  element_b: ElementB = ElementB.NVFP4,
+                  mfma_type: MatmulType = MatmulType.BF16,
+                  high_precision: bool = False) -> list[SolutionId]:
+    """Feasible solutions for a problem shape."""
+    out = []
+    for bm, bn in TILE_SHAPES:
+        sid = SolutionId(bm, bn, element_b, mfma_type, high_precision)
+        if is_feasible(sid, m, n, k):
+            out.append(sid)
+    return out
+
+
+def choose_default_solution(m: int, n: int, k: int,
+                            element_b: ElementB = ElementB.NVFP4,
+                            mfma_type: MatmulType = MatmulType.BF16,
+                            high_precision: bool = False) -> SolutionId:
+    """Heuristic: decode (m <= 32) takes the m16 tile with narrow n, so a
+    4096-wide projection launches 64+ CTAs on the weight stream; larger m
+    takes the 64-row tile, 128 wide where n is wide enough to fill the
+    card with CTAs."""
+    if k % 128 != 0:
+        raise ValueError(f"no feasible solution for k={k}")
+    if m <= 32:
+        bm, bn = 16, 64
+    else:
+        bm = 64
+        bn = 128 if -(-m // 64) * -(-n // 128) >= 132 else 64
+    return SolutionId(bm, bn, element_b, mfma_type, high_precision)

@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked `cuda`; each test skips without a CUDA card (a CUDA kernel has no
+CPU mode). This file imports neither JAX nor the JAX package, so on a CUDA
+host it runs on its own, without tests/conftest.py's JAX set-up:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the GEMM at rtol 2^-7 with atol 2^-8 * max|ref| (both sum
+exact bf16 products in f32, in other orders, then round once to bf16);
+attention at rtol = atol = 2^-7; the KV append bit-exact.
+"""
+
+import math
+
+import pytest
+import torch
+
+from petit_kernel_tpu_torch.numerics import reference as qref
+from petit_kernel_tpu_torch.ops import layout
+from petit_kernel_tpu_torch.ops import solution as sol
+from petit_kernel_tpu_torch.ops.kernels import attention, fused
+
+pytestmark = pytest.mark.cuda
+
+_QUANT = {"nvfp4": (qref.quantize_nvfp4, 16),
+          "mxfp4": (qref.quantize_mxfp4, 32),
+          "nvfp4p2z": (qref.quantize_nvfp4_pow2z, 16)}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _bf16(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", sorted(_QUANT))
+@pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
+def test_fp4_gemm_kernel_matches_twin(gen, fmt, bm, bn):
+    quant, group = _QUANT[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    for m, n, k in ((1, 208, 640), (37, 128, 1024), (70, 336, 384)):
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        a = _bf16(gen, m, k)
+        sid = sol.SolutionId(bm, bn, eb)
+        before = fused.fused_mul.launches
+        got = fused.fused_mul(a, words, st, gs.reshape(1), sid=sid)
+        assert fused.fused_mul.launches == before + 1
+        want = fused.fused_mul_reference(a, words, st, gs.reshape(1),
+                                         sid=sid)
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=2 ** -7,
+            atol=2 ** -8 * want.float().abs().max().item())
+
+
+def test_decode_attention_kernel_matches_twin(gen):
+    for B, S, hkv, h, d in ((3, 256, 2, 8, 128), (2, 384, 4, 28, 64)):
+        q, k, v = _bf16(gen, B, h, d), _bf16(gen, B, S, hkv, d), \
+            _bf16(gen, B, S, hkv, d)
+        pos = torch.tensor([0, 100, 255][:B], dtype=torch.int32,
+                           device="cuda")
+        before = attention.decode_attention_contiguous.launches
+        got = attention.decode_attention_contiguous(q, k, v, pos, nb=2)
+        assert attention.decode_attention_contiguous.launches == before + 1
+        want = attention.decode_attention_reference(q, k, v, pos, nb=2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+def test_flash_prefill_kernel_matches_twin(gen):
+    for B, T, S, hkv, h, d in ((2, 16, 256, 2, 8, 128),
+                               (2, 40, 256, 4, 28, 64)):
+        q, k, v = _bf16(gen, B, T, h, d), _bf16(gen, B, S, hkv, d), \
+            _bf16(gen, B, S, hkv, d)
+        pos0 = torch.tensor([0, 130], dtype=torch.int32, device="cuda")
+        before = attention.flash_prefill_attention.launches
+        got = attention.flash_prefill_attention(q, k, v, pos0, ns=2)
+        assert attention.flash_prefill_attention.launches == before + 1
+        want = attention.flash_prefill_reference(q, k, v, pos0, ns=2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+def test_kv_append_kernel_bit_exact(gen):
+    B, S, hkv, d = 4, 64, 2, 128
+    k, v = _bf16(gen, B, S, hkv, d), _bf16(gen, B, S, hkv, d)
+    kn, vn = _bf16(gen, B, hkv, d), _bf16(gen, B, hkv, d)
+    pos = torch.tensor([0, 9, 63, 31], dtype=torch.int32, device="cuda")
+    mask = torch.tensor([True, False, True, True], device="cuda")
+    k1, v1, k2, v2 = k.clone(), v.clone(), k.clone(), v.clone()
+    before = attention.kv_append.launches
+    attention.kv_append(k1, v1, kn, vn, pos, mask)
+    assert attention.kv_append.launches == before + 1
+    attention.kv_append_reference(k2, v2, kn, vn, pos, mask)
+    assert torch.equal(k1.view(torch.int16), k2.view(torch.int16))
+    assert torch.equal(v1.view(torch.int16), v2.view(torch.int16))
+    assert torch.equal(k1[1].view(torch.int16), k[1].view(torch.int16))
