@@ -8,20 +8,32 @@ Phases (any failure raises and the script exits non-zero):
   1 device   require CUDA; print the card, CUDA, nvcc and nvidia-smi lines
   2 build    compile csrc/*.cu through ops/_build.py, print the seconds
   3 kernels  each kernel against its plain PyTorch twin on the card, at the
-             Llama-3-8B serving shapes, with CUDA-event times of both
+             Llama-3-8B serving shapes (headed kernels at page sizes 16
+             and 256, bf16 and fp8 K/V), with CUDA-event times of both
   4 parity   a 2-layer Llama-3-8B-width model: one prefill chunk and one
              decode step on the card (kernels) against the same model on
-             the CPU (plain twins); logits within 2^-5 * max|logits|
+             the CPU (plain twins), over the flat bf16 cache and over an
+             fp8 page pool (forward_paged, page size 16); logits within
+             2^-5 * max|logits|
   5 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
              on the card, Engine(max_batch=4) serving 8 greedy requests of
-             32 new tokens; every kernel's launch count must move
-  6 profile  the serve model's decode step and one 256-token prefill
-             tick under torch.profiler: kernels by device time and the
-             device's idle share (PERF.md section 5)
+             32 new tokens over the flat bf16 cache
+  6 serve_kv the same model and requests through
+             Engine(cache_dtype=float8_e4m3fn) (headed fp8 cache) and
+             PagedEngine(page_size=16, cache_dtype=float8_e4m3fn); every
+             page returns to the pool; tokens/s, peak device memory and
+             KV bytes of each cache beside serve's
+  7 profile  the serve model's decode step and one 256-token prefill
+             tick under torch.profiler, in Engine (bf16) and PagedEngine
+             (fp8, page size 16): kernels by device time and the device's
+             idle share (PERF.md section 5)
 
-The line before the last is the card's `nvidia-smi` name and power limit,
-the one before it a JSON object with each kernel's launches (from phase 5),
-max abs error and times (from phase 3). The last line is
+Each engine run of phases 5 and 6 sets every kernel's launch count to 0
+before it and fails if a kernel of its path did not launch. The line
+before the last is the card's `nvidia-smi` name and power limit, the one
+before it a JSON object with each kernel's launches (summed over the
+engine runs of phases 5 and 6), max abs error and times (from phase 3).
+The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 With --record PATH, every measurement (per-shape GEMM rows included) is
 also written there as JSON.
@@ -30,6 +42,7 @@ also written there as JSON.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -41,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from petit_kernel_tpu_torch.models import llama, serving
+from petit_kernel_tpu_torch.models import llama, paged, serving
 from petit_kernel_tpu_torch.ops import _build
 from petit_kernel_tpu_torch.ops import layout
 from petit_kernel_tpu_torch.ops.kernels import attention, fused
@@ -49,7 +62,8 @@ from petit_kernel_tpu_torch.ops.solution import ElementB
 from petit_kernel_tpu_torch.ops import solution as solution_mod
 from petit_kernel_tpu_torch.numerics import reference as qref
 
-PHASES = ("device", "build", "kernels", "parity", "serve", "profile")
+PHASES = ("device", "build", "kernels", "parity", "serve", "serve_kv",
+          "profile")
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 KERNELS = {
@@ -69,7 +83,41 @@ KERNELS = {
                       source="petit_kernel_tpu_torch/csrc/kv_append.cu",
                       replaces="petit_kernel_tpu/ops/kernels/attention.py:683",
                       wrapper=attention.kv_append),
+    "decode_attention_headed": dict(
+        route="cuda",
+        source="petit_kernel_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="petit_kernel_tpu/ops/kernels/attention.py:87",
+        wrapper=attention.decode_attention_contiguous_headed),
+    "paged_decode_attention": dict(
+        route="cuda",
+        source="petit_kernel_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="petit_kernel_tpu/ops/kernels/attention.py:87",
+        wrapper=attention.paged_decode_attention),
+    "prefill_attention_headed": dict(
+        route="cuda",
+        source="petit_kernel_tpu_torch/csrc/paged_prefill_attention.cu",
+        replaces="petit_kernel_tpu/ops/kernels/attention.py:445",
+        wrapper=attention.flash_prefill_headed),
+    "paged_prefill_attention": dict(
+        route="cuda",
+        source="petit_kernel_tpu_torch/csrc/paged_prefill_attention.cu",
+        replaces="petit_kernel_tpu/ops/kernels/attention.py:504",
+        wrapper=attention.flash_prefill_paged),
+    "kv_append_headed": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/kv_append.cu",
+        replaces="petit_kernel_tpu/ops/kernels/attention.py:695",
+        wrapper=attention.kv_append_headed),
 }
+# the kernels each engine run of phases 5 and 6 must launch
+PATHS = {
+    "serve bf16 Engine": ("fp4_gemm", "decode_attention", "prefill_attention",
+                          "kv_append"),
+    "serve_kv fp8 Engine": ("fp4_gemm", "decode_attention_headed",
+                            "prefill_attention_headed", "kv_append_headed"),
+    "serve_kv fp8 PagedEngine": ("fp4_gemm", "paged_decode_attention",
+                                 "paged_prefill_attention"),
+}
+FP8 = torch.float8_e4m3fn
 
 
 def log(*a):
@@ -243,8 +291,95 @@ def phase_kernels(rec):
                                "bit-exact")
     log(f"[kernels] kv_append bit-exact kernel={t_k:.4f} ms "
         f"plain={t_p:.4f} ms")
+    _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask)
     rec["kernel_rows"] = rows
     rec["kernels"] = res
+
+
+def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
+    """The headed-layout kernels at the shapes of phase 3's flat ones
+    (B=8 decode over a 2048-position window, B=2 T=256 prefill), page
+    sizes 16 and 256, bf16 and fp8 K/V. Each kernel's JSON row keeps the
+    largest error of its variants and the times of the variant the serve_kv
+    phase runs (fp8; page size 16 where the kernel pages)."""
+    dev = q.device
+    B, H, d = q.shape
+    Hkv, S = 8, 2048
+
+    def kv(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(name, variant, kernel, twin, served, exact=False):
+        got, want = kernel(), twin()
+        torch.cuda.synchronize()
+        if exact:
+            if not all(torch.equal(attention._bits(g), attention._bits(w))
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"{name} {variant}: cache bytes differ "
+                                     "from the twin")
+            e = 0.0
+        else:
+            e = _close(f"{name} {variant}", got, want, 2 ** -7, 2 ** -7)
+        t_k = cuda_ms(kernel)
+        t_p = cuda_ms(twin, iters=5)
+        rows.append(dict(kernel=name, variant=variant, max_abs_err=e,
+                         ms=t_k, plain_ms=t_p))
+        log(f"[kernels] {name} {variant} err={e:.2e} kernel={t_k:.4f} ms "
+            f"plain={t_p:.4f} ms")
+        r = res.setdefault(name, dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], e)
+        if served:
+            r.update(ms=t_k, plain_ms=t_p, at=variant)
+
+    for dtype in (torch.bfloat16, FP8):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp8"
+        for ps in (16, 256):
+            nb = S // ps                   # pages per sequence
+            P = B * nb + 1
+            kp, vp = kv(dtype, P, Hkv, ps, d), kv(dtype, P, Hkv, ps, d)
+            bt = torch.randperm(P - 1, generator=gen, device=dev)[:B * nb]
+            bt = bt.reshape(B, nb).to(torch.int32)
+            at = (f"{tag} ps={ps} B={B} H={H} Hkv={Hkv} d={d} "
+                  f"window={S} ragged pos")
+            check("paged_decode_attention", at,
+                  lambda: attention.paged_decode_attention(
+                      q, kp, vp, bt, pos, nb=nb, page_size=ps),
+                  lambda: attention.paged_decode_reference(
+                      q, kp, vp, bt, pos, nb=nb, page_size=ps),
+                  dtype == FP8 and ps == 16)
+            ns = 512 // ps
+            at = f"{tag} ps={ps} B=2 T=256 pos0=(0,256) H={H} Hkv={Hkv}"
+            check("paged_prefill_attention", at,
+                  lambda: attention.flash_prefill_paged(
+                      qp, kp, vp, bt[:2], pos0, ns=ns),
+                  lambda: attention.flash_prefill_paged_reference(
+                      qp, kp, vp, bt[:2], pos0, ns=ns),
+                  dtype == FP8 and ps == 16)
+            del kp, vp
+        ck, cv = kv(dtype, B, Hkv, S, d), kv(dtype, B, Hkv, S, d)
+        check("decode_attention_headed",
+              f"{tag} B={B} H={H} Hkv={Hkv} d={d} S={S} ragged pos",
+              lambda: attention.decode_attention_contiguous_headed(
+                  q, ck, cv, pos, nb=S // 128, page_size=128),
+              lambda: attention.decode_attention_headed_reference(
+                  q, ck, cv, pos, nb=S // 128, page_size=128),
+              dtype == FP8)
+        check("prefill_attention_headed",
+              f"{tag} B=2 T=256 pos0=(0,256) H={H} Hkv={Hkv} S={S}",
+              lambda: attention.flash_prefill_attention(
+                  qp, ck[:2], cv[:2], pos0, ns=4, headed=True),
+              lambda: attention.flash_prefill_headed_reference(
+                  qp, ck[:2], cv[:2], pos0, ns=4),
+              dtype == FP8)
+        ck1, cv1, ck2, cv2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        check("kv_append_headed",
+              f"{tag} B={B} Hkv={Hkv} S={S} d={d}, mixed mask, bit-exact",
+              lambda: attention.kv_append(ck1, cv1, kn, vn, pos, mask,
+                                          headed=True),
+              lambda: attention.kv_append_headed_reference(
+                  ck2, cv2, kn, vn, pos, mask),
+              dtype == FP8, exact=True)
+        del ck, cv, ck1, cv1, ck2, cv2
 
 
 def _random_quantized(cfg, gen, dev):
@@ -252,7 +387,8 @@ def _random_quantized(cfg, gen, dev):
 
 
 def phase_parity(rec):
-    """2 layers at full Llama-3-8B width: card (kernels) vs CPU (twins)."""
+    """2 layers at full Llama-3-8B width: card (kernels) vs CPU (twins),
+    over the flat bf16 cache and over an fp8 page pool of page size 16."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b(num_layers=2)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -262,26 +398,40 @@ def phase_parity(rec):
     T = 64
     toks = rng.integers(0, cfg.vocab_size, size=(1, T)).astype(np.int64)
     nxt = rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(np.int64)
-    outs = []
-    for p, d in ((params, dev), (cpu_params, torch.device("cpu"))):
+
+    def flat(p, d):
         cache = llama.init_cache(cfg, 1, device=d)
         pos = torch.arange(T, device=d)[None]
         lg1, cache = llama.forward(p, torch.as_tensor(toks, device=d), cfg,
                                    cache, pos, kv_window=128)
         lg2, _ = llama.forward(p, torch.as_tensor(nxt, device=d), cfg, cache,
                                torch.full((1, 1), T, device=d), kv_window=128)
-        outs.append((lg1.float().cpu(), lg2.float().cpu()))
-    errs = []
-    for name, g, w in (("prefill", outs[0][0], outs[1][0]),
-                       ("decode", outs[0][1], outs[1][1])):
-        bound = 2 ** -5 * w.abs().max().item()
-        err = (g - w).abs().max().item()
-        log(f"[parity] {name} logits max abs err {err:.4e} "
-            f"(bound {bound:.4e})")
-        if not math.isfinite(err) or err > bound:
-            raise AssertionError(f"parity {name}: {err} > {bound}")
-        errs.append(err)
-    rec["parity"] = dict(prefill_err=errs[0], decode_err=errs[1])
+        return lg1, lg2
+
+    def paged_fp8(p, d):
+        pc = paged.init_paged_cache(cfg, 1, page_size=16, dtype=FP8, device=d)
+        paged.ensure_capacity(pc, 0, T + 1)
+        run = lambda tk, pos: paged.forward_paged(
+            p, torch.as_tensor(tk, device=d), cfg, pc.pages, pc.block_tables,
+            pos, page_size=16, kv_window=128)[0]
+        return (run(toks, torch.arange(T, device=d)[None]),
+                run(nxt, torch.full((1, 1), T, device=d)))
+
+    out = {}
+    for cache_name, fn in (("flat bf16", flat), ("paged fp8 ps=16", paged_fp8)):
+        got, want = (tuple(x.float().cpu() for x in fn(p, d))
+                     for p, d in ((params, dev),
+                                  (cpu_params, torch.device("cpu"))))
+        for step, g, w in zip(("prefill", "decode"), got, want):
+            bound = 2 ** -5 * w.abs().max().item()
+            err = (g - w).abs().max().item()
+            log(f"[parity] {cache_name} {step} logits max abs err "
+                f"{err:.4e} (bound {bound:.4e})")
+            if not math.isfinite(err) or err > bound:
+                raise AssertionError(f"parity {cache_name} {step}: {err} > "
+                                     f"{bound}")
+            out[f"{cache_name} {step}"] = err
+    rec["parity"] = out
 
 
 def _tree_to(tree, device):
@@ -314,43 +464,135 @@ def _serve_model(cfg, dev):
     return _SERVE_MODEL["params"], _SERVE_MODEL["init_s"]
 
 
-def phase_serve(rec):
-    dev = torch.device("cuda")
-    cfg = llama.LlamaConfig.llama3_8b()
-    params, t_init = _serve_model(cfg, dev)
+def _serve_requests(cfg):
+    """The 8 seeded greedy requests of the serve phases: prompt lengths in
+    [16, 300], one of 300 (two prefill chunks), 32 new tokens each."""
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 301, size=8)
     lens[1] = 300                       # one prompt takes two chunks
-    reqs = [serving.Request(uid=i, tokens=rng.integers(
+    return [serving.Request(uid=i, tokens=rng.integers(
         0, cfg.vocab_size, size=int(n)).astype(np.int32), max_new_tokens=32)
         for i, n in enumerate(lens)]
-    eng = serving.Engine(params, cfg, max_batch=4)
-    log(f"[serve] params ready in {t_init:.1f} s; prompt lengths "
-        f"{lens.tolist()}; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+
+
+def _kv_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for kv in tensors for t in kv)
+
+
+def _serve(rec, path, make_engine, reqs, cfg):
+    """Build an engine with make_engine() on a freshly reset peak-memory
+    counter, then serve `reqs` to completion through its add_request and
+    step, with every kernel's launch count set to 0 just before and read
+    just after; check the outputs and that every kernel of `path`
+    launched. Returns (the run's record, the engine)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make_engine()
     for info in KERNELS.values():
         info["wrapper"].launches = 0
+    pending, peak_pages = list(reqs), 0
     t0 = time.perf_counter()
-    out = eng.run(reqs)
+    while pending or eng.active.any() or eng._pf:
+        while pending and eng.has_capacity():
+            eng.add_request(pending.pop(0))
+        eng.step()
+        if isinstance(eng, serving.PagedEngine):
+            peak_pages = max(peak_pages, eng.pages_in_use())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: info["wrapper"].launches
                 for name, info in KERNELS.items()}
-    if sorted(out) != list(range(8)) or any(len(v) != 32
-                                            for v in out.values()):
-        raise AssertionError(f"serve: bad outputs {out}")
+    out = eng.finished
+    if sorted(out) != list(range(len(reqs))) or any(
+            len(v) != 32 for v in out.values()):
+        raise AssertionError(f"{path}: bad outputs {out}")
     if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
-        raise AssertionError("serve: token id out of range")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"serve: a kernel never launched: {launches}")
+        raise AssertionError(f"{path}: token id out of range")
+    missing = [k for k in PATHS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing} "
+                             f"({launches})")
+    for name, n in launches.items():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n
     n_tok = sum(len(v) for v in out.values())
-    rec["serve"] = dict(wall_s=wall, new_tokens=n_tok,
-                        tok_per_s=n_tok / wall, launches=launches,
-                        prompt_lens=lens.tolist(), init_s=t_init,
-                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"[serve] {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s "
-        f"(includes prefill of {int(lens.sum())} prompt tokens)")
-    log(json.dumps({"launches": launches}))
+    run = dict(wall_s=wall, new_tokens=n_tok, tok_per_s=n_tok / wall,
+               launches=launches, tokens=[out[i] for i in sorted(out)],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if peak_pages:
+        run["peak_pages_in_use"] = peak_pages
+    log(f"[{path}] {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} "
+        f"tok/s; peak device memory {run['peak_gib']:.2f} GiB")
+    log(json.dumps({"path": path, "launches": launches}))
+    return run, eng
+
+
+def phase_serve(rec):
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, t_init = _serve_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    lens = [len(r.tokens) for r in reqs]
+    log(f"[serve] params ready in {t_init:.1f} s; prompt lengths {lens}; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    rec.setdefault("launches", {})
+    run, eng = _serve(rec, "serve bf16 Engine",
+                      lambda: serving.Engine(params, cfg, max_batch=4),
+                      reqs, cfg)
+    run.update(prompt_lens=lens, init_s=t_init, kv_bytes=_kv_bytes(eng.cache))
+    rec["serve"] = run
+    log(f"[serve] includes prefill of {sum(lens)} prompt tokens; flat bf16 "
+        f"KV cache {run['kv_bytes'] / 2**20:.1f} MiB")
+
+
+def phase_serve_kv(rec):
+    """The serve phase's model and requests over the fp8 KV caches: the
+    headed contiguous cache of Engine and PagedEngine's page pool."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    rec.setdefault("launches", {})
+    # serve's flat bf16 cache: K and V, 4 slots, 2 bytes a value
+    flat_bytes = (2 * cfg.num_layers * 4 * cfg.max_seq_len
+                  * cfg.num_kv_heads * cfg.head_dim * 2)
+    bf16_tokens = rec.get("serve", {}).get("tokens")
+    out = {"flat_bf16_kv_bytes": flat_bytes}
+    for path, make in (
+            ("serve_kv fp8 Engine",
+             lambda: serving.Engine(params, cfg, max_batch=4,
+                                    cache_dtype=FP8)),
+            ("serve_kv fp8 PagedEngine",
+             lambda: serving.PagedEngine(params, cfg, max_batch=4,
+                                         page_size=16, cache_dtype=FP8))):
+        run, eng = _serve(rec, path, make, reqs, cfg)
+        if isinstance(eng, serving.PagedEngine):
+            pc = eng.pc
+            if eng.pages_in_use() != 0 or sorted(pc.free) != list(
+                    range(pc.num_pages)):
+                raise AssertionError(f"{path}: {eng.pages_in_use()} pages "
+                                     "still in use after the run")
+            run["kv_bytes"] = _kv_bytes(pc.pages)
+            page_bytes = run["kv_bytes"] // (pc.num_pages + 1)
+            run["peak_kv_bytes_in_use"] = run["peak_pages_in_use"] * page_bytes
+            log(f"[{path}] pool {run['kv_bytes'] / 2**20:.1f} MiB "
+                f"({pc.num_pages} + 1 pages of {page_bytes} B); peak "
+                f"{run['peak_pages_in_use']} pages = "
+                f"{run['peak_kv_bytes_in_use'] / 2**20:.1f} MiB in use; "
+                f"all pages back in the pool")
+        else:
+            run["kv_bytes"] = _kv_bytes(eng.cache)
+        log(f"[{path}] KV {run['kv_bytes'] / 2**20:.1f} MiB against "
+            f"{flat_bytes / 2**20:.1f} MiB for serve's flat bf16 cache")
+        if bf16_tokens:       # information: fp8 KV against bf16 KV streams
+            same = sum(a == b for x, y in zip(run["tokens"], bf16_tokens)
+                       for a, b in zip(x, y))
+            run["tokens_equal_to_bf16"] = same
+            log(f"[{path}] {same} of {run['new_tokens']} tokens equal to "
+                "the bf16 Engine's")
+        out[path] = run
+        del eng
+    rec["serve_kv"] = out
 
 
 def _kernel_profile(steps):
@@ -376,15 +618,10 @@ def _kernel_profile(steps):
     return wall, sum(r[1] for r in rows), rows
 
 
-def phase_profile(rec):
-    """The serve phase's model with 4 slots: one tick that
-    prefills a 256-token chunk beside 3 decoding slots, then decode steps
-    of all 4, timed on the wall clock and under torch.profiler. Device
-    idle share = 1 - (summed kernel time) / wall."""
-    dev = torch.device("cuda")
-    cfg = llama.LlamaConfig.llama3_8b()
-    params, _ = _serve_model(cfg, dev)
-    eng = serving.Engine(params, cfg, max_batch=4)
+def _profile_engine(name, eng, cfg):
+    """Three slots decoding after 200-token prompts, then one tick that
+    prefills a 256-token chunk beside them, then decode steps of all 4:
+    20 on the wall clock, 10 under torch.profiler."""
     rng = np.random.default_rng(3)
 
     def request(uid, n):
@@ -398,21 +635,22 @@ def phase_profile(rec):
     eng.add_request(request(3, 256))
     out = {}
 
-    def report(name, n_steps, prof):
+    def report(what, n_steps, prof):
         wall, kern, rows = prof
-        out[name] = dict(steps=n_steps, wall_ms=wall, kernel_ms=kern,
+        out[what] = dict(steps=n_steps, wall_ms=wall, kernel_ms=kern,
                          idle_share=1 - kern / wall,
                          top=[dict(kernel=k, ms=ms, calls=c)
                               for k, ms, c in rows[:15]])
-        log(f"[profile] {name}: {n_steps} step(s) {wall:.1f} ms wall, "
-            f"kernels {kern:.1f} ms, idle {100 * (1 - kern / wall):.1f}%")
+        log(f"[profile] {name} {what}: {n_steps} step(s) {wall:.1f} ms "
+            f"wall, kernels {kern:.1f} ms, idle "
+            f"{100 * (1 - kern / wall):.1f}%")
         for k, ms, c in rows[:15]:
             log(f"[profile]   {ms:9.2f} ms {c:6d}x  {k[:100]}")
 
     # the 256-token chunk, then the decode step of the 3 running slots
     report("prefill_tick", 1, _kernel_profile(eng.step))
     if not eng.active.all():
-        raise AssertionError("profile: a slot is not decoding")
+        raise AssertionError(f"profile {name}: a slot is not decoding")
     for _ in range(2):                                   # warm-up
         eng.step()
     torch.cuda.synchronize()
@@ -421,10 +659,27 @@ def phase_profile(rec):
         eng.step()
     torch.cuda.synchronize()
     out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / 20
-    log(f"[profile] decode step, 4 active slots: "
+    log(f"[profile] {name} decode step, 4 active slots: "
         f"{out['decode_step_ms']:.2f} ms (wall, 20 steps)")
     report("decode", 10, _kernel_profile(
         lambda: [eng.step() for _ in range(10)]))
+    return out
+
+
+def phase_profile(rec):
+    """The serve phase's model in Engine (flat bf16 cache) and in
+    PagedEngine (fp8 pool, page size 16), 4 slots each (_profile_engine).
+    Device idle share = 1 - (summed kernel time) / wall."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    out = _profile_engine("bf16 Engine", serving.Engine(params, cfg,
+                                                        max_batch=4), cfg)
+    gc.collect()
+    out["paged_fp8"] = _profile_engine(
+        "fp8 PagedEngine", serving.PagedEngine(params, cfg, max_batch=4,
+                                               page_size=16,
+                                               cache_dtype=FP8), cfg)
     rec["profile"] = out
 
 
@@ -450,11 +705,11 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(args.record) or ".", exist_ok=True)
         with open(args.record, "w") as f:
             json.dump(rec, f, indent=1)
-    if "kernels" in rec and "serve" in rec:
+    if "kernels" in rec and "serve" in rec and "serve_kv" in rec:
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],
-                 launches=rec["serve"]["launches"][name],
+                 launches=rec["launches"][name],
                  max_abs_err=rec["kernels"][name]["max_abs_err"],
                  ms=rec["kernels"][name]["ms"],
                  plain_ms=rec["kernels"][name]["plain_ms"])

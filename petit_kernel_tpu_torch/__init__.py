@@ -12,7 +12,8 @@ through either. Public surface, the reference library's 7-function API:
     get_fp4_solutions                  kernel-config enumeration
     DataType, PetitSolutionHints       enums / hints
 
-plus the pow2 and zero-free entries and `models` (Llama, serving Engine).
+plus the pow2 and zero-free entries and `models` (Llama with flat bf16 or
+headed fp8 KV caches, paged KV, serving Engine and PagedEngine).
 Every function returns torch tensors on the device of its input. CUDA
 kernels build on first use (ops/_build.py); on CPU tensors each kernel's
 plain PyTorch twin runs instead. This package never imports JAX.

@@ -1,1 +1,2 @@
-"""Llama model, checkpoint conversion and serving engine (torch)."""
+"""Llama model, paged KV cache, checkpoint conversion and serving engines
+(torch)."""

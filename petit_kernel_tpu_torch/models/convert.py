@@ -1,17 +1,20 @@
-"""Convert a JAX-package params tree into the port's, bit for bit.
+"""Convert JAX-package state into the port's, bit for bit.
 
 The JAX package (petit_kernel_tpu.models.llama) holds params as nested
-dicts and lists of arrays. `params_from_jax` takes that tree with every
-leaf already a numpy array (for example `jax.tree.map(np.asarray, p)`) and
-returns the same tree of torch tensors, dense or quantized:
+dicts and lists of arrays, and a KV cache or page pool as a list of
+per-layer (k, v) arrays. `params_from_jax` and `kv_from_jax` take those
+with every leaf already a numpy array (for example
+`jax.tree.map(np.asarray, p)`) and return the same structure of torch
+tensors:
 
   bfloat16 leaves (numpy dtype name "bfloat16", or uint16 bit patterns)
       -> torch.bfloat16 with the same bits
+  float8_e4m3fn leaves (numpy dtype name) -> torch.float8_e4m3fn, same bits
   uint32 packed words -> torch.int32 with the same bits
   every other numpy dtype -> the matching torch dtype
 
-This module imports neither JAX nor ml_dtypes: a bfloat16 array is read
-through a uint16 view of its bytes.
+This module imports neither JAX nor ml_dtypes: bfloat16 and float8 arrays
+are read through integer views of their bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     a = np.array(a)            # an owned, writable, contiguous copy
     if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     elif a.dtype == np.uint32:
         t = torch.from_numpy(a.view(np.int32))
     else:
@@ -39,3 +44,12 @@ def params_from_jax(tree, device=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return tensor_from_numpy(tree, device)
+
+
+def kv_from_jax(pairs, device=None) -> list:
+    """A JAX KV cache or page pool, a list of per-layer (k, v) numpy
+    arrays, -> the port's list of (k, v) tensors, same shapes and bits.
+    (A JAX headed fp8 cache carries its S axis padded to a multiple of 256;
+    the port attends it as it is.)"""
+    return [(tensor_from_numpy(k, device), tensor_from_numpy(v, device))
+            for k, v in pairs]

@@ -8,11 +8,12 @@ tree of tensors, as there:
                      "gs": f32 0-dim tensor}
 Projections run through the FP4 GEMM entries (ops/gemm.py) under
 torch.inference_mode(): there is no gradient path yet. The KV cache is a
-list of per-layer (k, v) flat (B, S, Hkv, d) bf16 tensors that forward
-updates IN PLACE (the JAX package returns new arrays and donates the old).
-On the card the decode step runs the decode-attention and KV-append
-kernels, and cached prefill the flash-prefill kernel; on the CPU their
-plain twins run.
+list of per-layer (k, v) tensors that forward updates IN PLACE (the JAX
+package returns new arrays and donates the old): flat (B, S, Hkv, d) bf16,
+or headed (B, Hkv, S, d) bf16 or fp8 e4m3 (init_cache). On the card the
+decode step runs the decode-attention and KV-append kernels of the cache's
+layout, and cached prefill the flash-prefill kernel; on the CPU their plain
+twins run.
 """
 
 from __future__ import annotations
@@ -240,39 +241,36 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return _rope_apply(x, _rope_angles(pos, x.shape[-1], theta))
 
 
-def _write_kv(ck, cv, k, v, pos, write_mask):
-    """Write a T-token chunk's K/V at positions pos (B, T), in place. Rows
-    with write_mask[b] False keep their content. T == 1 goes through the
-    kv_append kernel; longer chunks are index writes (glue, as in the JAX
-    package)."""
+def _write_kv(ck, cv, k, v, pos, write_mask, headed):
+    """Write a T-token chunk's K/V (B, T, Hkv, d) at positions pos (B, T)
+    into a flat or headed cache, in place, cast once to the cache dtype.
+    Rows with write_mask[b] False keep their content. T == 1 goes through
+    the kv_append kernel; longer chunks are index writes (glue, as in the
+    JAX package) through an integer view of the cache."""
     B, T = pos.shape
     if T == 1:
         attn_mod.kv_append(ck, cv, k[:, 0], v[:, 0],
-                           pos[:, 0].to(torch.int32), write_mask)
+                           pos[:, 0].to(torch.int32), write_mask,
+                           headed=headed)
         return
     rows = torch.arange(B, device=ck.device)[:, None]
     p = pos.long()
+    # (b, t) index pairs select (B, T, Hkv, d) in either layout
+    idx = (rows, slice(None), p) if headed else (rows, p)
     for c, new in ((ck, k), (cv, v)):
-        new = attn_mod.quantize_kv(new, c.dtype)
+        bits = attn_mod._bits(c)
+        new = attn_mod._bits(attn_mod.quantize_kv(new, c.dtype))
         if write_mask is not None:
             keep = write_mask.bool()[:, None, None, None]
-            new = torch.where(keep, new, c[rows, p])
-        c[rows, p] = new
+            new = torch.where(keep, new, bits[idx])
+        bits[idx] = new
 
 
-def attention(x, lp, cache, pos, cfg: LlamaConfig, *, fmt: str,
-              kv_window: Optional[int] = None,
-              write_mask: Optional[torch.Tensor] = None, rope_cs=None):
-    """Self-attention block. With a cache (which needs kv_window), a decode
-    step (T == 1) runs decode attention over the first window positions and
-    a chunk (T > 1) runs flash prefill; without one, a causal f32 softmax
-    over the sequence itself."""
+def _qkv(x, lp, pos, cfg: LlamaConfig, *, fmt: str, rope_cs=None):
+    """q (B, T, H, d), k and v (B, T, Hkv, d) of a block, RoPE applied to
+    q and k."""
     B, T, _ = x.shape
     nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if cache is not None and kv_window is None:
-        raise ValueError("attention with a cache needs kv_window: the "
-                         "cached path runs only the decode and prefill "
-                         "kernels")
     if "wqkv" in lp:
         qkv = linear(x, lp["wqkv"], fmt=fmt)
         s0, s1 = nq * d, (nq + nkv) * d
@@ -286,19 +284,39 @@ def attention(x, lp, cache, pos, cfg: LlamaConfig, *, fmt: str,
     if rope_cs is None:
         rope_cs = _rope_angles(pos, d, cfg.rope_theta)
     qk = _rope_apply(torch.cat([q, k], dim=2), rope_cs)
-    q, k = qk[:, :, :nq], qk[:, :, nq:]
+    return qk[:, :, :nq], qk[:, :, nq:], v
+
+
+def attention(x, lp, cache, pos, cfg: LlamaConfig, *, fmt: str,
+              kv_window: Optional[int] = None,
+              write_mask: Optional[torch.Tensor] = None, rope_cs=None):
+    """Self-attention block. With a cache (which needs kv_window), flat or
+    headed, a decode step (T == 1) runs decode attention over the first
+    window positions and a chunk (T > 1) runs flash prefill; without one, a
+    causal f32 softmax over the sequence itself."""
+    B, T, _ = x.shape
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cache is not None and kv_window is None:
+        raise ValueError("attention with a cache needs kv_window: the "
+                         "cached path runs only the decode and prefill "
+                         "kernels")
+    q, k, v = _qkv(x, lp, pos, cfg, fmt=fmt, rope_cs=rope_cs)
 
     if cache is not None:
         ck, cv = cache
-        _write_kv(ck, cv, k, v, pos, write_mask)
-        nblk = min(-(-kv_window // 128), -(-ck.shape[1] // 128))
+        headed = cache_is_headed(ck, cfg)
+        _write_kv(ck, cv, k, v, pos, write_mask, headed)
+        S = ck.shape[2] if headed else ck.shape[1]
+        nblk = min(-(-kv_window // 128), -(-S // 128))
         pos0 = pos[:, 0].to(torch.int32).contiguous()
         if T == 1:
-            o = attn_mod.decode_attention_contiguous(
-                q.reshape(B, nq, d), ck, cv, pos0, nb=nblk, page_size=128)
+            dec = (attn_mod.decode_attention_contiguous_headed if headed
+                   else attn_mod.decode_attention_contiguous)
+            o = dec(q.reshape(B, nq, d), ck, cv, pos0, nb=nblk,
+                    page_size=128)
         else:
             o = attn_mod.flash_prefill_attention(q, ck, cv, pos0, ns=nblk,
-                                                 block_s=128)
+                                                 block_s=128, headed=headed)
         o = o.reshape(B, T, nq * d).to(x.dtype)
         return linear(o, lp["wo"], fmt=fmt)
     attn_mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
@@ -353,19 +371,33 @@ def forward(params, tokens, cfg: LlamaConfig, cache=None, pos=None, *,
     return linear(x, params["lm_head"], fmt=fmt), cache
 
 
-def init_cache(cfg: LlamaConfig, batch: int, device=None):
-    """Flat (B, S, Hkv, d) bf16 KV cache per layer, zeros on `device`. The
-    port has no fp8 (headed) cache yet."""
-    shape = (batch, cfg.max_seq_len, cfg.num_kv_heads, cfg.head_dim)
-    return [(torch.zeros(shape, dtype=torch.bfloat16, device=device),
-             torch.zeros(shape, dtype=torch.bfloat16, device=device))
+def init_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
+               headed: Optional[bool] = None, device=None):
+    """KV cache per layer, zeros on `device`. dtype bf16 or
+    torch.float8_e4m3fn (half the bytes). fp8 defaults to the headed
+    (B, Hkv, S, d) layout, bf16 to flat (B, S, Hkv, d), as in the JAX
+    package; headed= overrides. S is cfg.max_seq_len: the JAX package's pad
+    of fp8 S to a multiple of 256 serves a TPU lane rule and is not carried
+    over."""
+    if headed is None:
+        headed = dtype == torch.float8_e4m3fn
+    S = cfg.max_seq_len
+    if headed and S == cfg.num_kv_heads:
+        # cache_is_headed reads the layout from the shape; S == Hkv would
+        # make a headed cache look flat
+        raise ValueError(f"headed cache needs max_seq_len != num_kv_heads "
+                         f"(both are {S}); pad max_seq_len")
+    shape = ((batch, cfg.num_kv_heads, S, cfg.head_dim) if headed
+             else (batch, S, cfg.num_kv_heads, cfg.head_dim))
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.num_layers)]
 
 
 def cache_is_headed(ck: torch.Tensor, cfg: LlamaConfig) -> bool:
     """Layout of a contiguous cache: headed (B, Hkv, S, d) vs flat
-    (B, S, Hkv, d); the ambiguous S == num_kv_heads resolves to flat. The
-    port builds flat caches only."""
+    (B, S, Hkv, d); the ambiguous S == num_kv_heads resolves to flat (which
+    init_cache never makes headed)."""
     if ck.shape[2] == cfg.num_kv_heads and ck.shape[1] != cfg.num_kv_heads:
         return False
     if ck.shape[1] == cfg.num_kv_heads and ck.shape[2] != cfg.num_kv_heads:

@@ -1,14 +1,15 @@
 """Continuous-batching serving engine for FP4 models (torch).
 
 Counterpart of petit_kernel_tpu/models/serving.py (Request, the prefill
-buckets, sample_next and Engine with run(decode_block=1)). The JAX engine
-compiles its steps with jit and donates the cache; this one runs eagerly
-and updates the cache tensors in place. Scheduling state lives on the
-host, as numpy arrays: slots, per-slot positions, the chunked-prefill
-queue. Sampled tokens are read back to the host once per step.
+buckets, sample_next, Engine with run(decode_block=1) over a bf16 or fp8
+cache, and PagedEngine). The JAX engine compiles its steps with jit and
+donates the cache; this one runs eagerly and updates the cache tensors in
+place. Scheduling state lives on the host, as numpy arrays: slots,
+per-slot positions, the chunked-prefill queue. Sampled tokens are read
+back to the host once per step.
 
 Not ported yet: step_block and the pipelined block drain, SpecEngine,
-PagedEngine, custom forward_fn and prefill_fmt.
+custom forward_fn, prefill_fmt and score_forward.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import llama
+from . import llama, paged
 
 
 @dataclasses.dataclass
@@ -77,13 +78,20 @@ class Engine:
     """Slot-based continuous batching over a llama-family FP4 model."""
 
     def __init__(self, params, cfg: llama.LlamaConfig, *, max_batch: int = 8,
-                 fmt: str = "nvfp4", top_k: int = 0, seed: int = 0,
+                 fmt: str = "nvfp4", cache_dtype=torch.bfloat16,
+                 top_k: int = 0, seed: int = 0,
+                 prefill_fmt: Optional[str] = None,
                  prefill_chunk: Optional[int] = None):
-        """The engine runs on the device its params lie on, with a bf16 KV
-        cache (llama.init_cache) of max_batch slots. Sampling: per-request
-        temperature (Request.temperature, 0 = greedy) with an engine-wide
-        top_k; the noise comes from a torch.Generator on the engine's
-        device seeded with `seed`."""
+        """The engine runs on the device its params lie on, with a KV cache
+        (llama.init_cache) of max_batch slots: flat bf16, or headed fp8 for
+        cache_dtype=torch.float8_e4m3fn. Sampling: per-request temperature
+        (Request.temperature, 0 = greedy) with an engine-wide top_k; the
+        noise comes from a torch.Generator on the engine's device seeded
+        with `seed`. A prefill_fmt other than fmt (the JAX package's w4a8
+        prefill) is not ported and raises NotImplementedError."""
+        if prefill_fmt not in (None, fmt):
+            raise NotImplementedError(f"prefill_fmt={prefill_fmt!r} is not "
+                                      "ported yet")
         self.params = params
         self.cfg = cfg
         self.B = max_batch
@@ -94,7 +102,7 @@ class Engine:
         self.top_k = top_k
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self.cache = llama.init_cache(cfg, max_batch, device=self.device)
+        self._init_cache(cache_dtype)
         self.pos = np.zeros(max_batch, np.int32)       # next position
         self.active = np.zeros(max_batch, bool)
         self.last_tok = np.zeros(max_batch, np.int32)
@@ -103,6 +111,10 @@ class Engine:
         self.generated: dict[int, list[int]] = {}
         self.finished: dict[int, list[int]] = {}
         self._pf: list[_PrefillJob] = []   # chunked-prefill queue
+
+    def _init_cache(self, cache_dtype) -> None:
+        self.cache = llama.init_cache(self.cfg, self.B, cache_dtype,
+                                      device=self.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -113,6 +125,21 @@ class Engine:
                              write_mask=write_mask)
 
     # -- scheduling ---------------------------------------------------------
+
+    def reset(self) -> None:
+        """Clear all scheduling state and release every slot; the cache
+        storage stays."""
+        for slot, r in enumerate(self.slot_req):
+            if r is not None:
+                self._release(slot)
+        self.pos[:] = 0
+        self.active[:] = False
+        self.last_tok[:] = 0
+        self.temps[:] = 0.0
+        self.slot_req = [None] * self.B
+        self.generated = {}
+        self.finished = {}
+        self._pf = []
 
     def has_capacity(self) -> bool:
         return any(r is None for r in self.slot_req)
@@ -153,7 +180,7 @@ class Engine:
         next chunk shares the oldest job's (bucket, window) key is admitted
         in one full-batch forward with write_mask (the weights stream once
         per chunk shape, not once per prompt); a lone job runs on its own
-        slot's cache rows."""
+        slot."""
         job = self._pf[0]
         cap = self.prefill_chunk or PREFILL_CHUNK
         lb, kv_window = self._chunk_key(job)
@@ -167,10 +194,7 @@ class Engine:
         padded = np.zeros((1, lb), np.int32)
         padded[0, :n] = chunk
         pos = (job.offset + np.arange(lb, dtype=np.int32))[None, :]
-        rows = [(k[job.slot:job.slot + 1], v[job.slot:job.slot + 1])
-                for (k, v) in self.cache]   # views: written in place
-        logits, _ = self._forward(self._dev(padded), rows, self._dev(pos),
-                                  kv_window=kv_window)
+        logits = self._prefill_chunk(job.slot, padded, pos, kv_window)
         first = sample_next(logits[:, n - 1], self.generator,
                             self._dev(self.temps[job.slot:job.slot + 1]),
                             self.top_k)
@@ -205,9 +229,8 @@ class Engine:
             last_b[j.slot] = n - 1
             mask_b[j.slot] = True
             ns[j.slot] = n
-        logits, _ = self._forward(self._dev(toks_b), self.cache,
-                                  self._dev(pos_b), kv_window=kv_window,
-                                  write_mask=self._dev(mask_b))
+        logits = self._run_batched_admission(group, toks_b, pos_b, mask_b,
+                                             kv_window)
         last = self._dev(last_b)
         lg = logits[torch.arange(B, device=self.device), last]    # (B, V)
         first = sample_next(lg, self.generator, self._dev(self.temps),
@@ -221,6 +244,46 @@ class Engine:
                     firsts = first.cpu().numpy()   # one read for the batch
                 self._start_decoding(j, int(firsts[j.slot]))
 
+    # -- cache backend hooks (overridden by PagedEngine) ---------------------
+
+    def _prefill_chunk(self, slot: int, toks: np.ndarray, pos: np.ndarray,
+                       kv_window: int) -> torch.Tensor:
+        """Logits (1, lb, V) of one right-padded chunk toks (1, lb) at
+        positions pos (1, lb), written into slot's cache rows. The padded
+        tail writes KV past the prompt, which the causal mask hides and
+        decode overwrites position by position."""
+        rows = [(k[slot:slot + 1], v[slot:slot + 1])
+                for (k, v) in self.cache]   # views: written in place
+        logits, _ = self._forward(self._dev(toks), rows, self._dev(pos),
+                                  kv_window=kv_window)
+        return logits
+
+    def _run_batched_admission(self, group, toks_b, pos_b, mask_b,
+                               kv_window) -> torch.Tensor:
+        """Logits (B, lb, V) of one full-batch masked admission forward."""
+        logits, _ = self._forward(self._dev(toks_b), self.cache,
+                                  self._dev(pos_b), kv_window=kv_window,
+                                  write_mask=self._dev(mask_b))
+        return logits
+
+    def _decode_logits(self) -> torch.Tensor:
+        """Logits (B, 1, V) of one batched decode step over every slot
+        (inactive rows keep their cache through write_mask)."""
+        logits, _ = self._forward(
+            self._dev(self.last_tok)[:, None], self.cache,
+            self._dev(self.pos)[:, None], kv_window=self._kv_window(),
+            write_mask=self._dev(self.active))
+        return logits
+
+    def _release(self, slot: int) -> None:
+        """Free a slot's cache resources: nothing for the contiguous cache,
+        whose next occupant overwrites the rows."""
+
+    def score_forward(self, toks):
+        raise NotImplementedError("score_forward is not ported yet")
+
+    # ------------------------------------------------------------------------
+
     def _kv_window(self) -> Optional[int]:
         """Bucketed max attended length over active slots: a power-of-two
         multiple of 128, so attention traffic tracks the actual context."""
@@ -233,13 +296,8 @@ class Engine:
         return min(w, self.cfg.max_seq_len)
 
     def _decode(self) -> np.ndarray:
-        """One batched decode step over every slot (inactive rows keep their
-        cache through write_mask); returns next-token ids on the host."""
-        logits, _ = self._forward(
-            self._dev(self.last_tok)[:, None], self.cache,
-            self._dev(self.pos)[:, None], kv_window=self._kv_window(),
-            write_mask=self._dev(self.active))
-        nxt = sample_next(logits[:, -1], self.generator,
+        """One batched decode step; returns next-token ids on the host."""
+        nxt = sample_next(self._decode_logits()[:, -1], self.generator,
                           self._dev(self.temps), self.top_k)
         return nxt.cpu().numpy()
 
@@ -249,6 +307,7 @@ class Engine:
         self.active[slot] = False
         self.slot_req[slot] = None
         self.temps[slot] = 0.0
+        self._release(slot)
 
     def step(self) -> int:
         """One engine tick: advance at most one prefill chunk, then one
@@ -283,3 +342,72 @@ class Engine:
                 self.add_request(pending.pop(0))
             self.step()
         return dict(self.finished)
+
+
+class PagedEngine(Engine):
+    """Engine over a paged KV cache (models/paged.py): pages are allocated
+    as sequences grow and return to the shared pool when a request
+    finishes, so the pool holds the sum of the actual lengths instead of
+    max_batch * max_seq_len. Scheduling is Engine's; only the cache
+    backend differs."""
+
+    def __init__(self, params, cfg: llama.LlamaConfig, *, max_batch: int = 8,
+                 fmt: str = "nvfp4", page_size: int = 256,
+                 num_pages: Optional[int] = None, cache_dtype=torch.bfloat16,
+                 top_k: int = 0, seed: int = 0,
+                 prefill_fmt: Optional[str] = None,
+                 prefill_chunk: Optional[int] = None):
+        """page_size (clamped to max_seq_len) and num_pages (default: every
+        slot at max_seq_len) shape the pool; cache_dtype bf16 or
+        torch.float8_e4m3fn. The rest as Engine."""
+        self._page_size = page_size
+        self._num_pages = num_pages
+        super().__init__(params, cfg, max_batch=max_batch, fmt=fmt,
+                         cache_dtype=cache_dtype, top_k=top_k, seed=seed,
+                         prefill_fmt=prefill_fmt,
+                         prefill_chunk=prefill_chunk)
+
+    def _init_cache(self, cache_dtype) -> None:
+        self.cache = None
+        self.pc = paged.init_paged_cache(
+            self.cfg, self.B, page_size=self._page_size,
+            num_pages=self._num_pages, dtype=cache_dtype, device=self.device)
+
+    def _paged_forward(self, toks, bt, pos, kv_window, write_mask=None):
+        logits, _ = paged.forward_paged(
+            self.params, self._dev(toks), self.cfg, self.pc.pages, bt,
+            self._dev(pos), page_size=self.pc.page_size, fmt=self.fmt,
+            kv_window=kv_window,
+            write_mask=None if write_mask is None else self._dev(write_mask))
+        return logits
+
+    def _prefill_chunk(self, slot, toks, pos, kv_window):
+        # the whole padded chunk gets pages (its tail is the garbage the
+        # causal mask hides, as in the contiguous cache)
+        paged.ensure_capacity(self.pc, slot, int(pos[0, -1]) + 1)
+        return self._paged_forward(toks, self.pc.block_tables[slot:slot + 1],
+                                   pos, kv_window)
+
+    def _run_batched_admission(self, group, toks_b, pos_b, mask_b,
+                               kv_window):
+        for j in group:
+            paged.ensure_capacity(self.pc, j.slot, int(pos_b[j.slot, -1]) + 1)
+        return self._paged_forward(toks_b, self.pc.block_tables, pos_b,
+                                   kv_window, mask_b)
+
+    def _decode_logits(self):
+        # cover this tick's write position; inactive slots write to the
+        # scratch page through write_mask
+        for slot in np.flatnonzero(self.active):
+            paged.ensure_capacity(self.pc, slot, int(self.pos[slot]) + 1)
+        return self._paged_forward(self.last_tok[:, None],
+                                   self.pc.block_tables, self.pos[:, None],
+                                   self._kv_window(), self.active)
+
+    def _release(self, slot: int) -> None:
+        paged.release_slot(self.pc, slot)
+        self.pos[slot] = 0
+        self.last_tok[slot] = 0
+
+    def pages_in_use(self) -> int:
+        return sum(len(u) for u in self.pc.used)

@@ -1,18 +1,21 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) at first use.
 
-All sources compile in one nvcc call into one shared library with a plain
-C interface, for sm_90a:
+Each source compiles in its own nvcc process, all started together, and
+one more nvcc links the objects into one shared library with a plain C
+interface, for sm_90a:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build>/libpetit_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <tmp>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/libpetit_<hash>.so <tmp>/*.o
 
 The library name carries a hash of the sources and flags, so an unchanged
 tree loads the library it built before and a changed one rebuilds. The
 build directory is petit_kernel_tpu_torch/_build/ (git-ignored). The
 library is loaded with ctypes: every pointer and the stream pass as
-c_void_p, every size as c_int, and every C entry returns cudaGetLastError()
-of its launch, which `check` turns into an exception. Nothing here runs at
-import time.
+c_void_p, every size as c_int and every element stride as c_longlong;
+every C entry returns cudaGetLastError() of its launch, which `check`
+turns into an exception. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,12 +32,14 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types (csrc/*.cu, extern "C")
 SIGNATURES = {
     # a, words, scales, gs, out, m, n, k, kp, block_m, block_n, stream
@@ -47,6 +52,16 @@ SIGNATURES = {
                              _I, _F, _P),
     # ck, cv, kn, vn, pos, mask, B, S, row_bytes, stream
     "pk_kv_append": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ck, cv, kn, vn, pos, mask, B, Hkv, S, row_bytes, stream
+    "pk_kv_append_headed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, block_tables, pos, out, B, H, Hkv, d, max_pages, ps,
+    # page_stride, head_stride, window, kv_fp8, sm_scale, stream
+    "pk_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _L, _L, _I, _I, _F, _P),
+    # q, k, v, block_tables, pos0, out, B, T, H, Hkv, d, max_pages, ps,
+    # page_stride, head_stride, window, kv_fp8, sm_scale, stream
+    "pk_paged_prefill_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _L, _L, _I, _I, _F, _P),
 }
 BUILD_DIR = CSRC.parent / "_build"
 
@@ -84,19 +99,34 @@ def build() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0, "")
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}/{src.stem}.o",
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        for cmd, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                for _, other in jobs:
+                    other.communicate()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{logs[-1]}")
+        lib = f"{tmp}/lib.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
+               *sorted(str(p) for p in Path(tmp).glob("*.o"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(lib, out)
+    return BuildInfo(out, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.cache

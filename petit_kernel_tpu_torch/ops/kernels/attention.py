@@ -1,20 +1,36 @@
 """Decode attention, flash prefill and the in-place KV append: the CUDA
 kernels' wrappers and their plain twins.
 
-Counterpart of petit_kernel_tpu/ops/kernels/attention.py for the flat
+Counterpart of petit_kernel_tpu/ops/kernels/attention.py. The flat
 (B, S, Hkv, d) bf16 cache:
 
   decode_attention_contiguous <- _decode_kernel      (csrc/decode_attention.cu)
   flash_prefill_attention     <- _prefill_kernel     (csrc/prefill_attention.cu)
   kv_append                   <- _kv_append_kernel   (csrc/kv_append.cu)
 
+The headed layouts, bf16 or fp8 e4m3: a paged pool (P + 1, Hkv, ps, d)
+walked through a (B, max_pages) block table, or a contiguous (B, Hkv, S, d)
+cache:
+
+  paged_decode_attention,
+  decode_attention_contiguous_headed  <- _decode_kernel_headed
+                                         (csrc/paged_decode_attention.cu)
+  flash_prefill_paged                 <- _prefill_kernel_paged
+  flash_prefill_attention(headed=True) <- _prefill_kernel, headed
+                                         (csrc/paged_prefill_attention.cu)
+  kv_append(headed=True)              <- _kv_append_kernel_headed
+                                         (csrc/kv_append.cu)
+
 Each wrapper takes its `*_reference` twin only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises. JAX's immutable cache with
-buffer donation becomes an in-place update of the cache tensor here.
+buffer donation becomes an in-place update of the cache tensor here. fp8
+K/V converts exactly to f32 in every kernel and twin (the JAX decode
+kernel's SWAR upcast flushes fp8 subnormals to zero; the port does not).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -142,18 +158,23 @@ def flash_prefill_reference(q: torch.Tensor, ck: torch.Tensor,
 
 def flash_prefill_attention(q: torch.Tensor, ck: torch.Tensor,
                             cv: torch.Tensor, pos0: torch.Tensor, *,
-                            ns: int, block_s: int = 128) -> torch.Tensor:
+                            ns: int, block_s: int = 128,
+                            headed: bool = False) -> torch.Tensor:
     """Causal multi-token attention of a contiguous chunk against the cache.
 
     q      : (B, T, H, d) bf16 post-RoPE queries; query t of row b sits at
              pos0[b] + t (the chunked-prefill contract)
-    ck, cv : (B, S, Hkv, d) bf16 cache, the chunk's K/V already written
+    ck, cv : (B, S, Hkv, d) bf16 cache, the chunk's K/V already written;
+             with headed=True a (B, Hkv, S, d) bf16 or fp8 cache
+             (flash_prefill_headed)
     pos0   : (B,) int32 chunk start positions
     ns, block_s : attend only p < ns * block_s
     returns (B, T, H, d) bf16.
 
-    Launches csrc/prefill_attention.cu for CUDA tensors (counted in
+    Launches csrc/prefill_attention.cu for flat CUDA tensors (counted in
     flash_prefill_attention.launches)."""
+    if headed:
+        return flash_prefill_headed(q, ck, cv, pos0, ns=ns, block_s=block_s)
     B, T, H, d = q.shape
     if ck.dim() != 4 or ck.shape[0] != B or ck.shape[3] != d \
             or H % ck.shape[2] or tuple(pos0.shape) != (B,):
@@ -205,18 +226,21 @@ def kv_append_reference(ck: torch.Tensor, cv: torch.Tensor,
 
 def kv_append(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
               v_new: torch.Tensor, pos: torch.Tensor,
-              mask: torch.Tensor | None = None):
+              mask: torch.Tensor | None = None, *, headed: bool = False):
     """Write one token's K/V per sequence into the cache, in place.
 
-    ck, cv : (B, S, Hkv, d) flat cache, updated in place
+    ck, cv : (B, S, Hkv, d) flat cache, updated in place; with headed=True
+             a (B, Hkv, S, d) cache (kv_append_headed)
     k_new, v_new : (B, Hkv, d), cast to the cache dtype (quantize_kv)
     pos    : (B,) int32 write position per sequence (< S)
     mask   : optional (B,) bool/int; rows with mask[b] = 0 keep their cache
              content bit for bit (the engine's write_mask contract)
     returns (ck, cv), the same tensors.
 
-    Launches csrc/kv_append.cu for CUDA tensors (counted in
-    kv_append.launches)."""
+    Launches csrc/kv_append.cu (pk_kv_append) for flat CUDA tensors
+    (counted in kv_append.launches)."""
+    if headed:
+        return kv_append_headed(ck, cv, k_new, v_new, pos, mask)
     B, S, Hkv, d = ck.shape
     if tuple(k_new.shape) != (B, Hkv, d) or k_new.shape != v_new.shape \
             or ck.shape != cv.shape or tuple(pos.shape) != (B,):
@@ -250,3 +274,323 @@ def kv_append(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
 
 
 kv_append.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# headed layouts, bf16 or fp8: a paged pool (P + 1, Hkv, ps, d) read through
+# a block table, or a contiguous (B, Hkv, S, d) cache
+# ---------------------------------------------------------------------------
+
+_KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The same storage as integers of the element's width: index reads and
+    writes move fp8 and bf16 bytes exactly, on any device."""
+    return t.view({1: torch.uint8, 2: torch.int16}[t.element_size()])
+
+
+def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The first n pages of each block-table row of a (P, Hkv, ps, d) pool,
+    as a flat (B, n * ps, Hkv, d) copy in the pool's dtype."""
+    B = block_tables.shape[0]
+    _, Hkv, ps, d = pages.shape
+    rows = _bits(pages)[block_tables[:, :n].long()]      # (B, n, Hkv, ps, d)
+    return rows.permute(0, 1, 3, 2, 4).reshape(B, n * ps, Hkv, d).view(
+        pages.dtype)
+
+
+@functools.cache
+def _sequence_table(batch: int, hkv: int, device: torch.device
+                    ) -> torch.Tensor:
+    """Block table that views a contiguous (B, Hkv, S, d) cache as one page
+    of S positions per sequence: entry b * Hkv."""
+    return (torch.arange(batch, dtype=torch.int32, device=device)
+            * hkv)[:, None].contiguous()
+
+
+def _launch_headed(where: str, q, k, v, table, pos, *, ps: int,
+                   page_stride: int, head_stride: int,
+                   window: int) -> torch.Tensor:
+    """Run pk_paged_decode_attention (q (B, H, d)) or
+    pk_paged_prefill_attention (q (B, T, H, d)) over a headed layout whose
+    position p of sequence b, kv head h lies at element
+    table[b, p // ps] * page_stride + h * head_stride + (p % ps) * d."""
+    _on_one_cuda_device(where, q, k, v, table, pos)
+    if q.dtype != torch.bfloat16 or k.dtype not in _KV_DTYPES \
+            or v.dtype != k.dtype:
+        raise ValueError(f"{where}: the kernel takes bf16 q and bf16 or fp8 "
+                         f"e4m3 K/V, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if pos.dtype != torch.int32 or table.dtype != torch.int32:
+        raise ValueError(f"{where}: positions and block tables must be int32")
+    if k.shape != v.shape or not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{where}: K and V must be contiguous and of one "
+                         "shape")
+    H, d = q.shape[-2], q.shape[-1]
+    hkv = k.shape[1]
+    if d not in (64, 128):
+        raise ValueError(f"{where}: head_dim {d} not in (64, 128)")
+    if H // hkv > 8 and q.dim() == 3:
+        raise ValueError(f"{where}: {H // hkv} query heads per kv head, the "
+                         "kernel takes at most 8")
+    q, pos, table = q.contiguous(), pos.contiguous(), table.contiguous()
+    out = torch.empty_like(q)
+    lib = _build.library()
+    entry = ("pk_paged_decode_attention" if q.dim() == 3
+             else "pk_paged_prefill_attention")
+    lead = (q.shape[0],) if q.dim() == 3 else (q.shape[0], q.shape[1])
+    code = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), *lead, H, hkv, d, table.shape[1], ps,
+        page_stride, head_stride, window, int(k.dtype == torch.float8_e4m3fn),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(entry, code)
+    return out
+
+
+def _check_pool(where: str, d: int, k_pages, v_pages, block_tables, batch,
+                n) -> None:
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape \
+            or k_pages.shape[3] != d or block_tables.dim() != 2 \
+            or block_tables.shape[0] != batch or block_tables.shape[1] < n:
+        raise ValueError(f"{where}: pool {tuple(k_pages.shape)}, block "
+                         f"tables {tuple(block_tables.shape)}, {n} pages")
+
+
+def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           pos: torch.Tensor, *, nb: int,
+                           page_size: int) -> torch.Tensor:
+    """Plain twin of paged_decode_attention: gather the first nb pages of
+    each sequence, then decode_attention_reference (exact fp8 upcast)."""
+    k = _gather_pages(k_pages, block_tables, nb)
+    v = _gather_pages(v_pages, block_tables, nb)
+    return decode_attention_reference(q, k, v, pos, nb=nb,
+                                      page_size=page_size)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           pos: torch.Tensor, *, nb: int, page_size: int,
+                           headed: bool = True) -> torch.Tensor:
+    """One-token attention per sequence over a paged KV pool.
+
+    q            : (B, H, d) bf16 post-RoPE queries
+    k_pages      : (P, Hkv, ps, d) bf16 or fp8 e4m3 pool (headed layout;
+                   the port keeps no flat pools, so headed=False raises)
+    v_pages      : same shape and dtype
+    block_tables : (B, >= nb) int32 page ids
+    pos          : (B,) int32 absolute position of each query
+    nb           : pages to visit; attend only p <= pos[b], p < nb * ps
+    returns (B, H, d) bf16.
+
+    Launches csrc/paged_decode_attention.cu for CUDA tensors (counted in
+    paged_decode_attention.launches)."""
+    if not headed:
+        raise NotImplementedError("paged pools are headed (P, Hkv, ps, d) "
+                                  "in the port")
+    B, H, d = q.shape
+    _check_pool("paged decode attention", d, k_pages, v_pages, block_tables,
+                B, nb)
+    P, Hkv, ps, _ = k_pages.shape
+    if ps != page_size or H % Hkv or tuple(pos.shape) != (B,):
+        raise ValueError(f"paged decode attention: q {tuple(q.shape)}, pool "
+                         f"{tuple(k_pages.shape)}, page_size {page_size}, "
+                         f"pos {tuple(pos.shape)}")
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, k_pages, v_pages, block_tables, pos,
+                                      nb=nb, page_size=ps)
+    out = _launch_headed("paged decode attention", q, k_pages, v_pages,
+                         block_tables, pos, ps=ps, page_stride=Hkv * ps * d,
+                         head_stride=ps * d, window=nb * ps)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def decode_attention_headed_reference(q: torch.Tensor, ck: torch.Tensor,
+                                      cv: torch.Tensor, pos: torch.Tensor, *,
+                                      nb: int, page_size: int = 256
+                                      ) -> torch.Tensor:
+    """Plain twin of decode_attention_contiguous_headed."""
+    return decode_attention_reference(q, ck.transpose(1, 2),
+                                      cv.transpose(1, 2), pos, nb=nb,
+                                      page_size=page_size)
+
+
+def decode_attention_contiguous_headed(q: torch.Tensor, ck: torch.Tensor,
+                                       cv: torch.Tensor, pos: torch.Tensor,
+                                       *, nb: int, page_size: int = 256
+                                       ) -> torch.Tensor:
+    """decode_attention_contiguous over a headed (B, Hkv, S, d) bf16 or fp8
+    cache: attend p <= pos[b], p < nb * page_size. page_size only sets the
+    window; the kernel reads each sequence as one page of S positions.
+
+    Launches csrc/paged_decode_attention.cu for CUDA tensors (counted in
+    decode_attention_contiguous_headed.launches)."""
+    B, H, d = q.shape
+    if ck.dim() != 4 or ck.shape[0] != B or ck.shape[3] != d \
+            or ck.shape != cv.shape or H % ck.shape[1] \
+            or tuple(pos.shape) != (B,):
+        raise ValueError(f"headed decode attention: q {tuple(q.shape)}, "
+                         f"cache {tuple(ck.shape)}, pos {tuple(pos.shape)}")
+    if q.device.type == "cpu":
+        return decode_attention_headed_reference(q, ck, cv, pos, nb=nb,
+                                                 page_size=page_size)
+    _, Hkv, S, _ = ck.shape
+    out = _launch_headed("headed decode attention", q, ck, cv,
+                         _sequence_table(B, Hkv, ck.device), pos, ps=S,
+                         page_stride=S * d, head_stride=S * d,
+                         window=min(nb * page_size, S))
+    decode_attention_contiguous_headed.launches += 1
+    return out
+
+
+decode_attention_contiguous_headed.launches = 0
+
+
+def flash_prefill_paged_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  pos0: torch.Tensor, *, ns: int
+                                  ) -> torch.Tensor:
+    """Plain twin of flash_prefill_paged: gather the first ns pages of each
+    sequence, then flash_prefill_reference (exact fp8 upcast)."""
+    k = _gather_pages(k_pages, block_tables, ns)
+    v = _gather_pages(v_pages, block_tables, ns)
+    return flash_prefill_reference(q, k, v, pos0, ns=ns,
+                                   block_s=k_pages.shape[2])
+
+
+def flash_prefill_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        pos0: torch.Tensor, *, ns: int) -> torch.Tensor:
+    """Causal flash prefill over a paged headed pool.
+
+    q            : (B, T, H, d) bf16 post-RoPE; query t of row b sits at
+                   pos0[b] + t, its chunk's K/V already written
+    k_pages      : (P, Hkv, ps, d) bf16 or fp8 e4m3 pool; v_pages the same
+    block_tables : (B, >= ns) int32 page ids
+    ns           : pages to visit; attend p <= pos0[b] + t, p < ns * ps
+    returns (B, T, H, d) bf16.
+
+    Launches csrc/paged_prefill_attention.cu for CUDA tensors (counted in
+    flash_prefill_paged.launches)."""
+    B, T, H, d = q.shape
+    _check_pool("paged flash prefill", d, k_pages, v_pages, block_tables, B,
+                ns)
+    P, Hkv, ps, _ = k_pages.shape
+    if H % Hkv or tuple(pos0.shape) != (B,):
+        raise ValueError(f"paged flash prefill: q {tuple(q.shape)}, pool "
+                         f"{tuple(k_pages.shape)}, pos0 {tuple(pos0.shape)}")
+    if q.device.type == "cpu":
+        return flash_prefill_paged_reference(q, k_pages, v_pages,
+                                             block_tables, pos0, ns=ns)
+    out = _launch_headed("paged flash prefill", q, k_pages, v_pages,
+                         block_tables, pos0, ps=ps, page_stride=Hkv * ps * d,
+                         head_stride=ps * d, window=ns * ps)
+    flash_prefill_paged.launches += 1
+    return out
+
+
+flash_prefill_paged.launches = 0
+
+
+def flash_prefill_headed_reference(q: torch.Tensor, ck: torch.Tensor,
+                                   cv: torch.Tensor, pos0: torch.Tensor, *,
+                                   ns: int, block_s: int = 128
+                                   ) -> torch.Tensor:
+    """Plain twin of flash_prefill_headed."""
+    return flash_prefill_reference(q, ck.transpose(1, 2), cv.transpose(1, 2),
+                                   pos0, ns=ns, block_s=block_s)
+
+
+def flash_prefill_headed(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                         pos0: torch.Tensor, *, ns: int, block_s: int = 128
+                         ) -> torch.Tensor:
+    """flash_prefill_attention(headed=True): a headed (B, Hkv, S, d) bf16 or
+    fp8 cache, attend p <= pos0[b] + t, p < ns * block_s.
+
+    Launches csrc/paged_prefill_attention.cu for CUDA tensors, each
+    sequence one page of S positions (counted in
+    flash_prefill_headed.launches)."""
+    B, T, H, d = q.shape
+    if ck.dim() != 4 or ck.shape[0] != B or ck.shape[3] != d \
+            or ck.shape != cv.shape or H % ck.shape[1] \
+            or tuple(pos0.shape) != (B,):
+        raise ValueError(f"headed flash prefill: q {tuple(q.shape)}, cache "
+                         f"{tuple(ck.shape)}, pos0 {tuple(pos0.shape)}")
+    if q.device.type == "cpu":
+        return flash_prefill_headed_reference(q, ck, cv, pos0, ns=ns,
+                                              block_s=block_s)
+    _, Hkv, S, _ = ck.shape
+    out = _launch_headed("headed flash prefill", q, ck, cv,
+                         _sequence_table(B, Hkv, ck.device), pos0, ps=S,
+                         page_stride=S * d, head_stride=S * d,
+                         window=min(ns * block_s, S))
+    flash_prefill_headed.launches += 1
+    return out
+
+
+flash_prefill_headed.launches = 0
+
+
+def kv_append_headed_reference(ck: torch.Tensor, cv: torch.Tensor,
+                               k_new: torch.Tensor, v_new: torch.Tensor,
+                               pos: torch.Tensor, mask: torch.Tensor):
+    """Plain twin of kv_append_headed: index writes of the kept rows, in
+    place, through an integer view (bit for bit for fp8 too)."""
+    keep = mask.bool()
+    rows = torch.arange(ck.shape[0], device=ck.device)[keep]
+    p = pos.long()[keep]
+    for c, new in ((ck, k_new), (cv, v_new)):
+        _bits(c)[rows, :, p] = _bits(quantize_kv(new[keep], c.dtype))
+    return ck, cv
+
+
+def kv_append_headed(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, pos: torch.Tensor,
+                     mask: torch.Tensor | None = None):
+    """kv_append(headed=True): write k_new/v_new (B, Hkv, d), cast once to
+    the cache dtype (quantize_kv), at ck[b, :, pos[b]] of a (B, Hkv, S, d)
+    bf16 or fp8 cache, in place; rows with mask[b] = 0 keep their bytes.
+    returns (ck, cv), the same tensors.
+
+    Launches csrc/kv_append.cu (pk_kv_append_headed) for CUDA tensors
+    (counted in kv_append_headed.launches)."""
+    B, Hkv, S, d = ck.shape
+    if tuple(k_new.shape) != (B, Hkv, d) or k_new.shape != v_new.shape \
+            or ck.shape != cv.shape or tuple(pos.shape) != (B,):
+        raise ValueError(f"headed kv_append: cache {tuple(ck.shape)}, new "
+                         f"{tuple(k_new.shape)}, pos {tuple(pos.shape)}")
+    if mask is None:
+        mask = torch.ones((B,), dtype=torch.int32, device=ck.device)
+    if ck.device.type == "cpu":
+        return kv_append_headed_reference(ck, cv, k_new, v_new, pos, mask)
+    _on_one_cuda_device("headed kv_append", ck, cv, k_new, v_new, pos, mask)
+    if pos.dtype != torch.int32 or ck.dtype != cv.dtype \
+            or not (ck.is_contiguous() and cv.is_contiguous()):
+        raise ValueError("headed kv_append: int32 positions and contiguous "
+                         "caches of one dtype expected")
+    row_bytes = d * ck.element_size()
+    if row_bytes % 16 or ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError("headed kv_append: cache rows must be 16-byte "
+                         "aligned")
+    kn, vn = (quantize_kv(x, ck.dtype).contiguous() for x in (k_new, v_new))
+    kn, vn = (x.clone() if x.data_ptr() % 16 else x for x in (kn, vn))
+    m = mask.to(torch.int32).contiguous()
+    pos = pos.contiguous()
+    lib = _build.library()
+    code = lib.pk_kv_append_headed(
+        ck.data_ptr(), cv.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        pos.data_ptr(), m.data_ptr(), B, Hkv, S, row_bytes,
+        torch.cuda.current_stream(ck.device).cuda_stream)
+    _build.check("pk_kv_append_headed", code)
+    kv_append_headed.launches += 1
+    return ck, cv
+
+
+kv_append_headed.launches = 0

@@ -8,7 +8,8 @@ host it runs on its own, without tests/conftest.py's JAX set-up:
 
 Tolerances: the GEMM at rtol 2^-7 with atol 2^-8 * max|ref| (both sum
 exact bf16 products in f32, in other orders, then round once to bf16);
-attention at rtol = atol = 2^-7; the KV append bit-exact.
+attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
+convert fp8 exactly); the KV appends bit-exact.
 """
 
 import math
@@ -104,3 +105,107 @@ def test_kv_append_kernel_bit_exact(gen):
     assert torch.equal(k1.view(torch.int16), k2.view(torch.int16))
     assert torch.equal(v1.view(torch.int16), v2.view(torch.int16))
     assert torch.equal(k1[1].view(torch.int16), k[1].view(torch.int16))
+
+
+def _kv(gen, dtype, *shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+_KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
+
+
+@pytest.mark.parametrize("dtype", _KV_DTYPES)
+@pytest.mark.parametrize("ps", [16, 256])
+def test_paged_decode_kernel_matches_twin(gen, dtype, ps):
+    """Permuted block tables, ragged positions, one sequence shorter than
+    a page."""
+    for B, hkv, h, d in ((3, 2, 8, 128), (2, 4, 28, 64)):
+        nb = 512 // ps
+        P = B * nb + 1
+        q = _bf16(gen, B, h, d)
+        k, v = _kv(gen, dtype, P, hkv, ps, d), _kv(gen, dtype, P, hkv, ps, d)
+        bt = torch.randperm(P - 1, generator=gen, device="cuda")[:B * nb]
+        bt = bt.reshape(B, nb).to(torch.int32)
+        pos = torch.tensor([5, 300, 511][:B], dtype=torch.int32,
+                           device="cuda")
+        before = attention.paged_decode_attention.launches
+        got = attention.paged_decode_attention(q, k, v, bt, pos, nb=nb,
+                                               page_size=ps)
+        assert attention.paged_decode_attention.launches == before + 1
+        want = attention.paged_decode_reference(q, k, v, bt, pos, nb=nb,
+                                                page_size=ps)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", _KV_DTYPES)
+def test_decode_headed_kernel_matches_twin(gen, dtype):
+    for B, S, hkv, h, d in ((3, 256, 2, 8, 128), (2, 384, 4, 28, 64)):
+        q = _bf16(gen, B, h, d)
+        k, v = _kv(gen, dtype, B, hkv, S, d), _kv(gen, dtype, B, hkv, S, d)
+        pos = torch.tensor([0, 100, 255][:B], dtype=torch.int32,
+                           device="cuda")
+        before = attention.decode_attention_contiguous_headed.launches
+        got = attention.decode_attention_contiguous_headed(q, k, v, pos,
+                                                           nb=2,
+                                                           page_size=128)
+        assert (attention.decode_attention_contiguous_headed.launches
+                == before + 1)
+        want = attention.decode_attention_headed_reference(q, k, v, pos,
+                                                           nb=2,
+                                                           page_size=128)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", _KV_DTYPES)
+@pytest.mark.parametrize("ps", [16, 256])
+def test_paged_prefill_kernel_matches_twin(gen, dtype, ps):
+    for B, T, hkv, h, d in ((2, 16, 2, 8, 128), (2, 40, 4, 28, 64)):
+        ns = 512 // ps
+        P = B * ns + 1
+        q = _bf16(gen, B, T, h, d)
+        k, v = _kv(gen, dtype, P, hkv, ps, d), _kv(gen, dtype, P, hkv, ps, d)
+        bt = torch.randperm(P - 1, generator=gen, device="cuda")[:B * ns]
+        bt = bt.reshape(B, ns).to(torch.int32)
+        pos0 = torch.tensor([3, 300], dtype=torch.int32, device="cuda")
+        before = attention.flash_prefill_paged.launches
+        got = attention.flash_prefill_paged(q, k, v, bt, pos0, ns=ns)
+        assert attention.flash_prefill_paged.launches == before + 1
+        want = attention.flash_prefill_paged_reference(q, k, v, bt, pos0,
+                                                       ns=ns)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", _KV_DTYPES)
+def test_prefill_headed_kernel_matches_twin(gen, dtype):
+    for B, T, S, hkv, h, d in ((2, 16, 256, 2, 8, 128),
+                               (2, 40, 256, 4, 28, 64)):
+        q = _bf16(gen, B, T, h, d)
+        k, v = _kv(gen, dtype, B, hkv, S, d), _kv(gen, dtype, B, hkv, S, d)
+        pos0 = torch.tensor([0, 130], dtype=torch.int32, device="cuda")
+        before = attention.flash_prefill_headed.launches
+        got = attention.flash_prefill_attention(q, k, v, pos0, ns=2,
+                                                headed=True)
+        assert attention.flash_prefill_headed.launches == before + 1
+        want = attention.flash_prefill_headed_reference(q, k, v, pos0, ns=2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", _KV_DTYPES)
+def test_kv_append_headed_kernel_bit_exact(gen, dtype):
+    B, S, hkv, d = 4, 64, 2, 128
+    k, v = _kv(gen, dtype, B, hkv, S, d), _kv(gen, dtype, B, hkv, S, d)
+    kn, vn = _bf16(gen, B, hkv, d), _bf16(gen, B, hkv, d)
+    pos = torch.tensor([0, 9, 63, 31], dtype=torch.int32, device="cuda")
+    mask = torch.tensor([True, False, True, True], device="cuda")
+    k1, v1, k2, v2 = k.clone(), v.clone(), k.clone(), v.clone()
+    before = attention.kv_append_headed.launches
+    attention.kv_append(k1, v1, kn, vn, pos, mask, headed=True)
+    assert attention.kv_append_headed.launches == before + 1
+    attention.kv_append_headed_reference(k2, v2, kn, vn, pos, mask)
+    for got, want in ((k1, k2), (v1, v2)):
+        assert torch.equal(attention._bits(got), attention._bits(want))
+    assert torch.equal(attention._bits(k1[1]), attention._bits(k[1]))
