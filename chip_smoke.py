@@ -9,12 +9,19 @@ Phases (any failure raises and the script exits non-zero):
   2 build    compile csrc/*.cu through ops/_build.py, print the seconds
   3 kernels  each kernel against its plain PyTorch twin on the card, at the
              Llama-3-8B serving shapes (headed kernels at page sizes 16
-             and 256, bf16 and fp8 K/V), with CUDA-event times of both
-  4 parity   a 2-layer Llama-3-8B-width model: one prefill chunk and one
-             decode step on the card (kernels) against the same model on
-             the CPU (plain twins), over the flat bf16 cache and over an
-             fp8 page pool (forward_paged, page size 16); logits within
-             2^-5 * max|logits|
+             and 256, bf16 and fp8 K/V) and, for the grouped expert GEMM,
+             Mixtral-8x7B's expert shapes (E=8, cap 8 and 128, mxfp4 and
+             nvfp4, also bit for bit against fused_mul per expert), with
+             CUDA-event times of the kernel, its twin and one PyTorch
+             library call for the same work where there is one, and each
+             call's bound (bytes over 3.35 TB/s or operations over 989
+             TFLOP/s, whichever is larger)
+  4 parity   a 2-layer Llama-3-8B-width model and a 1-layer
+             Mixtral-8x7B-width model: one prefill chunk and one decode
+             step on the card (kernels) against the same model on the CPU
+             (plain twins), Llama over the flat bf16 cache and over an fp8
+             page pool (forward_paged, page size 16), Mixtral over the flat
+             bf16 cache; logits within 2^-5 * max|logits|
   5 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
              on the card, Engine(max_batch=4) serving 8 greedy requests of
              32 new tokens over the flat bf16 cache
@@ -23,16 +30,22 @@ Phases (any failure raises and the script exits non-zero):
              PagedEngine(page_size=16, cache_dtype=float8_e4m3fn); every
              page returns to the pool; tokens/s, peak device memory and
              KV bytes of each cache beside serve's
-  7 profile  the serve model's decode step and one 256-token prefill
-             tick under torch.profiler, in Engine (bf16) and PagedEngine
-             (fp8, page size 16): kernels by device time and the device's
-             idle share (PERF.md section 5)
+  7 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
+             attention, random weights quantized on the card) through
+             Engine(max_batch=4, forward_fn=moe.make_engine_forward(cfg))
+             over the flat bf16 cache, serving the same 8 requests; prints
+             the capacity drops of one 256-token chunk per layer
+  8 profile  the decode step and one 256-token prefill tick under
+             torch.profiler, in Engine (Llama, bf16), PagedEngine (Llama,
+             fp8, page size 16) and the Mixtral Engine: kernels by device
+             time and the device's idle share (PERF.md section 5)
 
-Each engine run of phases 5 and 6 sets every kernel's launch count to 0
-before it and fails if a kernel of its path did not launch. The line
-before the last is the card's `nvidia-smi` name and power limit, the one
-before it a JSON object with each kernel's launches (summed over the
-engine runs of phases 5 and 6), max abs error and times (from phase 3).
+Each engine run of phases 5-7 sets every kernel's launch count to 0
+before it and fails if a kernel of its path did not launch; it also
+counts the launches inside decode steps, per decode step. The line before
+the last is the card's `nvidia-smi` name and power limit, the one before
+it a JSON object with each kernel's launches (summed over the engine runs
+of phases 5-7), max abs error, times, bound and library time (phase 3).
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 With --record PATH, every measurement (per-shape GEMM rows included) is
@@ -42,6 +55,7 @@ also written there as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -54,18 +68,25 @@ import time
 import numpy as np
 import torch
 
-from petit_kernel_tpu_torch.models import llama, paged, serving
-from petit_kernel_tpu_torch.ops import _build
+from petit_kernel_tpu_torch.models import llama, moe, paged, serving
+from petit_kernel_tpu_torch.ops import _build, gemm
 from petit_kernel_tpu_torch.ops import layout
-from petit_kernel_tpu_torch.ops.kernels import attention, fused
+from petit_kernel_tpu_torch.ops.kernels import attention, fused, grouped
 from petit_kernel_tpu_torch.ops.solution import ElementB
 from petit_kernel_tpu_torch.ops import solution as solution_mod
 from petit_kernel_tpu_torch.numerics import reference as qref
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_kv",
-          "profile")
+          "serve_moe", "profile")
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+MIXTRAL_8X7B = moe.MixtralConfig.mixtral_8x7b()
+# a Mixtral-8x7B expert's projections as (k, n): w_gate and w_up, w_down
+MIXTRAL_EXPERT_KN = ((4096, 14336), (14336, 4096))
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
+# operations/s; `bound` below divides by them
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 KERNELS = {
     "fp4_gemm": dict(route="cuda",
                      source="petit_kernel_tpu_torch/csrc/fp4_gemm.cu",
@@ -107,8 +128,12 @@ KERNELS = {
         route="cuda", source="petit_kernel_tpu_torch/csrc/kv_append.cu",
         replaces="petit_kernel_tpu/ops/kernels/attention.py:695",
         wrapper=attention.kv_append_headed),
+    "grouped_fp4_gemm": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/grouped_fp4_gemm.cu",
+        replaces="petit_kernel_tpu/ops/kernels/grouped.py:26",
+        wrapper=grouped.grouped_mul),
 }
-# the kernels each engine run of phases 5 and 6 must launch
+# the kernels each engine run of phases 5, 6 and 7 must launch
 PATHS = {
     "serve bf16 Engine": ("fp4_gemm", "decode_attention", "prefill_attention",
                           "kv_append"),
@@ -116,6 +141,9 @@ PATHS = {
                             "prefill_attention_headed", "kv_append_headed"),
     "serve_kv fp8 PagedEngine": ("fp4_gemm", "paged_decode_attention",
                                  "paged_prefill_attention"),
+    "serve_moe Mixtral Engine": ("grouped_fp4_gemm", "fp4_gemm",
+                                 "decode_attention", "prefill_attention",
+                                 "kv_append"),
 }
 FP8 = torch.float8_e4m3fn
 
@@ -186,12 +214,77 @@ def _close(name, got, want, rtol, atol):
     return err.max().item()
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a call that moves `nbytes`
+    (each input read once, each output written once) and does `flops`
+    operations: the larger of the two over HBM_BYTES_PER_S and
+    BF16_FLOP_PER_S, and which of the two it is."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return dict(bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b >= t_f else "operations")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _decode_work(q, pos, Hkv, kv_elt, page_size=None):
+    """Bytes and operations one decode-attention call needs: q in and out,
+    the K and V rows of positions <= pos[b] (and their block-table entries
+    when paged); QK and PV at 2 operations a multiply-add."""
+    B, H, d = q.shape
+    n = int((pos.long() + 1).sum())
+    nbytes = 2 * _nbytes(q) + 2 * n * Hkv * d * kv_elt + _nbytes(pos)
+    if page_size:
+        nbytes += 4 * int(((pos.long() + page_size) // page_size).sum())
+    return nbytes, 4 * H * d * n
+
+
+def _prefill_work(q, pos0, Hkv, kv_elt, page_size=None):
+    """As _decode_work for a causal chunk: query t of row b at pos0[b] + t
+    reads the positions <= pos0[b] + t."""
+    B, T, H, d = q.shape
+    p0 = pos0.long()
+    n_kv = int((p0 + T).sum())
+    pairs = int((T * p0).sum()) + B * T * (T + 1) // 2
+    nbytes = 2 * _nbytes(q) + 2 * n_kv * Hkv * d * kv_elt + _nbytes(pos0)
+    if page_size:
+        nbytes += 4 * int(((p0 + T + page_size - 1) // page_size).sum())
+    return nbytes, 4 * H * d * pairs
+
+
+def _append_work(kn, mask, kv_elt):
+    """The rows with mask set: new K and V read, cache rows written."""
+    B, Hkv, d = kn.shape
+    r = int(mask.bool().sum())
+    return 2 * r * Hkv * d * (kn.element_size() + kv_elt) + 8 * B, 0
+
+
+def _sdpa(q_bhtd, k_bhsd, v_bhsd, mask_bts):
+    """The library yardstick of the attention kernels: one
+    scaled_dot_product_attention call with the row's boolean mask."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q_bhtd, k_bhsd, v_bhsd, attn_mask=mask_bts[:, None], enable_gqa=True)
+
+
+def _decode_mask(pos, S, window):
+    p = torch.arange(S, device=pos.device)
+    return ((p[None] <= pos.long()[:, None]) & (p[None] < window))[:, None]
+
+
+def _prefill_mask(pos0, T, S):
+    p = torch.arange(S, device=pos0.device)
+    qp = pos0.long()[:, None] + torch.arange(T, device=pos0.device)[None]
+    return p[None, None] <= qp[:, :, None]
+
+
 def phase_kernels(rec):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, res = [], {}
     # --- fused FP4 GEMM -----------------------------------------------------
-    err_g, ms_g, plain_g = 0.0, 0.0, 0.0
+    err_g = 0.0
+    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
     for fmt in ("nvfp4", "nvfp4p2z"):
         quant = (qref.quantize_nvfp4 if fmt == "nvfp4"
                  else qref.quantize_nvfp4_pow2z)
@@ -201,6 +294,8 @@ def phase_kernels(rec):
             words = layout.repack_fp4_weights(qw, n, k)
             st = layout.process_fp4_scales(sc, n, k, group_size=16)
             gs = gs.reshape(1)
+            deq = (layout.dequant_from_tpu_layout(words, st, n, k)
+                   * gs).to(torch.bfloat16)
             for m in (1, 8, 256):
                 a = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
@@ -215,18 +310,30 @@ def phase_kernels(rec):
                                                       sid=sid))
                 t_p = cuda_ms(lambda: fused.fused_mul_reference(
                     a, words, st, gs, sid=sid), iters=5)
+                t_l = cuda_ms(lambda: torch.matmul(a, deq))
+                nbytes = _nbytes(words, st, gs, a, got)
+                flops = 2 * m * n * k
                 rows.append(dict(kernel="fp4_gemm", fmt=fmt, m=m, k=k, n=n,
                                  tile=[sid.block_m, sid.block_n],
-                                 max_abs_err=e, ms=t_k, plain_ms=t_p))
+                                 max_abs_err=e, ms=t_k, plain_ms=t_p,
+                                 library_ms=t_l, **bound(nbytes, flops)))
                 log(f"[kernels] gemm {fmt:8s} m={m:3d} k={k:5d} n={n:5d} "
                     f"tile={sid.block_m}x{sid.block_n} err={e:.2e} "
-                    f"kernel={t_k:.4f} ms plain={t_p:.4f} ms")
+                    f"kernel={t_k:.4f} ms plain={t_p:.4f} ms "
+                    f"matmul={t_l:.4f} ms "
+                    f"bound={rows[-1]['bound_ms']:.4f} ms")
                 err_g = max(err_g, e)
                 if fmt == "nvfp4" and m == 8:
-                    ms_g += t_k
-                    plain_g += t_p
-    res["fp4_gemm"] = dict(max_abs_err=err_g, ms=ms_g, plain_ms=plain_g,
-                           at="nvfp4 m=8, sum of the 4 Llama-3-8B projections")
+                    for key, v in (("ms", t_k), ("plain_ms", t_p),
+                                   ("library_ms", t_l), ("nbytes", nbytes),
+                                   ("flops", flops)):
+                        sums[key] += v
+            del deq
+    res["fp4_gemm"] = dict(
+        max_abs_err=err_g, ms=sums["ms"], plain_ms=sums["plain_ms"],
+        library_ms=sums["library_ms"], **bound(sums["nbytes"], sums["flops"]),
+        at="nvfp4 m=8, sum of the 4 Llama-3-8B projections; library: "
+           "torch.matmul on the dequantized bf16 weights")
     # --- decode attention ---------------------------------------------------
     B, H, Hkv, d, S = 8, 32, 8, 128, 2048
     q = torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -245,10 +352,16 @@ def phase_kernels(rec):
         q, ck, cv, pos, nb=nb))
     t_p = cuda_ms(lambda: attention.decode_attention_reference(
         q, ck, cv, pos, nb=nb), iters=5)
-    res["decode_attention"] = dict(max_abs_err=e, ms=t_k, plain_ms=t_p,
-                                   at="B=8 H=32 Hkv=8 d=128 S=2048 ragged pos")
+    dmask = _decode_mask(pos, S, S)
+    t_l = cuda_ms(lambda: _sdpa(q[:, :, None], ck.transpose(1, 2),
+                                cv.transpose(1, 2), dmask))
+    res["decode_attention"] = dict(
+        max_abs_err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        **bound(*_decode_work(q, pos, Hkv, 2)),
+        at="B=8 H=32 Hkv=8 d=128 S=2048 ragged pos; library: "
+           "scaled_dot_product_attention(enable_gqa=True), position mask")
     log(f"[kernels] decode attention err={e:.2e} kernel={t_k:.4f} ms "
-        f"plain={t_p:.4f} ms")
+        f"plain={t_p:.4f} ms sdpa={t_l:.4f} ms")
     # --- flash prefill ------------------------------------------------------
     T = 256
     pos0 = torch.tensor([0, 256], dtype=torch.int32, device=dev)
@@ -263,11 +376,17 @@ def phase_kernels(rec):
         qp, ck[:2], cv[:2], pos0, ns=ns))
     t_p = cuda_ms(lambda: attention.flash_prefill_reference(
         qp, ck[:2], cv[:2], pos0, ns=ns), iters=5)
-    res["prefill_attention"] = dict(max_abs_err=e, ms=t_k, plain_ms=t_p,
-                                    at="B=2 T=256 pos0=(0,256) H=32 Hkv=8 "
-                                       "d=128 S=2048")
+    W = ns * 128
+    pmask = _prefill_mask(pos0, T, W)
+    t_l = cuda_ms(lambda: _sdpa(qp.transpose(1, 2), ck[:2, :W].transpose(1, 2),
+                                cv[:2, :W].transpose(1, 2), pmask))
+    res["prefill_attention"] = dict(
+        max_abs_err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        **bound(*_prefill_work(qp, pos0, Hkv, 2)),
+        at="B=2 T=256 pos0=(0,256) H=32 Hkv=8 d=128 S=2048; library: "
+           "scaled_dot_product_attention(enable_gqa=True), causal mask")
     log(f"[kernels] flash prefill err={e:.2e} kernel={t_k:.4f} ms "
-        f"plain={t_p:.4f} ms")
+        f"plain={t_p:.4f} ms sdpa={t_l:.4f} ms")
     # --- kv append ----------------------------------------------------------
     kn = torch.randn((B, Hkv, d), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -286,12 +405,20 @@ def phase_kernels(rec):
     t_k = cuda_ms(lambda: attention.kv_append(ck1, cv1, kn, vn, pos, mask))
     t_p = cuda_ms(lambda: attention.kv_append_reference(ck2, cv2, kn, vn,
                                                         pos, mask))
-    res["kv_append"] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
-                            at="B=8 S=2048 Hkv=8 d=128, mixed mask, "
-                               "bit-exact")
+    sel = mask.bool().nonzero().squeeze(1)
+    idx, kv_rows = (sel, pos[sel].long()), (kn[sel], vn[sel])
+    t_l = cuda_ms(lambda: (ck2.index_put_(idx, kv_rows[0]),
+                           cv2.index_put_(idx, kv_rows[1])))
+    res["kv_append"] = dict(
+        max_abs_err=0.0, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        **bound(*_append_work(kn, mask, 2)),
+        at="B=8 S=2048 Hkv=8 d=128, mixed mask, bit-exact; library: "
+           "index_put_ on K and V with the masked rows' indices")
     log(f"[kernels] kv_append bit-exact kernel={t_k:.4f} ms "
-        f"plain={t_p:.4f} ms")
+        f"plain={t_p:.4f} ms index_put_={t_l:.4f} ms")
     _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask)
+    del ck, cv, ck1, cv1, ck2, cv2
+    _grouped_kernels(res, rows, gen)
     rec["kernel_rows"] = rows
     rec["kernels"] = res
 
@@ -301,15 +428,20 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
     (B=8 decode over a 2048-position window, B=2 T=256 prefill), page
     sizes 16 and 256, bf16 and fp8 K/V. Each kernel's JSON row keeps the
     largest error of its variants and the times of the variant the serve_kv
-    phase runs (fp8; page size 16 where the kernel pages)."""
+    phase runs (fp8; page size 16 where the kernel pages). The library
+    yardsticks: scaled_dot_product_attention and index_put_ for bf16
+    contiguous caches; none for fp8 (neither takes fp8 K/V without a cast
+    first) or pages (a gather first)."""
     dev = q.device
     B, H, d = q.shape
     Hkv, S = 8, 2048
+    T = qp.shape[1]
 
     def kv(dtype, *shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def check(name, variant, kernel, twin, served, exact=False):
+    def check(name, variant, kernel, twin, served, work, library=None,
+              exact=False):
         got, want = kernel(), twin()
         torch.cuda.synchronize()
         if exact:
@@ -322,17 +454,24 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
             e = _close(f"{name} {variant}", got, want, 2 ** -7, 2 ** -7)
         t_k = cuda_ms(kernel)
         t_p = cuda_ms(twin, iters=5)
-        rows.append(dict(kernel=name, variant=variant, max_abs_err=e,
-                         ms=t_k, plain_ms=t_p))
+        t_l = cuda_ms(library) if library else None
+        row = dict(kernel=name, variant=variant, max_abs_err=e, ms=t_k,
+                   plain_ms=t_p, library_ms=t_l, **bound(*work))
+        rows.append(row)
         log(f"[kernels] {name} {variant} err={e:.2e} kernel={t_k:.4f} ms "
-            f"plain={t_p:.4f} ms")
+            f"plain={t_p:.4f} ms library={t_l} ms "
+            f"bound={row['bound_ms']:.4f} ms")
         r = res.setdefault(name, dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], e)
         if served:
-            r.update(ms=t_k, plain_ms=t_p, at=variant)
+            r.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                     at=variant)
 
+    sel = mask.bool().nonzero().squeeze(1)
     for dtype in (torch.bfloat16, FP8):
         tag = "bf16" if dtype == torch.bfloat16 else "fp8"
+        elt = 2 if dtype == torch.bfloat16 else 1
         for ps in (16, 256):
             nb = S // ps                   # pages per sequence
             P = B * nb + 1
@@ -346,7 +485,8 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
                       q, kp, vp, bt, pos, nb=nb, page_size=ps),
                   lambda: attention.paged_decode_reference(
                       q, kp, vp, bt, pos, nb=nb, page_size=ps),
-                  dtype == FP8 and ps == 16)
+                  dtype == FP8 and ps == 16,
+                  _decode_work(q, pos, Hkv, elt, page_size=ps))
             ns = 512 // ps
             at = f"{tag} ps={ps} B=2 T=256 pos0=(0,256) H={H} Hkv={Hkv}"
             check("paged_prefill_attention", at,
@@ -354,36 +494,125 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
                       qp, kp, vp, bt[:2], pos0, ns=ns),
                   lambda: attention.flash_prefill_paged_reference(
                       qp, kp, vp, bt[:2], pos0, ns=ns),
-                  dtype == FP8 and ps == 16)
+                  dtype == FP8 and ps == 16,
+                  _prefill_work(qp, pos0, Hkv, elt, page_size=ps))
             del kp, vp
         ck, cv = kv(dtype, B, Hkv, S, d), kv(dtype, B, Hkv, S, d)
+        bf16 = dtype == torch.bfloat16
+        dmask, pmask = _decode_mask(pos, S, S), _prefill_mask(pos0, T, 512)
         check("decode_attention_headed",
               f"{tag} B={B} H={H} Hkv={Hkv} d={d} S={S} ragged pos",
               lambda: attention.decode_attention_contiguous_headed(
                   q, ck, cv, pos, nb=S // 128, page_size=128),
               lambda: attention.decode_attention_headed_reference(
                   q, ck, cv, pos, nb=S // 128, page_size=128),
-              dtype == FP8)
+              dtype == FP8, _decode_work(q, pos, Hkv, elt),
+              library=bf16 and (lambda: _sdpa(q[:, :, None], ck, cv, dmask)))
         check("prefill_attention_headed",
               f"{tag} B=2 T=256 pos0=(0,256) H={H} Hkv={Hkv} S={S}",
               lambda: attention.flash_prefill_attention(
                   qp, ck[:2], cv[:2], pos0, ns=4, headed=True),
               lambda: attention.flash_prefill_headed_reference(
                   qp, ck[:2], cv[:2], pos0, ns=4),
-              dtype == FP8)
+              dtype == FP8, _prefill_work(qp, pos0, Hkv, elt),
+              library=bf16 and (lambda: _sdpa(
+                  qp.transpose(1, 2), ck[:2, :, :512], cv[:2, :, :512],
+                  pmask)))
         ck1, cv1, ck2, cv2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        idx = (sel[:, None], torch.arange(Hkv, device=dev)[None],
+               pos[sel].long()[:, None])
         check("kv_append_headed",
               f"{tag} B={B} Hkv={Hkv} S={S} d={d}, mixed mask, bit-exact",
               lambda: attention.kv_append(ck1, cv1, kn, vn, pos, mask,
                                           headed=True),
               lambda: attention.kv_append_headed_reference(
                   ck2, cv2, kn, vn, pos, mask),
-              dtype == FP8, exact=True)
+              dtype == FP8, _append_work(kn, mask, elt),
+              library=bf16 and (lambda: (ck2.index_put_(idx, kn[sel]),
+                                         cv2.index_put_(idx, vn[sel]))),
+              exact=True)
         del ck, cv, ck1, cv1, ck2, cv2
 
 
-def _random_quantized(cfg, gen, dev):
-    return llama.quantize_params(llama.init_params(cfg, gen, dev), "nvfp4")
+def _grouped_kernels(res, rows, gen):
+    """The grouped expert GEMM at Mixtral-8x7B's expert shapes, E=8: w_gate
+    and w_up (k, n) = (4096, 14336), w_down (14336, 4096), cap 8 (a 4-slot
+    decode step) and 128 (a 64-token chunk), mxfp4 (the served format) and
+    nvfp4. Each is held against its plain twin (GEMM tolerance) and, bit
+    for bit, against fused_mul on each expert's slice at the same tile;
+    the library yardstick is torch.bmm on the dequantized bf16 experts.
+    The JSON row is one MoE layer's decode GEMMs, mxfp4 cap 8: w_gate +
+    w_up + w_down."""
+    dev = torch.device("cuda")
+    E = MIXTRAL_8X7B.num_experts
+    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    err = 0.0
+    for fmt in ("mxfp4", "nvfp4"):
+        eb = ElementB.MXFP4 if fmt == "mxfp4" else ElementB.NVFP4
+        for k, n in MIXTRAL_EXPERT_KN:
+            w = torch.randn((E, k, n), generator=gen, device=dev,
+                            dtype=torch.bfloat16) / math.sqrt(k)
+            ex = moe.quantize_moe_linear(w, fmt)
+            del w
+            words, st, gs = ex["words"], ex["scales"], ex["gs"]
+            deq = torch.stack([
+                (layout.dequant_from_tpu_layout(words[e], st[e], n, k)
+                 * gs[e]).to(torch.bfloat16) for e in range(E)])
+            for cap in (8, 128):
+                xs = torch.randn((E, cap, k), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+                sid = gemm.resolve_grouped_solution(cap, n, k, eb)
+                got = grouped.grouped_mul(xs, words, st, gs, sid=sid)
+                want = grouped.grouped_mul_reference(xs, words, st, gs,
+                                                     sid=sid)
+                torch.cuda.synchronize()
+                what = f"grouped {fmt} E={E} cap={cap} k={k} n={n}"
+                e_max = _close(what, got, want, 2 ** -7,
+                               2 ** -8 * want.float().abs().max())
+                for e in range(E):
+                    one = fused.fused_mul(xs[e], words[e], st[e],
+                                          gs[e:e + 1], sid=sid)
+                    if not torch.equal(one.view(torch.int16),
+                                       got[e].view(torch.int16)):
+                        raise AssertionError(f"{what}: expert {e} differs "
+                                             "from fused_mul bit for bit")
+                t_k = cuda_ms(lambda: grouped.grouped_mul(xs, words, st, gs,
+                                                          sid=sid))
+                t_p = cuda_ms(lambda: grouped.grouped_mul_reference(
+                    xs, words, st, gs, sid=sid), iters=2, warmup=1)
+                t_l = cuda_ms(lambda: torch.bmm(xs, deq))
+                nbytes = _nbytes(words, st, gs, xs, got)
+                flops = 2 * E * cap * k * n
+                row = dict(kernel="grouped_fp4_gemm", fmt=fmt, E=E, cap=cap,
+                           k=k, n=n, tile=[sid.block_m, sid.block_n],
+                           max_abs_err=e_max, ms=t_k, plain_ms=t_p,
+                           library_ms=t_l, **bound(nbytes, flops))
+                rows.append(row)
+                log(f"[kernels] {what} tile={sid.block_m}x{sid.block_n} "
+                    f"err={e_max:.2e} bit-equal to fused_mul; "
+                    f"kernel={t_k:.4f} ms plain={t_p:.4f} ms "
+                    f"bmm={t_l:.4f} ms bound={row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']})")
+                err = max(err, e_max)
+                if fmt == "mxfp4" and cap == 8:
+                    times = 2 if (k, n) == MIXTRAL_EXPERT_KN[0] else 1
+                    for key, v in (("ms", t_k), ("plain_ms", t_p),
+                                   ("library_ms", t_l), ("nbytes", nbytes),
+                                   ("flops", flops)):
+                        layer[key] += times * v
+                del xs, got, want
+            del ex, words, st, gs, deq
+    res["grouped_fp4_gemm"] = dict(
+        max_abs_err=err, ms=layer["ms"], plain_ms=layer["plain_ms"],
+        library_ms=layer["library_ms"],
+        **bound(layer["nbytes"], layer["flops"]),
+        at="mxfp4 E=8 cap=8, one Mixtral-8x7B layer's w_gate + w_up + "
+           "w_down; library: torch.bmm on the dequantized bf16 experts")
+
+
+def _random_quantized(cfg, gen):
+    """Random nvfp4 params on the generator's device."""
+    return llama.quantize_params(llama.init_params(cfg, gen), "nvfp4")
 
 
 def phase_parity(rec):
@@ -392,7 +621,7 @@ def phase_parity(rec):
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b(num_layers=2)
     gen = torch.Generator(device=dev).manual_seed(2)
-    params = _random_quantized(cfg, gen, dev)
+    params = _random_quantized(cfg, gen)
     cpu_params = _tree_to(params, "cpu")
     rng = np.random.default_rng(2)
     T = 64
@@ -431,7 +660,46 @@ def phase_parity(rec):
                 raise AssertionError(f"parity {cache_name} {step}: {err} > "
                                      f"{bound}")
             out[f"{cache_name} {step}"] = err
+    del params, cpu_params
+    out.update(_moe_parity())
     rec["parity"] = out
+
+
+def _moe_parity():
+    """1 layer at full Mixtral-8x7B width over the flat bf16 cache: a
+    64-token prefill chunk and one decode step on the card (grouped and
+    fused GEMM, attention kernels) and on the CPU (plain twins, one expert
+    dequantized at a time); logits within 2^-5 * max|logits|."""
+    dev = torch.device("cuda")
+    cfg = moe.MixtralConfig.mixtral_8x7b(num_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = moe.quantize_params(moe.init_params(cfg, gen), cfg)
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(4)
+    T = 64
+    toks = rng.integers(0, cfg.vocab_size, size=(1, T)).astype(np.int64)
+    nxt = rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(np.int64)
+
+    def run(p, d):
+        cache = llama.init_cache(cfg, 1, device=d)
+        lg1, cache = moe.forward(p, torch.as_tensor(toks, device=d), cfg,
+                                 cache, torch.arange(T, device=d)[None],
+                                 kv_window=128)
+        lg2, _ = moe.forward(p, torch.as_tensor(nxt, device=d), cfg, cache,
+                             torch.full((1, 1), T, device=d), kv_window=128)
+        return lg1.float().cpu(), lg2.float().cpu()
+
+    out = {}
+    got, want = run(params, dev), run(cpu_params, torch.device("cpu"))
+    for step, g, w in zip(("prefill", "decode"), got, want):
+        bound_ = 2 ** -5 * w.abs().max().item()
+        err = (g - w).abs().max().item()
+        log(f"[parity] Mixtral flat bf16 {step} logits max abs err "
+            f"{err:.4e} (bound {bound_:.4e})")
+        if not math.isfinite(err) or err > bound_:
+            raise AssertionError(f"parity Mixtral {step}: {err} > {bound_}")
+        out[f"Mixtral flat bf16 {step}"] = err
+    return out
 
 
 def _tree_to(tree, device):
@@ -454,11 +722,11 @@ def _serve_model(cfg, dev):
         params = {"layers": []}
         # one layer at a time, so the dense bf16 copy never holds all 32
         dense = llama.init_params(llama.LlamaConfig.llama3_8b(num_layers=0),
-                                  gen, dev)
+                                  gen)
         params.update({k: v for k, v in dense.items() if k != "layers"})
         one = llama.LlamaConfig.llama3_8b(num_layers=1, vocab_size=16)
         for _ in range(cfg.num_layers):
-            params["layers"] += _random_quantized(one, gen, dev)["layers"]
+            params["layers"] += _random_quantized(one, gen)["layers"]
         torch.cuda.synchronize()
         _SERVE_MODEL.update(params=params, init_s=time.perf_counter() - t0)
     return _SERVE_MODEL["params"], _SERVE_MODEL["init_s"]
@@ -489,6 +757,7 @@ def _serve(rec, path, make_engine, reqs, cfg):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = make_engine()
+    ticks, decode_launches = _count_decode_launches(eng)
     for info in KERNELS.values():
         info["wrapper"].launches = 0
     pending, peak_pages = list(reqs), 0
@@ -518,13 +787,41 @@ def _serve(rec, path, make_engine, reqs, cfg):
     n_tok = sum(len(v) for v in out.values())
     run = dict(wall_s=wall, new_tokens=n_tok, tok_per_s=n_tok / wall,
                launches=launches, tokens=[out[i] for i in sorted(out)],
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               decode_ticks=ticks[0],
+               launches_per_decode_step={
+                   k: v / ticks[0] for k, v in decode_launches.items() if v})
     if peak_pages:
         run["peak_pages_in_use"] = peak_pages
     log(f"[{path}] {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} "
         f"tok/s; peak device memory {run['peak_gib']:.2f} GiB")
-    log(json.dumps({"path": path, "launches": launches}))
+    log(json.dumps({"path": path, "launches": launches,
+                    "decode_ticks": ticks[0],
+                    "launches_per_decode_step":
+                        run["launches_per_decode_step"]}))
     return run, eng
+
+
+def _launch_counts() -> dict:
+    return {name: info["wrapper"].launches for name, info in KERNELS.items()}
+
+
+def _count_decode_launches(eng):
+    """Wrap eng._decode so that it counts decode ticks and the kernel
+    launches made inside them; returns ([ticks], {kernel: launches})."""
+    ticks, launches = [0], dict.fromkeys(KERNELS, 0)
+    inner = eng._decode
+
+    def counted():
+        before = _launch_counts()
+        out = inner()
+        for name, n in _launch_counts().items():
+            launches[name] += n - before[name]
+        ticks[0] += 1
+        return out
+
+    eng._decode = counted
+    return ticks, launches
 
 
 def phase_serve(rec):
@@ -595,6 +892,82 @@ def phase_serve_kv(rec):
     rec["serve_kv"] = out
 
 
+_MOE_MODEL = {}
+
+
+def _moe_model(cfg, dev):
+    """The full-depth Mixtral of the serve_moe phase: random weights from
+    seed 0, built and quantized on the card one layer (and one expert) at
+    a time, experts mxfp4 and attention nvfp4. Shared with `profile`."""
+    if "params" not in _MOE_MODEL:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = moe.init_params(dataclasses.replace(cfg, num_layers=0), gen)
+        one = dataclasses.replace(cfg, num_layers=1, vocab_size=16)
+        for _ in range(cfg.num_layers):
+            params["layers"] += moe.quantize_params(
+                moe.init_params(one, gen), one)["layers"]
+        torch.cuda.synchronize()
+        _MOE_MODEL.update(params=params, init_s=time.perf_counter() - t0)
+    return _MOE_MODEL["params"], _MOE_MODEL["init_s"]
+
+
+@torch.inference_mode()
+def _chunk_drops(params, cfg, toks):
+    """routing_drop_count of each layer for one chunk toks (1, T), through
+    moe.forward's own steps without a cache (information only)."""
+    moe_cfg = moe.MoEConfig(cfg.num_experts, cfg.top_k)
+    T = toks.shape[1]
+    pos = torch.arange(T, device=toks.device)[None]
+    rope_cs = llama._rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    x, drops = params["embed"][toks], []
+    for lp in params["layers"]:
+        h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        x = x + llama.attention(h, lp, None, pos, cfg, fmt="nvfp4",
+                                rope_cs=rope_cs)
+        h = llama.rms_norm(x, lp["mlp_norm"], cfg.rms_eps).reshape(T, -1)
+        drops.append(moe.routing_drop_count(h, lp["router"], moe_cfg))
+        x = x + moe.moe_mlp(h, lp["router"], lp["experts"],
+                            moe_cfg).reshape(1, T, -1)
+    return [int(d) for d in drops]
+
+
+def _weight_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_weight_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_weight_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def phase_serve_moe(rec):
+    """The 32-layer Mixtral-8x7B through Engine(forward_fn=...) over the
+    flat bf16 cache, serving the serve phase's 8 requests."""
+    dev = torch.device("cuda")
+    cfg = MIXTRAL_8X7B
+    params, t_init = _moe_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    wbytes = _weight_bytes(params)
+    log(f"[serve_moe] params ready in {t_init:.1f} s; {wbytes / 1e9:.2f} GB "
+        f"of weights; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    chunk = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(1, 256)), device=dev)
+    drops = _chunk_drops(params, cfg, chunk)
+    log(f"[serve_moe] routing_drop_count of one 256-token chunk (cap "
+        f"{moe.capacity(256, moe.MoEConfig())}), per layer: {drops}")
+    rec.setdefault("launches", {})
+    run, eng = _serve(rec, "serve_moe Mixtral Engine",
+                      lambda: serving.Engine(
+                          params, cfg, max_batch=4,
+                          forward_fn=moe.make_engine_forward(cfg)),
+                      reqs, cfg)
+    run.update(init_s=t_init, weight_bytes=wbytes,
+               kv_bytes=_kv_bytes(eng.cache), chunk_drops=drops)
+    log(f"[serve_moe] flat bf16 KV cache {run['kv_bytes'] / 2**20:.1f} MiB")
+    rec["serve_moe"] = run
+
+
 def _kernel_profile(steps):
     """Run steps() under torch.profiler; returns (wall ms, summed device ms
     of every kernel, [(kernel name, device ms, calls)] by time)."""
@@ -654,11 +1027,17 @@ def _profile_engine(name, eng, cfg):
     for _ in range(2):                                   # warm-up
         eng.step()
     torch.cuda.synchronize()
+    before = _launch_counts()
     t0 = time.perf_counter()
     for _ in range(20):
         eng.step()
     torch.cuda.synchronize()
     out["decode_step_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    out["launches_per_decode_step"] = {
+        k: (n - before[k]) / 20 for k, n in _launch_counts().items()
+        if n > before[k]}
+    log(f"[profile] {name} launches per decode step: "
+        f"{out['launches_per_decode_step']}")
     log(f"[profile] {name} decode step, 4 active slots: "
         f"{out['decode_step_ms']:.2f} ms (wall, 20 steps)")
     report("decode", 10, _kernel_profile(
@@ -668,7 +1047,8 @@ def _profile_engine(name, eng, cfg):
 
 def phase_profile(rec):
     """The serve phase's model in Engine (flat bf16 cache) and in
-    PagedEngine (fp8 pool, page size 16), 4 slots each (_profile_engine).
+    PagedEngine (fp8 pool, page size 16), and serve_moe's Mixtral in its
+    Engine, 4 slots each (_profile_engine).
     Device idle share = 1 - (summed kernel time) / wall."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b()
@@ -680,6 +1060,13 @@ def phase_profile(rec):
         "fp8 PagedEngine", serving.PagedEngine(params, cfg, max_batch=4,
                                                page_size=16,
                                                cache_dtype=FP8), cfg)
+    gc.collect()
+    mcfg = MIXTRAL_8X7B
+    mparams, _ = _moe_model(mcfg, dev)
+    out["mixtral"] = _profile_engine(
+        "Mixtral Engine", serving.Engine(
+            mparams, mcfg, max_batch=4,
+            forward_fn=moe.make_engine_forward(mcfg)), mcfg)
     rec["profile"] = out
 
 
@@ -705,14 +1092,14 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(args.record) or ".", exist_ok=True)
         with open(args.record, "w") as f:
             json.dump(rec, f, indent=1)
-    if "kernels" in rec and "serve" in rec and "serve_kv" in rec:
+    if all(p in rec for p in ("kernels", "serve", "serve_kv", "serve_moe")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],
                  launches=rec["launches"][name],
-                 max_abs_err=rec["kernels"][name]["max_abs_err"],
-                 ms=rec["kernels"][name]["ms"],
-                 plain_ms=rec["kernels"][name]["plain_ms"])
+                 **{key: rec["kernels"][name][key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")})
             for name, info in KERNELS.items()]}))
     print(rec["device"]["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,12 @@ through either. Public surface, the reference library's 7-function API:
     DataType, PetitSolutionHints       enums / hints
 
 plus the pow2 and zero-free entries and `models` (Llama with flat bf16 or
-headed fp8 KV caches, paged KV, serving Engine and PagedEngine).
-Every function returns torch tensors on the device of its input. CUDA
+headed fp8 KV caches, paged KV, serving Engine and PagedEngine, and
+Mixtral-8x7B MoE, whose experts run one grouped FP4 GEMM launch per
+projection: `Engine(params, cfg, forward_fn=moe.make_engine_forward(cfg))`).
+Every function returns torch tensors on the device of its input; the
+entry points that build state (init_params, init_cache, the converters)
+build on the CUDA card unless asked for the CPU. CUDA
 kernels build on first use (ops/_build.py); on CPU tensors each kernel's
 plain PyTorch twin runs instead. This package never imports JAX.
 """

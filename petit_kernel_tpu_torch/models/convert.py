@@ -13,6 +13,11 @@ tensors:
   uint32 packed words -> torch.int32 with the same bits
   every other numpy dtype -> the matching torch dtype
 
+The tensors land on `device`, by default the CUDA card; without a card
+each function raises unless the caller passes device="cpu". A Mixtral
+tree (models/moe.py) converts as it is: stacked expert words (E, kp/8, n)
+become int32, their scales stay bf16 and their global scales (E,) f32.
+
 This module imports neither JAX nor ml_dtypes: bfloat16 and float8 arrays
 are read through integer views of their bytes.
 """
@@ -22,9 +27,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .llama import resolve_device
+
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
-    """One leaf: numpy array (or scalar) -> torch tensor, same bits."""
+    """One leaf: numpy array (or scalar) -> torch tensor on `device`
+    (default the CUDA card), same bits."""
+    device = resolve_device(device)
     a = np.array(a)            # an owned, writable, contiguous copy
     if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -34,11 +43,13 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.int32))
     else:
         t = torch.from_numpy(a)
-    return t if device is None else t.to(device)
+    return t.to(device)
 
 
 def params_from_jax(tree, device=None):
-    """JAX params tree (numpy leaves) -> the port's params tree."""
+    """JAX params tree (numpy leaves) -> the port's params tree on `device`
+    (default the CUDA card)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -50,6 +61,7 @@ def kv_from_jax(pairs, device=None) -> list:
     """A JAX KV cache or page pool, a list of per-layer (k, v) numpy
     arrays, -> the port's list of (k, v) tensors, same shapes and bits.
     (A JAX headed fp8 cache carries its S axis padded to a multiple of 256;
-    the port attends it as it is.)"""
+    the port attends it as it is.) On `device`, default the CUDA card."""
+    device = resolve_device(device)
     return [(tensor_from_numpy(k, device), tensor_from_numpy(v, device))
             for k, v in pairs]

@@ -130,45 +130,72 @@ def linear(x: torch.Tensor, layer: dict, *, fmt: str = "nvfp4"
 # Model
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> dict:
-    """Random dense bf16 params from `generator` (on `device`), in the JAX
-    package's tree and scales: normal * 1/sqrt(k) projections, normal * 0.02
-    embedding, lm_head and biases, unit norms."""
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: `device` when given, else the
+    CUDA card. Without a card and without an explicit device it raises:
+    the port's entry points never fall back to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (or a CPU "
+                           "generator) to build on the CPU")
+    return torch.device("cuda")
+
+
+def normal(generator: torch.Generator, shape, scale: float) -> torch.Tensor:
+    """bf16(normal * scale) from `generator`, on its device."""
+    t = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return (t * scale).to(torch.bfloat16)
+
+
+def _dense(generator, k, n, scale=None, bias=False) -> dict:
+    out = {"w": normal(generator, (k, n), scale or 1.0 / math.sqrt(k))}
+    if bias:
+        out["b"] = normal(generator, (n,), 0.02)
+    return out
+
+
+def init_layer(cfg: LlamaConfig, generator: torch.Generator, *,
+               mlp: bool = True) -> dict:
+    """One decoder layer of init_params' tree: unit norms, attention
+    projections (normal * 1/sqrt(k), biases normal * 0.02) and, with mlp,
+    the SwiGLU projections."""
     h, q = cfg.hidden_size, cfg.num_heads * cfg.head_dim
     kv = cfg.num_kv_heads * cfg.head_dim
     f = cfg.intermediate_size
-
-    def normal(shape, scale):
-        t = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (t * scale).to(torch.bfloat16)
-
-    def dense(k, n, scale=None, bias=False):
-        out = {"w": normal((k, n), scale or 1.0 / math.sqrt(k))}
-        if bias:
-            out["b"] = normal((n,), 0.02)
-        return out
+    g = generator
 
     def ones():
-        return torch.ones((h,), dtype=torch.bfloat16, device=device)
+        return torch.ones((h,), dtype=torch.bfloat16, device=g.device)
 
-    layers = [{
+    lp = {
         "attn_norm": ones(),
-        "wq": dense(h, q, bias=cfg.attn_bias),
-        "wk": dense(h, kv, bias=cfg.attn_bias),
-        "wv": dense(h, kv, bias=cfg.attn_bias),
-        "wo": dense(q, h),
+        "wq": _dense(g, h, q, bias=cfg.attn_bias),
+        "wk": _dense(g, h, kv, bias=cfg.attn_bias),
+        "wv": _dense(g, h, kv, bias=cfg.attn_bias),
+        "wo": _dense(g, q, h),
         "mlp_norm": ones(),
-        "w_gate": dense(h, f),
-        "w_up": dense(h, f),
-        "w_down": dense(f, h),
-    } for _ in range(cfg.num_layers)]
+    }
+    if mlp:
+        lp.update(w_gate=_dense(g, h, f), w_up=_dense(g, h, f),
+                  w_down=_dense(g, f, h))
+    return lp
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator) -> dict:
+    """Random dense bf16 params from `generator`, on the generator's device
+    (a CPU generator asks for the CPU), in the JAX package's tree and
+    scales: init_layer's layers, normal * 0.02 embedding and lm_head, unit
+    final norm."""
+    layers = [init_layer(cfg, generator) for _ in range(cfg.num_layers)]
+    h = cfg.hidden_size
     return {
-        "embed": normal((cfg.vocab_size, h), 0.02),
+        "embed": normal(generator, (cfg.vocab_size, h), 0.02),
         "layers": layers,
-        "final_norm": ones(),
-        "lm_head": dense(h, cfg.vocab_size, scale=0.02),
+        "final_norm": torch.ones((h,), dtype=torch.bfloat16,
+                                 device=generator.device),
+        "lm_head": _dense(generator, h, cfg.vocab_size, scale=0.02),
     }
 
 
@@ -373,7 +400,8 @@ def forward(params, tokens, cfg: LlamaConfig, cache=None, pos=None, *,
 
 def init_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
                headed: Optional[bool] = None, device=None):
-    """KV cache per layer, zeros on `device`. dtype bf16 or
+    """KV cache per layer, zeros on `device` (default the CUDA card;
+    resolve_device raises without one). dtype bf16 or
     torch.float8_e4m3fn (half the bytes). fp8 defaults to the headed
     (B, Hkv, S, d) layout, bf16 to flat (B, S, Hkv, d), as in the JAX
     package; headed= overrides. S is cfg.max_seq_len: the JAX package's pad
@@ -389,6 +417,7 @@ def init_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
                          f"(both are {S}); pad max_seq_len")
     shape = ((batch, cfg.num_kv_heads, S, cfg.head_dim) if headed
              else (batch, S, cfg.num_kv_heads, cfg.head_dim))
+    device = resolve_device(device)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.num_layers)]

@@ -67,7 +67,8 @@ class PagedKVCache:
 def init_paged_cache(cfg: llama.LlamaConfig, batch: int, *,
                      page_size: int = 256, num_pages: Optional[int] = None,
                      dtype=torch.bfloat16, device=None) -> PagedKVCache:
-    """Zeroed pools on `device`. page_size is clamped to max_seq_len, which
+    """Zeroed pools on `device` (default the CUDA card; raises without
+    one, llama.resolve_device). page_size is clamped to max_seq_len, which
     it must divide; num_pages defaults to every slot at max_seq_len."""
     page_size = min(page_size, cfg.max_seq_len)
     if cfg.max_seq_len % page_size:
@@ -77,6 +78,7 @@ def init_paged_cache(cfg: llama.LlamaConfig, batch: int, *,
     if num_pages is None:
         num_pages = batch * max_pages
     shape = (num_pages + 1, cfg.num_kv_heads, page_size, cfg.head_dim)
+    device = llama.resolve_device(device)
     pages = [(torch.zeros(shape, dtype=dtype, device=device),
               torch.zeros(shape, dtype=dtype, device=device))
              for _ in range(cfg.num_layers)]

@@ -8,13 +8,16 @@ place. Scheduling state lives on the host, as numpy arrays: slots,
 per-slot positions, the chunked-prefill queue. Sampled tokens are read
 back to the host once per step.
 
-Not ported yet: step_block and the pipelined block drain, SpecEngine,
-custom forward_fn, prefill_fmt and score_forward.
+Engine takes a custom forward_fn (models/moe.make_engine_forward serves
+Mixtral through it) and a cache built by the caller. Not ported yet:
+step_block and the pipelined block drain, SpecEngine, prefill_fmt and
+score_forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -79,19 +82,43 @@ class Engine:
 
     def __init__(self, params, cfg: llama.LlamaConfig, *, max_batch: int = 8,
                  fmt: str = "nvfp4", cache_dtype=torch.bfloat16,
+                 forward_fn=None, cache=None,
                  top_k: int = 0, seed: int = 0,
                  prefill_fmt: Optional[str] = None,
                  prefill_chunk: Optional[int] = None):
         """The engine runs on the device its params lie on, with a KV cache
-        (llama.init_cache) of max_batch slots: flat bf16, or headed fp8 for
-        cache_dtype=torch.float8_e4m3fn. Sampling: per-request temperature
-        (Request.temperature, 0 = greedy) with an engine-wide top_k; the
-        noise comes from a torch.Generator on the engine's device seeded
-        with `seed`. A prefill_fmt other than fmt (the JAX package's w4a8
-        prefill) is not ported and raises NotImplementedError."""
-        if prefill_fmt not in (None, fmt):
-            raise NotImplementedError(f"prefill_fmt={prefill_fmt!r} is not "
-                                      "ported yet")
+        of max_batch slots: `cache` when given, else llama.init_cache on
+        that device, flat bf16 or headed fp8 for
+        cache_dtype=torch.float8_e4m3fn. forward_fn(params, tokens (B, T),
+        cache, pos (B, T), kv_window=, write_mask=) -> (logits, cache)
+        replaces llama.forward for prefill, batched admission and decode
+        (moe.make_engine_forward); one without kv_window and write_mask
+        raises NotImplementedError (the JAX engine's fallback for them
+        serves tensor-parallel steps, which are not ported). Sampling:
+        per-request temperature (Request.temperature, 0 = greedy) with an
+        engine-wide top_k; the noise comes from a torch.Generator on the
+        engine's device seeded with `seed`. A prefill_fmt other than fmt
+        (the JAX package's w4a8 prefill) is not ported and raises
+        NotImplementedError; with forward_fn it is ignored, as in the JAX
+        package."""
+        if forward_fn is None:
+            if prefill_fmt not in (None, fmt):
+                raise NotImplementedError(f"prefill_fmt={prefill_fmt!r} is "
+                                          "not ported yet")
+
+            def forward_fn(p, toks, cache_, pos, kv_window=None,
+                           write_mask=None):
+                return llama.forward(p, toks, cfg, cache_, pos, fmt=fmt,
+                                     kv_window=kv_window,
+                                     write_mask=write_mask)
+        else:
+            params_ = inspect.signature(forward_fn).parameters
+            if not {"kv_window", "write_mask"} <= set(params_):
+                raise NotImplementedError(
+                    "forward_fn must take kv_window= and write_mask=: the "
+                    "fallback without them serves tensor-parallel steps, "
+                    "which are not ported")
+        self._forward_fn = forward_fn
         self.params = params
         self.cfg = cfg
         self.B = max_batch
@@ -102,7 +129,10 @@ class Engine:
         self.top_k = top_k
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self._init_cache(cache_dtype)
+        if cache is not None:
+            self.cache = cache
+        else:
+            self._init_cache(cache_dtype)
         self.pos = np.zeros(max_batch, np.int32)       # next position
         self.active = np.zeros(max_batch, bool)
         self.last_tok = np.zeros(max_batch, np.int32)
@@ -120,9 +150,8 @@ class Engine:
         return torch.as_tensor(a).to(self.device)
 
     def _forward(self, toks, cache, pos, kv_window=None, write_mask=None):
-        return llama.forward(self.params, toks, self.cfg, cache, pos,
-                             fmt=self.fmt, kv_window=kv_window,
-                             write_mask=write_mask)
+        return self._forward_fn(self.params, toks, cache, pos,
+                                kv_window=kv_window, write_mask=write_mask)
 
     # -- scheduling ---------------------------------------------------------
 

@@ -44,6 +44,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # a, words, scales, gs, out, m, n, k, kp, block_m, block_n, stream
     "pk_fp4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # xs, words, scales, gs, out, E, cap, n, k, kp, block_m, block_n, stream
+    "pk_grouped_fp4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P),
     # q, ck, cv, pos, out, B, H, Hkv, S, d, window, sm_scale, stream
     "pk_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P),

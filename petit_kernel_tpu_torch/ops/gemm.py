@@ -58,6 +58,28 @@ def resolve_solution(m: int, n: int, k: int, element_b: ElementB,
     return sid
 
 
+def resolve_grouped_solution(cap: int, n: int, k: int, element_b: ElementB,
+                             solution_id: int = -1) -> SolutionId:
+    """The tile of the grouped (MoE expert) kernel for the per-expert
+    problem (cap, n, k): an explicit SolutionId.repr() must decode, match
+    element_b and be feasible, or ValueError; -1 takes the heuristic at
+    m = cap. (The JAX package's tuned-table lookup and weight_cache check,
+    gemm.py:128-162, have no counterpart: the port has neither.)"""
+    if solution_id is not None and solution_id >= 0:
+        try:
+            sid = SolutionId.from_repr(solution_id)
+        except ValueError as e:
+            raise ValueError(f"solution id {solution_id}: {e}") from None
+        if sid.element_b != element_b:
+            raise ValueError(f"solution {sid} element_b mismatch "
+                             f"(want {element_b})")
+        if not solution_mod.is_feasible(sid, cap, n, k):
+            raise ValueError(f"solution {sid} infeasible for cap={cap} n={n} "
+                             f"k={k} (kErrorKernelShape)")
+        return sid
+    return solution_mod.choose_default_solution(cap, n, k, element_b)
+
+
 def _validate_and_prepare(a, b, s, m, n, k, group: int):
     """The JAX package's error contract (gemm.py:165-192): ValueError for a
     wrong shape or dtype. Returns (a, b as int32, s)."""

@@ -154,7 +154,7 @@ def _kv_pair(rng, shape, dtype, subnormals=False, scale=1.0):
         x = np.where(np.abs(x) < _F8_MIN_NORMAL,
                      np.copysign(_F8_MIN_NORMAL, x), x)
     x = x.astype(ml_dtypes.float8_e4m3fn)
-    return jnp.asarray(x), convert.tensor_from_numpy(x)
+    return jnp.asarray(x), convert.tensor_from_numpy(x, device="cpu")
 
 
 def _pool_setup(rng, dtype, B=2, hkv=2, h=8, d=64, ps=16, P=9,
@@ -285,7 +285,8 @@ def test_kv_append_headed_bit_exact_vs_jax_kernel(dtype, mask):
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
                 else (jnp.float8_e4m3fn, torch.float8_e4m3fn))
     (jk, jv), = jllama.init_cache(cfg, B, jdt, headed=True)
-    (tk, tv), = tllama.init_cache(cfg, B, tdt, headed=True)
+    (tk, tv), = tllama.init_cache(cfg, B, tdt, headed=True,
+                                   device="cpu")
     assert tuple(tk.shape) == (B, hkv, S, d) and jk.shape[2] >= S
     rng = np.random.default_rng(16)
     caches = []
@@ -297,7 +298,8 @@ def test_kv_append_headed_bit_exact_vs_jax_kernel(dtype, mask):
         raw = np.where((raw & nan) == nan, 0, raw).astype(raw.dtype)
         caches.append(raw.view(np.asarray(jc).dtype))
     jk, jv = (jnp.asarray(c) for c in caches)
-    tk, tv = (convert.tensor_from_numpy(c[:, :, :S]) for c in caches)
+    tk, tv = (convert.tensor_from_numpy(c[:, :, :S], device="cpu")
+              for c in caches)
     knj, knt = _bf16_pair(rng, (B, hkv, d))
     vnj, vnt = _bf16_pair(rng, (B, hkv, d))
     pos = np.array([0, 77, S - 1], np.int32)

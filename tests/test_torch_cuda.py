@@ -6,8 +6,10 @@ host it runs on its own, without tests/conftest.py's JAX set-up:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the GEMM at rtol 2^-7 with atol 2^-8 * max|ref| (both sum
-exact bf16 products in f32, in other orders, then round once to bf16);
+Tolerances: the GEMM and the grouped expert GEMM at rtol 2^-7 with atol
+2^-8 * max|ref| (both sum exact bf16 products in f32, in other orders,
+then round once to bf16), the grouped GEMM also bit for bit against
+fused_mul on each expert at the same tile;
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
 convert fp8 exactly); the KV appends bit-exact.
 """
@@ -17,10 +19,12 @@ import math
 import pytest
 import torch
 
+from petit_kernel_tpu_torch.models import llama as tllama
+from petit_kernel_tpu_torch.models import moe as tmoe
 from petit_kernel_tpu_torch.numerics import reference as qref
 from petit_kernel_tpu_torch.ops import layout
 from petit_kernel_tpu_torch.ops import solution as sol
-from petit_kernel_tpu_torch.ops.kernels import attention, fused
+from petit_kernel_tpu_torch.ops.kernels import attention, fused, grouped
 
 pytestmark = pytest.mark.cuda
 
@@ -209,3 +213,35 @@ def test_kv_append_headed_kernel_bit_exact(gen, dtype):
     for got, want in ((k1, k2), (v1, v2)):
         assert torch.equal(attention._bits(got), attention._bits(want))
     assert torch.equal(attention._bits(k1[1]), attention._bits(k[1]))
+
+
+@pytest.mark.parametrize("fmt", ["mxfp4", "nvfp4"])
+@pytest.mark.parametrize("cap", [8, 128])
+def test_grouped_kernel_matches_twin_and_fused_mul(gen, fmt, cap):
+    """E=4 experts, a k padded past itself (640) and a ragged n (336)."""
+    E, k, n = 4, 640, 336
+    eb = sol.ElementB.MXFP4 if fmt == "mxfp4" else sol.ElementB.NVFP4
+    w = torch.randn((E, k, n), generator=gen, device="cuda") / math.sqrt(k)
+    ex = tmoe.quantize_moe_linear(w, fmt)
+    xs = _bf16(gen, E, cap, k)
+    xs[1, cap // 2:] = 0                 # an expert's empty bucket slots
+    sid = sol.choose_default_solution(cap, n, k, eb)
+    before = grouped.grouped_mul.launches
+    got = grouped.grouped_mul(xs, ex["words"], ex["scales"], ex["gs"],
+                              sid=sid)
+    assert grouped.grouped_mul.launches == before + 1
+    want = grouped.grouped_mul_reference(xs, ex["words"], ex["scales"],
+                                         ex["gs"], sid=sid)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=2 ** -7,
+        atol=2 ** -8 * want.float().abs().max().item())
+    for e in range(E):
+        one = fused.fused_mul(xs[e], ex["words"][e], ex["scales"][e],
+                              ex["gs"][e:e + 1], sid=sid)
+        assert torch.equal(one.view(torch.int16), got[e].view(torch.int16))
+
+
+def test_init_cache_defaults_to_the_card(gen):
+    del gen
+    cache = tllama.init_cache(tllama.LlamaConfig.tiny(), 2)
+    assert cache[0][0].device.type == "cuda"

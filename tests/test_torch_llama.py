@@ -16,6 +16,7 @@ import torch
 from petit_kernel_tpu.models import llama as jllama
 from petit_kernel_tpu_torch.models import convert
 from petit_kernel_tpu_torch.models import llama as tllama
+from petit_kernel_tpu_torch.models import paged as tpaged
 
 # xdist workers share the host's cores: one torch thread each keeps
 # the port's CPU ops from oversubscribing them
@@ -61,9 +62,9 @@ def _assert_same_bits(t_tree, j_tree, path="params"):
 def test_params_from_jax_is_bit_identical(tiny):
     cfg, dense, quant = tiny
     for tree in (dense, quant):
-        t = convert.params_from_jax(_numpy_tree(tree))
+        t = convert.params_from_jax(_numpy_tree(tree), device="cpu")
         _assert_same_bits(t, _numpy_tree(tree))
-    t = convert.params_from_jax(_numpy_tree(quant))
+    t = convert.params_from_jax(_numpy_tree(quant), device="cpu")
     lp = t["layers"][0]
     assert lp["wqkv"]["words"].dtype == torch.int32
     assert lp["wqkv"]["scales"].dtype == torch.bfloat16
@@ -77,7 +78,7 @@ def test_quantize_params_matches_jax(tiny, fmt):
     cfg, dense, _ = tiny
     want = jllama.quantize_params(dense, fmt)
     got = tllama.quantize_params(
-        convert.params_from_jax(_numpy_tree(dense)), fmt)
+        convert.params_from_jax(_numpy_tree(dense), device="cpu"), fmt)
     _assert_same_bits(got, _numpy_tree(want))
 
 
@@ -94,13 +95,13 @@ def test_forward_cached_prefill_then_decode_matches_jax(tiny):
     through the flash-prefill / decode-attention / kv-append twins and the
     GEMM twin, against the JAX forward (Pallas kernels in interpret mode)."""
     cfg, _, quant = tiny
-    tparams = convert.params_from_jax(_numpy_tree(quant))
+    tparams = convert.params_from_jax(_numpy_tree(quant), device="cpu")
     B, T = 2, 16
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, size=(B, T)).astype(np.int32)
     steps = rng.integers(0, cfg.vocab_size, size=(3, B)).astype(np.int32)
     jcache = jllama.init_cache(cfg, B)
-    tcache = tllama.init_cache(cfg, B)
+    tcache = tllama.init_cache(cfg, B, device="cpu")
     pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T))
     lj, jcache = jllama.forward(quant, jnp.asarray(toks), cfg, jcache,
                                 jnp.asarray(pos), kv_window=128)
@@ -120,7 +121,7 @@ def test_forward_cached_prefill_then_decode_matches_jax(tiny):
 def test_forward_without_cache_matches_jax(tiny):
     """The full-sequence path (masked softmax, no cache), dense weights."""
     cfg, dense, _ = tiny
-    tparams = convert.params_from_jax(_numpy_tree(dense))
+    tparams = convert.params_from_jax(_numpy_tree(dense), device="cpu")
     toks = np.random.default_rng(6).integers(0, cfg.vocab_size, size=(1, 12))
     lj, _ = jllama.forward(dense, jnp.asarray(toks, jnp.int32), cfg)
     lt, _ = tllama.forward(tparams, torch.from_numpy(toks), cfg)
@@ -131,7 +132,7 @@ def test_forward_with_cache_requires_kv_window():
     """A cached forward runs only the kernel path, so it needs kv_window."""
     cfg = tllama.LlamaConfig.tiny()
     params = tllama.init_params(cfg, torch.Generator().manual_seed(0))
-    cache = tllama.init_cache(cfg, 1)
+    cache = tllama.init_cache(cfg, 1, device="cpu")
     with pytest.raises(ValueError, match="kv_window"):
         tllama.forward(params, torch.zeros((1, 1), dtype=torch.int64), cfg,
                        cache, torch.zeros((1, 1), dtype=torch.int64))
@@ -152,8 +153,36 @@ def test_init_params_and_cache_shapes():
     p = tllama.init_params(cfg, torch.Generator().manual_seed(0))
     assert p["layers"][0]["wq"]["w"].shape == (256, 256)
     assert p["embed"].dtype == torch.bfloat16
-    cache = tllama.init_cache(cfg, 3)
+    assert p["embed"].device.type == "cpu"      # the generator's device
+    cache = tllama.init_cache(cfg, 3, device="cpu")
     assert len(cache) == cfg.num_layers
     assert tuple(cache[0][0].shape) == (3, 128, 2, 64)
     assert cache[0][0].dtype == torch.bfloat16
     assert not tllama.cache_is_headed(cache[0][0], cfg)
+
+
+_ENTRY_POINTS = {
+    "init_cache": lambda cfg: tllama.init_cache(cfg, 1)[0][0],
+    "init_paged_cache": lambda cfg: tpaged.init_paged_cache(
+        cfg, 1, page_size=64).pages[0][0],
+    "params_from_jax": lambda cfg: convert.params_from_jax(
+        {"embed": np.zeros((4, 8), np.float32)})["embed"],
+    "kv_from_jax": lambda cfg: convert.kv_from_jax(
+        [(np.zeros((1, 4), np.float32), np.zeros((1, 4), np.float32))])[0][0],
+    "tensor_from_numpy": lambda cfg: convert.tensor_from_numpy(
+        np.zeros(3, np.uint32)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_entry_points_build_on_the_card_unless_asked(entry):
+    """Called without a device, each entry point builds on the CUDA card;
+    on a host without one it raises instead of handing back CPU tensors.
+    (init_params takes its generator's device: test_init_params_and_cache
+    asks for the CPU with a CPU generator.)"""
+    cfg = tllama.LlamaConfig.tiny(num_layers=1)
+    if torch.cuda.is_available():
+        assert _ENTRY_POINTS[entry](cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _ENTRY_POINTS[entry](cfg)

@@ -41,7 +41,8 @@ def models():
     cfg = jllama.LlamaConfig.tiny()
     quant = jllama.quantize_params(
         jllama.init_params(cfg, jax.random.PRNGKey(1)), "nvfp4")
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, quant))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, quant),
+                                      device="cpu")
     return cfg, tllama.LlamaConfig.tiny(), quant, tparams
 
 
@@ -66,7 +67,8 @@ def _pair_caches(cfg, tcfg, B, dtype, page_size=16):
     so its pages are not in order."""
     jdt, tdt = DTYPES[dtype]
     jpc = jpaged.init_paged_cache(cfg, B, page_size=page_size, dtype=jdt)
-    tpc = tpaged.init_paged_cache(tcfg, B, page_size=page_size, dtype=tdt)
+    tpc = tpaged.init_paged_cache(tcfg, B, page_size=page_size, dtype=tdt,
+                                  device="cpu")
     for mod, pc in ((jpaged, jpc), (tpaged, tpc)):
         mod.ensure_capacity(pc, 0, 3 * page_size)
         mod.release_slot(pc, 0)
@@ -99,7 +101,8 @@ def test_write_kv_bytes_match_jax(models, dtype, T, mask):
                             *(jnp.asarray(x) for x in new), jnp.asarray(pos),
                             16, write_mask=jm)
     tpaged._write_kv(tpc.pages[0], tpc.block_tables,
-                     *(convert.tensor_from_numpy(x) for x in new),
+                     *(convert.tensor_from_numpy(x, device="cpu")
+                       for x in new),
                      torch.from_numpy(pos), 16, write_mask=tm)
     keep = slice(None) if T == 1 or mask is None else slice(0, -1)
     for got, w in zip(tpc.pages[0], want):
@@ -160,7 +163,7 @@ def test_forward_headed_cache_matches_jax(models, dtype):
     toks = rng.integers(0, cfg.vocab_size, size=(B, T)).astype(np.int32)
     steps = rng.integers(0, cfg.vocab_size, size=(2, B)).astype(np.int32)
     jcache = jllama.init_cache(cfg, B, jdt, headed=True)
-    tcache = tllama.init_cache(tcfg, B, tdt, headed=True)
+    tcache = tllama.init_cache(tcfg, B, tdt, headed=True, device="cpu")
     assert tllama.cache_is_headed(tcache[0][0], tcfg)
     pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
     lj, jcache = jllama.forward(quant, jnp.asarray(toks), cfg, jcache,
@@ -252,7 +255,8 @@ def test_allocator_reuse_exhaustion_and_table_limit(models):
     max_pages (the JAX table update drops such a write silently), and the
     scratch page is never handed out."""
     _, tcfg, _, _ = models
-    pc = tpaged.init_paged_cache(tcfg, batch=2, page_size=16, num_pages=4)
+    pc = tpaged.init_paged_cache(tcfg, batch=2, page_size=16, num_pages=4,
+                                 device="cpu")
     assert pc.max_pages == 8 and pc.scratch_page == 4
     assert tuple(pc.pages[0][0].shape) == (5, 2, 16, 64)
     tpaged.ensure_capacity(pc, 0, 33)   # 3 pages
@@ -267,7 +271,8 @@ def test_allocator_reuse_exhaustion_and_table_limit(models):
     tpaged.ensure_capacity(pc, 1, 33)   # reuses freed pages
     assert len(pc.used[1]) == 3
     assert pc.scratch_page not in pc.used[1] + pc.free
-    big = tpaged.init_paged_cache(tcfg, batch=1, page_size=16, num_pages=20)
+    big = tpaged.init_paged_cache(tcfg, batch=1, page_size=16, num_pages=20,
+                                  device="cpu")
     tpaged.ensure_capacity(big, 0, tcfg.max_seq_len)      # 8 pages: fits
     with pytest.raises(ValueError, match="block table"):
         tpaged.ensure_capacity(big, 0, tcfg.max_seq_len + 1)
@@ -310,7 +315,7 @@ def test_convert_carries_fp8_state_bit_for_bit(models):
     every byte comes back."""
     cfg, tcfg, _, _ = models
     every = np.arange(256, dtype=np.uint8).view(ml_dtypes.float8_e4m3fn)
-    t = convert.tensor_from_numpy(every)
+    t = convert.tensor_from_numpy(every, device="cpu")
     assert t.dtype == torch.float8_e4m3fn
     np.testing.assert_array_equal(t.view(torch.uint8).numpy(),
                                   np.arange(256, dtype=np.uint8))
@@ -323,7 +328,7 @@ def test_convert_carries_fp8_state_bit_for_bit(models):
     jcache = [tuple(np.asarray(x) for x in kv)
               for kv in jllama.init_cache(cfg, 2, jnp.float8_e4m3fn)]
     for state in (pool, jcache):
-        got = convert.kv_from_jax(state)
+        got = convert.kv_from_jax(state, device="cpu")
         assert len(got) == len(state) == cfg.num_layers
         for (tk, tv), (nk, nv) in zip(got, state):
             for a, b in ((tk, nk), (tv, nv)):
@@ -338,15 +343,15 @@ def test_init_cache_layouts():
     package's pad of S to 256; bf16 stays flat; a headed cache whose S
     equals Hkv, which cache_is_headed could not tell from flat, raises."""
     cfg = tllama.LlamaConfig.tiny(num_layers=1)
-    (k8, v8), = tllama.init_cache(cfg, 2, torch.float8_e4m3fn)
+    (k8, v8), = tllama.init_cache(cfg, 2, torch.float8_e4m3fn, device="cpu")
     assert tuple(k8.shape) == (2, 2, 128, 64) == tuple(v8.shape)
     assert k8.dtype == torch.float8_e4m3fn
     assert tllama.cache_is_headed(k8, cfg)
-    (kb, _), = tllama.init_cache(cfg, 2)
+    (kb, _), = tllama.init_cache(cfg, 2, device="cpu")
     assert tuple(kb.shape) == (2, 128, 2, 64)
     assert not tllama.cache_is_headed(kb, cfg)
-    (kh, _), = tllama.init_cache(cfg, 2, headed=True)
+    (kh, _), = tllama.init_cache(cfg, 2, headed=True, device="cpu")
     assert kh.dtype == torch.bfloat16 and tllama.cache_is_headed(kh, cfg)
     with pytest.raises(ValueError, match="num_kv_heads"):
         tllama.init_cache(tllama.LlamaConfig.tiny(max_seq_len=2), 1,
-                          torch.float8_e4m3fn)
+                          torch.float8_e4m3fn, device="cpu")

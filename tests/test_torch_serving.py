@@ -38,7 +38,8 @@ def models():
     cfg = jllama.LlamaConfig.tiny()
     quant = jllama.quantize_params(
         jllama.init_params(cfg, jax.random.PRNGKey(1)), "nvfp4")
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, quant))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, quant),
+                                      device="cpu")
     return cfg, quant, tparams
 
 
