@@ -9,19 +9,26 @@ Phases (any failure raises and the script exits non-zero):
   2 build    compile csrc/*.cu through ops/_build.py, print the seconds
   3 kernels  each kernel against its plain PyTorch twin on the card, at the
              Llama-3-8B serving shapes (headed kernels at page sizes 16
-             and 256, bf16 and fp8 K/V) and, for the grouped expert GEMM,
+             and 256, bf16 and fp8 K/V; the W4A8 GEMM and both weight-cache
+             GEMMs at prefill, m = 512 and 2048, bit for bit against their
+             twin and their non-cache counterparts, with a sweep of m
+             against fp4_gemm) and, for the grouped expert GEMM,
              Mixtral-8x7B's expert shapes (E=8, cap 8 and 128, mxfp4 and
              nvfp4, also bit for bit against fused_mul per expert), with
              CUDA-event times of the kernel, its twin and one PyTorch
              library call for the same work where there is one, and each
-             call's bound (bytes over 3.35 TB/s or operations over 989
-             TFLOP/s, whichever is larger)
+             call's bound (bytes over 3.35 TB/s or operations over the
+             peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s int8,
+             whichever is larger)
   4 parity   a 2-layer Llama-3-8B-width model and a 1-layer
              Mixtral-8x7B-width model: one prefill chunk and one decode
              step on the card (kernels) against the same model on the CPU
              (plain twins), Llama over the flat bf16 cache and over an fp8
              page pool (forward_paged, page size 16), Mixtral over the flat
-             bf16 cache; logits within 2^-5 * max|logits|
+             bf16 cache; logits within 2^-5 * max|logits|; and one
+             256-token W4A8 prefill chunk of the Llama (fmt="w4a8"), within
+             the larger of that and W4A8's own distance from nvfp4 on the
+             CPU
   5 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
              on the card, Engine(max_batch=4) serving 8 greedy requests of
              32 new tokens over the flat bf16 cache
@@ -30,22 +37,33 @@ Phases (any failure raises and the script exits non-zero):
              PagedEngine(page_size=16, cache_dtype=float8_e4m3fn); every
              page returns to the pool; tokens/s, peak device memory and
              KV bytes of each cache beside serve's
-  7 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
+  7 serve_w4a8 serve's model and requests with W4A8 prefill:
+             Engine(max_batch=4, prefill_fmt="w4a8") over the flat bf16
+             cache and PagedEngine(page_size=16, cache_dtype=fp8,
+             prefill_fmt="w4a8"); W4A8 against exact prefill GEMM launches
+             and the share of token streams equal to those of the same
+             engine with nvfp4 prefill (serve, serve_kv); then the
+             weight-cache GEMMs through the public mul_* entries with
+             explicit solution ids (the autotuner's route) on one layer
+  8 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
              attention, random weights quantized on the card) through
              Engine(max_batch=4, forward_fn=moe.make_engine_forward(cfg))
              over the flat bf16 cache, serving the same 8 requests; prints
              the capacity drops of one 256-token chunk per layer
-  8 profile  the decode step and one 256-token prefill tick under
+  9 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16), PagedEngine (Llama,
-             fp8, page size 16) and the Mixtral Engine: kernels by device
-             time and the device's idle share (PERF.md section 5)
+             fp8, page size 16) and the Mixtral Engine, and one 512-token
+             prefill tick of the Llama Engine with nvfp4 and with W4A8
+             prefill: kernels by device time and the device's idle share
+             (PERF.md section 5)
 
-Each engine run of phases 5-7 sets every kernel's launch count to 0
-before it and fails if a kernel of its path did not launch; it also
-counts the launches inside decode steps, per decode step. The line before
-the last is the card's `nvidia-smi` name and power limit, the one before
-it a JSON object with each kernel's launches (summed over the engine runs
-of phases 5-7), max abs error, times, bound and library time (phase 3).
+Each engine run of phases 5-8 (and the weight-cache run of phase 7) sets
+every kernel's launch count to 0 before it and fails if a kernel of its
+path did not launch; it also counts the launches inside decode steps, per
+decode step. The line before the last is the card's `nvidia-smi` name and
+power limit, the one before it a JSON object with each kernel's launches
+(summed over those runs), max abs error, times, bound and library time
+(phase 3).
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 With --record PATH, every measurement (per-shape GEMM rows included) is
@@ -77,16 +95,17 @@ from petit_kernel_tpu_torch.ops import solution as solution_mod
 from petit_kernel_tpu_torch.numerics import reference as qref
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_kv",
-          "serve_moe", "profile")
+          "serve_w4a8", "serve_moe", "profile")
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 MIXTRAL_8X7B = moe.MixtralConfig.mixtral_8x7b()
 # a Mixtral-8x7B expert's projections as (k, n): w_gate and w_up, w_down
 MIXTRAL_EXPERT_KN = ((4096, 14336), (14336, 4096))
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
-# operations/s; `bound` below divides by them
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense tensor-core
+# operations/s of bf16 and of int8 operands; `bound` below divides by them
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 KERNELS = {
     "fp4_gemm": dict(route="cuda",
                      source="petit_kernel_tpu_torch/csrc/fp4_gemm.cu",
@@ -132,8 +151,21 @@ KERNELS = {
         route="cuda", source="petit_kernel_tpu_torch/csrc/grouped_fp4_gemm.cu",
         replaces="petit_kernel_tpu/ops/kernels/grouped.py:26",
         wrapper=grouped.grouped_mul),
+    "fp4_gemm_w4a8": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_gemm_w4a8.cu",
+        replaces="petit_kernel_tpu/ops/kernels/fused.py:482",
+        wrapper=fused.fused_mul_w4a8),
+    "fp4_gemm_w4a8_wc": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_gemm_w4a8.cu",
+        replaces="petit_kernel_tpu/ops/kernels/fused.py:526",
+        wrapper=fused.fused_mul_w4a8_wc),
+    "fp4_gemm_wc": dict(route="cuda",
+                        source="petit_kernel_tpu_torch/csrc/fp4_gemm.cu",
+                        replaces="petit_kernel_tpu/ops/kernels/fused.py:259",
+                        wrapper=fused.fused_mul_wc),
 }
-# the kernels each engine run of phases 5, 6 and 7 must launch
+# the kernels each engine run of phases 5-8 (and the weight-cache run of
+# phase 7) must launch
 PATHS = {
     "serve bf16 Engine": ("fp4_gemm", "decode_attention", "prefill_attention",
                           "kv_append"),
@@ -144,6 +176,13 @@ PATHS = {
     "serve_moe Mixtral Engine": ("grouped_fp4_gemm", "fp4_gemm",
                                  "decode_attention", "prefill_attention",
                                  "kv_append"),
+    "serve_w4a8 bf16 Engine": ("fp4_gemm_w4a8", "fp4_gemm",
+                               "decode_attention", "prefill_attention",
+                               "kv_append"),
+    "serve_w4a8 fp8 PagedEngine": ("fp4_gemm_w4a8", "fp4_gemm",
+                                   "paged_decode_attention",
+                                   "paged_prefill_attention"),
+    "gemm_api weight-cache ids": ("fp4_gemm_wc", "fp4_gemm_w4a8_wc"),
 }
 FP8 = torch.float8_e4m3fn
 
@@ -214,12 +253,14 @@ def _close(name, got, want, rtol, atol):
     return err.max().item()
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOP_PER_S
+          ) -> dict:
     """The least time the card could take for a call that moves `nbytes`
     (each input read once, each output written once) and does `flops`
-    operations: the larger of the two over HBM_BYTES_PER_S and
-    BF16_FLOP_PER_S, and which of the two it is."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    operations: the larger of the two over HBM_BYTES_PER_S and the peak of
+    the operands' type (BF16_FLOP_PER_S, or INT8_OP_PER_S for int8
+    products), and which of the two it is."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / ops_per_s
     return dict(bound_ms=max(t_b, t_f) * 1e3,
                 bound_by="bytes" if t_b >= t_f else "operations")
 
@@ -419,6 +460,7 @@ def phase_kernels(rec):
     _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask)
     del ck, cv, ck1, cv1, ck2, cv2
     _grouped_kernels(res, rows, gen)
+    _w4a8_kernels(rec, res, rows, gen)
     rec["kernel_rows"] = rows
     rec["kernels"] = res
 
@@ -610,6 +652,208 @@ def _grouped_kernels(res, rows, gen):
            "w_down; library: torch.bmm on the dequantized bf16 experts")
 
 
+def _w4a8_launch(entry, a_i8, arow, words, r_t, acol, gs, out, sid):
+    """One bare launch of a W4A8 kernel on activations quantized
+    beforehand: the kernel's own time, without fused_mul_w4a8's torch
+    glue, and not counted as a launch of the path."""
+    m, k = a_i8.shape
+    code = getattr(_build.library(), entry)(
+        a_i8.data_ptr(), arow.data_ptr(), words.data_ptr(), r_t.data_ptr(),
+        acol.data_ptr(), gs.data_ptr(), out.data_ptr(), m, words.shape[1], k,
+        words.shape[0] * 8, sid.block_m, sid.block_n,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(entry, code)
+
+
+def _int_mm_col(a_i8, b_i8):
+    """torch._int_mm with B column-major (cuBLASLt's int8 layout), or None
+    where this torch refuses the shapes."""
+    b_col = b_i8.t().contiguous().t()
+    try:
+        torch._int_mm(a_i8, b_col)
+    except RuntimeError as e:
+        log(f"[kernels] torch._int_mm refused {tuple(a_i8.shape)} x "
+            f"{tuple(b_i8.shape)}: {str(e).splitlines()[0]}")
+        return None
+    return lambda: torch._int_mm(a_i8, b_col)
+
+
+_W4A8_ROWS = ("fp4_gemm_w4a8", "fp4_gemm_w4a8_wc", "fp4_gemm_wc")
+
+
+def _w4a8_kernels(rec, res, rows, gen):
+    """The W4A8 GEMM (A), its weight-cache variant (B) and the bf16
+    weight-cache GEMM (C) at prefill: the four Llama-3-8B projections at
+    m = 512 and 2048 in nvfp4, and wqkv at m = 512 in mxfp4. A equals its
+    twin bit for bit, B equals A, C equals fp4_gemm at the same tile, and
+    A is within 0.03 (relative Frobenius) of fp4_gemm. B and C are reached
+    through gemm.mul_*_a8 / mul_*_a16 with explicit weight-cache ids (the
+    autotuner's route). Times: A and B as bare launches on activations
+    quantized beforehand (the wrapper, quantization included, beside
+    them), C, fp4_gemm at its default tile, the twins, and the library
+    calls: torch._int_mm on the requantized int8 weights (A, B),
+    torch.matmul on the dequantized bf16 weights (C). The JSON rows: nvfp4
+    m = 2048 summed over the four projections (one layer of a 4 x 512
+    admission). Then a sweep of m, each kernel summed over the four
+    projections: fused_mul against mul_nvfp4_a8 with precomputed
+    constants, activation quantization included: the crossover."""
+    dev = torch.device("cuda")
+    i8 = solution_mod.MatmulType.INT8
+    sums = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
+                       flops=0, err=0.0) for name in _W4A8_ROWS}
+    kept = []
+    for fmt, (k, n), ms in ([("nvfp4", kn, (512, 2048)) for kn in LLAMA8B_KN]
+                            + [("mxfp4", LLAMA8B_KN[0], (512,))]):
+        eb = ElementB.NVFP4 if fmt == "nvfp4" else ElementB.MXFP4
+        quant, group = ((qref.quantize_nvfp4, 16) if fmt == "nvfp4"
+                        else (qref.quantize_mxfp4, 32))
+        mul8, mul16 = ((gemm.mul_nvfp4_a8, gemm.mul_nvfp4_a16)
+                       if fmt == "nvfp4"
+                       else (gemm.mul_mxfp4_a8, gemm.mul_mxfp4_a16))
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        del w
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        gs = gs.reshape(1)
+        r_t, acol = fused.w4a8_requant_constants(st)
+        deq = (layout.dequant_from_tpu_layout(words, st, n, k)
+               * gs).to(torch.bfloat16)
+        b_i8 = fused.requantized_weights(words, r_t, k)
+        if fmt == "nvfp4":
+            kept.append((k, n, words, st, gs, r_t, acol))
+        for m in ms:
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sid = solution_mod.choose_default_solution(m, n, k, eb, i8)
+            wc8 = dataclasses.replace(sid, weight_cache=True)
+            sid16 = solution_mod.choose_default_solution(m, n, k, eb)
+            wc16 = dataclasses.replace(sid16, weight_cache=True)
+            got = fused.fused_mul_w4a8(a, words, st, gs, sid=sid, r_t=r_t,
+                                       acol=acol)
+            want = fused.fused_mul_w4a8_reference(a, words, st, gs, sid=sid,
+                                                  r_t=r_t, acol=acol)
+            got_b = mul8(a, words, st, gs, m, n, k, wc8.repr(), r_t=r_t,
+                         acol=acol)
+            exact = fused.fused_mul(a, words, st, gs, sid=sid16)
+            got_c = mul16(a, words, st, gs, m, n, k, wc16.repr())
+            plain16 = fused.fused_mul_reference(a, words, st, gs, sid=sid16)
+            torch.cuda.synchronize()
+            what = f"w4a8 {fmt} m={m} k={k} n={n}"
+            # each row's error against its twin: 0 for the W4A8 kernels,
+            # fp4_gemm's tolerance for the bf16 weight-cache kernel
+            errs = dict(
+                fp4_gemm_w4a8=(got.float() - want.float()).abs().max().item(),
+                fp4_gemm_w4a8_wc=(got_b.float() - want.float()).abs().max()
+                .item(),
+                fp4_gemm_wc=_close(f"{what} bf16 weight cache", got_c,
+                                   plain16, 2 ** -7,
+                                   2 ** -8 * plain16.float().abs().max()))
+            for name, e in errs.items():
+                sums[name]["err"] = max(sums[name]["err"], e)
+            for x, y, other in ((got, want, "its twin"),
+                                (got_b, got, "fp4_gemm_w4a8"),
+                                (got_c, exact, "fp4_gemm")):
+                if not torch.equal(x.view(torch.int16), y.view(torch.int16)):
+                    raise AssertionError(f"{what}: differs from {other} "
+                                         "bit for bit")
+            rel = ((got.float() - exact.float()).norm()
+                   / exact.float().norm()).item()
+            if not rel < 0.03:
+                raise AssertionError(f"{what}: relative error {rel} against "
+                                     "fp4_gemm >= 0.03")
+            a_i8, arow = fused.quantize_activations(a)
+            out = torch.empty_like(got)
+            t = dict(
+                w4a8=cuda_ms(lambda: _w4a8_launch(
+                    "pk_fp4_gemm_w4a8", a_i8, arow, words, r_t, acol, gs,
+                    out, sid)),
+                w4a8_wc=cuda_ms(lambda: _w4a8_launch(
+                    "pk_fp4_gemm_w4a8_wc", a_i8, arow, words, r_t, acol, gs,
+                    out, wc8)),
+                w4a8_wrapper=cuda_ms(lambda: fused.fused_mul_w4a8(
+                    a, words, st, gs, sid=sid, r_t=r_t, acol=acol)),
+                wc=cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
+                                                   sid=wc16)),
+                fp4_gemm=cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
+                                                         sid=sid16)),
+                plain_w4a8=cuda_ms(lambda: fused.fused_mul_w4a8_reference(
+                    a, words, st, gs, sid=sid, r_t=r_t, acol=acol),
+                    iters=2, warmup=1),
+                plain=cuda_ms(lambda: fused.fused_mul_reference(
+                    a, words, st, gs, sid=sid16), iters=2, warmup=1),
+                matmul=cuda_ms(lambda: torch.matmul(a, deq)))
+            int_mm = _int_mm_col(a_i8, b_i8)
+            t["int_mm"] = cuda_ms(int_mm) if int_mm else None
+            ops = 2 * m * n * k
+            nb8 = _nbytes(a_i8, arow, words, r_t, acol, gs, got)
+            nb16 = _nbytes(a, words, st, gs, got)
+            row = dict(kernel="fp4_gemm_w4a8", fmt=fmt, m=m, k=k, n=n,
+                       tile=[sid.block_m, sid.block_n],
+                       tile_bf16=[sid16.block_m, sid16.block_n],
+                       rel_err_vs_fp4_gemm=rel,
+                       **{f"{key}_ms": v for key, v in t.items()},
+                       bound_int8=bound(nb8, ops, INT8_OP_PER_S),
+                       bound_bf16=bound(nb16, ops))
+            rows.append(row)
+            log(f"[kernels] {what} tile={sid.block_m}x{sid.block_n} "
+                f"bit-equal (twin, wc, bf16 wc = fp4_gemm); bf16 wc err "
+                f"{errs['fp4_gemm_wc']:.2e}; rel err {rel:.4f}; w4a8={t['w4a8']:.4f} wc={t['w4a8_wc']:.4f} "
+                f"wrapper={t['w4a8_wrapper']:.4f} bf16_wc={t['wc']:.4f} "
+                f"fp4_gemm={t['fp4_gemm']:.4f} int_mm={t['int_mm']} "
+                f"matmul={t['matmul']:.4f} plain={t['plain_w4a8']:.2f}/"
+                f"{t['plain']:.2f} ms; bound "
+                f"{row['bound_int8']['bound_ms']:.4f} ms int8, "
+                f"{row['bound_bf16']['bound_ms']:.4f} ms bf16")
+            if fmt == "nvfp4" and m == 2048:
+                for name, ms_, plain, lib, nb, peak in (
+                        ("fp4_gemm_w4a8", t["w4a8"], t["plain_w4a8"],
+                         t["int_mm"], nb8, INT8_OP_PER_S),
+                        ("fp4_gemm_w4a8_wc", t["w4a8_wc"], t["plain_w4a8"],
+                         t["int_mm"], nb8, INT8_OP_PER_S),
+                        ("fp4_gemm_wc", t["wc"], t["plain"], t["matmul"],
+                         nb16, BF16_FLOP_PER_S)):
+                    acc = sums[name]
+                    acc["ms"] += ms_
+                    acc["plain_ms"] += plain
+                    acc["library_ms"] = (None if lib is None
+                                         or acc["library_ms"] is None
+                                         else acc["library_ms"] + lib)
+                    acc["nbytes"] += nb
+                    acc["flops"] += ops
+                    acc["peak"] = peak
+            del a, got, want, got_b, exact, got_c, plain16, a_i8, arow, out
+        del deq, b_i8
+    lib = {"fp4_gemm_w4a8": "torch._int_mm on the requantized int8 weights",
+           "fp4_gemm_w4a8_wc": "torch._int_mm on the requantized int8 "
+                               "weights",
+           "fp4_gemm_wc": "torch.matmul on the dequantized bf16 weights"}
+    for name, acc in sums.items():
+        res[name] = dict(
+            max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
+            library_ms=acc["library_ms"],
+            **bound(acc["nbytes"], acc["flops"], acc["peak"]),
+            at=f"nvfp4 m=2048, sum of the 4 Llama-3-8B projections, "
+               f"bit-equal to its non-cache counterpart; error against its "
+               f"twin (the W4A8 kernels bit-equal); library: {lib[name]}")
+    sweep = []
+    for m in (16, 32, 64, 128, 256, 384, 512, 1024, 2048):
+        exact_ms = w4a8_ms = 0.0
+        for k, n, words, st, gs, r_t, acol in kept:
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            exact_ms += cuda_ms(lambda: gemm.mul_nvfp4_a16(
+                a, words, st, gs, m, n, k))
+            w4a8_ms += cuda_ms(lambda: gemm.mul_nvfp4_a8(
+                a, words, st, gs, m, n, k, r_t=r_t, acol=acol))
+        sweep.append(dict(m=m, fp4_gemm_ms=exact_ms, w4a8_ms=w4a8_ms))
+        log(f"[kernels] crossover m={m:5d}: 4 projections fp4_gemm "
+            f"{exact_ms:.4f} ms, W4A8 (quantization included) "
+            f"{w4a8_ms:.4f} ms, ratio {exact_ms / w4a8_ms:.3f}")
+    rec["w4a8_sweep"] = sweep
+
+
 def _random_quantized(cfg, gen):
     """Random nvfp4 params on the generator's device."""
     return llama.quantize_params(llama.init_params(cfg, gen), "nvfp4")
@@ -660,9 +904,52 @@ def phase_parity(rec):
                 raise AssertionError(f"parity {cache_name} {step}: {err} > "
                                      f"{bound}")
             out[f"{cache_name} {step}"] = err
+    out.update(_w4a8_parity(cfg, params, cpu_params, rng))
     del params, cpu_params
     out.update(_moe_parity())
     rec["parity"] = out
+
+
+def _w4a8_parity(cfg, params, cpu_params, rng):
+    """One 256-token prefill chunk with fmt="w4a8" (m = 256 rows take the
+    W4A8 GEMM, 4 launches a layer) on the card and on the CPU. Each W4A8
+    GEMM equals its twin bit for bit on equal inputs (phase kernels), but
+    the card's attention and elementwise ops round differently from the
+    CPU's, and rounding activations to int8 turns those ulp-level input
+    differences into whole int8 steps, so the W4A8 forwards stray further
+    apart than the nvfp4 ones (PERF.md). The logits must agree within the
+    larger of 2^-5 * max|logits| and W4A8's own distance from the exact
+    nvfp4 forward on the CPU: the card may not add more than the
+    quantization itself does."""
+    T = 256
+    toks = rng.integers(0, cfg.vocab_size, size=(1, T)).astype(np.int64)
+
+    def run(p, d, fmt):
+        cache = llama.init_cache(cfg, 1, device=d)
+        lg, _ = llama.forward(p, torch.as_tensor(toks, device=d), cfg, cache,
+                              torch.arange(T, device=d)[None], fmt=fmt,
+                              kv_window=T)
+        return lg.float().cpu()
+
+    before = fused.fused_mul_w4a8.launches
+    got = run(params, torch.device("cuda"), "w4a8")
+    n = fused.fused_mul_w4a8.launches - before
+    if n != 4 * cfg.num_layers:
+        raise AssertionError(f"parity w4a8: {n} W4A8 launches, expected "
+                             f"{4 * cfg.num_layers}")
+    want = run(cpu_params, torch.device("cpu"), "w4a8")
+    exact = run(cpu_params, torch.device("cpu"), "nvfp4")
+    quant_err = (want - exact).abs().max().item()
+    bound_ = max(2 ** -5 * want.abs().max().item(), quant_err)
+    err = (got - want).abs().max().item()
+    log(f"[parity] w4a8 flat bf16 prefill (T={T}) logits max abs err "
+        f"{err:.4e} (bound {bound_:.4e}: 2^-5 max|logits| "
+        f"{2 ** -5 * want.abs().max().item():.4e}, W4A8 against nvfp4 on "
+        f"the CPU {quant_err:.4e}); {n} W4A8 launches")
+    if not math.isfinite(err) or err > bound_:
+        raise AssertionError(f"parity w4a8 prefill: {err} > {bound_}")
+    return {"w4a8 flat bf16 prefill": err,
+            "w4a8 against nvfp4 on the CPU": quant_err}
 
 
 def _moe_parity():
@@ -786,7 +1073,8 @@ def _serve(rec, path, make_engine, reqs, cfg):
         rec["launches"][name] = rec["launches"].get(name, 0) + n
     n_tok = sum(len(v) for v in out.values())
     run = dict(wall_s=wall, new_tokens=n_tok, tok_per_s=n_tok / wall,
-               launches=launches, tokens=[out[i] for i in sorted(out)],
+               launches=launches, decode_launches=dict(decode_launches),
+               tokens=[out[i] for i in sorted(out)],
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                decode_ticks=ticks[0],
                launches_per_decode_step={
@@ -968,6 +1256,109 @@ def phase_serve_moe(rec):
     rec["serve_moe"] = run
 
 
+def phase_serve_w4a8(rec):
+    """serve's model and requests with prefill_fmt="w4a8": Engine over the
+    flat bf16 cache and PagedEngine over the fp8 pool (page size 16). Every
+    prefill GEMM of 256 rows or more takes the W4A8 kernel, fewer rows the
+    exact one, and decode stays exact; the runs count both and compare the
+    token streams with those of the same engine with nvfp4 prefill in
+    serve and serve_kv (information). Then the weight-cache kernels' own
+    path (_weight_cache_api_run)."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    rec.setdefault("launches", {})
+    nvfp4_tokens = {
+        "serve_w4a8 bf16 Engine": rec.get("serve", {}).get("tokens"),
+        "serve_w4a8 fp8 PagedEngine": rec.get("serve_kv", {}).get(
+            "serve_kv fp8 PagedEngine", {}).get("tokens")}
+    out = {}
+    for path, make in (
+            ("serve_w4a8 bf16 Engine",
+             lambda: serving.Engine(params, cfg, max_batch=4,
+                                    prefill_fmt="w4a8")),
+            ("serve_w4a8 fp8 PagedEngine",
+             lambda: serving.PagedEngine(params, cfg, max_batch=4,
+                                         page_size=16, cache_dtype=FP8,
+                                         prefill_fmt="w4a8"))):
+        run, eng = _serve(rec, path, make, reqs, cfg)
+        dec = run["decode_launches"]
+        if dec["fp4_gemm_w4a8"]:
+            raise AssertionError(f"{path}: a decode step launched the W4A8 "
+                                 "kernel")
+        run["prefill_gemm_launches"] = dict(
+            w4a8=run["launches"]["fp4_gemm_w4a8"],
+            exact=run["launches"]["fp4_gemm"] - dec["fp4_gemm"])
+        log(f"[{path}] prefill GEMM launches: "
+            f"{run['prefill_gemm_launches']['w4a8']} W4A8, "
+            f"{run['prefill_gemm_launches']['exact']} exact (m < "
+            f"{llama.W4A8_MIN_M}); prefill chunk {eng.prefill_chunk}")
+        if isinstance(eng, serving.PagedEngine) and (
+                eng.pages_in_use() != 0
+                or sorted(eng.pc.free) != list(range(eng.pc.num_pages))):
+            raise AssertionError(f"{path}: pages still in use after the run")
+        if nvfp4_tokens[path]:   # information: W4A8 against nvfp4 prefill
+            same = sum(x == y for x, y in zip(run["tokens"],
+                                              nvfp4_tokens[path]))
+            run["streams_equal_to_nvfp4_prefill"] = same
+            log(f"[{path}] {same} of {len(reqs)} token streams equal to "
+                "the same engine's with nvfp4 prefill")
+        out[path] = run
+        del eng
+    out["gemm_api weight-cache ids"] = _weight_cache_api_run(rec, params,
+                                                             cfg)
+    rec["serve_w4a8"] = out
+
+
+def _weight_cache_api_run(rec, params, cfg):
+    """The weight-cache kernels' path: layer 0's four projections, one
+    512-row chunk each, through gemm.mul_nvfp4_a16 and gemm.mul_nvfp4_a8
+    with explicit weight-cache solution ids (64 x 128 tiles, 4 m-tiles a
+    CTA), as an autotuner calls them. The launch counts are set to 0 just
+    before and read just after; the outputs are checked afterwards."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    m = 512
+    wc16 = solution_mod.SolutionId(64, 128, weight_cache=True)
+    wc8 = solution_mod.SolutionId(64, 128, mfma_type=solution_mod.MatmulType
+                                  .INT8, weight_cache=True)
+    jobs = []
+    for name in ("wqkv", "wo", "w_gateup", "w_down"):
+        layer = params["layers"][0][name]
+        k, n = layer["words"].shape[0] * 8, layer["words"].shape[1]
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        jobs.append((x, layer, n, k,
+                     *fused.w4a8_requant_constants(layer["scales"])))
+    torch.cuda.synchronize()
+    for info in KERNELS.values():
+        info["wrapper"].launches = 0
+    outs = []
+    for x, layer, n, k, r_t, acol in jobs:
+        args = (x, layer["words"], layer["scales"], layer["gs"], m, n, k)
+        outs.append(gemm.mul_nvfp4_a16(*args, wc16.repr()))
+        outs.append(gemm.mul_nvfp4_a8(*args, wc8.repr(), r_t=r_t,
+                                      acol=acol))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    path = "gemm_api weight-cache ids"
+    missing = [k for k in PATHS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing} "
+                             f"({launches})")
+    for (x, layer, n, k, _, _), y16, y8 in zip(jobs, outs[::2], outs[1::2]):
+        for y in (y16, y8):
+            if tuple(y.shape) != (m, n) or not torch.isfinite(y).all():
+                raise AssertionError(f"{path}: bad output {tuple(y.shape)}")
+        rel = ((y8.float() - y16.float()).norm() / y16.float().norm()).item()
+        if not rel < 0.03:
+            raise AssertionError(f"{path}: W4A8 {rel} from bf16 (k={k})")
+    for name, n_ in launches.items():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n_
+    log(json.dumps({"path": path, "launches": launches}))
+    return dict(m=m, launches=launches)
+
+
 def _kernel_profile(steps):
     """Run steps() under torch.profiler; returns (wall ms, summed device ms
     of every kernel, [(kernel name, device ms, calls)] by time)."""
@@ -991,10 +1382,11 @@ def _kernel_profile(steps):
     return wall, sum(r[1] for r in rows), rows
 
 
-def _profile_engine(name, eng, cfg):
+def _profile_engine(name, eng, cfg, chunk=256, decode=True):
     """Three slots decoding after 200-token prompts, then one tick that
-    prefills a 256-token chunk beside them, then decode steps of all 4:
-    20 on the wall clock, 10 under torch.profiler."""
+    prefills a `chunk`-token prompt beside them (one chunk, if the engine's
+    prefill_chunk allows), then, with `decode`, decode steps of all 4: 20
+    on the wall clock, 10 under torch.profiler."""
     rng = np.random.default_rng(3)
 
     def request(uid, n):
@@ -1005,7 +1397,7 @@ def _profile_engine(name, eng, cfg):
         eng.add_request(request(uid, 200))
     while not eng.active[:3].all():
         eng.step()
-    eng.add_request(request(3, 256))
+    eng.add_request(request(3, chunk))
     out = {}
 
     def report(what, n_steps, prof):
@@ -1020,10 +1412,12 @@ def _profile_engine(name, eng, cfg):
         for k, ms, c in rows[:15]:
             log(f"[profile]   {ms:9.2f} ms {c:6d}x  {k[:100]}")
 
-    # the 256-token chunk, then the decode step of the 3 running slots
+    # the chunk, then the decode step of the 3 running slots
     report("prefill_tick", 1, _kernel_profile(eng.step))
     if not eng.active.all():
         raise AssertionError(f"profile {name}: a slot is not decoding")
+    if not decode:
+        return out
     for _ in range(2):                                   # warm-up
         eng.step()
     torch.cuda.synchronize()
@@ -1048,7 +1442,8 @@ def _profile_engine(name, eng, cfg):
 def phase_profile(rec):
     """The serve phase's model in Engine (flat bf16 cache) and in
     PagedEngine (fp8 pool, page size 16), and serve_moe's Mixtral in its
-    Engine, 4 slots each (_profile_engine).
+    Engine, 4 slots each (_profile_engine); then a 512-token prefill tick
+    of the Llama Engine with nvfp4 and with W4A8 prefill GEMMs.
     Device idle share = 1 - (summed kernel time) / wall."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b()
@@ -1067,6 +1462,15 @@ def phase_profile(rec):
         "Mixtral Engine", serving.Engine(
             mparams, mcfg, max_batch=4,
             forward_fn=moe.make_engine_forward(mcfg)), mcfg)
+    gc.collect()
+    # one 512-token prefill tick, exact nvfp4 GEMMs against W4A8 ones
+    for tag, kw in (("nvfp4", dict(prefill_chunk=512)),
+                    ("w4a8", dict(prefill_fmt="w4a8"))):
+        out[f"prefill_512_{tag}"] = _profile_engine(
+            f"bf16 Engine, {tag} prefill", serving.Engine(
+                params, cfg, max_batch=4, **kw), cfg, chunk=512,
+            decode=False)
+        gc.collect()
     rec["profile"] = out
 
 
@@ -1092,7 +1496,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(args.record) or ".", exist_ok=True)
         with open(args.record, "w") as f:
             json.dump(rec, f, indent=1)
-    if all(p in rec for p in ("kernels", "serve", "serve_kv", "serve_moe")):
+    if all(p in rec for p in ("kernels", "serve", "serve_kv", "serve_moe",
+                              "serve_w4a8")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

@@ -12,8 +12,11 @@ through either. Public surface, the reference library's 7-function API:
     get_fp4_solutions                  kernel-config enumeration
     DataType, PetitSolutionHints       enums / hints
 
-plus the pow2 and zero-free entries and `models` (Llama with flat bf16 or
-headed fp8 KV caches, paged KV, serving Engine and PagedEngine, and
+plus the pow2 and zero-free entries, the W4A8 entries mul_nvfp4_a8 /
+mul_mxfp4_a8 (int8 activations over the same weights, int8 tensor-core
+kernel), weight-cache solution ids for every mul_* entry, and `models`
+(Llama with flat bf16 or headed fp8 KV caches, paged KV, serving Engine
+and PagedEngine, W4A8 prefill through `prefill_fmt="w4a8"`, and
 Mixtral-8x7B MoE, whose experts run one grouped FP4 GEMM launch per
 projection: `Engine(params, cfg, forward_fn=moe.make_engine_forward(cfg))`).
 Every function returns torch tensors on the device of its input; the

@@ -7,7 +7,9 @@ tree of tensors, as there:
   quantized linear: {"words": int32 (kp/8, n), "scales": bf16 (kp/16, n),
                      "gs": f32 0-dim tensor}
 Projections run through the FP4 GEMM entries (ops/gemm.py) under
-torch.inference_mode(): there is no gradient path yet. The KV cache is a
+torch.inference_mode(): there is no gradient path yet. fmt="w4a8" runs the
+nvfp4 container through the W4A8 GEMM (int8 activations) at m >=
+W4A8_MIN_M rows and through the exact nvfp4 GEMM below it. The KV cache is a
 list of per-layer (k, v) tensors that forward updates IN PLACE (the JAX
 package returns new arrays and donates the old): flat (B, S, Hkv, d) bf16,
 or headed (B, Hkv, S, d) bf16 or fp8 e4m3 (init_cache). On the card the
@@ -83,6 +85,7 @@ _QUANTIZERS = {
     "nvfp4p2z": (ref_numerics.quantize_nvfp4_pow2z, 16),
     "mxfp4": (ref_numerics.quantize_mxfp4, 32),
     "mxfp4z": (ref_numerics.quantize_mxfp4z, 32),
+    "w4a8": (ref_numerics.quantize_nvfp4, 16),    # the nvfp4 container
 }
 
 _MULS = {
@@ -92,6 +95,11 @@ _MULS = {
     "mxfp4": gemm_mod.mul_mxfp4_a16,
     "mxfp4z": gemm_mod.mul_mxfp4z_a16,
 }
+
+# fmt="w4a8" routes a projection of fewer rows than this to the exact nvfp4
+# GEMM. 256 is the JAX package's value, kept for parity; the H100's own
+# crossover is measured in chip_smoke.py and recorded in PERF.md.
+W4A8_MIN_M = 256
 
 
 def quantize_linear(w_kn: torch.Tensor, fmt: str = "nvfp4") -> dict:
@@ -112,15 +120,24 @@ def quantize_linear(w_kn: torch.Tensor, fmt: str = "nvfp4") -> dict:
 def linear(x: torch.Tensor, layer: dict, *, fmt: str = "nvfp4"
            ) -> torch.Tensor:
     """y = x @ W (+ b) for dense or FP4-quantized layer dicts; x (..., k).
-    A bias ("b", Qwen2 QKV) is added in x.dtype after the matmul."""
+    A bias ("b", Qwen2 QKV) is added in x.dtype after the matmul.
+    fmt="w4a8": m >= W4A8_MIN_M rows run mul_nvfp4_a8, with the layer's
+    precomputed "r_t"/"acol" where it has them (serving engines add them);
+    fewer rows run the exact mul_nvfp4_a16."""
     *lead, k = x.shape
     if "w" in layer:
         y = torch.matmul(x, layer["w"].to(x.dtype))
     else:
         m = math.prod(lead)
         n = layer["words"].shape[1]
-        y = _MULS[fmt](x.reshape(m, k), layer["words"], layer["scales"],
-                       layer["gs"], m, n, k, -1).reshape(*lead, n)
+        args = (x.reshape(m, k), layer["words"], layer["scales"],
+                layer["gs"], m, n, k, -1)
+        if fmt == "w4a8" and m >= W4A8_MIN_M:
+            y = gemm_mod.mul_nvfp4_a8(*args, r_t=layer.get("r_t"),
+                                      acol=layer.get("acol"))
+        else:
+            y = _MULS["nvfp4" if fmt == "w4a8" else fmt](*args)
+        y = y.reshape(*lead, n)
     if "b" in layer:
         y = y + layer["b"].to(y.dtype)
     return y

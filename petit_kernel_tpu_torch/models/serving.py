@@ -9,9 +9,11 @@ per-slot positions, the chunked-prefill queue. Sampled tokens are read
 back to the host once per step.
 
 Engine takes a custom forward_fn (models/moe.make_engine_forward serves
-Mixtral through it) and a cache built by the caller. Not ported yet:
-step_block and the pipelined block drain, SpecEngine, prefill_fmt and
-score_forward.
+Mixtral through it) and a cache built by the caller. prefill_fmt="w4a8"
+runs prefill chunks and batched admissions through the W4A8 GEMM over the
+nvfp4 weights while decode keeps fmt (llama.linear routes chunks of fewer
+than llama.W4A8_MIN_M rows to the exact kernel). Not ported yet:
+step_block and the pipelined block drain, SpecEngine and score_forward.
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ class Request:
 # engine tick, each chunk right-padded to a bucket.
 PREFILL_BUCKETS = (16, 32, 64, 128, 256)
 PREFILL_CHUNK = PREFILL_BUCKETS[-1]
+# prefill_fmt="w4a8" admits up to this many tokens a chunk by default: the
+# JAX package's value, kept for parity (PERF.md records the H100's
+# W4A8-versus-exact crossover)
+W4A8_PREFILL_CHUNK = 512
 
 
 def _bucket_len(n: int, cap: Optional[int] = None) -> int:
@@ -57,6 +63,34 @@ class _PrefillJob:
     req: Request
     slot: int
     offset: int = 0             # tokens already written to the cache
+
+
+def _w4a8_precompute(params: dict) -> dict:
+    """params with the W4A8 requantization constants (r_t, acol) of every
+    FP4 projection added (fused.w4a8_requant_constants), computed once so
+    that a prefill GEMM does not derive them from the scales per call. New
+    dicts only: the weight tensors are shared, not copied. llama.linear
+    picks the constants up by key."""
+    from ..ops.kernels import fused
+
+    def aug(d):
+        if isinstance(d, dict) and "words" in d and "r_t" not in d:
+            r_t, acol = fused.w4a8_requant_constants(d["scales"])
+            return {**d, "r_t": r_t, "acol": acol}
+        return d
+
+    out = dict(params)
+    out["layers"] = [{k: aug(v) for k, v in lp.items()}
+                     for lp in params["layers"]]
+    out["lm_head"] = aug(params["lm_head"])
+    return out
+
+
+def _llama_forward(cfg: llama.LlamaConfig, fmt: str):
+    def forward(p, toks, cache_, pos, kv_window=None, write_mask=None):
+        return llama.forward(p, toks, cfg, cache_, pos, fmt=fmt,
+                             kv_window=kv_window, write_mask=write_mask)
+    return forward
 
 
 def sample_next(logits: torch.Tensor, generator: torch.Generator,
@@ -97,20 +131,28 @@ class Engine:
         serves tensor-parallel steps, which are not ported). Sampling:
         per-request temperature (Request.temperature, 0 = greedy) with an
         engine-wide top_k; the noise comes from a torch.Generator on the
-        engine's device seeded with `seed`. A prefill_fmt other than fmt
-        (the JAX package's w4a8 prefill) is not ported and raises
-        NotImplementedError; with forward_fn it is ignored, as in the JAX
-        package."""
-        if forward_fn is None:
-            if prefill_fmt not in (None, fmt):
-                raise NotImplementedError(f"prefill_fmt={prefill_fmt!r} is "
-                                          "not ported yet")
+        engine's device seeded with `seed`.
 
-            def forward_fn(p, toks, cache_, pos, kv_window=None,
-                           write_mask=None):
-                return llama.forward(p, toks, cfg, cache_, pos, fmt=fmt,
-                                     kv_window=kv_window,
-                                     write_mask=write_mask)
+        prefill_fmt (default fmt) runs prefill chunks and batched
+        admissions through another GEMM over the same weights: "w4a8" with
+        fmt "nvfp4" (or both "w4a8") is the only other pair, and any other
+        raises ValueError. Under "w4a8" the engine adds the requantization
+        constants to its params once (_w4a8_precompute) and prefill_chunk
+        defaults to W4A8_PREFILL_CHUNK. With forward_fn, prefill_fmt
+        selects no forward, as in the JAX package; the chunk default
+        still follows it there."""
+        self.prefill_fmt = prefill_fmt or fmt
+        if prefill_chunk is None and self.prefill_fmt == "w4a8":
+            prefill_chunk = W4A8_PREFILL_CHUNK
+        if forward_fn is None:
+            if self.prefill_fmt != fmt \
+                    and not {fmt, self.prefill_fmt} <= {"nvfp4", "w4a8"}:
+                raise ValueError(f"prefill_fmt={self.prefill_fmt!r} is not "
+                                 f"container-compatible with fmt={fmt!r}")
+            if self.prefill_fmt == "w4a8":
+                params = _w4a8_precompute(params)
+            forward_fn = _llama_forward(cfg, fmt)
+            prefill_fn = _llama_forward(cfg, self.prefill_fmt)
         else:
             params_ = inspect.signature(forward_fn).parameters
             if not {"kv_window", "write_mask"} <= set(params_):
@@ -118,7 +160,9 @@ class Engine:
                     "forward_fn must take kv_window= and write_mask=: the "
                     "fallback without them serves tensor-parallel steps, "
                     "which are not ported")
+            prefill_fn = forward_fn
         self._forward_fn = forward_fn
+        self._prefill_fn = prefill_fn
         self.params = params
         self.cfg = cfg
         self.B = max_batch
@@ -151,6 +195,12 @@ class Engine:
 
     def _forward(self, toks, cache, pos, kv_window=None, write_mask=None):
         return self._forward_fn(self.params, toks, cache, pos,
+                                kv_window=kv_window, write_mask=write_mask)
+
+    def _prefill_forward(self, toks, cache, pos, kv_window=None,
+                         write_mask=None):
+        """_forward in prefill_fmt: prefill chunks and batched admission."""
+        return self._prefill_fn(self.params, toks, cache, pos,
                                 kv_window=kv_window, write_mask=write_mask)
 
     # -- scheduling ---------------------------------------------------------
@@ -283,16 +333,16 @@ class Engine:
         decode overwrites position by position."""
         rows = [(k[slot:slot + 1], v[slot:slot + 1])
                 for (k, v) in self.cache]   # views: written in place
-        logits, _ = self._forward(self._dev(toks), rows, self._dev(pos),
-                                  kv_window=kv_window)
+        logits, _ = self._prefill_forward(self._dev(toks), rows,
+                                          self._dev(pos), kv_window=kv_window)
         return logits
 
     def _run_batched_admission(self, group, toks_b, pos_b, mask_b,
                                kv_window) -> torch.Tensor:
         """Logits (B, lb, V) of one full-batch masked admission forward."""
-        logits, _ = self._forward(self._dev(toks_b), self.cache,
-                                  self._dev(pos_b), kv_window=kv_window,
-                                  write_mask=self._dev(mask_b))
+        logits, _ = self._prefill_forward(
+            self._dev(toks_b), self.cache, self._dev(pos_b),
+            kv_window=kv_window, write_mask=self._dev(mask_b))
         return logits
 
     def _decode_logits(self) -> torch.Tensor:
@@ -388,7 +438,9 @@ class PagedEngine(Engine):
                  prefill_chunk: Optional[int] = None):
         """page_size (clamped to max_seq_len) and num_pages (default: every
         slot at max_seq_len) shape the pool; cache_dtype bf16 or
-        torch.float8_e4m3fn. The rest as Engine."""
+        torch.float8_e4m3fn. The rest as Engine, prefill_fmt included:
+        prefill chunks and batched admissions run forward_paged in
+        prefill_fmt, decode steps in fmt."""
         self._page_size = page_size
         self._num_pages = num_pages
         super().__init__(params, cfg, max_batch=max_batch, fmt=fmt,
@@ -402,10 +454,11 @@ class PagedEngine(Engine):
             self.cfg, self.B, page_size=self._page_size,
             num_pages=self._num_pages, dtype=cache_dtype, device=self.device)
 
-    def _paged_forward(self, toks, bt, pos, kv_window, write_mask=None):
+    def _paged_forward(self, toks, bt, pos, kv_window, write_mask=None, *,
+                       fmt):
         logits, _ = paged.forward_paged(
             self.params, self._dev(toks), self.cfg, self.pc.pages, bt,
-            self._dev(pos), page_size=self.pc.page_size, fmt=self.fmt,
+            self._dev(pos), page_size=self.pc.page_size, fmt=fmt,
             kv_window=kv_window,
             write_mask=None if write_mask is None else self._dev(write_mask))
         return logits
@@ -415,14 +468,14 @@ class PagedEngine(Engine):
         # causal mask hides, as in the contiguous cache)
         paged.ensure_capacity(self.pc, slot, int(pos[0, -1]) + 1)
         return self._paged_forward(toks, self.pc.block_tables[slot:slot + 1],
-                                   pos, kv_window)
+                                   pos, kv_window, fmt=self.prefill_fmt)
 
     def _run_batched_admission(self, group, toks_b, pos_b, mask_b,
                                kv_window):
         for j in group:
             paged.ensure_capacity(self.pc, j.slot, int(pos_b[j.slot, -1]) + 1)
         return self._paged_forward(toks_b, self.pc.block_tables, pos_b,
-                                   kv_window, mask_b)
+                                   kv_window, mask_b, fmt=self.prefill_fmt)
 
     def _decode_logits(self):
         # cover this tick's write position; inactive slots write to the
@@ -431,7 +484,8 @@ class PagedEngine(Engine):
             paged.ensure_capacity(self.pc, slot, int(self.pos[slot]) + 1)
         return self._paged_forward(self.last_tok[:, None],
                                    self.pc.block_tables, self.pos[:, None],
-                                   self._kv_window(), self.active)
+                                   self._kv_window(), self.active,
+                                   fmt=self.fmt)
 
     def _release(self, slot: int) -> None:
         paged.release_slot(self.pc, slot)

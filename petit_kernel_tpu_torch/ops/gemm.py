@@ -3,13 +3,15 @@
 Counterpart of petit_kernel_tpu/ops/gemm.py: validates the problem,
 resolves solution_id (-1 -> heuristic, else an explicit feasible id) and
 runs the fused dequant+GEMM (ops/kernels/fused.py). There is no tuned table
-for the Hopper kernel yet, so -1 always goes to the heuristic. The five
-mul_*_a16 entries differ only in ElementB: the kernel's exact decode and
-bf16 scale multiply serve pow2 and zero-free tensors unchanged.
+for the Hopper kernels yet, so -1 always goes to the heuristic, which never
+picks the weight cache; an explicit weight_cache id (the autotuner's route)
+runs the weight-cache kernel. The five mul_*_a16 entries differ only in
+ElementB: the kernel's exact decode and bf16 scale multiply serve pow2 and
+zero-free tensors unchanged. The W4A8 entries (mul_nvfp4_a8, mul_mxfp4_a8)
+take the same operands and run the int8 kernel (fused_mul_w4a8).
 
-The high-precision solutions, the W4A8 entries (mul_*_a8) and the
-differentiable mul_fp4_diff have no Hopper kernel yet and raise
-NotImplementedError.
+The high-precision solutions and the differentiable mul_fp4_diff have no
+Hopper kernel yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ def resolve_grouped_solution(cap: int, n: int, k: int, element_b: ElementB,
     """The tile of the grouped (MoE expert) kernel for the per-expert
     problem (cap, n, k): an explicit SolutionId.repr() must decode, match
     element_b and be feasible, or ValueError; -1 takes the heuristic at
-    m = cap. (The JAX package's tuned-table lookup and weight_cache check,
-    gemm.py:128-162, have no counterpart: the port has neither.)"""
+    m = cap. The grouped kernel has no weight-cache variant, so a
+    weight_cache id is refused, as in the JAX package (gemm.py:142-145);
+    its tuned-table lookup has no counterpart: the port has none."""
     if solution_id is not None and solution_id >= 0:
         try:
             sid = SolutionId.from_repr(solution_id)
@@ -73,6 +76,9 @@ def resolve_grouped_solution(cap: int, n: int, k: int, element_b: ElementB,
         if sid.element_b != element_b:
             raise ValueError(f"solution {sid} element_b mismatch "
                              f"(want {element_b})")
+        if sid.weight_cache:
+            raise ValueError(f"solution {sid}: the grouped kernel has no "
+                             "weight_cache variant (kErrorKernelShape)")
         if not solution_mod.is_feasible(sid, cap, n, k):
             raise ValueError(f"solution {sid} infeasible for cap={cap} n={n} "
                              f"k={k} (kErrorKernelShape)")
@@ -171,14 +177,50 @@ def mul_nvfp4p2z_a16(a, b, s, global_scale, size_m, size_n, size_k,
                 ElementB.NVFP4, hints=hints)
 
 
-def mul_nvfp4_a8(*args, **kwargs):
-    """W4A8 (int8 activations): no Hopper kernel yet."""
-    raise NotImplementedError("mul_nvfp4_a8 has no Hopper kernel yet")
+def _mul_w4a8(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
+              element_b: ElementB, r_t=None, acol=None):
+    """The JAX package's _mul_w4a8 (gemm.py:276-298): an explicit id must be
+    an INT8 one; the output comes back in a's dtype. (The JAX package also
+    turns a tuned-table id of another type into INT8; the port has no
+    table, and its heuristic answers INT8 when asked for it.)"""
+    if size_m == 0 or size_n == 0 or size_k == 0:
+        return torch.zeros((size_m, size_n), dtype=a.dtype, device=a.device)
+    group = 16 if element_b == ElementB.NVFP4 else 32
+    a, b, s = _validate_and_prepare(a, b, s, size_m, size_n, size_k, group)
+    in_dtype = a.dtype
+    if solution_id is not None and solution_id >= 0:
+        try:
+            sid = SolutionId.from_repr(solution_id)
+        except ValueError as e:
+            raise ValueError(f"solution id {solution_id}: {e}") from None
+        if sid.mfma_type != MatmulType.INT8:
+            raise ValueError(f"solution {sid} is not an INT8 (W4A8) "
+                             "solution")
+    sid = resolve_solution(size_m, size_n, size_k, element_b,
+                           MatmulType.INT8, solution_id=solution_id)
+    gs = torch.as_tensor(global_scale, dtype=torch.float32, device=a.device)
+    out = fused.fused_mul_w4a8(a.to(torch.bfloat16), b, s, gs.reshape(1),
+                               sid=sid, r_t=r_t, acol=acol)
+    return out if in_dtype == torch.bfloat16 else out.to(in_dtype)
 
 
-def mul_mxfp4_a8(*args, **kwargs):
-    """MXFP4 W4A8: no Hopper kernel yet."""
-    raise NotImplementedError("mul_mxfp4_a8 has no Hopper kernel yet")
+def mul_nvfp4_a8(a, b, s, global_scale, size_m, size_n, size_k,
+                 solution_id: int = -1, *, r_t=None, acol=None):
+    """W4A8 over mul_nvfp4_a16's operands: activations quantized per token
+    to int8, the FP4 weights requantized to int8 per column in the kernel,
+    int32 sums (fused.fused_mul_w4a8). Not exact: within int8 quantization
+    noise of mul_nvfp4_a16. r_t, acol: fused.w4a8_requant_constants(s),
+    computed per call unless given. Meant for large m (prefill), where the
+    int8 tensor cores run at twice the bf16 rate."""
+    return _mul_w4a8(a, b, s, global_scale, size_m, size_n, size_k,
+                     solution_id, ElementB.NVFP4, r_t=r_t, acol=acol)
+
+
+def mul_mxfp4_a8(a, b, s, global_scale, size_m, size_n, size_k,
+                 solution_id: int = -1, *, r_t=None, acol=None):
+    """MXFP4 W4A8 (see mul_nvfp4_a8)."""
+    return _mul_w4a8(a, b, s, global_scale, size_m, size_n, size_k,
+                     solution_id, ElementB.MXFP4, r_t=r_t, acol=acol)
 
 
 def mul_fp4_diff(*args, **kwargs):
@@ -190,8 +232,8 @@ def mul_fp4_diff(*args, **kwargs):
 def get_fp4_solutions(size_m: int, size_n: int, size_k: int,
                       a_type=torch.bfloat16, c_type=torch.bfloat16,
                       element_b: ElementB = ElementB.NVFP4) -> list[int]:
-    """Feasible solution reprs for a shape. Only solutions with a kernel
-    are listed: no high-precision ones yet."""
+    """Feasible solution reprs for a shape, weight-cache ones included.
+    Only solutions with a kernel are listed: no high-precision ones yet."""
     del c_type
     mfma = MatmulType.FP16 if a_type == torch.float16 else MatmulType.BF16
     return [s.repr() for s in solution_mod.get_solutions(

@@ -1,14 +1,26 @@
-"""Fused FP4-dequant + GEMM: the CUDA kernel's wrapper and its plain twin.
+"""Fused FP4-dequant + GEMM: the CUDA kernels' wrappers and their plain
+twins.
 
-Counterpart of petit_kernel_tpu/ops/kernels/fused.py:fused_mul. The kernel
-is csrc/fp4_gemm.cu (mma.sync over a bf16 tile decoded in shared memory);
-fused_mul_reference is the same function in plain PyTorch. fused_mul takes
-the plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.
+Counterpart of petit_kernel_tpu/ops/kernels/fused.py: fused_mul (bf16
+activations) and fused_mul_w4a8 (W4A8: int8 activations, the FP4 weights
+requantized to int8 in the kernel). Four kernels, one wrapper each, each
+with its own launch count:
+
+  fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (mma.sync bf16)
+  fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache)
+  fused_mul_w4a8     csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8 (mma.sync s8)
+  fused_mul_w4a8_wc  csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8_wc
+
+fused_mul and fused_mul_w4a8 hand a weight_cache solution id to their _wc
+wrapper, as the JAX package's fused_mul picks its _wc kernel body.
+fused_mul_reference and fused_mul_w4a8_reference are the same functions in
+plain PyTorch; a wrapper takes its twin only for tensors on the CPU, and
+for CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -25,11 +37,72 @@ def fused_mul_reference(a: torch.Tensor, words: torch.Tensor,
     the f32 dequant holds the numbers of the kernel's bf16 B tile; the
     products are exact in f32, and the f32 matmul sums them, as the
     kernel's f32 accumulators do (in another order)."""
-    del sid  # one decode serves every scale path
+    del sid  # one decode serves every scale path and both kernel structures
     b = layout.dequant_from_tpu_layout(words, scales_t, words.shape[1],
                                        a.shape[1])
     acc = a.to(torch.bfloat16).float() @ b
     return (acc * global_scale.float()).to(torch.bfloat16)
+
+
+def _check(where: str, a, words, scales_t, global_scale, *extra):
+    """The kernels' operand contract; returns kp. `extra` holds further
+    (name, tensor, dtype, shape) operands."""
+    m, k = a.shape
+    kw, n = words.shape
+    kp = kw * 8
+    for name, t in (("words", words), ("scales_t", scales_t),
+                    ("global_scale", global_scale),
+                    *((e[0], e[1]) for e in extra)):
+        if t.device != a.device:
+            raise ValueError(f"{where}: {name} is on {t.device}, a on "
+                             f"{a.device}")
+    if words.dtype != torch.int32 or scales_t.dtype != torch.bfloat16 \
+            or global_scale.dtype != torch.float32:
+        raise ValueError(f"{where}: words int32, scales bf16, global_scale "
+                         "f32 expected")
+    if tuple(scales_t.shape) != (kp // 16, n) or kp < k or k % 128 \
+            or kp % 256 or n % 16 or global_scale.numel() != 1:
+        raise ValueError(f"{where}: bad shapes a {tuple(a.shape)}, words "
+                         f"{tuple(words.shape)}, scales "
+                         f"{tuple(scales_t.shape)}")
+    for name, t, dtype, shape in extra:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{where}: {name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return kp
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte boundary (the kernels load A in 8- and
+    16-byte words)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _launch(entry: str, *args) -> None:
+    code = getattr(_build.library(), entry)(*args)
+    _build.check(entry, code)
+
+
+def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid):
+    if a.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {a.device}")
+    if a.dtype != torch.bfloat16:
+        raise ValueError(f"{entry}: a must be bf16, got {a.dtype}")
+    kp = _check(entry, a, words, scales_t, global_scale)
+    m, k = a.shape
+    n = words.shape[1]
+    a = _aligned(a)
+    words = words.contiguous()
+    scales_t = scales_t.contiguous()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    if m == 0 or n == 0:
+        return out, False
+    _launch(entry, a.data_ptr(), words.data_ptr(), scales_t.data_ptr(),
+            global_scale.data_ptr(), out.data_ptr(), m, n, k, kp,
+            sid.block_m, sid.block_n,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    return out, True
 
 
 def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
@@ -41,50 +114,191 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     scales_t : (kp/16, n) bf16 processed scales
     global_scale : f32 tensor of one element, on a's device (read by the
                kernel from device memory: no host sync)
-    sid      : the (block_m, block_n) tile to launch
+    sid      : the (block_m, block_n) tile to launch; a weight_cache sid
+               goes to fused_mul_wc
 
     Launches csrc/fp4_gemm.cu for CUDA tensors (counted in
     fused_mul.launches); runs fused_mul_reference for CPU tensors.
     """
-    m, k = a.shape
-    kw, n = words.shape
-    kp = kw * 8
+    if sid.weight_cache:
+        return fused_mul_wc(a, words, scales_t, global_scale, sid=sid)
     if a.device.type == "cpu":
         return fused_mul_reference(a, words, scales_t, global_scale, sid=sid)
-    if a.device.type != "cuda":
-        raise ValueError(f"fused_mul: unsupported device {a.device}")
-    for name, t in (("words", words), ("scales_t", scales_t),
-                    ("global_scale", global_scale)):
-        if t.device != a.device:
-            raise ValueError(f"fused_mul: {name} is on {t.device}, a on "
-                             f"{a.device}")
-    if a.dtype != torch.bfloat16 or words.dtype != torch.int32 \
-            or scales_t.dtype != torch.bfloat16 \
-            or global_scale.dtype != torch.float32:
-        raise ValueError("fused_mul: a bf16, words int32, scales bf16, "
-                         "global_scale f32 expected")
-    if tuple(scales_t.shape) != (kp // 16, n) or kp < k or k % 128 \
-            or kp % 256 or n % 16 or global_scale.numel() != 1:
-        raise ValueError(f"fused_mul: bad shapes a {tuple(a.shape)}, words "
-                         f"{tuple(words.shape)}, scales "
-                         f"{tuple(scales_t.shape)}")
-    a = a.contiguous()
-    if a.data_ptr() % 16:
-        a = a.clone()     # the kernel loads A in 16-byte words
-    words = words.contiguous()
-    scales_t = scales_t.contiguous()
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = lib.pk_fp4_gemm(a.data_ptr(), words.data_ptr(),
-                           scales_t.data_ptr(), global_scale.data_ptr(),
-                           out.data_ptr(), m, n, k, kp, sid.block_m,
-                           sid.block_n, stream)
-    _build.check("pk_fp4_gemm", code)
-    fused_mul.launches += 1
+    out, launched = _fused_mul_cuda("pk_fp4_gemm", a, words, scales_t,
+                                    global_scale, sid)
+    fused_mul.launches += launched
+    return out
+
+
+def fused_mul_wc(a: torch.Tensor, words: torch.Tensor,
+                 scales_t: torch.Tensor, global_scale: torch.Tensor, *,
+                 sid: SolutionId) -> torch.Tensor:
+    """fused_mul through the weight-cache kernel (pk_fp4_gemm_wc): each CTA
+    runs 4 m-tiles of sid's (block_m, block_n) and decodes each weight
+    block once for all of them. Bit for bit fused_mul's result at the same
+    tile. Counted in fused_mul_wc.launches; fused_mul_reference on the
+    CPU."""
+    if a.device.type == "cpu":
+        return fused_mul_reference(a, words, scales_t, global_scale, sid=sid)
+    out, launched = _fused_mul_cuda("pk_fp4_gemm_wc", a, words, scales_t,
+                                    global_scale, sid)
+    fused_mul_wc.launches += launched
     return out
 
 
 fused_mul.launches = 0
+fused_mul_wc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# W4A8: per-token int8 activations, FP4 weights requantized to int8 per
+# column, int32 sums. The order of every rounding below is the JAX
+# package's (fused.py:585-590, 621-626, 509-523): it decides the bits.
+# ---------------------------------------------------------------------------
+
+# k-chunk of the twin's float32 products: 1024 * 127 * 127 < 2^24, so every
+# partial sum of integer products is exact in f32, in any order
+_EXACT_K = 1024
+# The JAX package writes `x / 127.0`; XLA compiles a division by a constant
+# as a multiply by its f32 reciprocal, and the port computes what XLA does
+_INV127 = float(np.float32(1) / np.float32(127))
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def w4a8_requant_constants(scales_t: torch.Tensor):
+    """Per-column requantization constants of the W4A8 kernel, from the
+    processed scales (kp/16, n) bf16, padded rows included:
+    colmax = 6 * max(scales) per column (0 -> 1), r_t = bf16(s * (127 /
+    colmax)) (kp/16, n), acol = colmax * f32(1/127) (1, n) f32. As XLA does,
+    an f32 r below the smallest normal is flushed to 0 (only scales far
+    below their column's largest give one, and such an r requantizes every
+    weight to 0 either way). Engines compute these once at init
+    (models/serving.py) and pass them to every call."""
+    s32 = scales_t.float()
+    colmax = 6.0 * s32.amax(dim=0, keepdim=True)
+    colmax = torch.where(colmax == 0, 1.0, colmax)
+    # a true division: torch computes `127.0 / colmax` as 127 * (1 / colmax)
+    r = s32 * (colmax.new_tensor(127.0) / colmax)
+    r = torch.where(r.abs() < _F32_TINY, 0.0, r)
+    return r.to(torch.bfloat16), colmax * _INV127
+
+
+def quantize_activations(a: torch.Tensor):
+    """Per-token int8 activations: arow = max|f32(a)| * f32(1/127) per row
+    (0 -> 1), (m, 1) f32, and a_i8 = rne(f32(a) / arow), a true
+    division."""
+    af = a.float()
+    arow = af.abs().amax(dim=1, keepdim=True) * _INV127
+    arow = torch.where(arow == 0, 1.0, arow)
+    return torch.round(af / arow).to(torch.int8), arow
+
+
+def _int_matmul(a_i8: torch.Tensor, b_i8: torch.Tensor) -> torch.Tensor:
+    """The exact integer product a_i8 @ b_i8, as float64 (m, n): float32
+    matmuls over k-chunks of _EXACT_K (each exact), summed in float64
+    (exact below 2^53). Torch's int8 matmul would wrap in int8, and CUDA
+    torch has no integer matmul; TF32 must be off, as the caller sets."""
+    m, k = a_i8.shape
+    acc = torch.zeros((m, b_i8.shape[1]), dtype=torch.float64,
+                      device=a_i8.device)
+    for k0 in range(0, k, _EXACT_K):
+        acc += (a_i8[:, k0:k0 + _EXACT_K].float()
+                @ b_i8[k0:k0 + _EXACT_K].float()).double()
+    return acc
+
+
+def requantized_weights(words: torch.Tensor, r_t: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """The kernel's int8 B (k, n): rne(bf16(decode(w) * r_t[k // 16])),
+    the product exact in f32 and rounded to bf16 once; stored zeros give
+    0."""
+    b = layout.dequant_from_tpu_layout(words, r_t, words.shape[1], k)
+    return torch.round(b.to(torch.bfloat16).float()).to(torch.int8)
+
+
+def fused_mul_w4a8_reference(a: torch.Tensor, words: torch.Tensor,
+                             scales_t: torch.Tensor,
+                             global_scale: torch.Tensor, *, sid: SolutionId,
+                             r_t=None, acol=None) -> torch.Tensor:
+    """Plain PyTorch fused_mul_w4a8, with the kernel's numerics step for
+    step: out = bf16(((f32(Σ a_i8 · b_i8) * arow) * acol) * gs). The
+    integer sum is exact in both, so the two agree bit for bit."""
+    del sid  # both kernel structures compute the same function
+    if r_t is None or acol is None:
+        r_t, acol = w4a8_requant_constants(scales_t)
+    a_i8, arow = quantize_activations(a)
+    acc = _int_matmul(a_i8, requantized_weights(words, r_t, a.shape[1]))
+    out = ((acc.float() * arow) * acol.reshape(1, -1)) * global_scale.float()
+    return out.to(torch.bfloat16)
+
+
+def _fused_mul_w4a8_cuda(entry: str, a, words, scales_t, global_scale, sid,
+                         r_t, acol):
+    if a.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {a.device}")
+    m, k = a.shape
+    n = words.shape[1]
+    if r_t is None or acol is None:
+        r_t, acol = w4a8_requant_constants(scales_t)
+    kp = _check(entry, a, words, scales_t, global_scale,
+                ("r_t", r_t, torch.bfloat16, tuple(scales_t.shape)),
+                ("acol", acol, torch.float32, (1, n)))
+    a_i8, arow = quantize_activations(a)
+    a_i8 = _aligned(a_i8)
+    words, r_t = words.contiguous(), r_t.contiguous()
+    acol, arow = acol.contiguous(), arow.contiguous()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    if m == 0 or n == 0:
+        return out, False
+    _launch(entry, a_i8.data_ptr(), arow.data_ptr(), words.data_ptr(),
+            r_t.data_ptr(), acol.data_ptr(), global_scale.data_ptr(),
+            out.data_ptr(), m, n, k, kp, sid.block_m, sid.block_n,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    return out, True
+
+
+def fused_mul_w4a8(a: torch.Tensor, words: torch.Tensor,
+                   scales_t: torch.Tensor, global_scale: torch.Tensor, *,
+                   sid: SolutionId, r_t=None, acol=None) -> torch.Tensor:
+    """W4A8 fused_mul over the same (words, scales_t) operands:
+    bf16(((f32(Σ_k a_i8 · b_i8) * arow) * acol) * gs).
+
+    a is quantized per token to int8 here, in torch (XLA glue in the JAX
+    package): quantize_activations. r_t (kp/16, n) bf16 and acol (1, n) f32
+    are w4a8_requant_constants(scales_t), computed per call unless given.
+    sid: the (block_m, block_n) tile; a weight_cache sid goes to
+    fused_mul_w4a8_wc. Launches csrc/fp4_gemm_w4a8.cu for CUDA tensors
+    (counted in fused_mul_w4a8.launches); runs fused_mul_w4a8_reference
+    for CPU tensors."""
+    if sid.weight_cache:
+        return fused_mul_w4a8_wc(a, words, scales_t, global_scale, sid=sid,
+                                 r_t=r_t, acol=acol)
+    if a.device.type == "cpu":
+        return fused_mul_w4a8_reference(a, words, scales_t, global_scale,
+                                        sid=sid, r_t=r_t, acol=acol)
+    out, launched = _fused_mul_w4a8_cuda("pk_fp4_gemm_w4a8", a, words,
+                                         scales_t, global_scale, sid, r_t,
+                                         acol)
+    fused_mul_w4a8.launches += launched
+    return out
+
+
+def fused_mul_w4a8_wc(a: torch.Tensor, words: torch.Tensor,
+                      scales_t: torch.Tensor, global_scale: torch.Tensor, *,
+                      sid: SolutionId, r_t=None, acol=None) -> torch.Tensor:
+    """fused_mul_w4a8 through the weight-cache kernel
+    (pk_fp4_gemm_w4a8_wc): each CTA runs 4 m-tiles and requantizes each
+    weight block once for all of them. Bit for bit fused_mul_w4a8's
+    result. Counted in fused_mul_w4a8_wc.launches; the twin on the CPU."""
+    if a.device.type == "cpu":
+        return fused_mul_w4a8_reference(a, words, scales_t, global_scale,
+                                        sid=sid, r_t=r_t, acol=acol)
+    out, launched = _fused_mul_w4a8_cuda("pk_fp4_gemm_w4a8_wc", a, words,
+                                         scales_t, global_scale, sid, r_t,
+                                         acol)
+    fused_mul_w4a8_wc.launches += launched
+    return out
+
+
+fused_mul_w4a8.launches = 0
+fused_mul_w4a8_wc.launches = 0

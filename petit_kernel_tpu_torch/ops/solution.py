@@ -3,10 +3,13 @@ heuristic.
 
 Counterpart of petit_kernel_tpu/ops/solution.py. There a SolutionId names
 a Pallas block shape bounded by the TPU's VMEM budget; here it names one of
-the tile shapes compiled into csrc/fp4_gemm.cu. The CUDA kernel walks the
-packed weights 32 word rows (256 k) at a time, so there is no block-k
-parameter: a tile is (block_m, block_n), and the instances built are
-TILE_SHAPES below.
+the tile shapes compiled into the CUDA kernels. They walk the packed weights
+32 word rows (256 k) at a time, so there is no block-k parameter: a tile
+is (block_m, block_n), and the instances built are TILE_SHAPES below, for
+every kernel: the bf16 GEMM (csrc/fp4_gemm.cu) for MatmulType FP16 and
+BF16, the W4A8 GEMM (csrc/fp4_gemm_w4a8.cu) for MatmulType INT8, and the
+weight-cache variant of each (weight_cache=True), which runs 4 of the
+tiles per CTA and decodes each weight block once for them.
 
 The integer `repr` round-trips (SolutionId.from_repr(sid.repr()) == sid),
 like the reference library's SolutionId::Repr()/FromRepr. The JAX
@@ -29,8 +32,9 @@ class ElementB(enum.IntEnum):
 
 
 class MatmulType(enum.IntEnum):
-    """Activation/output dtype class. INT8 is the W4A8 path, which has no
-    Hopper kernel yet."""
+    """Activation/output dtype class. INT8 is the W4A8 path: int8
+    activations, FP4 weights requantized to int8 in the kernel
+    (csrc/fp4_gemm_w4a8.cu)."""
     FP16 = 0
     BF16 = 1
     INT8 = 2
@@ -51,15 +55,19 @@ class SolutionId:
     element_b: ElementB = ElementB.NVFP4
     mfma_type: MatmulType = MatmulType.BF16
     high_precision: bool = False
+    # the weight-cache kernel: 4 m-tiles per CTA share each decoded weight
+    # block (the JAX package's _fused_kernel_wc / _fused_kernel_w4a8_wc)
+    weight_cache: bool = False
 
     def __post_init__(self):
         if (self.block_m <= 0 or self.block_m % BLOCK_M_UNIT
                 or self.block_n <= 0 or self.block_n % BLOCK_N_UNIT):
             raise ValueError(f"bad tile ({self.block_m}, {self.block_n})")
 
-    # [n:8][m:8][element_b:3][mfma:2][hp:1]
+    # [wc:1][n:8][m:8][element_b:3][mfma:2][hp:1]
     def repr(self) -> int:
-        return ((self.block_n // BLOCK_N_UNIT) << 14
+        return (int(self.weight_cache) << 22
+                | (self.block_n // BLOCK_N_UNIT) << 14
                 | (self.block_m // BLOCK_M_UNIT) << 6
                 | int(self.element_b) << 3
                 | int(self.mfma_type) << 1
@@ -73,6 +81,7 @@ class SolutionId:
             element_b=ElementB((r >> 3) & 0x7),
             mfma_type=MatmulType((r >> 1) & 0x3),
             high_precision=bool(r & 1),
+            weight_cache=bool((r >> 22) & 1),
         )
 
 
@@ -99,7 +108,9 @@ def default_hints(device_name: str | None = None,
 def is_feasible(sid: SolutionId, m: int, n: int, k: int) -> bool:
     """Whether the compiled kernel serves sid at (m, n, k). The kernel masks
     ragged m and n edges and zero-fills A past k, so only the tile set,
-    k % 128 and a soft cap on wasted tile rows and columns apply."""
+    k % 128 and a soft cap on wasted tile rows and columns apply; a
+    weight-cache id needs more than one m-tile to share its decodes
+    (m > block_m), as in the JAX package."""
     if (sid.block_m, sid.block_n) not in TILE_SHAPES:
         return False
     if k % 128 != 0:
@@ -108,6 +119,8 @@ def is_feasible(sid: SolutionId, m: int, n: int, k: int) -> bool:
         return False
     if sid.block_n > 2 * max(n, BLOCK_N_UNIT):
         return False
+    if sid.weight_cache and m <= sid.block_m:
+        return False
     return True
 
 
@@ -115,12 +128,15 @@ def get_solutions(m: int, n: int, k: int,
                   element_b: ElementB = ElementB.NVFP4,
                   mfma_type: MatmulType = MatmulType.BF16,
                   high_precision: bool = False) -> list[SolutionId]:
-    """Feasible solutions for a problem shape."""
+    """Feasible solutions for a problem shape, with and without the weight
+    cache."""
     out = []
     for bm, bn in TILE_SHAPES:
-        sid = SolutionId(bm, bn, element_b, mfma_type, high_precision)
-        if is_feasible(sid, m, n, k):
-            out.append(sid)
+        for wc in (False, True):
+            sid = SolutionId(bm, bn, element_b, mfma_type, high_precision,
+                             weight_cache=wc)
+            if is_feasible(sid, m, n, k):
+                out.append(sid)
     return out
 
 
@@ -131,7 +147,8 @@ def choose_default_solution(m: int, n: int, k: int,
     """Heuristic: decode (m <= 32) takes the m16 tile with narrow n, so a
     4096-wide projection launches 64+ CTAs on the weight stream; larger m
     takes the 64-row tile, 128 wide where n is wide enough to fill the
-    card with CTAs."""
+    card with CTAs. It never picks the weight cache, which only an explicit
+    id (the autotuner's route) selects, as in the JAX package."""
     if k % 128 != 0:
         raise ValueError(f"no feasible solution for k={k}")
     if m <= 32:

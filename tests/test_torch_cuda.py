@@ -9,7 +9,9 @@ host it runs on its own, without tests/conftest.py's JAX set-up:
 Tolerances: the GEMM and the grouped expert GEMM at rtol 2^-7 with atol
 2^-8 * max|ref| (both sum exact bf16 products in f32, in other orders,
 then round once to bf16), the grouped GEMM also bit for bit against
-fused_mul on each expert at the same tile;
+fused_mul on each expert at the same tile, and the weight-cache GEMM bit
+for bit against fused_mul at the same tile; the W4A8 GEMM and its
+weight-cache variant bit for bit against their twin (exact int32 sums);
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
 convert fp8 exactly); the KV appends bit-exact.
 """
@@ -245,3 +247,62 @@ def test_init_cache_defaults_to_the_card(gen):
     del gen
     cache = tllama.init_cache(tllama.LlamaConfig.tiny(), 2)
     assert cache[0][0].device.type == "cuda"
+
+
+_W4A8_CASES = ((1, 208, 640), (37, 128, 1024), (70, 336, 384),
+               (300, 256, 512))
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
+def test_w4a8_kernels_bit_equal_to_twin(gen, fmt, bm, bn):
+    """Ragged m and n, k padded past itself; the weight-cache kernel where
+    the id is feasible (m > block_m), with precomputed constants."""
+    quant, group = _QUANT[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    for m, n, k in _W4A8_CASES:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        a = _bf16(gen, m, k)
+        sid = sol.SolutionId(bm, bn, eb, sol.MatmulType.INT8)
+        before = fused.fused_mul_w4a8.launches
+        got = fused.fused_mul_w4a8(a, words, st, gs.reshape(1), sid=sid)
+        assert fused.fused_mul_w4a8.launches == before + 1
+        want = fused.fused_mul_w4a8_reference(a, words, st, gs.reshape(1),
+                                              sid=sid)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        wc = sol.SolutionId(bm, bn, eb, sol.MatmulType.INT8,
+                            weight_cache=True)
+        if sol.is_feasible(wc, m, n, k):
+            r_t, acol = fused.w4a8_requant_constants(st)
+            before = fused.fused_mul_w4a8_wc.launches
+            got = fused.fused_mul_w4a8(a, words, st, gs.reshape(1), sid=wc,
+                                       r_t=r_t, acol=acol)
+            assert fused.fused_mul_w4a8_wc.launches == before + 1
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
+def test_weight_cache_kernel_bit_equal_to_fp4_gemm(gen, fmt, bm, bn):
+    quant, group = _QUANT[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    for m, n, k in _W4A8_CASES[1:]:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        a = _bf16(gen, m, k)
+        plain = fused.fused_mul(a, words, st, gs.reshape(1),
+                                sid=sol.SolutionId(bm, bn, eb))
+        wc = sol.SolutionId(bm, bn, eb, weight_cache=True)
+        if not sol.is_feasible(wc, m, n, k):
+            continue
+        before = fused.fused_mul_wc.launches
+        got = fused.fused_mul(a, words, st, gs.reshape(1), sid=wc)
+        assert fused.fused_mul_wc.launches == before + 1
+        assert torch.equal(got.view(torch.int16), plain.view(torch.int16))

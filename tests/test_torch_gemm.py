@@ -124,9 +124,20 @@ def test_gemm_error_contract():
     hp = pt.PetitSolutionHints(require_high_precision=True)
     with pytest.raises(NotImplementedError):
         pt.mul_nvfp4_a16(a, words, st, 1.0, m, n, k, hints=hp)
-    for fn in (pt.mul_nvfp4_a8, pt.mul_mxfp4_a8, tgemm.mul_fp4_diff):
-        with pytest.raises(NotImplementedError):
-            fn(a, words, st, 1.0, m, n, k)
+    with pytest.raises(NotImplementedError):
+        tgemm.mul_fp4_diff(a, words, st, 1.0, m, n, k)
+    # the W4A8 entries run (tests/test_torch_w4a8.py holds their numbers),
+    # take the same shape contract and refuse a non-INT8 solution id
+    for fn, fmt in ((pt.mul_nvfp4_a8, "nvfp4"), (pt.mul_mxfp4_a8, "mxfp4")):
+        dq = make_gemm_data(m, n, k, fmt, seed=1)
+        wq, sq = _torch_operands(dq)
+        aq = torch.from_numpy(dq.a).to(torch.bfloat16)
+        out = fn(aq, wq, sq, 1.0, m, n, k)
+        assert out.dtype == torch.bfloat16 and tuple(out.shape) == (m, n)
+        with pytest.raises(ValueError):
+            fn(aq[:, :256], wq, sq, 1.0, m, n, k)
+        with pytest.raises(ValueError, match="INT8"):
+            fn(aq, wq, sq, 1.0, m, n, k, tsol.SolutionId(16, 64).repr())
 
 
 def test_explicit_feasible_solution_runs():
@@ -147,8 +158,9 @@ def test_solution_repr_round_trips(bm, bn):
     for eb in (tsol.ElementB.NVFP4, tsol.ElementB.MXFP4):
         for mt in tsol.MatmulType:
             for hp in (False, True):
-                sid = tsol.SolutionId(bm, bn, eb, mt, hp)
-                assert tsol.SolutionId.from_repr(sid.repr()) == sid
+                for wc in (False, True):
+                    sid = tsol.SolutionId(bm, bn, eb, mt, hp, wc)
+                    assert tsol.SolutionId.from_repr(sid.repr()) == sid
     with pytest.raises(ValueError):
         tsol.SolutionId(bm + 8, bn)
 

@@ -304,9 +304,14 @@ def test_paged_engine_returns_every_page(models):
     eng.reset()
     assert eng.pages_in_use() == 0 and len(eng.pc.free) == 6
     with pytest.raises(NotImplementedError):
-        tserving.PagedEngine(tparams, tcfg, prefill_fmt="w4a8")
-    with pytest.raises(NotImplementedError):
         eng.score_forward(None)
+    # W4A8 prefill serves the same requests and returns every page too
+    w8 = tserving.PagedEngine(tparams, tcfg, max_batch=2, page_size=16,
+                              num_pages=6, prefill_fmt="w4a8")
+    assert w8.prefill_chunk == min(512, tcfg.max_seq_len)
+    out = w8.run(reqs)
+    assert sorted(out) == [0, 1, 2] and all(len(v) == 4 for v in out.values())
+    assert w8.pages_in_use() == 0 and len(w8.pc.free) == 6
 
 
 def test_convert_carries_fp8_state_bit_for_bit(models):
