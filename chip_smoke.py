@@ -12,23 +12,29 @@ Phases (any failure raises and the script exits non-zero):
              and 256, bf16 and fp8 K/V; the W4A8 GEMM and both weight-cache
              GEMMs at prefill, m = 512 and 2048, bit for bit against their
              twin and their non-cache counterparts, with a sweep of m
-             against fp4_gemm) and, for the grouped expert GEMM,
-             Mixtral-8x7B's expert shapes (E=8, cap 8 and 128, mxfp4 and
-             nvfp4, also bit for bit against fused_mul per expert), with
-             CUDA-event times of the kernel, its twin and one PyTorch
-             library call for the same work where there is one, and each
-             call's bound (bytes over 3.35 TB/s or operations over the
-             peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s int8,
-             whichever is larger)
+             against fp4_gemm; the dequant kernel at the four fused
+             projections, nvfp4 and mxfp4, bit for bit; the hybrid GEMM at
+             the seven unfused projections, m = 8 and 512, its FP4 columns
+             bit for bit against fused_mul at the same tile) and, for the
+             grouped expert GEMM, Mixtral-8x7B's expert shapes (E=8, cap 8
+             and 128, mxfp4 and nvfp4, also bit for bit against fused_mul
+             per expert), with CUDA-event times of the kernel, its twin and
+             one PyTorch library call for the same work where there is
+             one, and each call's bound (bytes over 3.35 TB/s or operations
+             over the peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s
+             int8, whichever is larger)
   4 parity   a 2-layer Llama-3-8B-width model and a 1-layer
              Mixtral-8x7B-width model: one prefill chunk and one decode
              step on the card (kernels) against the same model on the CPU
              (plain twins), Llama over the flat bf16 cache and over an fp8
-             page pool (forward_paged, page size 16), Mixtral over the flat
-             bf16 cache; logits within 2^-5 * max|logits|; and one
-             256-token W4A8 prefill chunk of the Llama (fmt="w4a8"), within
-             the larger of that and W4A8's own distance from nvfp4 on the
-             CPU
+             page pool (forward_paged, page size 16), the Llama quantized
+             "hybrid" over the flat bf16 cache, Mixtral over the flat bf16
+             cache; logits within 2^-5 * max|logits|; one 256-token W4A8
+             prefill chunk of the Llama (fmt="w4a8"), within the larger of
+             that and W4A8's own distance from nvfp4 on the CPU; and the
+             loss and gradients of a 1-layer nvfp4 Llama (64 tokens) on the
+             card (dequant kernel) against the CPU, each gradient within
+             2^-5 * max|CPU gradient|
   5 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
              on the card, Engine(max_batch=4) serving 8 greedy requests of
              32 new tokens over the flat bf16 cache
@@ -45,22 +51,33 @@ Phases (any failure raises and the script exits non-zero):
              engine with nvfp4 prefill (serve, serve_kv); then the
              weight-cache GEMMs through the public mul_* entries with
              explicit solution ids (the autotuner's route) on one layer
-  8 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
+  8 serve_hybrid the same dense weights quantized "hybrid" on the card
+             (a quarter of each projection's columns, the most salient,
+             kept bf16) through Engine(max_batch=4, fmt="hybrid") over the
+             flat bf16 cache, serving the same 8 requests: tokens/s, peak
+             memory and weight bytes beside serve's
+  9 train    the same nvfp4 model trained for 3 steps on 513 seeded tokens
+             (B = 1, T = 512): next-token cross-entropy, backward through
+             mul_fp4_diff (the dequant kernel), SGD at 1e-3 on embed, the
+             norms and lm_head (the global scales get their gradient but
+             stay fixed; words and scales are frozen); loss per step, step
+             time, peak memory
+ 10 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
              attention, random weights quantized on the card) through
              Engine(max_batch=4, forward_fn=moe.make_engine_forward(cfg))
              over the flat bf16 cache, serving the same 8 requests; prints
              the capacity drops of one 256-token chunk per layer
-  9 profile  the decode step and one 256-token prefill tick under
+ 11 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16), PagedEngine (Llama,
-             fp8, page size 16) and the Mixtral Engine, and one 512-token
-             prefill tick of the Llama Engine with nvfp4 and with W4A8
-             prefill: kernels by device time and the device's idle share
-             (PERF.md section 5)
+             fp8, page size 16), the hybrid Engine and the Mixtral Engine,
+             one 512-token prefill tick of the Llama Engine with nvfp4 and
+             with W4A8 prefill, and one training step: kernels by device
+             time and the device's idle share (PERF.md section 5)
 
-Each engine run of phases 5-8 (and the weight-cache run of phase 7) sets
-every kernel's launch count to 0 before it and fails if a kernel of its
-path did not launch; it also counts the launches inside decode steps, per
-decode step. The line before the last is the card's `nvidia-smi` name and
+Each engine run of phases 5-8 and 10 (and the weight-cache run of phase 7
+and the training run of phase 9) sets every kernel's launch count to 0
+before it and fails if a kernel of its path did not launch; an engine run
+also counts the launches inside decode steps, per decode step. The line before the last is the card's `nvidia-smi` name and
 power limit, the one before it a JSON object with each kernel's launches
 (summed over those runs), max abs error, times, bound and library time
 (phase 3).
@@ -90,14 +107,19 @@ from petit_kernel_tpu_torch.models import llama, moe, paged, serving
 from petit_kernel_tpu_torch.ops import _build, gemm
 from petit_kernel_tpu_torch.ops import layout
 from petit_kernel_tpu_torch.ops.kernels import attention, fused, grouped
+from petit_kernel_tpu_torch.ops.kernels import hybrid
 from petit_kernel_tpu_torch.ops.solution import ElementB
 from petit_kernel_tpu_torch.ops import solution as solution_mod
 from petit_kernel_tpu_torch.numerics import reference as qref
 
 PHASES = ("device", "build", "kernels", "parity", "serve", "serve_kv",
-          "serve_w4a8", "serve_moe", "profile")
+          "serve_w4a8", "serve_hybrid", "train", "serve_moe", "profile")
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+# the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
+# w_gate, w_up, w_down
+LLAMA8B_UNFUSED_KN = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+                      (4096, 14336), (4096, 14336), (14336, 4096))
 MIXTRAL_8X7B = moe.MixtralConfig.mixtral_8x7b()
 # a Mixtral-8x7B expert's projections as (k, n): w_gate and w_up, w_down
 MIXTRAL_EXPERT_KN = ((4096, 14336), (14336, 4096))
@@ -163,9 +185,17 @@ KERNELS = {
                         source="petit_kernel_tpu_torch/csrc/fp4_gemm.cu",
                         replaces="petit_kernel_tpu/ops/kernels/fused.py:259",
                         wrapper=fused.fused_mul_wc),
+    "fp4_dequant": dict(route="cuda",
+                        source="petit_kernel_tpu_torch/csrc/fp4_dequant.cu",
+                        replaces="petit_kernel_tpu/ops/kernels/fused.py:718",
+                        wrapper=fused.dequant_tpu_layout),
+    "hybrid_gemm": dict(route="cuda",
+                        source="petit_kernel_tpu_torch/csrc/hybrid_gemm.cu",
+                        replaces="petit_kernel_tpu/ops/kernels/hybrid.py:34",
+                        wrapper=hybrid.hybrid_mul),
 }
-# the kernels each engine run of phases 5-8 (and the weight-cache run of
-# phase 7) must launch
+# the kernels each engine run of phases 5-8 and 10 (and the weight-cache
+# run of phase 7 and the training run of phase 9) must launch
 PATHS = {
     "serve bf16 Engine": ("fp4_gemm", "decode_attention", "prefill_attention",
                           "kv_append"),
@@ -183,6 +213,9 @@ PATHS = {
                                    "paged_decode_attention",
                                    "paged_prefill_attention"),
     "gemm_api weight-cache ids": ("fp4_gemm_wc", "fp4_gemm_w4a8_wc"),
+    "serve_hybrid bf16 Engine": ("hybrid_gemm", "decode_attention",
+                                 "prefill_attention", "kv_append"),
+    "train nvfp4 Llama": ("fp4_gemm", "fp4_dequant"),
 }
 FP8 = torch.float8_e4m3fn
 
@@ -461,6 +494,8 @@ def phase_kernels(rec):
     del ck, cv, ck1, cv1, ck2, cv2
     _grouped_kernels(res, rows, gen)
     _w4a8_kernels(rec, res, rows, gen)
+    _dequant_kernels(res, rows, gen)
+    _hybrid_kernels(res, rows, gen)
     rec["kernel_rows"] = rows
     rec["kernels"] = res
 
@@ -854,6 +889,127 @@ def _w4a8_kernels(rec, res, rows, gen):
     rec["w4a8_sweep"] = sweep
 
 
+def _dequant_kernels(res, rows, gen):
+    """The dequant kernel (the backward pass of mul_fp4_diff) at the four
+    Llama-3-8B projections, nvfp4 and mxfp4, bit for bit against its twin.
+    No single PyTorch call decodes this layout: no library time. The JSON
+    row is nvfp4 summed over the four (one layer's backward)."""
+    dev = torch.device("cuda")
+    sums = dict(ms=0.0, plain_ms=0.0, nbytes=0)
+    for fmt in ("nvfp4", "mxfp4"):
+        quant, group = ((qref.quantize_nvfp4, 16) if fmt == "nvfp4"
+                        else (qref.quantize_mxfp4, 32))
+        for k, n in LLAMA8B_KN:
+            w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+            qw, sc, _ = quant(w)
+            del w
+            words = layout.repack_fp4_weights(
+                qw, n, k, pad_to=layout.pad_multiple(group))
+            st = layout.process_fp4_scales(sc, n, k, group_size=group)
+            got = fused.dequant_tpu_layout(words, st)
+            want = fused.dequant_tpu_layout_reference(words, st)
+            torch.cuda.synchronize()
+            what = f"dequant {fmt} k={k} n={n}"
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"{what}: differs from its twin")
+            del want
+            t_k = cuda_ms(lambda: fused.dequant_tpu_layout(words, st))
+            t_p = cuda_ms(lambda: fused.dequant_tpu_layout_reference(
+                words, st), iters=2, warmup=1)
+            nbytes = _nbytes(words, st, got)
+            row = dict(kernel="fp4_dequant", fmt=fmt, k=k, n=n,
+                       max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                       library_ms=None, **bound(nbytes, 0))
+            rows.append(row)
+            log(f"[kernels] {what} bit-exact kernel={t_k:.4f} ms "
+                f"plain={t_p:.4f} ms bound={row['bound_ms']:.4f} ms "
+                f"({nbytes / t_k / 1e6:.0f} GB/s)")
+            if fmt == "nvfp4":
+                sums["ms"] += t_k
+                sums["plain_ms"] += t_p
+                sums["nbytes"] += nbytes
+            del got, words, st
+    res["fp4_dequant"] = dict(
+        max_abs_err=0.0, ms=sums["ms"], plain_ms=sums["plain_ms"],
+        library_ms=None, **bound(sums["nbytes"], 0),
+        at="nvfp4, sum of the 4 Llama-3-8B projections (one layer's "
+           "backward), bit-exact; library: none, no PyTorch call decodes "
+           "this layout")
+
+
+def _hybrid_kernels(res, rows, gen):
+    """The hybrid GEMM at the seven unfused Llama-3-8B projections, each
+    split as quantize_params(..., "hybrid") splits it (3:1), at m = 8 and
+    512: the FP4 columns bit for bit against fused_mul at the same tile,
+    the dense columns against the twin at the GEMM tolerance. Library:
+    torch.matmul of A by the whole bf16 (k, n) weight (the dequantized FP4
+    columns and the dense ones side by side). The JSON row is m = 8 summed
+    over the seven (one layer of a hybrid decode step)."""
+    dev = torch.device("cuda")
+    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    err = 0.0
+    for k, n in dict.fromkeys(LLAMA8B_UNFUSED_KN):
+        times = LLAMA8B_UNFUSED_KN.count((k, n))
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        hq = llama.quantize_linear(w, "hybrid")
+        del w
+        words, st, wd = hq["words"], hq["scales"], hq["wd"]
+        gs = hq["gs"].reshape(1)
+        nf, nd = words.shape[1], wd.shape[1]
+        full = torch.cat([(layout.dequant_from_tpu_layout(words, st, nf, k)
+                           * gs).to(torch.bfloat16), wd[:k]], dim=1)
+        for m in (8, 512):
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sid = solution_mod.choose_default_solution(m, nf, k)
+            outf, outd = hybrid.hybrid_mul(a, words, st, gs, wd, sid=sid)
+            plain_f = fused.fused_mul(a, words, st, gs, sid=sid)
+            want_f, want_d = hybrid.hybrid_mul_reference(a, words, st, gs, wd,
+                                                         sid=sid)
+            torch.cuda.synchronize()
+            what = f"hybrid m={m} k={k} n={n} (nf={nf}, nd={nd})"
+            if not torch.equal(outf.view(torch.int16),
+                               plain_f.view(torch.int16)):
+                raise AssertionError(f"{what}: FP4 columns differ from "
+                                     "fused_mul bit for bit")
+            e = max(_close(f"{what} FP4 columns", outf, want_f, 2 ** -7,
+                           2 ** -8 * want_f.float().abs().max()),
+                    _close(f"{what} dense columns", outd, want_d, 2 ** -7,
+                           2 ** -8 * want_d.float().abs().max()))
+            t_k = cuda_ms(lambda: hybrid.hybrid_mul(a, words, st, gs, wd,
+                                                    sid=sid))
+            t_p = cuda_ms(lambda: hybrid.hybrid_mul_reference(
+                a, words, st, gs, wd, sid=sid), iters=2, warmup=1)
+            t_l = cuda_ms(lambda: torch.matmul(a, full))
+            nbytes = _nbytes(a, words, st, gs, wd, outf, outd)
+            flops = 2 * m * n * k
+            row = dict(kernel="hybrid_gemm", m=m, k=k, n=n, nf=nf, nd=nd,
+                       tile=[sid.block_m, sid.block_n], max_abs_err=e,
+                       ms=t_k, plain_ms=t_p, library_ms=t_l,
+                       **bound(nbytes, flops))
+            rows.append(row)
+            log(f"[kernels] {what} tile={sid.block_m}x{sid.block_n} "
+                f"err={e:.2e}, FP4 columns bit-equal to fused_mul; "
+                f"kernel={t_k:.4f} ms plain={t_p:.4f} ms "
+                f"matmul={t_l:.4f} ms bound={row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            err = max(err, e)
+            if m == 8:
+                for key, v in (("ms", t_k), ("plain_ms", t_p),
+                               ("library_ms", t_l), ("nbytes", nbytes),
+                               ("flops", flops)):
+                    layer[key] += times * v
+            del a, outf, outd, plain_f, want_f, want_d
+        del hq, words, st, wd, full
+    res["hybrid_gemm"] = dict(
+        max_abs_err=err, ms=layer["ms"], plain_ms=layer["plain_ms"],
+        library_ms=layer["library_ms"],
+        **bound(layer["nbytes"], layer["flops"]),
+        at="m=8, sum of the 7 unfused Llama-3-8B projections (one layer of "
+           "a hybrid decode step), 3:1 FP4:dense columns; library: "
+           "torch.matmul on the whole bf16 weight")
+
+
 def _random_quantized(cfg, gen):
     """Random nvfp4 params on the generator's device."""
     return llama.quantize_params(llama.init_params(cfg, gen), "nvfp4")
@@ -906,6 +1062,8 @@ def phase_parity(rec):
             out[f"{cache_name} {step}"] = err
     out.update(_w4a8_parity(cfg, params, cpu_params, rng))
     del params, cpu_params
+    out.update(_hybrid_parity(cfg))
+    out.update(_grad_parity())
     out.update(_moe_parity())
     rec["parity"] = out
 
@@ -952,6 +1110,197 @@ def _w4a8_parity(cfg, params, cpu_params, rng):
             "w4a8 against nvfp4 on the CPU": quant_err}
 
 
+def _hybrid_parity(cfg):
+    """The 2-layer Llama quantized "hybrid" (every projection splits 3:1
+    at this width) over the flat bf16 cache: a 64-token prefill chunk and
+    one decode step on the card (hybrid_gemm, attention kernels) and on
+    the CPU (twins); logits within 2^-5 * max|logits|."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = llama.quantize_params(llama.init_params(cfg, gen), "hybrid")
+    if not all("wd" in params["layers"][0][nm] for nm in llama._QUANT_KEYS):
+        raise AssertionError("parity hybrid: a projection did not split")
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(7)
+    T = 64
+    toks = rng.integers(0, cfg.vocab_size, size=(1, T)).astype(np.int64)
+    nxt = rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(np.int64)
+
+    def run(p, d):
+        cache = llama.init_cache(cfg, 1, device=d)
+        lg1, cache = llama.forward(p, torch.as_tensor(toks, device=d), cfg,
+                                   cache, torch.arange(T, device=d)[None],
+                                   fmt="hybrid", kv_window=128)
+        lg2, _ = llama.forward(p, torch.as_tensor(nxt, device=d), cfg, cache,
+                               torch.full((1, 1), T, device=d), fmt="hybrid",
+                               kv_window=128)
+        return lg1.float().cpu(), lg2.float().cpu()
+
+    before = hybrid.hybrid_mul.launches
+    got = run(params, dev)
+    n = hybrid.hybrid_mul.launches - before
+    want = run(cpu_params, torch.device("cpu"))
+    if n != 2 * 7 * cfg.num_layers:
+        raise AssertionError(f"parity hybrid: {n} hybrid_gemm launches, "
+                             f"expected {2 * 7 * cfg.num_layers}")
+    out = {}
+    for step, g, w in zip(("prefill", "decode"), got, want):
+        bound_ = 2 ** -5 * w.abs().max().item()
+        err = (g - w).abs().max().item()
+        log(f"[parity] hybrid flat bf16 {step} logits max abs err "
+            f"{err:.4e} (bound {bound_:.4e}); {n} hybrid_gemm launches")
+        if not math.isfinite(err) or err > bound_:
+            raise AssertionError(f"parity hybrid {step}: {err} > {bound_}")
+        out[f"hybrid flat bf16 {step}"] = err
+    return out
+
+
+def _train_loss(params, toks, cfg):
+    """__graft_entry__.py's loss_fn: next-token cross-entropy of
+    llama.forward over toks (B, T + 1), in f32."""
+    logits, _ = llama.forward(params, toks[:, :-1], cfg)
+    logp = torch.log_softmax(logits.float(), -1)
+    return -logp.gather(-1, toks[:, 1:, None]).mean()
+
+
+def _trainable(tree, path=""):
+    """{path: leaf} of the leaves a training step differentiates: all but
+    the frozen packed words and scales (embed, norms, lm_head, every
+    quantized layer's gs)."""
+    if isinstance(tree, dict):
+        return {p: w for k, v in tree.items() if k not in ("words", "scales")
+                for p, w in _trainable(v, f"{path}/{k}").items()}
+    if isinstance(tree, list):
+        return {p: w for i, v in enumerate(tree)
+                for p, w in _trainable(v, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def _train_copy(params):
+    """params with every trainable leaf cloned and requiring a gradient,
+    the frozen words and scales shared: a step updates the copy in place
+    and leaves `params` as it was."""
+    if isinstance(params, dict):
+        return {k: v if k in ("words", "scales") else _train_copy(v)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [_train_copy(v) for v in params]
+    return params.detach().clone().requires_grad_()
+
+
+def _train_step(params, toks, cfg, lr=1e-3):
+    """One step of __graft_entry__.py's train_step: loss, backward, then
+    w - lr * g on every trainable leaf but the global scales (each gets its
+    gradient and stays fixed: a step at lr would move a gs of about 1e-4 by
+    10^4 times its value). Raises unless the loss and every gradient are
+    finite. Returns the loss."""
+    loss = _train_loss(params, toks, cfg)
+    loss.backward()
+    with torch.no_grad():
+        for path, w in _trainable(params).items():
+            if w.grad is None or not torch.isfinite(w.grad).all():
+                raise AssertionError(f"train: gradient of {path} is missing "
+                                     "or not finite")
+            if not path.endswith("/gs"):
+                w -= lr * w.grad.to(w.dtype)
+            w.grad = None
+    loss = loss.item()
+    if not math.isfinite(loss):
+        raise AssertionError(f"train: loss {loss}")
+    return loss
+
+
+def _gs_term_sizes(run):
+    """run() with gemm.mul_fp4_diff wrapped so that the backward records,
+    for each global scale, the size of the terms of its gradient
+    sum(g * y) / gs: sum|g * y| / |gs|, keyed by the gs tensor's id.
+    Returns (run()'s result, {id(gs): size})."""
+    sizes, inner = {}, gemm.mul_fp4_diff
+
+    def recording(fmt, size_k, a, b, s, gs):
+        y = inner(fmt, size_k, a, b, s, gs)
+
+        def hook(g, y=y.detach(), gs=gs.detach(), key=id(gs)):
+            sizes[key] = ((g.float() * y.float()).abs().sum()
+                          / gs.float().abs()).item()
+        if y.requires_grad:
+            y.register_hook(hook)
+        return y
+
+    gemm.mul_fp4_diff = recording
+    try:
+        return run(), sizes
+    finally:
+        gemm.mul_fp4_diff = inner
+
+
+def _grad_parity():
+    """A 1-layer nvfp4 Llama at full Llama-3-8B width, B = 1, 64 tokens:
+    the loss and the gradients of embed, both norms, final_norm, lm_head
+    and every gs on the card (fp4_gemm forward, fp4_dequant backward)
+    against the CPU (twins). Loss within rel 1e-3, each gradient within
+    2^-5 * max|CPU gradient|. A gs gradient is one sum over the layer's
+    outputs, sum(g * y) / gs, whose terms cancel: for this random model
+    they are some 10^3 times the sum (PERF.md), and card and CPU
+    round the terms differently in their last bf16 bit. So the bound of a
+    gs gradient is 2^-5 * max(|CPU gradient|, 2^-8 * sum|g * y| / |gs|):
+    2^-5 of the sum, or of one bf16 rounding of its terms, whichever is
+    larger."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = _random_quantized(cfg, gen)
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, size=(1, 65)))
+    results = []
+    for d in (dev, torch.device("cpu")):
+        p = _train_copy(_tree_to(params, d))
+        leaves = _trainable(p)
+        before = fused.dequant_tpu_layout.launches
+
+        def step():
+            loss = _train_loss(p, toks.to(d), cfg)
+            loss.backward()
+            return loss.item()
+
+        loss, sizes = _gs_term_sizes(step)
+        results.append(dict(
+            loss=loss, launches=fused.dequant_tpu_layout.launches - before,
+            grads={k: w.grad.float().cpu() for k, w in leaves.items()},
+            sizes={k: sizes[id(w)] for k, w in leaves.items()
+                   if k.endswith("/gs")}))
+        del p, leaves
+    card, cpu = results
+    if card["launches"] != 4:
+        raise AssertionError(f"parity grads: {card['launches']} dequant "
+                             "launches, expected 4")
+    out = {"grads loss card": card["loss"], "grads loss cpu": cpu["loss"]}
+    log(f"[parity] grads: loss {card['loss']:.6f} on the card, "
+        f"{cpu['loss']:.6f} on the CPU; {card['launches']} fp4_dequant "
+        "launches")
+    if not abs(card["loss"] - cpu["loss"]) <= 1e-3 * abs(cpu["loss"]):
+        raise AssertionError(f"parity grads: loss {card['loss']} against "
+                             f"{cpu['loss']}")
+    for path in sorted(cpu["grads"]):
+        g, w = card["grads"][path], cpu["grads"][path]
+        scale = w.abs().max().item()
+        note = ""
+        if path in cpu["sizes"]:
+            terms = cpu["sizes"][path]
+            scale = max(scale, 2 ** -8 * terms)
+            note = (f"; CPU gradient {w.item():.4e}, its terms "
+                    f"sum|g*y|/|gs| {terms:.4e}")
+            out[f"grads {path} terms"] = terms
+        bound_ = 2 ** -5 * scale
+        err = (g - w).abs().max().item()
+        log(f"[parity] grads {path}: max abs err {err:.4e} (bound "
+            f"{bound_:.4e}{note})")
+        if not math.isfinite(err) or err > bound_:
+            raise AssertionError(f"parity grads {path}: {err} > {bound_}")
+        out[f"grads {path}"] = err
+    return out
+
+
 def _moe_parity():
     """1 layer at full Mixtral-8x7B width over the flat bf16 cache: a
     64-token prefill chunk and one decode step on the card (grouped and
@@ -994,7 +1343,8 @@ def _tree_to(tree, device):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+    # a hybrid layer's HybridMeta is no tensor
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 _SERVE_MODEL = {}
@@ -1225,6 +1575,8 @@ def _weight_bytes(tree) -> int:
         return sum(_weight_bytes(v) for v in tree.values())
     if isinstance(tree, list):
         return sum(_weight_bytes(v) for v in tree)
+    if not isinstance(tree, torch.Tensor):    # HybridMeta
+        return 0
     return tree.numel() * tree.element_size()
 
 
@@ -1359,6 +1711,128 @@ def _weight_cache_api_run(rec, params, cfg):
     return dict(m=m, launches=launches)
 
 
+_HYBRID_MODEL = {}
+
+
+def _hybrid_model(cfg, dev):
+    """serve's model quantized "hybrid": the same dense weights (seed 0,
+    drawn in the same order), every projection split 3:1 into FP4 and bf16
+    columns on the card, one layer at a time. Shared with `profile`."""
+    if "params" not in _HYBRID_MODEL:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = llama.init_params(dataclasses.replace(cfg, num_layers=0),
+                                   gen)
+        one = dataclasses.replace(cfg, num_layers=1, vocab_size=16)
+        for _ in range(cfg.num_layers):
+            params["layers"] += llama.quantize_params(
+                llama.init_params(one, gen), "hybrid")["layers"]
+        torch.cuda.synchronize()
+        _HYBRID_MODEL.update(params=params, init_s=time.perf_counter() - t0)
+    return _HYBRID_MODEL["params"], _HYBRID_MODEL["init_s"]
+
+
+def phase_serve_hybrid(rec):
+    """serve's requests through Engine(max_batch=4, fmt="hybrid") over the
+    flat bf16 cache. Every projection of Llama-3-8B splits, so a decode
+    step launches hybrid_gemm 7 times a layer and fp4_gemm never."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, t_init = _hybrid_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    wbytes = _weight_bytes(params)
+    nvfp4_bytes = (_weight_bytes(_SERVE_MODEL["params"])
+                   if "params" in _SERVE_MODEL else None)
+    log(f"[serve_hybrid] params ready in {t_init:.1f} s; {wbytes / 1e9:.2f} "
+        f"GB of weights (nvfp4 model: "
+        f"{'not built' if nvfp4_bytes is None else f'{nvfp4_bytes / 1e9:.2f} GB'}"
+        f"); device memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    rec.setdefault("launches", {})
+    path = "serve_hybrid bf16 Engine"
+    run, eng = _serve(rec, path, lambda: serving.Engine(
+        params, cfg, max_batch=4, fmt="hybrid"), reqs, cfg)
+    per_step = run["launches_per_decode_step"]
+    if per_step.get("hybrid_gemm") != 7 * cfg.num_layers \
+            or per_step.get("fp4_gemm"):
+        raise AssertionError(f"{path}: launches per decode step {per_step}, "
+                             f"expected {7 * cfg.num_layers} hybrid_gemm and "
+                             "no fp4_gemm")
+    run.update(init_s=t_init, weight_bytes=wbytes,
+               nvfp4_weight_bytes=nvfp4_bytes, kv_bytes=_kv_bytes(eng.cache))
+    nvfp4_tokens = rec.get("serve", {}).get("tokens")
+    if nvfp4_tokens:          # information: the same weights, nvfp4
+        same = sum(x == y for x, y in zip(run["tokens"], nvfp4_tokens))
+        run["streams_equal_to_nvfp4"] = same
+        log(f"[{path}] {same} of {len(reqs)} token streams equal to "
+            "serve's (the same dense weights quantized nvfp4)")
+    rec["serve_hybrid"] = run
+    del eng
+
+
+def _train_tokens(cfg):
+    """phase train's 513 seeded tokens, B = 1 (T = 512 positions)."""
+    return torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(1, 513)), device="cuda")
+
+
+def phase_train(rec):
+    """3 training steps of serve's 32-layer nvfp4 Llama-3-8B on 513 seeded
+    tokens (B = 1, T = 512) through _train_step, on a copy of its trainable
+    leaves (the words and scales are shared and frozen). The launch counts
+    are set to 0 before the steps and read after them: the dequant kernel
+    must have launched once per quantized projection per step, 128 times.
+    The loss is printed, not held to fall: at this width an update of 1e-3
+    * g to a bf16 weight of about 0.02, or to a unit norm, can round
+    away."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    serve_params, _ = _serve_model(cfg, dev)
+    toks = _train_tokens(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    params = _train_copy(serve_params)
+    for info in KERNELS.values():
+        info["wrapper"].launches = 0
+    losses, step_s, dequants = [], [], []
+    for _ in range(3):
+        before = fused.dequant_tpu_layout.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_train_step(params, toks, cfg))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        dequants.append(fused.dequant_tpu_layout.launches - before)
+    launches = _launch_counts()
+    path = "train nvfp4 Llama"
+    missing = [k for k in PATHS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing} "
+                             f"({launches})")
+    if dequants != [4 * cfg.num_layers] * 3:
+        raise AssertionError(f"{path}: fp4_dequant launches per step "
+                             f"{dequants}, expected {4 * cfg.num_layers}")
+    rec.setdefault("launches", {})
+    for name, n_ in launches.items():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n_
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec["train"] = dict(tokens=int(toks.shape[1]), losses=losses,
+                        step_s=step_s, peak_gib=peak, resident_gib=base,
+                        launches=launches,
+                        launches_per_step={k: v / 3 for k, v in
+                                           launches.items() if v})
+    log(f"[train] 3 steps, B=1 T={toks.shape[1] - 1}: losses "
+        f"{[round(x, 6) for x in losses]}; step times "
+        f"{[round(x, 3) for x in step_s]} s; peak device memory "
+        f"{peak:.2f} GiB ({base:.2f} GiB resident before the steps, the "
+        f"served models included)")
+    log(json.dumps({"path": path, "launches": launches}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _kernel_profile(steps):
     """Run steps() under torch.profiler; returns (wall ms, summed device ms
     of every kernel, [(kernel name, device ms, calls)] by time)."""
@@ -1439,12 +1913,31 @@ def _profile_engine(name, eng, cfg, chunk=256, decode=True):
     return out
 
 
+def _profile_train_step(params, cfg):
+    """One step of phase train's training (after one step of warm-up) under
+    torch.profiler."""
+    toks = _train_tokens(cfg)
+    tparams = _train_copy(params)
+    _train_step(tparams, toks, cfg)
+    wall, kern, rows = _kernel_profile(lambda: _train_step(tparams, toks,
+                                                           cfg))
+    del tparams
+    torch.cuda.empty_cache()
+    log(f"[profile] train step (B=1, T={toks.shape[1] - 1}): {wall:.1f} ms "
+        f"wall, kernels {kern:.1f} ms, idle {100 * (1 - kern / wall):.1f}%")
+    for k, ms, c in rows[:15]:
+        log(f"[profile]   {ms:9.2f} ms {c:6d}x  {k[:100]}")
+    return dict(wall_ms=wall, kernel_ms=kern, idle_share=1 - kern / wall,
+                top=[dict(kernel=k, ms=ms, calls=c) for k, ms, c in rows[:15]])
+
+
 def phase_profile(rec):
     """The serve phase's model in Engine (flat bf16 cache) and in
-    PagedEngine (fp8 pool, page size 16), and serve_moe's Mixtral in its
-    Engine, 4 slots each (_profile_engine); then a 512-token prefill tick
-    of the Llama Engine with nvfp4 and with W4A8 prefill GEMMs.
-    Device idle share = 1 - (summed kernel time) / wall."""
+    PagedEngine (fp8 pool, page size 16), its hybrid quantization in the
+    hybrid Engine, and serve_moe's Mixtral in its Engine, 4 slots each
+    (_profile_engine); one training step of phase train; then a 512-token
+    prefill tick of the Llama Engine with nvfp4 and with W4A8 prefill
+    GEMMs. Device idle share = 1 - (summed kernel time) / wall."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b()
     params, _ = _serve_model(cfg, dev)
@@ -1455,6 +1948,13 @@ def phase_profile(rec):
         "fp8 PagedEngine", serving.PagedEngine(params, cfg, max_batch=4,
                                                page_size=16,
                                                cache_dtype=FP8), cfg)
+    gc.collect()
+    hparams, _ = _hybrid_model(cfg, dev)
+    out["hybrid"] = _profile_engine(
+        "hybrid Engine", serving.Engine(hparams, cfg, max_batch=4,
+                                        fmt="hybrid"), cfg)
+    gc.collect()
+    out["train_step"] = _profile_train_step(params, cfg)
     gc.collect()
     mcfg = MIXTRAL_8X7B
     mparams, _ = _moe_model(mcfg, dev)
@@ -1497,7 +1997,7 @@ def main(argv=None) -> int:
         with open(args.record, "w") as f:
             json.dump(rec, f, indent=1)
     if all(p in rec for p in ("kernels", "serve", "serve_kv", "serve_moe",
-                              "serve_w4a8")):
+                              "serve_w4a8", "serve_hybrid", "train")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

@@ -14,9 +14,14 @@ through either. Public surface, the reference library's 7-function API:
 
 plus the pow2 and zero-free entries, the W4A8 entries mul_nvfp4_a8 /
 mul_mxfp4_a8 (int8 activations over the same weights, int8 tensor-core
-kernel), weight-cache solution ids for every mul_* entry, and `models`
-(Llama with flat bf16 or headed fp8 KV caches, paged KV, serving Engine
-and PagedEngine, W4A8 prefill through `prefill_fmt="w4a8"`, and
+kernel), weight-cache solution ids for every mul_* entry, the
+differentiable ops.gemm.mul_fp4_diff (a torch.autograd.Function whose
+backward runs the dequant kernel; llama.forward over quantized params is
+differentiable through it), and `models` (Llama with flat bf16 or headed
+fp8 KV caches, paged KV, serving Engine and PagedEngine, W4A8 prefill
+through `prefill_fmt="w4a8"`, hybrid FP4 + BF16 serving, where the most
+salient quarter of each projection's columns stays dense, through
+`Engine(llama.quantize_params(params, "hybrid"), cfg, fmt="hybrid")`, and
 Mixtral-8x7B MoE, whose experts run one grouped FP4 GEMM launch per
 projection: `Engine(params, cfg, forward_fn=moe.make_engine_forward(cfg))`).
 Every function returns torch tensors on the device of its input; the

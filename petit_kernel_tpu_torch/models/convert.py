@@ -18,6 +18,13 @@ each function raises unless the caller passes device="cpu". A Mixtral
 tree (models/moe.py) converts as it is: stacked expert words (E, kp/8, n)
 become int32, their scales stay bf16 and their global scales (E,) f32.
 
+A hybrid layer (quantize_params(..., "hybrid"), a dict with "wd") changes
+on the way: its static "meta" (the JAX package's HybridMeta) becomes the
+port's ops.hybrid.HybridMeta, "inv_perm" an int32 index tensor, and "wd",
+stored by the JAX package in its kernel's pi-permuted k order
+(ops/hybrid.py permute_k_for_a), goes back to natural k order, the order
+in which the port's kernels read A. The permuted copy is not carried.
+
 This module imports neither JAX nor ml_dtypes: bfloat16 and float8 arrays
 are read through integer views of their bytes.
 """
@@ -27,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.hybrid import HybridMeta
 from .llama import resolve_device
 
 
@@ -46,11 +54,32 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     return t.to(device)
 
 
+def unpermute_k(wd_permuted: np.ndarray) -> np.ndarray:
+    """(kp, nd) rows in the JAX hybrid kernel's A order -> natural k: the
+    (16, 8) transpose inside each 128-row chunk that undoes
+    permute_k_for_a (the transform dequant_tpu_layout also undoes)."""
+    kp, nd = wd_permuted.shape
+    return (wd_permuted.reshape(kp // 128, 16, 8, nd).swapaxes(1, 2)
+            .reshape(kp, nd))
+
+
+def _hybrid_from_jax(layer: dict, device) -> dict:
+    meta = layer["meta"]
+    out = {k: params_from_jax(v, device) for k, v in layer.items()
+           if k not in ("meta", "wd")}
+    out["wd"] = tensor_from_numpy(unpermute_k(np.asarray(layer["wd"])),
+                                  device)
+    out["meta"] = HybridMeta(meta.block_nf, meta.block_nd, meta.size_k)
+    return out
+
+
 def params_from_jax(tree, device=None):
     """JAX params tree (numpy leaves) -> the port's params tree on `device`
-    (default the CUDA card)."""
+    (default the CUDA card); hybrid layers as the module docstring says."""
     device = resolve_device(device)
     if isinstance(tree, dict):
+        if "wd" in tree:
+            return _hybrid_from_jax(tree, device)
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)

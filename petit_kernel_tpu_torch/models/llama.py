@@ -6,10 +6,20 @@ tree of tensors, as there:
   dense linear    : {"w": bf16 (k, n)} (+ optional "b" bias)
   quantized linear: {"words": int32 (kp/8, n), "scales": bf16 (kp/16, n),
                      "gs": f32 0-dim tensor}
-Projections run through the FP4 GEMM entries (ops/gemm.py) under
-torch.inference_mode(): there is no gradient path yet. fmt="w4a8" runs the
-nvfp4 container through the W4A8 GEMM (int8 activations) at m >=
-W4A8_MIN_M rows and through the exact nvfp4 GEMM below it. The KV cache is a
+  hybrid linear   : {"words", "scales", "gs" of the FP4 columns, "wd": bf16
+                     (kp, nd) dense columns, "inv_perm": int32 (n,),
+                     "meta": ops.hybrid.HybridMeta} (quantize_params(...,
+                     "hybrid"); ops/hybrid.py)
+FP4 projections run through the differentiable GEMM gemm.mul_fp4_diff, so
+a forward without a cache is differentiable: gradients reach the
+activations, the dense leaves (embed, norms, lm_head) and each layer's
+global scale "gs", never the frozen words and scales; the backward runs the
+dequant kernel on the card. The serving engines call forward under
+torch.inference_mode(). fmt="w4a8" runs the nvfp4 container through the
+W4A8 GEMM (int8 activations) at m >= W4A8_MIN_M rows and through the exact
+nvfp4 GEMM below it. Hybrid layers run ops/hybrid.mul_hybrid, whatever fmt
+is; a fmt outside the pure formats (such as "hybrid" for a layer too
+narrow to split) runs nvfp4. The KV cache is a
 list of per-layer (k, v) tensors that forward updates IN PLACE (the JAX
 package returns new arrays and donates the old): flat (B, S, Hkv, d) bf16,
 or headed (B, Hkv, S, d) bf16 or fp8 e4m3 (init_cache). On the card the
@@ -28,6 +38,7 @@ import torch
 
 from ..numerics import reference as ref_numerics
 from ..ops import gemm as gemm_mod
+from ..ops import hybrid as hybrid_mod
 from ..ops import layout as layout_mod
 from ..ops.kernels import attention as attn_mod
 
@@ -88,13 +99,9 @@ _QUANTIZERS = {
     "w4a8": (ref_numerics.quantize_nvfp4, 16),    # the nvfp4 container
 }
 
-_MULS = {
-    "nvfp4": gemm_mod.mul_nvfp4_a16,
-    "nvfp4p2": gemm_mod.mul_nvfp4p2_a16,
-    "nvfp4p2z": gemm_mod.mul_nvfp4p2z_a16,
-    "mxfp4": gemm_mod.mul_mxfp4_a16,
-    "mxfp4z": gemm_mod.mul_mxfp4z_a16,
-}
+# (block_nf, block_nd) of fmt="hybrid", widest first; a layer falls back to
+# nvfp4 when no pair divides its n
+_HYBRID_BLOCKS = ((1536, 512), (768, 256), (384, 128))
 
 # fmt="w4a8" routes a projection of fewer rows than this to the exact nvfp4
 # GEMM. 256 is the JAX package's value, kept for parity; the H100's own
@@ -103,7 +110,17 @@ W4A8_MIN_M = 256
 
 
 def quantize_linear(w_kn: torch.Tensor, fmt: str = "nvfp4") -> dict:
-    """Dense (k, n) -> quantized FP4 layer dict, on w_kn's device."""
+    """Dense (k, n) -> quantized FP4 layer dict, on w_kn's device.
+    fmt="hybrid" keeps the most salient columns dense (ops/hybrid.py) with
+    the widest _HYBRID_BLOCKS pair that divides n, and falls back to nvfp4
+    for a layer too narrow to split."""
+    if fmt == "hybrid":
+        n = w_kn.shape[1]
+        for bnf, bnd in _HYBRID_BLOCKS:
+            if n % (bnf + bnd) == 0:
+                return hybrid_mod.quantize_hybrid(w_kn, block_nf=bnf,
+                                                  block_nd=bnd)
+        fmt = "nvfp4"
     if fmt not in _QUANTIZERS:
         raise ValueError(f"unsupported format {fmt!r}")
     quantize, group = _QUANTIZERS[fmt]
@@ -116,28 +133,37 @@ def quantize_linear(w_kn: torch.Tensor, fmt: str = "nvfp4") -> dict:
     return {"words": words, "scales": st, "gs": gs.reshape(())}
 
 
-@torch.inference_mode()
 def linear(x: torch.Tensor, layer: dict, *, fmt: str = "nvfp4"
            ) -> torch.Tensor:
-    """y = x @ W (+ b) for dense or FP4-quantized layer dicts; x (..., k).
-    A bias ("b", Qwen2 QKV) is added in x.dtype after the matmul.
-    fmt="w4a8": m >= W4A8_MIN_M rows run mul_nvfp4_a8, with the layer's
-    precomputed "r_t"/"acol" where it has them (serving engines add them);
-    fewer rows run the exact mul_nvfp4_a16."""
+    """y = x @ W (+ b) for dense, FP4-quantized or hybrid layer dicts; x
+    (..., k). A bias ("b", Qwen2 QKV) is added in x.dtype after the matmul.
+    FP4 layers run gemm.mul_fp4_diff in fmt, or in nvfp4 when fmt is not a
+    pure format. fmt="w4a8": fewer than W4A8_MIN_M rows run the exact
+    nvfp4 GEMM, and a layer with precomputed "r_t"/"acol" (serving engines
+    add them) runs mul_nvfp4_a8 with them, outside the gradient path.
+    Hybrid layers (with "wd") run mul_hybrid."""
     *lead, k = x.shape
     if "w" in layer:
         y = torch.matmul(x, layer["w"].to(x.dtype))
     else:
         m = math.prod(lead)
-        n = layer["words"].shape[1]
-        args = (x.reshape(m, k), layer["words"], layer["scales"],
-                layer["gs"], m, n, k, -1)
-        if fmt == "w4a8" and m >= W4A8_MIN_M:
-            y = gemm_mod.mul_nvfp4_a8(*args, r_t=layer.get("r_t"),
-                                      acol=layer.get("acol"))
+        x2 = x.reshape(m, k)
+        if "wd" in layer:
+            y = hybrid_mod.mul_hybrid(x2.to(torch.bfloat16), layer).to(
+                x.dtype)
         else:
-            y = _MULS["nvfp4" if fmt == "w4a8" else fmt](*args)
-        y = y.reshape(*lead, n)
+            n = layer["words"].shape[1]
+            pure = fmt if fmt in _QUANTIZERS else "nvfp4"
+            if pure == "w4a8" and m < W4A8_MIN_M:
+                pure = "nvfp4"
+            if pure == "w4a8" and "r_t" in layer:
+                y = gemm_mod.mul_nvfp4_a8(
+                    x2, layer["words"], layer["scales"], layer["gs"], m, n,
+                    k, -1, r_t=layer["r_t"], acol=layer["acol"])
+            else:
+                y = gemm_mod.mul_fp4_diff(pure, k, x2, layer["words"],
+                                          layer["scales"], layer["gs"])
+        y = y.reshape(*lead, y.shape[-1])
     if "b" in layer:
         y = y + layer["b"].to(y.dtype)
     return y
@@ -239,7 +265,9 @@ def _fused_projections(lp: dict, fmt: str) -> dict:
 def quantize_params(params: dict, fmt: str = "nvfp4") -> dict:
     """Quantize every projection weight to FP4; embed and lm_head stay
     dense. wq|wk|wv and w_gate|w_up are fused along n, so a layer runs 4
-    GEMM launches instead of 7."""
+    GEMM launches instead of 7; fmt="hybrid" quantizes the 7 projections
+    one by one (quantize_linear), as the JAX package does, each with its
+    bias where it has one."""
     out = {"embed": params["embed"], "final_norm": params["final_norm"],
            "lm_head": params["lm_head"], "layers": []}
     for lp in params["layers"]:
@@ -249,7 +277,13 @@ def quantize_params(params: dict, fmt: str = "nvfp4") -> dict:
                 raise ValueError(f"{nm} ({k}, {n}): FP4 layers need k % 128 "
                                  "== 0 and n % 16 == 0")
         q = {k: v for k, v in lp.items() if k not in _QUANT_KEYS}
-        q.update(_fused_projections(lp, fmt))
+        if fmt == "hybrid":
+            for nm in _QUANT_KEYS:
+                q[nm] = quantize_linear(lp[nm]["w"], fmt)
+                if "b" in lp[nm]:
+                    q[nm]["b"] = lp[nm]["b"]
+        else:
+            q.update(_fused_projections(lp, fmt))
         out["layers"].append(q)
     return out
 
@@ -388,7 +422,6 @@ def mlp(x, lp, *, fmt: str):
     return linear(h, lp["w_down"], fmt=fmt)
 
 
-@torch.inference_mode()
 def forward(params, tokens, cfg: LlamaConfig, cache=None, pos=None, *,
             fmt: str = "nvfp4", kv_window: Optional[int] = None,
             write_mask: Optional[torch.Tensor] = None):

@@ -12,7 +12,10 @@ Engine takes a custom forward_fn (models/moe.make_engine_forward serves
 Mixtral through it) and a cache built by the caller. prefill_fmt="w4a8"
 runs prefill chunks and batched admissions through the W4A8 GEMM over the
 nvfp4 weights while decode keeps fmt (llama.linear routes chunks of fewer
-than llama.W4A8_MIN_M rows to the exact kernel). Not ported yet:
+than llama.W4A8_MIN_M rows to the exact kernel). fmt="hybrid" serves a
+model quantized with llama.quantize_params(params, "hybrid"): its split
+layers run the hybrid GEMM, layers too narrow to split nvfp4. Every
+forward of an engine runs under torch.inference_mode(). Not ported yet:
 step_block and the pipelined block drain, SpecEngine and score_forward.
 """
 
@@ -193,10 +196,15 @@ class Engine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    # every forward of the engine (forward_fn or llama.forward) runs under
+    # inference mode: no step builds an autograd graph, whatever the params
+    # require
+    @torch.inference_mode()
     def _forward(self, toks, cache, pos, kv_window=None, write_mask=None):
         return self._forward_fn(self.params, toks, cache, pos,
                                 kv_window=kv_window, write_mask=write_mask)
 
+    @torch.inference_mode()
     def _prefill_forward(self, toks, cache, pos, kv_window=None,
                          write_mask=None):
         """_forward in prefill_fmt: prefill chunks and batched admission."""

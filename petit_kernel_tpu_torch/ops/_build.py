@@ -54,6 +54,12 @@ SIGNATURES = {
     # xs, words, scales, gs, out, E, cap, n, k, kp, block_m, block_n, stream
     "pk_grouped_fp4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P),
+    # words, scales, out, kp, n, stream
+    "pk_fp4_dequant": (_P, _P, _P, _I, _I, _P),
+    # a, words, scales, gs, wd, outf, outd, m, nf, nd, k, kp, block_m,
+    # block_n, stream
+    "pk_hybrid_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _P),
     # q, ck, cv, pos, out, B, H, Hkv, S, d, window, sm_scale, stream
     "pk_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P),
@@ -119,14 +125,14 @@ def build() -> BuildInfo:
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        logs = []
-        for cmd, proc in jobs:
+        logs, failed = [], []
+        for cmd, proc in jobs:          # wait for every job, then report
             logs.append(proc.communicate()[0])
             if proc.returncode != 0:
-                for _, other in jobs:
-                    other.communicate()
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{logs[-1]}")
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{logs[-1]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
         lib = f"{tmp}/lib.so"
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
                *sorted(str(p) for p in Path(tmp).glob("*.o"))]

@@ -10,8 +10,11 @@ ElementB: the kernel's exact decode and bf16 scale multiply serve pow2 and
 zero-free tensors unchanged. The W4A8 entries (mul_nvfp4_a8, mul_mxfp4_a8)
 take the same operands and run the int8 kernel (fused_mul_w4a8).
 
-The high-precision solutions and the differentiable mul_fp4_diff have no
-Hopper kernel yet and raise NotImplementedError.
+mul_fp4_diff is the differentiable FP4 GEMM (a torch.autograd.Function):
+the forward is a mul_* entry, the backward dequantizes the weights with
+the dequant kernel (fused.dequant_tpu_layout) and multiplies densely. The
+high-precision solutions have no Hopper kernel yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -223,10 +226,57 @@ def mul_mxfp4_a8(a, b, s, global_scale, size_m, size_n, size_k,
                      solution_id, ElementB.MXFP4, r_t=r_t, acol=acol)
 
 
-def mul_fp4_diff(*args, **kwargs):
-    """Differentiable FP4 GEMM: needs the dequant kernel for its backward,
-    which has no Hopper port yet."""
-    raise NotImplementedError("mul_fp4_diff has no Hopper kernel yet")
+_DIFF_MULS = {"nvfp4": mul_nvfp4_a16, "nvfp4p2": mul_nvfp4p2_a16,
+              "nvfp4p2z": mul_nvfp4p2z_a16, "mxfp4z": mul_mxfp4z_a16,
+              "w4a8": mul_nvfp4_a8, "mxfp4": mul_mxfp4_a16}
+
+
+class _MulFp4Diff(torch.autograd.Function):
+    """The JAX package's custom VJP (gemm.py:364-395), in its order of
+    roundings."""
+
+    @staticmethod
+    def forward(ctx, fmt, size_k, a, b, s, gs):
+        m, n = a.shape[0], b.shape[1]
+        y = _DIFF_MULS[fmt](a, b, s, gs, m, n, size_k, -1)
+        ctx.fmt, ctx.size_k = fmt, size_k
+        ctx.save_for_backward(a, b, s, gs, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, s, gs, y = ctx.saved_tensors
+        da = dgs = None
+        if ctx.needs_input_grad[2]:
+            eb = (ElementB.MXFP4 if ctx.fmt in ("mxfp4", "mxfp4z")
+                  else ElementB.NVFP4)
+            deq = fused.dequant_tpu_layout(b, s, element_b=eb)  # (kp, n)
+            w = deq[:ctx.size_k] * gs.float().to(torch.bfloat16)
+            del deq
+            g16 = g.to(torch.bfloat16)
+            if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+                da = torch.matmul(g16, w.T)   # f32 sums, one bf16 rounding
+            else:          # f32 on the CPU: the same sums, deterministic
+                da = (g16.float() @ w.float().T).to(a.dtype)
+        if ctx.needs_input_grad[5]:
+            gsf = gs.float()
+            dot = (g.float() * y.float()).sum()
+            dgs = torch.where(gsf != 0, dot / gsf, 0.0).reshape(gs.shape)
+        return None, None, da, None, None, dgs
+
+
+def mul_fp4_diff(fmt: str, size_k: int, a, b, s, gs):
+    """Differentiable FP4 GEMM: y = the `fmt` entry's (a @ dequant(b, s)) *
+    gs with solution -1 ("w4a8" runs mul_nvfp4_a8). Gradients flow to a
+    and to the global scale gs (a tensor), never to the frozen b and s:
+    da = f32(bf16(g) @ bf16(dequant(b, s)[:size_k] * bf16(gs))^T) cast to
+    a's dtype, through the dequant kernel on the card; dgs = sum(g * y) /
+    gs (0 where gs == 0). Without a gradient to take it runs the forward
+    alone."""
+    gs = torch.as_tensor(gs, dtype=torch.float32, device=a.device)
+    if torch.is_grad_enabled() and (a.requires_grad or gs.requires_grad):
+        return _MulFp4Diff.apply(fmt, size_k, a, b, s, gs)
+    return _DIFF_MULS[fmt](a, b, s, gs, a.shape[0], b.shape[1], size_k, -1)
 
 
 def get_fp4_solutions(size_m: int, size_n: int, size_k: int,

@@ -2,20 +2,23 @@
 twins.
 
 Counterpart of petit_kernel_tpu/ops/kernels/fused.py: fused_mul (bf16
-activations) and fused_mul_w4a8 (W4A8: int8 activations, the FP4 weights
-requantized to int8 in the kernel). Four kernels, one wrapper each, each
-with its own launch count:
+activations), fused_mul_w4a8 (W4A8: int8 activations, the FP4 weights
+requantized to int8 in the kernel) and dequant_tpu_layout (the weights to
+a bf16 matrix, for the backward pass of gemm.mul_fp4_diff). Five kernels,
+one wrapper each, each with its own launch count:
 
   fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (mma.sync bf16)
   fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache)
   fused_mul_w4a8     csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8 (mma.sync s8)
   fused_mul_w4a8_wc  csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8_wc
+  dequant_tpu_layout csrc/fp4_dequant.cu pk_fp4_dequant
 
 fused_mul and fused_mul_w4a8 hand a weight_cache solution id to their _wc
 wrapper, as the JAX package's fused_mul picks its _wc kernel body.
-fused_mul_reference and fused_mul_w4a8_reference are the same functions in
-plain PyTorch; a wrapper takes its twin only for tensors on the CPU, and
-for CUDA tensors it launches its kernel or raises.
+fused_mul_reference, fused_mul_w4a8_reference and
+dequant_tpu_layout_reference are the same functions in plain PyTorch; a
+wrapper takes its twin only for tensors on the CPU, and for CUDA tensors
+it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from .. import _build
 from .. import layout
-from ..solution import SolutionId
+from ..solution import ElementB, SolutionId
 
 
 def fused_mul_reference(a: torch.Tensor, words: torch.Tensor,
@@ -148,6 +151,62 @@ def fused_mul_wc(a: torch.Tensor, words: torch.Tensor,
 
 fused_mul.launches = 0
 fused_mul_wc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Standalone dequant: the packed weights to a bf16 (kp, n) matrix, the
+# backward pass of gemm.mul_fp4_diff.
+# ---------------------------------------------------------------------------
+
+def dequant_tpu_layout_reference(words: torch.Tensor,
+                                 scales_t: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch dequant_tpu_layout. Value times scale is exact in f32
+    and rounds once to bf16, as in the kernel."""
+    kp, n = words.shape[0] * 8, words.shape[1]
+    return layout.dequant_from_tpu_layout(words, scales_t, n, kp).to(
+        torch.bfloat16)
+
+
+def dequant_tpu_layout(words: torch.Tensor, scales_t: torch.Tensor, *,
+                       element_b: ElementB = ElementB.NVFP4) -> torch.Tensor:
+    """Packed words (kp/8, n) int32 and processed scales (kp/16, n) bf16 ->
+    bf16 (kp, n) in natural k order, padded rows included (stored zeros,
+    padding too, give +0.0).
+
+    element_b names the format only: the scales arrive decoded, so one
+    decode serves NVFP4 and MXFP4, as in the JAX package. Launches
+    csrc/fp4_dequant.cu for CUDA tensors (counted in
+    dequant_tpu_layout.launches); runs dequant_tpu_layout_reference for CPU
+    tensors."""
+    del element_b
+    kw, n = words.shape
+    kp = kw * 8
+    if words.dtype != torch.int32 or scales_t.dtype != torch.bfloat16 \
+            or tuple(scales_t.shape) != (kp // 16, n) or kp % 256:
+        raise ValueError(f"dequant_tpu_layout: words int32 (kp/8, n) and "
+                         f"scales bf16 (kp/16, n) expected, got "
+                         f"{words.dtype} {tuple(words.shape)}, "
+                         f"{scales_t.dtype} {tuple(scales_t.shape)}")
+    if scales_t.device != words.device:
+        raise ValueError(f"dequant_tpu_layout: scales on {scales_t.device}, "
+                         f"words on {words.device}")
+    if words.device.type == "cpu":
+        return dequant_tpu_layout_reference(words, scales_t)
+    if words.device.type != "cuda":
+        raise ValueError(f"dequant_tpu_layout: unsupported device "
+                         f"{words.device}")
+    words, scales_t = words.contiguous(), scales_t.contiguous()
+    out = torch.empty((kp, n), dtype=torch.bfloat16, device=words.device)
+    if kp == 0 or n == 0:
+        return out
+    _launch("pk_fp4_dequant", words.data_ptr(), scales_t.data_ptr(),
+            out.data_ptr(), kp, n,
+            torch.cuda.current_stream(words.device).cuda_stream)
+    dequant_tpu_layout.launches += 1
+    return out
+
+
+dequant_tpu_layout.launches = 0
 
 
 # ---------------------------------------------------------------------------

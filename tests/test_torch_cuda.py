@@ -13,7 +13,11 @@ fused_mul on each expert at the same tile, and the weight-cache GEMM bit
 for bit against fused_mul at the same tile; the W4A8 GEMM and its
 weight-cache variant bit for bit against their twin (exact int32 sums);
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
-convert fp8 exactly); the KV appends bit-exact.
+convert fp8 exactly); the KV appends and the dequant kernel bit-exact; the
+hybrid GEMM's FP4 columns bit for bit against fused_mul at the same tile
+and its dense columns at the GEMM tolerance; mul_fp4_diff's backward on
+the card (dequant kernel, cuBLAS dA) against the same on the CPU at the
+GEMM tolerance.
 """
 
 import math
@@ -24,9 +28,12 @@ import torch
 from petit_kernel_tpu_torch.models import llama as tllama
 from petit_kernel_tpu_torch.models import moe as tmoe
 from petit_kernel_tpu_torch.numerics import reference as qref
+from petit_kernel_tpu_torch.ops import gemm as tgemm
+from petit_kernel_tpu_torch.ops import hybrid as thybrid
 from petit_kernel_tpu_torch.ops import layout
 from petit_kernel_tpu_torch.ops import solution as sol
 from petit_kernel_tpu_torch.ops.kernels import attention, fused, grouped
+from petit_kernel_tpu_torch.ops.kernels import hybrid as khybrid
 
 pytestmark = pytest.mark.cuda
 
@@ -306,3 +313,71 @@ def test_weight_cache_kernel_bit_equal_to_fp4_gemm(gen, fmt, bm, bn):
         got = fused.fused_mul(a, words, st, gs.reshape(1), sid=wc)
         assert fused.fused_mul_wc.launches == before + 1
         assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+def test_dequant_kernel_bit_equal_to_twin(gen, fmt):
+    """k padded past itself (640 -> 1024) and a ragged n (336)."""
+    quant, group = _QUANT[fmt]
+    for n, k in ((336, 640), (128, 4096)):
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, _ = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        before = fused.dequant_tpu_layout.launches
+        got = fused.dequant_tpu_layout(words, st)
+        assert fused.dequant_tpu_layout.launches == before + 1
+        want = fused.dequant_tpu_layout_reference(words, st)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
+def test_hybrid_kernel_matches_fused_mul_and_twin(gen, bm, bn):
+    """The FP4 columns bit for bit fused_mul's at the same tile, the dense
+    columns at the GEMM tolerance; ragged m, k padded past itself, nf and
+    nd not multiples of the tile."""
+    for m, n, k, bnf, bnd in ((1, 512, 512, 384, 128),
+                              (37, 1024, 640, 768, 256),
+                              (70, 2048, 1024, 1536, 512)):
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        hq = thybrid.quantize_hybrid(w, block_nf=bnf, block_nd=bnd)
+        a = _bf16(gen, m, k)
+        sid = sol.SolutionId(bm, bn)
+        gs = hq["gs"].reshape(1)
+        before = khybrid.hybrid_mul.launches
+        outf, outd = khybrid.hybrid_mul(a, hq["words"], hq["scales"], gs,
+                                        hq["wd"], sid=sid)
+        assert khybrid.hybrid_mul.launches == before + 1
+        plain = fused.fused_mul(a, hq["words"], hq["scales"], gs, sid=sid)
+        assert torch.equal(outf.view(torch.int16), plain.view(torch.int16))
+        _, want = khybrid.hybrid_mul_reference(a, hq["words"], hq["scales"],
+                                               gs, hq["wd"], sid=sid)
+        torch.testing.assert_close(
+            outd.float(), want.float(), rtol=2 ** -7,
+            atol=2 ** -8 * want.float().abs().max().item())
+
+
+def test_mul_fp4_diff_backward_runs_the_dequant_kernel(gen):
+    """dA and dgs on the card against the same backward on the CPU
+    (twins), within the GEMM tolerance."""
+    m, n, k = 37, 336, 640
+    w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+    qw, sc, gs = qref.quantize_nvfp4(w)
+    words = layout.repack_fp4_weights(qw, n, k)
+    st = layout.process_fp4_scales(sc, n, k, group_size=16)
+    a0, g = _bf16(gen, m, k), _bf16(gen, m, n)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        a = a0.detach().to(dev).requires_grad_()
+        gsd = gs.detach().to(dev).requires_grad_()
+        y = tgemm.mul_fp4_diff("nvfp4", k, a, words.to(dev), st.to(dev), gsd)
+        before = fused.dequant_tpu_layout.launches
+        y.backward(g.to(dev))
+        if dev == "cuda":
+            assert fused.dequant_tpu_layout.launches == before + 1
+        grads.append((a.grad.float().cpu(), gsd.grad.cpu()))
+    (da, dgs), (da_ref, dgs_ref) = grads
+    torch.testing.assert_close(da, da_ref, rtol=2 ** -7,
+                               atol=2 ** -8 * da_ref.abs().max().item())
+    torch.testing.assert_close(dgs, dgs_ref, rtol=2 ** -7, atol=0.0)

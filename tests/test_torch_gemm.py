@@ -124,8 +124,9 @@ def test_gemm_error_contract():
     hp = pt.PetitSolutionHints(require_high_precision=True)
     with pytest.raises(NotImplementedError):
         pt.mul_nvfp4_a16(a, words, st, 1.0, m, n, k, hints=hp)
-    with pytest.raises(NotImplementedError):
-        tgemm.mul_fp4_diff(a, words, st, 1.0, m, n, k)
+    # the differentiable entry keeps the contract of its forward
+    with pytest.raises(ValueError):
+        tgemm.mul_fp4_diff("nvfp4", k, a[:, :256], words, st, 1.0)
     # the W4A8 entries run (tests/test_torch_w4a8.py holds their numbers),
     # take the same shape contract and refuse a non-INT8 solution id
     for fn, fmt in ((pt.mul_nvfp4_a8, "nvfp4"), (pt.mul_mxfp4_a8, "mxfp4")):

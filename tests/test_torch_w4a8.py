@@ -171,8 +171,9 @@ def test_mul_a8_solution_ids_and_dtypes():
         torch.int16).numpy(), plain.view(torch.int16).numpy())
     empty = pt.mul_nvfp4_a8(a[:0], None, None, 1.0, 0, n, k)
     assert tuple(empty.shape) == (0, n)
-    with pytest.raises(NotImplementedError):
-        tgemm.mul_fp4_diff(*args)
+    # mul_fp4_diff("w4a8") runs this entry with solution -1, as in JAX
+    diff = tgemm.mul_fp4_diff("w4a8", k, a, words, st, gs)
+    assert torch.equal(diff.view(torch.int16), plain.view(torch.int16))
 
 
 def test_fused_mul_weight_cache_matches_jax():
