@@ -23,7 +23,21 @@ Phases (any failure raises and the script exits non-zero):
              one, and each call's bound (bytes over 3.35 TB/s or operations
              over the peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s
              int8, whichever is larger)
-  4 parity   a 2-layer Llama-3-8B-width model and a 1-layer
+  4 solutions the GEMM API's solution layer: (a) the high-precision
+             kernels, fp4_gemm_hp at the four Llama-3-8B projections, m =
+             8, nvfp4 with f32 and with bf16 activations and mxfp4 on wqkv,
+             and fp4_gemm_hp_wc at m = 2048 (bit for bit fp4_gemm_hp), each
+             held against an f64 product of the same dequantized weights:
+             max|hp - f64| <= 4 max|f32 library - f64| + 2^-24 max(|A| @
+             |B|) |gs|, the f32 library being the plain version's
+             torch.matmul with TF32 off; (b) every id get_fp4_solutions
+             lists, hp included, nvfp4 and mxfp4, at (8, 4096, 4096), (100,
+             6144, 4096) and (2048, 4096, 14336) through the public entries,
+             each against its plain version; (c) the autotuner
+             (tune_suite over the four projections at m = 16 and 2048,
+             not saved) and every id of the committed H100 table launched
+             once at its key; (d) the port's GEMM bench and its JSON line
+  5 parity   a 2-layer Llama-3-8B-width model and a 1-layer
              Mixtral-8x7B-width model: one prefill chunk and one decode
              step on the card (kernels) against the same model on the CPU
              (plain twins), Llama over the flat bf16 cache and over an fp8
@@ -35,15 +49,15 @@ Phases (any failure raises and the script exits non-zero):
              loss and gradients of a 1-layer nvfp4 Llama (64 tokens) on the
              card (dequant kernel) against the CPU, each gradient within
              2^-5 * max|CPU gradient|
-  5 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
+  6 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
              on the card, Engine(max_batch=4) serving 8 greedy requests of
              32 new tokens over the flat bf16 cache
-  6 serve_kv the same model and requests through
+  7 serve_kv the same model and requests through
              Engine(cache_dtype=float8_e4m3fn) (headed fp8 cache) and
              PagedEngine(page_size=16, cache_dtype=float8_e4m3fn); every
              page returns to the pool; tokens/s, peak device memory and
              KV bytes of each cache beside serve's
-  7 serve_w4a8 serve's model and requests with W4A8 prefill:
+  8 serve_w4a8 serve's model and requests with W4A8 prefill:
              Engine(max_batch=4, prefill_fmt="w4a8") over the flat bf16
              cache and PagedEngine(page_size=16, cache_dtype=fp8,
              prefill_fmt="w4a8"); W4A8 against exact prefill GEMM launches
@@ -51,36 +65,37 @@ Phases (any failure raises and the script exits non-zero):
              engine with nvfp4 prefill (serve, serve_kv); then the
              weight-cache GEMMs through the public mul_* entries with
              explicit solution ids (the autotuner's route) on one layer
-  8 serve_hybrid the same dense weights quantized "hybrid" on the card
+  9 serve_hybrid the same dense weights quantized "hybrid" on the card
              (a quarter of each projection's columns, the most salient,
              kept bf16) through Engine(max_batch=4, fmt="hybrid") over the
              flat bf16 cache, serving the same 8 requests: tokens/s, peak
              memory and weight bytes beside serve's
-  9 train    the same nvfp4 model trained for 3 steps on 513 seeded tokens
+ 10 train    the same nvfp4 model trained for 3 steps on 513 seeded tokens
              (B = 1, T = 512): next-token cross-entropy, backward through
              mul_fp4_diff (the dequant kernel), SGD at 1e-3 on embed, the
              norms and lm_head (the global scales get their gradient but
              stay fixed; words and scales are frozen); loss per step, step
              time, peak memory
- 10 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
+ 11 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
              attention, random weights quantized on the card) through
              Engine(max_batch=4, forward_fn=moe.make_engine_forward(cfg))
              over the flat bf16 cache, serving the same 8 requests; prints
              the capacity drops of one 256-token chunk per layer
- 11 profile  the decode step and one 256-token prefill tick under
+ 12 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16), PagedEngine (Llama,
              fp8, page size 16), the hybrid Engine and the Mixtral Engine,
              one 512-token prefill tick of the Llama Engine with nvfp4 and
              with W4A8 prefill, and one training step: kernels by device
              time and the device's idle share (PERF.md section 5)
 
-Each engine run of phases 5-8 and 10 (and the weight-cache run of phase 7
-and the training run of phase 9) sets every kernel's launch count to 0
-before it and fails if a kernel of its path did not launch; an engine run
-also counts the launches inside decode steps, per decode step. The line before the last is the card's `nvidia-smi` name and
-power limit, the one before it a JSON object with each kernel's launches
-(summed over those runs), max abs error, times, bound and library time
-(phase 3).
+Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
+the training run of phase 10 and the sweep and table runs of phase 4) sets
+every kernel's launch count to 0 before it and fails if a kernel of its
+path did not launch; an engine run also counts the launches inside decode
+steps, per decode step. The line before the last is the card's
+`nvidia-smi` name and power limit, the one before it a JSON object with
+each kernel's launches (summed over those runs), max abs error, times,
+bound and library time (phases 3 and 4).
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 With --record PATH, every measurement (per-shape GEMM rows included) is
@@ -90,8 +105,10 @@ also written there as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -103,17 +120,20 @@ import time
 import numpy as np
 import torch
 
+from petit_kernel_tpu_torch import bench as port_bench
 from petit_kernel_tpu_torch.models import llama, moe, paged, serving
-from petit_kernel_tpu_torch.ops import _build, gemm
+from petit_kernel_tpu_torch.ops import _build, autotune, gemm
 from petit_kernel_tpu_torch.ops import layout
 from petit_kernel_tpu_torch.ops.kernels import attention, fused, grouped
 from petit_kernel_tpu_torch.ops.kernels import hybrid
 from petit_kernel_tpu_torch.ops.solution import ElementB
 from petit_kernel_tpu_torch.ops import solution as solution_mod
 from petit_kernel_tpu_torch.numerics import reference as qref
+from petit_kernel_tpu_torch.utils import benchlib
 
-PHASES = ("device", "build", "kernels", "parity", "serve", "serve_kv",
-          "serve_w4a8", "serve_hybrid", "train", "serve_moe", "profile")
+PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
+          "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
+          "profile")
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -185,6 +205,14 @@ KERNELS = {
                         source="petit_kernel_tpu_torch/csrc/fp4_gemm.cu",
                         replaces="petit_kernel_tpu/ops/kernels/fused.py:259",
                         wrapper=fused.fused_mul_wc),
+    "fp4_gemm_hp": dict(route="cuda",
+                        source="petit_kernel_tpu_torch/csrc/fp4_gemm_hp.cu",
+                        replaces="petit_kernel_tpu/ops/kernels/fused.py:230",
+                        wrapper=fused.fused_mul_hp),
+    "fp4_gemm_hp_wc": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_gemm_hp.cu",
+        replaces="petit_kernel_tpu/ops/kernels/fused.py:302",
+        wrapper=fused.fused_mul_hp_wc),
     "fp4_dequant": dict(route="cuda",
                         source="petit_kernel_tpu_torch/csrc/fp4_dequant.cu",
                         replaces="petit_kernel_tpu/ops/kernels/fused.py:718",
@@ -216,6 +244,8 @@ PATHS = {
     "serve_hybrid bf16 Engine": ("hybrid_gemm", "decode_attention",
                                  "prefill_attention", "kv_append"),
     "train nvfp4 Llama": ("fp4_gemm", "fp4_dequant"),
+    "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_hp",
+                        "fp4_gemm_hp_wc"),
 }
 FP8 = torch.float8_e4m3fn
 
@@ -1008,6 +1038,313 @@ def _hybrid_kernels(res, rows, gen):
         at="m=8, sum of the 7 unfused Llama-3-8B projections (one layer of "
            "a hybrid decode step), 3:1 FP4:dense columns; library: "
            "torch.matmul on the whole bf16 weight")
+
+
+def _quantized_weight(fmt, k, n, gen):
+    """A random (n, k) weight quantized with `fmt` on the card: (words,
+    scales, gs (1,), element_b, the f32 dequantized (k, n) without gs)."""
+    quant, group = ((qref.quantize_nvfp4, 16) if fmt == "nvfp4"
+                    else (qref.quantize_mxfp4, 32))
+    w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+    qw, sc, gs = quant(w)
+    del w
+    words = layout.repack_fp4_weights(qw, n, k,
+                                      pad_to=layout.pad_multiple(group))
+    st = layout.process_fp4_scales(sc, n, k, group_size=group)
+    eb = ElementB.NVFP4 if fmt == "nvfp4" else ElementB.MXFP4
+    return (words, st, gs.reshape(1), eb,
+            layout.dequant_from_tpu_layout(words, st, n, k))
+
+
+def _hp_rule(a, deq, gs, got, plain):
+    """The high-precision acceptance rule against the f64 product of the
+    same operands: max|got - f64| <= 4 max|plain - f64| + 2^-24 max(|A| @
+    |B|) |gs|, plain being the f32 library product (the plain version,
+    TF32 off). Returns (|got - f64|, |plain - f64|, the bound)."""
+    a64, b64, g64 = a.double(), deq.double(), gs.double()
+    exact = (a64 @ b64) * g64
+    scale = ((a64.abs() @ b64.abs()) * g64.abs()).max().item()
+    e_got = (got.double() - exact).abs().max().item()
+    e_lib = (plain.double() - exact).abs().max().item()
+    return e_got, e_lib, 4 * e_lib + 2 ** -24 * scale
+
+
+def _hp_kernels(res, rows, gen):
+    """(a) fp4_gemm_hp at the four Llama-3-8B projections, m = 8, nvfp4,
+    with f32 activations and with bf16 ones (their f32 values), and mxfp4
+    on wqkv; fp4_gemm_hp_wc at m = 2048 on the four, bit for bit
+    fp4_gemm_hp at the same tile. Each within _hp_rule of the f64 product;
+    the bf16 path's distance from it beside (fp4_gemm on bf16(A)). Times:
+    the kernel, its plain version and the library call torch.matmul on the
+    f32 operands (TF32 off), back to back (cuda_ms, L2-warm), and the
+    kernel and library again with L2 flushed (benchlib.cuda_time). Bound:
+    the larger of the bytes at 3.35 TB/s and 3 * 2mnk at the bf16 peak:
+    three bf16 passes are the least the card needs for an f32-accurate
+    product over bf16-exact weights. The JSON rows: nvfp4 f32 m = 8 and m =
+    2048, each summed over the four projections."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the f32 yardstick would "
+                             "keep 10 mantissa bits")
+    sums = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
+                       flops=0, err=0.0) for name in ("fp4_gemm_hp",
+                                                      "fp4_gemm_hp_wc")}
+    cases = ([("nvfp4", kn, m) for m in (8, 2048) for kn in LLAMA8B_KN]
+             + [("mxfp4", LLAMA8B_KN[0], 8)])
+    weights = {}
+    for fmt, (k, n), m in cases:
+        if (fmt, k, n) not in weights:
+            weights.clear()
+            weights[(fmt, k, n)] = _quantized_weight(fmt, k, n, gen)
+        words, st, gs, eb, deq = weights[(fmt, k, n)]
+        a32 = torch.randn((m, k), generator=gen, device="cuda")
+        wc = m > 64
+        hp_sid = solution_mod.choose_default_solution(m, n, k, eb,
+                                                      high_precision=True)
+        sid = dataclasses.replace(hp_sid, weight_cache=wc)
+        name = "fp4_gemm_hp_wc" if wc else "fp4_gemm_hp"
+        kernel = fused.fused_mul_hp_wc if wc else fused.fused_mul_hp
+        inputs = [("f32", a32)]
+        if fmt == "nvfp4" and m == 8:
+            inputs.append(("bf16", a32.to(torch.bfloat16).float()))
+        for a_kind, a in inputs:
+            got = kernel(a, words, st, gs, sid=sid)
+            plain = fused.fused_mul_hp_reference(a, words, st, gs, sid=sid)
+            bf16_path = fused.fused_mul(
+                a.to(torch.bfloat16), words, st, gs,
+                sid=solution_mod.choose_default_solution(m, n, k, eb))
+            torch.cuda.synchronize()
+            what = f"hp {fmt} {a_kind} A m={m} k={k} n={n}"
+            e_hp, e_lib, lim = _hp_rule(a, deq, gs, got, plain)
+            e_bf16 = _hp_rule(a, deq, gs, bf16_path, plain)[0]
+            if not torch.isfinite(got).all() or not e_hp <= lim:
+                raise AssertionError(f"{what}: max|hp - f64| {e_hp:.3e} > "
+                                     f"{lim:.3e} (f32 library {e_lib:.3e})")
+            if wc:
+                one = fused.fused_mul_hp(a, words, st, gs, sid=hp_sid)
+                if not torch.equal(one.view(torch.int32),
+                                   got.view(torch.int32)):
+                    raise AssertionError(f"{what}: weight cache differs from "
+                                         "fp4_gemm_hp bit for bit")
+                del one
+            if a_kind == "bf16":
+                pub = gemm.mul_nvfp4_a16(
+                    a.to(torch.bfloat16), words, st, gs, m, n, k,
+                    hints=solution_mod.SolutionHints(
+                        b_type=eb, require_high_precision=True))
+                if not torch.equal(pub.view(torch.int16), got.to(
+                        torch.bfloat16).view(torch.int16)):
+                    raise AssertionError(f"{what}: the public entry is not "
+                                         "bf16(fp4_gemm_hp)")
+            e_twin = (got - plain).abs().max().item()
+            iters = 5 if wc else 20
+            t_k = cuda_ms(lambda: kernel(a, words, st, gs, sid=sid),
+                          iters=iters)
+            t_p = cuda_ms(lambda: fused.fused_mul_hp_reference(
+                a, words, st, gs, sid=sid), iters=iters)
+            t_l = cuda_ms(lambda: torch.matmul(a, deq), iters=iters)
+            t_kf = benchlib.cuda_time(
+                lambda: kernel(a, words, st, gs, sid=sid), iters=iters) * 1e3
+            t_lf = benchlib.cuda_time(lambda: torch.matmul(a, deq),
+                                      iters=iters) * 1e3
+            nbytes = _nbytes(a, words, st, gs, got)
+            flops = 2 * m * n * k
+            row = dict(kernel=name, fmt=fmt, a=a_kind, m=m, k=k, n=n,
+                       tile=[sid.block_m, sid.block_n], err_vs_f64=e_hp,
+                       f32_library_err_vs_f64=e_lib, bf16_path_err_vs_f64=
+                       e_bf16, limit=lim, max_abs_err=e_twin, ms=t_k,
+                       plain_ms=t_p, library_ms=t_l, flushed_ms=t_kf,
+                       library_flushed_ms=t_lf,
+                       **bound(nbytes, 3 * flops))
+            rows.append(row)
+            log(f"[solutions] {what} tile={sid.block_m}x{sid.block_n}"
+                f"{' wc' if wc else ''}: |hp-f64| {e_hp:.3e}, |f32 matmul-"
+                f"f64| {e_lib:.3e}, |bf16 path-f64| {e_bf16:.3e} (limit "
+                f"{lim:.3e}); kernel={t_k:.4f} ms ({t_kf:.4f} flushed) "
+                f"plain={t_p:.4f} ms matmul f32={t_l:.4f} ms ({t_lf:.4f} "
+                f"flushed) bound={row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            acc = sums[name]
+            acc["err"] = max(acc["err"], e_twin)
+            if fmt == "nvfp4" and a_kind == "f32":
+                for key, v in (("ms", t_k), ("plain_ms", t_p),
+                               ("library_ms", t_l), ("nbytes", nbytes),
+                               ("flops", 3 * flops)):
+                    acc[key] += v
+            del got, plain, bf16_path
+    for name, m in (("fp4_gemm_hp", 8), ("fp4_gemm_hp_wc", 2048)):
+        acc = sums[name]
+        res[name] = dict(
+            max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
+            library_ms=acc["library_ms"], **bound(acc["nbytes"],
+                                                  acc["flops"]),
+            at=f"nvfp4 f32 A m={m}, sum of the 4 Llama-3-8B projections; "
+               "error against the plain version (f32 torch.matmul, TF32 "
+               "off); library: torch.matmul on the f32 dequantized weights; "
+               "bound at 3 bf16 passes")
+
+
+_SWEEP_SHAPES = ((8, 4096, 4096), (100, 6144, 4096), (2048, 4096, 14336))
+
+
+def _solution_sweep(rec, gen):
+    """(b) Every id get_fp4_solutions lists, nvfp4 and mxfp4, at
+    _SWEEP_SHAPES, through mul_nvfp4_a16 / mul_mxfp4_a16 with the explicit
+    id on f32 activations: the launch counts are set to 0 just before and
+    read just after; then each output against its plain version, at the
+    GEMM tolerance for bf16 ids and _hp_rule for hp ids."""
+    jobs = []
+    for fmt in ("nvfp4", "mxfp4"):
+        for m, n, k in _SWEEP_SHAPES:
+            words, st, gs, eb, deq = _quantized_weight(fmt, k, n, gen)
+            a = torch.randn((m, k), generator=gen, device="cuda")
+            ids = gemm.get_fp4_solutions(m, n, k, element_b=eb)
+            jobs.append((fmt, m, n, k, words, st, gs, eb, deq, a, ids))
+    torch.cuda.synchronize()
+    for info in KERNELS.values():
+        info["wrapper"].launches = 0
+    outs = []
+    for fmt, m, n, k, words, st, gs, eb, deq, a, ids in jobs:
+        mul = gemm.mul_nvfp4_a16 if fmt == "nvfp4" else gemm.mul_mxfp4_a16
+        outs.append([mul(a, words, st, gs, m, n, k, r) for r in ids])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    path = "solutions sweep"
+    missing = [name for name in PATHS[path] if launches[name] == 0]
+    n_ids = sum(len(job[-1]) for job in jobs)
+    if missing or sum(launches.values()) != n_ids:
+        raise AssertionError(f"{path}: {n_ids} ids, launches {launches}; "
+                             f"never launched: {missing}")
+    for name, n_ in launches.items():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n_
+    log(json.dumps({"path": path, "launches": launches}))
+    worst = {}
+    for job, got_all in zip(jobs, outs):
+        fmt, m, n, k, words, st, gs, eb, deq, a, ids = job
+        plain16 = fused.fused_mul_reference(a, words, st, gs, sid=None)
+        plain32 = fused.fused_mul_hp_reference(a, words, st, gs, sid=None)
+        for r, got in zip(ids, got_all):
+            sid = solution_mod.SolutionId.from_repr(r)
+            what = f"sweep {fmt} m={m} k={k} n={n} {sid}"
+            if sid.high_precision:
+                e, _, lim = _hp_rule(a, deq, gs, got, plain32)
+                if not e <= lim:
+                    raise AssertionError(f"{what}: |hp - f64| {e} > {lim}")
+            else:
+                e = _close(what, got, plain16, 2 ** -7,
+                           2 ** -8 * plain16.float().abs().max())
+            kind = ("hp " if sid.high_precision else "") + (
+                "wc" if sid.weight_cache else "plain")
+            worst[kind] = max(worst.get(kind, 0.0), e)
+        log(f"[solutions] sweep {fmt} m={m} k={k} n={n}: {len(ids)} ids "
+            f"launched and match their plain versions")
+        del plain16, plain32
+    jobs.clear()
+    outs.clear()
+    return dict(ids=n_ids, launches=launches, max_err=worst)
+
+
+def _tuner_run():
+    """(c) tune_suite over the four Llama-3-8B projections at m = 16 and
+    2048, nvfp4, not saved: every candidate timed (benchlib.cuda_time)."""
+    shapes = [(m, n, k) for m in (16, 2048) for k, n in LLAMA8B_KN]
+    gemm.set_tuned_table({})
+    t0 = time.perf_counter()
+    table = autotune.tune_suite(shapes, ElementB.NVFP4, verbose=True,
+                                save=False)
+    best = {}
+    for m, n, k in shapes:
+        sid = solution_mod.SolutionId.from_repr(table[gemm._table_key(
+            m, n, k, ElementB.NVFP4, solution_mod.MatmulType.BF16, False)])
+        best[f"{m},{n},{k}"] = [sid.block_m, sid.block_n, sid.weight_cache]
+        log(f"[solutions] tuner m={m} n={n} k={k}: {sid.block_m}x"
+            f"{sid.block_n}{' wc' if sid.weight_cache else ''}")
+    return dict(seconds=time.perf_counter() - t0, best=best)
+
+
+H100_TABLE = "NVIDIA_H100_80GB_HBM3"
+
+
+def _tuned_table_check(rec, gen):
+    """(c) Every entry of the committed H100 table (ops/autotune.py
+    load_table): its id is feasible at its key, and launches once there
+    through the public entry with the explicit id (mul_*_a16, mul_*_a8 for
+    INT8 keys, grouped_mul for grouped ones), with the launch counts set to
+    0 just before and read just after; every output finite."""
+    if not autotune.load_table(H100_TABLE):
+        raise AssertionError(f"no committed table "
+                             f"{autotune.table_path(H100_TABLE)}")
+    table = dict(gemm._TUNED_TABLE)
+    by_weight = {}
+    for key, r in sorted(table.items()):
+        m, n, k, eb, mt, hp, is_grouped = key
+        sid = solution_mod.SolutionId.from_repr(r)
+        if not solution_mod.is_feasible(sid, m, n, k):
+            raise AssertionError(f"table entry {key}: {sid} infeasible")
+        by_weight.setdefault((n, k, eb, is_grouped), []).append((key, sid))
+    for info in KERNELS.values():
+        info["wrapper"].launches = 0
+    n_calls = 0
+    for (n, k, eb, is_grouped), entries in by_weight.items():
+        group = 16 if eb == ElementB.NVFP4 else 32
+        kp = layout.padded_k(k, layout.pad_multiple(group))
+        E = 2 if is_grouped else 1
+        words = autotune._random_words(gen, (E, kp // 8, n), "cuda")
+        st = autotune._random_scales(gen, ElementB(eb), kp // 16, n,
+                                     "cuda").expand(E, -1, -1).contiguous()
+        gs = torch.ones((E,), device="cuda")
+        for key, sid in entries:
+            m = key[0]
+            a = torch.randn((E, m, k), generator=gen, device="cuda")
+            before = sum(_launch_counts().values())
+            if is_grouped:
+                y = grouped.grouped_mul(a.to(torch.bfloat16), words, st, gs,
+                                        sid=sid)
+            elif sid.mfma_type == solution_mod.MatmulType.INT8:
+                mul = (gemm.mul_nvfp4_a8 if eb == ElementB.NVFP4
+                       else gemm.mul_mxfp4_a8)
+                y = mul(a[0], words[0], st[0], gs, m, n, k, sid.repr())
+            else:
+                mul = (gemm.mul_nvfp4_a16 if eb == ElementB.NVFP4
+                       else gemm.mul_mxfp4_a16)
+                y = mul(a[0] if sid.high_precision else a[0].to(
+                    torch.bfloat16), words[0], st[0], gs, m, n, k, sid.repr())
+            if sum(_launch_counts().values()) != before + 1:
+                raise AssertionError(f"table entry {key}: {sid} did not "
+                                     "launch once")
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"table entry {key}: non-finite output")
+            n_calls += 1
+        del words, st
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    for name, n_ in launches.items():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n_
+    log(json.dumps({"path": "solutions tuned table", "entries": n_calls,
+                    "launches": launches}))
+    return dict(entries=n_calls, launches=launches)
+
+
+def phase_solutions(rec):
+    """The GEMM API's solution layer (phase 4 above). The tuned table is
+    restored to what it was (empty) afterwards: the engines of the later
+    phases dispatch through the heuristic, as before."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = rec.setdefault("kernels", {})
+    rec.setdefault("launches", {})
+    rows = rec.setdefault("kernel_rows", [])
+    out = {}
+    _hp_kernels(res, rows, gen)
+    out["sweep"] = _solution_sweep(rec, gen)
+    saved = dict(gemm._TUNED_TABLE)
+    try:
+        out["tuner"] = _tuner_run()
+        out["table"] = _tuned_table_check(rec, gen)
+        with contextlib.redirect_stdout(io.StringIO()):
+            out["bench"] = port_bench.main([])
+        log(f"[solutions] bench: {json.dumps(out['bench'])}")
+    finally:
+        gemm.set_tuned_table(saved)
+    rec["solutions"] = out
 
 
 def _random_quantized(cfg, gen):
@@ -1996,8 +2333,9 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(args.record) or ".", exist_ok=True)
         with open(args.record, "w") as f:
             json.dump(rec, f, indent=1)
-    if all(p in rec for p in ("kernels", "serve", "serve_kv", "serve_moe",
-                              "serve_w4a8", "serve_hybrid", "train")):
+    if all(p in rec for p in ("kernels", "solutions", "serve", "serve_kv",
+                              "serve_moe", "serve_w4a8", "serve_hybrid",
+                              "train")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

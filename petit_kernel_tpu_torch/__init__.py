@@ -14,7 +14,13 @@ through either. Public surface, the reference library's 7-function API:
 
 plus the pow2 and zero-free entries, the W4A8 entries mul_nvfp4_a8 /
 mul_mxfp4_a8 (int8 activations over the same weights, int8 tensor-core
-kernel), weight-cache solution ids for every mul_* entry, the
+kernel), the whole solution space of the reference: weight-cache ids for
+every mul_* entry and high-precision ids (f32 activations, an f32-accurate
+product, through `PetitSolutionHints(require_high_precision=True)` or an
+explicit id), `ops.autotune` (the offline tuner and the per-card tables in
+`tuned/`, which solution -1 consults once loaded), the console entries
+`petit-tpu-torch-tune` / `petit-tpu-torch-bench` (`_cli.py`) and the GEMM
+bench `python -m petit_kernel_tpu_torch.bench`, the
 differentiable ops.gemm.mul_fp4_diff (a torch.autograd.Function whose
 backward runs the dequant kernel; llama.forward over quantized params is
 differentiable through it), and `models` (Llama with flat bf16 or headed

@@ -45,6 +45,9 @@ SIGNATURES = {
     # a, words, scales, gs, out, m, n, k, kp, block_m, block_n, stream
     "pk_fp4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pk_fp4_gemm_wc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the same, with f32 a and out
+    "pk_fp4_gemm_hp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pk_fp4_gemm_hp_wc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a_i8, arow, words, r_t, acol, gs, out, m, n, k, kp, block_m, block_n,
     # stream
     "pk_fp4_gemm_w4a8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,24 +1,28 @@
 """Public GEMM entry points and dispatch (torch).
 
 Counterpart of petit_kernel_tpu/ops/gemm.py: validates the problem,
-resolves solution_id (-1 -> heuristic, else an explicit feasible id) and
-runs the fused dequant+GEMM (ops/kernels/fused.py). There is no tuned table
-for the Hopper kernels yet, so -1 always goes to the heuristic, which never
-picks the weight cache; an explicit weight_cache id (the autotuner's route)
-runs the weight-cache kernel. The five mul_*_a16 entries differ only in
-ElementB: the kernel's exact decode and bf16 scale multiply serve pow2 and
-zero-free tensors unchanged. The W4A8 entries (mul_nvfp4_a8, mul_mxfp4_a8)
-take the same operands and run the int8 kernel (fused_mul_w4a8).
+resolves solution_id (-1 -> the tuned table, then the heuristic; else an
+explicit feasible id) and runs the fused dequant+GEMM
+(ops/kernels/fused.py). The table is empty until autotune.load_table() or
+set_tuned_table() fills it (only the tune and bench entry points load one,
+as in the JAX package); the heuristic never picks the weight cache, which
+a table entry or an explicit id selects. The five mul_*_a16 entries differ
+only in ElementB: the kernel's exact decode and bf16 scale multiply serve
+pow2 and zero-free tensors unchanged, so their table entries are the exact
+format's. A high-precision id (hints.require_high_precision, or an explicit
+hp id) runs the f32 kernel (fused.fused_mul_hp): A goes in as f32, and the
+f32 result comes back in A's dtype. The W4A8 entries (mul_nvfp4_a8,
+mul_mxfp4_a8) take the same operands and run the int8 kernel
+(fused_mul_w4a8).
 
 mul_fp4_diff is the differentiable FP4 GEMM (a torch.autograd.Function):
 the forward is a mul_* entry, the backward dequantizes the weights with
-the dequant kernel (fused.dequant_tpu_layout) and multiplies densely. The
-high-precision solutions have no Hopper kernel yet and raise
-NotImplementedError.
+the dequant kernel (fused.dequant_tpu_layout) and multiplies densely.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -28,16 +32,50 @@ from . import solution as solution_mod
 from .kernels import fused
 from .solution import ElementB, MatmulType, SolutionHints, SolutionId
 
+# Filled by autotune.load_table() or set_tuned_table(): maps
+# _table_key(...) -> SolutionId repr.
+_TUNED_TABLE: dict = {}
+
+
+def set_tuned_table(table: dict) -> None:
+    _TUNED_TABLE.clear()
+    _TUNED_TABLE.update(table)
+
+
+def _m_bucket(m: int) -> int:
+    """Bucket m for table lookup: exact up to 32 (decode batches), then the
+    next power of two from 64, so one entry serves ragged batch sizes."""
+    if m <= 32:
+        return m
+    b = 64
+    while b < m:
+        b *= 2
+    return b
+
+
+def _table_key(m: int, n: int, k: int, element_b: ElementB,
+               mfma_type: MatmulType, high_precision: bool,
+               grouped: bool = False) -> tuple:
+    """Tuned-table key (m_bucket, n, k, element_b, mfma, hp, grouped), the
+    JAX package's 7-field key. `grouped` separates the grouped (MoE expert)
+    kernel's optima from the dense kernel's at the same per-expert shape.
+    The port's SolutionId has no pow2 or zero-free bits, so the JAX
+    package's 8- and 9-field keys have no counterpart: those formats look
+    up the exact format's entry."""
+    return (_m_bucket(m), n, k, int(element_b), int(mfma_type),
+            bool(high_precision), bool(grouped))
+
 
 def resolve_solution(m: int, n: int, k: int, element_b: ElementB,
                      mfma_type: MatmulType = MatmulType.BF16,
                      high_precision: bool = False, solution_id: int = -1,
                      hints: Optional[SolutionHints] = None) -> SolutionId:
-    """solution_id -1 -> heuristic; otherwise an explicit SolutionId.repr()
+    """solution_id -1 -> the tuned table's entry for the shape if it is
+    feasible, else the heuristic; otherwise an explicit SolutionId.repr()
     that must decode, match element_b, satisfy the hints and be feasible,
     or ValueError. hints.b_type must agree with element_b, and
     require_high_precision forces high precision and rejects explicit
-    non-high-precision ids (the JAX package's rules, gemm.py:80-98)."""
+    non-high-precision ids (the JAX package's rules, gemm.py:64-125)."""
     if hints is not None:
         if hints.b_type != element_b:
             raise ValueError(f"hints.b_type {hints.b_type} mismatches "
@@ -57,20 +95,27 @@ def resolve_solution(m: int, n: int, k: int, element_b: ElementB,
         if not solution_mod.is_feasible(sid, m, n, k):
             raise ValueError(f"solution {sid} infeasible for m={m} n={n} "
                              f"k={k} (kErrorKernelShape)")
-    else:
-        sid = solution_mod.choose_default_solution(
-            m, n, k, element_b, mfma_type, high_precision)
-    return sid
+        return sid
+    key = _table_key(m, n, k, element_b, mfma_type, high_precision)
+    if key in _TUNED_TABLE:
+        sid = SolutionId.from_repr(_TUNED_TABLE[key])
+        if solution_mod.is_feasible(sid, m, n, k):
+            return sid
+    return solution_mod.choose_default_solution(
+        m, n, k, element_b, mfma_type, high_precision)
 
 
 def resolve_grouped_solution(cap: int, n: int, k: int, element_b: ElementB,
-                             solution_id: int = -1) -> SolutionId:
+                             solution_id: int = -1,
+                             mfma_type: MatmulType = MatmulType.BF16
+                             ) -> SolutionId:
     """The tile of the grouped (MoE expert) kernel for the per-expert
     problem (cap, n, k): an explicit SolutionId.repr() must decode, match
-    element_b and be feasible, or ValueError; -1 takes the heuristic at
+    element_b and be feasible, or ValueError; -1 takes the grouped table
+    entry, then the dense entry of the same shape, then the heuristic at
     m = cap. The grouped kernel has no weight-cache variant, so a
-    weight_cache id is refused, as in the JAX package (gemm.py:142-145);
-    its tuned-table lookup has no counterpart: the port has none."""
+    weight_cache id is refused, and a weight_cache table entry skipped, as
+    in the JAX package (gemm.py:128-162)."""
     if solution_id is not None and solution_id >= 0:
         try:
             sid = SolutionId.from_repr(solution_id)
@@ -86,7 +131,15 @@ def resolve_grouped_solution(cap: int, n: int, k: int, element_b: ElementB,
             raise ValueError(f"solution {sid} infeasible for cap={cap} n={n} "
                              f"k={k} (kErrorKernelShape)")
         return sid
-    return solution_mod.choose_default_solution(cap, n, k, element_b)
+    for grouped in (True, False):
+        key = _table_key(cap, n, k, element_b, mfma_type, False, grouped)
+        if key in _TUNED_TABLE:
+            sid = SolutionId.from_repr(_TUNED_TABLE[key])
+            if (not sid.weight_cache and not sid.high_precision
+                    and solution_mod.is_feasible(sid, cap, n, k)):
+                return sid
+    return solution_mod.choose_default_solution(cap, n, k, element_b,
+                                                mfma_type)
 
 
 def _validate_and_prepare(a, b, s, m, n, k, group: int):
@@ -130,13 +183,13 @@ def _mul(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
         hints = solution_mod.default_hints(b_type=element_b)
     sid = resolve_solution(size_m, size_n, size_k, element_b, mfma,
                            solution_id=solution_id, hints=hints)
-    if sid.high_precision:
-        raise NotImplementedError(
-            "high-precision FP4 GEMM has no Hopper kernel yet")
     gs = torch.as_tensor(global_scale, dtype=torch.float32, device=a.device)
-    # fp16 activations compute in bf16 and cast back, as the JAX package does
-    out = fused.fused_mul(a.to(torch.bfloat16), b, s, gs.reshape(1), sid=sid)
-    return out if in_dtype == torch.bfloat16 else out.to(in_dtype)
+    # a high-precision id takes A as f32 and returns f32; otherwise fp16 and
+    # f32 activations compute in bf16; both cast back to A's dtype, as the
+    # JAX package does (gemm.py:222-235)
+    work = torch.float32 if sid.high_precision else torch.bfloat16
+    out = fused.fused_mul(a.to(work), b, s, gs.reshape(1), sid=sid)
+    return out if in_dtype == work else out.to(in_dtype)
 
 
 def mul_nvfp4_a16(a, b, s, global_scale, size_m, size_n, size_k,
@@ -183,9 +236,9 @@ def mul_nvfp4p2z_a16(a, b, s, global_scale, size_m, size_n, size_k,
 def _mul_w4a8(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
               element_b: ElementB, r_t=None, acol=None):
     """The JAX package's _mul_w4a8 (gemm.py:276-298): an explicit id must be
-    an INT8 one; the output comes back in a's dtype. (The JAX package also
-    turns a tuned-table id of another type into INT8; the port has no
-    table, and its heuristic answers INT8 when asked for it.)"""
+    an INT8 one; a tuned-table id of another type becomes an INT8 id of its
+    tile without the weight cache (and, here, without the high-precision
+    bit, which no W4A8 kernel has); the output comes back in a's dtype."""
     if size_m == 0 or size_n == 0 or size_k == 0:
         return torch.zeros((size_m, size_n), dtype=a.dtype, device=a.device)
     group = 16 if element_b == ElementB.NVFP4 else 32
@@ -201,6 +254,9 @@ def _mul_w4a8(a, b, s, global_scale, size_m, size_n, size_k, solution_id,
                              "solution")
     sid = resolve_solution(size_m, size_n, size_k, element_b,
                            MatmulType.INT8, solution_id=solution_id)
+    if sid.mfma_type != MatmulType.INT8:
+        sid = dataclasses.replace(sid, mfma_type=MatmulType.INT8,
+                                  high_precision=False, weight_cache=False)
     gs = torch.as_tensor(global_scale, dtype=torch.float32, device=a.device)
     out = fused.fused_mul_w4a8(a.to(torch.bfloat16), b, s, gs.reshape(1),
                                sid=sid, r_t=r_t, acol=acol)
@@ -282,9 +338,11 @@ def mul_fp4_diff(fmt: str, size_k: int, a, b, s, gs):
 def get_fp4_solutions(size_m: int, size_n: int, size_k: int,
                       a_type=torch.bfloat16, c_type=torch.bfloat16,
                       element_b: ElementB = ElementB.NVFP4) -> list[int]:
-    """Feasible solution reprs for a shape, weight-cache ones included.
-    Only solutions with a kernel are listed: no high-precision ones yet."""
+    """Feasible solution reprs for a shape, weight-cache and high-precision
+    ones included (the JAX package's list, gemm.py:398-407)."""
     del c_type
     mfma = MatmulType.FP16 if a_type == torch.float16 else MatmulType.BF16
-    return [s.repr() for s in solution_mod.get_solutions(
-        size_m, size_n, size_k, element_b, mfma)]
+    sols = solution_mod.get_solutions(size_m, size_n, size_k, element_b, mfma)
+    sols += solution_mod.get_solutions(size_m, size_n, size_k, element_b,
+                                       mfma, high_precision=True)
+    return [s.repr() for s in sols]

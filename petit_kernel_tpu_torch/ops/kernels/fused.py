@@ -2,20 +2,25 @@
 twins.
 
 Counterpart of petit_kernel_tpu/ops/kernels/fused.py: fused_mul (bf16
-activations), fused_mul_w4a8 (W4A8: int8 activations, the FP4 weights
-requantized to int8 in the kernel) and dequant_tpu_layout (the weights to
-a bf16 matrix, for the backward pass of gemm.mul_fp4_diff). Five kernels,
-one wrapper each, each with its own launch count:
+activations; f32 ones for a high-precision solution), fused_mul_w4a8 (W4A8:
+int8 activations, the FP4 weights requantized to int8 in the kernel) and
+dequant_tpu_layout (the weights to a bf16 matrix, for the backward pass of
+gemm.mul_fp4_diff). Seven kernels, one wrapper each, each with its own
+launch count:
 
   fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (mma.sync bf16)
   fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache)
+  fused_mul_hp       csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp (f32 A, three bf16
+                     MMAs per fragment, f32 out)
+  fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache)
   fused_mul_w4a8     csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8 (mma.sync s8)
   fused_mul_w4a8_wc  csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8_wc
   dequant_tpu_layout csrc/fp4_dequant.cu pk_fp4_dequant
 
-fused_mul and fused_mul_w4a8 hand a weight_cache solution id to their _wc
-wrapper, as the JAX package's fused_mul picks its _wc kernel body.
-fused_mul_reference, fused_mul_w4a8_reference and
+fused_mul hands a high_precision solution id to fused_mul_hp (or
+fused_mul_hp_wc), and fused_mul and fused_mul_w4a8 hand a weight_cache id
+to their _wc wrapper, as the JAX package's fused_mul picks its kernel body.
+fused_mul_reference, fused_mul_hp_reference, fused_mul_w4a8_reference and
 dequant_tpu_layout_reference are the same functions in plain PyTorch; a
 wrapper takes its twin only for tensors on the CPU, and for CUDA tensors
 it launches its kernel or raises.
@@ -87,18 +92,21 @@ def _launch(entry: str, *args) -> None:
     _build.check(entry, code)
 
 
-def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid):
+def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid,
+                    dtype=torch.bfloat16):
+    """Launch `entry` on A of `dtype` (bf16, f32 for the high-precision
+    kernels) into an output of the same dtype."""
     if a.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {a.device}")
-    if a.dtype != torch.bfloat16:
-        raise ValueError(f"{entry}: a must be bf16, got {a.dtype}")
+    if a.dtype != dtype:
+        raise ValueError(f"{entry}: a must be {dtype}, got {a.dtype}")
     kp = _check(entry, a, words, scales_t, global_scale)
     m, k = a.shape
     n = words.shape[1]
     a = _aligned(a)
     words = words.contiguous()
     scales_t = scales_t.contiguous()
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((m, n), dtype=dtype, device=a.device)
     if m == 0 or n == 0:
         return out, False
     _launch(entry, a.data_ptr(), words.data_ptr(), scales_t.data_ptr(),
@@ -117,12 +125,16 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     scales_t : (kp/16, n) bf16 processed scales
     global_scale : f32 tensor of one element, on a's device (read by the
                kernel from device memory: no host sync)
-    sid      : the (block_m, block_n) tile to launch; a weight_cache sid
-               goes to fused_mul_wc
+    sid      : the (block_m, block_n) tile to launch; a high_precision sid
+               goes to fused_mul_hp or fused_mul_hp_wc (then a is f32 and
+               so is the result), a weight_cache sid to fused_mul_wc
 
     Launches csrc/fp4_gemm.cu for CUDA tensors (counted in
     fused_mul.launches); runs fused_mul_reference for CPU tensors.
     """
+    if sid.high_precision:
+        hp = fused_mul_hp_wc if sid.weight_cache else fused_mul_hp
+        return hp(a, words, scales_t, global_scale, sid=sid)
     if sid.weight_cache:
         return fused_mul_wc(a, words, scales_t, global_scale, sid=sid)
     if a.device.type == "cpu":
@@ -151,6 +163,85 @@ def fused_mul_wc(a: torch.Tensor, words: torch.Tensor,
 
 fused_mul.launches = 0
 fused_mul_wc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# High precision: f32 activations, an f32-accurate product, f32 out (the
+# JAX package's high_precision=True kernel bodies, Precision.HIGHEST dots).
+# ---------------------------------------------------------------------------
+
+def split_bf16x3(a: torch.Tensor):
+    """The high-precision kernel's split of f32 values into three bf16
+    parts (csrc/fp4_gemm_hp.cu split3): hi = a truncated to bf16, mid = (a -
+    hi) truncated, lo = bf16_rn(a - hi - mid). Both differences are exact in
+    f32, so hi + mid + lo == a exactly for 2^-110 <= |a| <= FLT_MAX; below,
+    lo rounds on bf16's subnormal grid (an error under 2^-133)."""
+    def trunc(x):
+        return (x.view(torch.int32) & -65536).view(torch.float32)
+    a = a.float()
+    hi = trunc(a)
+    r = a - hi
+    mid = trunc(r)
+    lo = r - mid
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+
+def fused_mul_hp_reference(a: torch.Tensor, words: torch.Tensor,
+                           scales_t: torch.Tensor, global_scale: torch.Tensor,
+                           *, sid: SolutionId) -> torch.Tensor:
+    """Plain PyTorch fused_mul_hp: (f32(a) @ dequant(words, scales)) * gs in
+    f32. For bf16 a it computes what fused_mul_reference does before that
+    one's bf16 rounding. On the card the f32 product must not run in TF32,
+    which keeps 10 of f32's 23 mantissa bits: it raises unless
+    torch.backends.cuda.matmul.allow_tf32 is False."""
+    del sid  # both kernel structures compute the same function
+    if a.device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("fused_mul_hp_reference: TF32 matmuls are on; set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    b = layout.dequant_from_tpu_layout(words, scales_t, words.shape[1],
+                                       a.shape[1])
+    return (a.float() @ b) * global_scale.float()
+
+
+def fused_mul_hp(a: torch.Tensor, words: torch.Tensor,
+                 scales_t: torch.Tensor, global_scale: torch.Tensor, *,
+                 sid: SolutionId) -> torch.Tensor:
+    """c[m, n] = f32((a[m, k] @ dequant(words, scales)[k, n]) * gs) for f32 a
+    (natural k order, k % 128 == 0), an f32-accurate product through three
+    bf16 MMAs a fragment, one per part of A (split_bf16x3). The other
+    operands are fused_mul's.
+    Launches csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp for CUDA tensors (counted in
+    fused_mul_hp.launches); runs fused_mul_hp_reference for CPU tensors."""
+    if a.device.type == "cpu":
+        return fused_mul_hp_reference(a, words, scales_t, global_scale,
+                                      sid=sid)
+    out, launched = _fused_mul_cuda("pk_fp4_gemm_hp", a, words, scales_t,
+                                    global_scale, sid, dtype=torch.float32)
+    fused_mul_hp.launches += launched
+    return out
+
+
+def fused_mul_hp_wc(a: torch.Tensor, words: torch.Tensor,
+                    scales_t: torch.Tensor, global_scale: torch.Tensor, *,
+                    sid: SolutionId) -> torch.Tensor:
+    """fused_mul_hp through the weight-cache kernel (pk_fp4_gemm_hp_wc):
+    each CTA runs 2 m-tiles of sid's (block_m, block_n) and decodes each
+    weight block once for both. Bit for bit fused_mul_hp's result at the
+    same tile. Counted in fused_mul_hp_wc.launches; fused_mul_hp_reference
+    on the CPU."""
+    if a.device.type == "cpu":
+        return fused_mul_hp_reference(a, words, scales_t, global_scale,
+                                      sid=sid)
+    out, launched = _fused_mul_cuda("pk_fp4_gemm_hp_wc", a, words, scales_t,
+                                    global_scale, sid, dtype=torch.float32)
+    fused_mul_hp_wc.launches += launched
+    return out
+
+
+fused_mul_hp.launches = 0
+fused_mul_hp_wc.launches = 0
 
 
 # ---------------------------------------------------------------------------

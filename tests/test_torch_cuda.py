@@ -17,7 +17,12 @@ convert fp8 exactly); the KV appends and the dequant kernel bit-exact; the
 hybrid GEMM's FP4 columns bit for bit against fused_mul at the same tile
 and its dense columns at the GEMM tolerance; mul_fp4_diff's backward on
 the card (dequant kernel, cuBLAS dA) against the same on the CPU at the
-GEMM tolerance.
+GEMM tolerance; the high-precision GEMMs against the f64 product of the
+same operands, within 4 times the f32 library product's distance from it
+plus 2^-24 * max(|A| @ |B|) * |gs| (the MMAs' f32 accumulation does not
+round like a serial f32 sum, so no fixed ulp count holds), the
+weight-cache one bit for bit the plain one; every listed solution id
+through the public entry; the L2-flushing timer.
 """
 
 import math
@@ -381,3 +386,113 @@ def test_mul_fp4_diff_backward_runs_the_dequant_kernel(gen):
     torch.testing.assert_close(da, da_ref, rtol=2 ** -7,
                                atol=2 ** -8 * da_ref.abs().max().item())
     torch.testing.assert_close(dgs, dgs_ref, rtol=2 ** -7, atol=0.0)
+
+
+def _hp_error_bound(a, words, st, gs, got):
+    """The high-precision rule: max|got - f64| against 4 max|f32 library -
+    f64| + 2^-24 max(|A| @ |B|) |gs|, the f32 library product being the
+    twin's (TF32 off). Returns (error, bound)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    n, k = words.shape[1], a.shape[1]
+    deq = layout.dequant_from_tpu_layout(words, st, n, k).double()
+    g = gs.double()
+    exact = (a.double() @ deq) * g
+    lib = fused.fused_mul_hp_reference(a.float(), words, st, gs, sid=None)
+    scale = ((a.double().abs() @ deq.abs()) * g.abs()).max().item()
+    err = (got.double() - exact).abs().max().item()
+    lib_err = (lib.double() - exact).abs().max().item()
+    return err, 4 * lib_err + 2 ** -24 * scale
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
+def test_hp_kernels_match_twin_and_f64(gen, fmt, bm, bn):
+    """fp4_gemm_hp and fp4_gemm_hp_wc on f32 activations of a wide range
+    of magnitudes (ragged m and n, k padded past itself): within the
+    high-precision rule of the f64 product, and the weight-cache kernel bit
+    for bit the plain one at the same tile."""
+    quant, group = _QUANT[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    for m, n, k in _W4A8_CASES:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        a = torch.randn((m, k), generator=gen, device="cuda") * torch.exp2(
+            torch.randint(-20, 20, (m, 1), generator=gen, device="cuda"))
+        sid = sol.SolutionId(bm, bn, eb, high_precision=True)
+        before = fused.fused_mul_hp.launches
+        got = fused.fused_mul(a, words, st, gs.reshape(1), sid=sid)
+        assert fused.fused_mul_hp.launches == before + 1
+        assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+        err, bound = _hp_error_bound(a, words, st, gs.reshape(1), got)
+        assert err <= bound, (m, n, k, err, bound)
+        wc = sol.SolutionId(bm, bn, eb, high_precision=True,
+                            weight_cache=True)
+        if sol.is_feasible(wc, m, n, k):
+            before = fused.fused_mul_hp_wc.launches
+            got_wc = fused.fused_mul(a, words, st, gs.reshape(1), sid=wc)
+            assert fused.fused_mul_hp_wc.launches == before + 1
+            assert torch.equal(got_wc.view(torch.int32),
+                               got.view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+def test_every_listed_solution_launches(gen, fmt):
+    """Every id get_fp4_solutions lists, hp included, through the public
+    entry on the card: its kernel launches once and the output matches its
+    twin (the GEMM tolerance; the hp rule for hp ids, whose output comes
+    back in a's dtype)."""
+    quant, group = _QUANT[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    mul = tgemm.mul_nvfp4_a16 if fmt == "nvfp4" else tgemm.mul_mxfp4_a16
+    counters = {(False, False): fused.fused_mul, (False, True):
+                fused.fused_mul_wc, (True, False): fused.fused_mul_hp,
+                (True, True): fused.fused_mul_hp_wc}
+    for m, n, k in ((8, 256, 512), (100, 384, 1024)):
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        gs = gs.reshape(1)
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        ids = tgemm.get_fp4_solutions(m, n, k, element_b=eb)
+        assert any(sol.SolutionId.from_repr(r).high_precision for r in ids)
+        for r in ids:
+            sid = sol.SolutionId.from_repr(r)
+            counter = counters[(sid.high_precision, sid.weight_cache)]
+            before = counter.launches
+            got = mul(a, words, st, gs, m, n, k, r)
+            assert counter.launches == before + 1, sid
+            assert got.dtype == torch.float32
+            if sid.high_precision:
+                err, bound = _hp_error_bound(a, words, st, gs, got)
+                assert err <= bound, (sid, err, bound)
+            else:
+                want = fused.fused_mul_reference(a, words, st, gs, sid=sid)
+                torch.testing.assert_close(
+                    got, want.float(), rtol=2 ** -7,
+                    atol=2 ** -8 * want.float().abs().max().item())
+        # require_high_precision on bf16 activations: the hp kernel, bf16 out
+        hp = sol.SolutionHints(b_type=eb, require_high_precision=True)
+        before = fused.fused_mul_hp.launches
+        got = mul(a.to(torch.bfloat16), words, st, gs, m, n, k, hints=hp)
+        assert fused.fused_mul_hp.launches == before + 1
+        assert got.dtype == torch.bfloat16
+        want = fused.fused_mul_hp(a.to(torch.bfloat16).float(), words, st, gs,
+                                  sid=sol.choose_default_solution(
+                                      m, n, k, eb, high_precision=True))
+        assert torch.equal(got.view(torch.int16),
+                           want.to(torch.bfloat16).view(torch.int16))
+
+
+def test_cuda_time_returns_a_positive_median(gen):
+    from petit_kernel_tpu_torch.utils import benchlib
+    a = _bf16(gen, 1024, 1024)
+    t = benchlib.cuda_time(lambda: a @ a, iters=5, warmup=1)
+    assert 0 < t < 1.0
+    t_warm = benchlib.cuda_time(lambda: a @ a, iters=5, warmup=1,
+                                flush_l2=False)
+    assert 0 < t_warm < 1.0
