@@ -36,7 +36,10 @@ Phases (any failure raises and the script exits non-zero):
              each against its plain version; (c) the autotuner
              (tune_suite over the four projections at m = 16 and 2048,
              not saved) and every id of the committed H100 table launched
-             once at its key; (d) the port's GEMM bench and its JSON line
+             once at its key; (d) the port's GEMM bench and its JSON line;
+             (e) once each, on short runs: tune_grouped_shape, the bench's
+             other formats, --trace, --shard70b and --tune, and the bench
+             CLI
   5 parity   a 2-layer Llama-3-8B-width model and a 1-layer
              Mixtral-8x7B-width model: one prefill chunk and one decode
              step on the card (kernels) against the same model on the CPU
@@ -112,6 +115,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -120,6 +124,7 @@ import time
 import numpy as np
 import torch
 
+from petit_kernel_tpu_torch import _cli as port_cli
 from petit_kernel_tpu_torch import bench as port_bench
 from petit_kernel_tpu_torch.models import llama, moe, paged, serving
 from petit_kernel_tpu_torch.ops import _build, autotune, gemm
@@ -1285,12 +1290,12 @@ def _tuned_table_check(rec, gen):
         info["wrapper"].launches = 0
     n_calls = 0
     for (n, k, eb, is_grouped), entries in by_weight.items():
-        group = 16 if eb == ElementB.NVFP4 else 32
-        kp = layout.padded_k(k, layout.pad_multiple(group))
         E = 2 if is_grouped else 1
-        words = autotune._random_words(gen, (E, kp // 8, n), "cuda")
-        st = autotune._random_scales(gen, ElementB(eb), kp // 16, n,
-                                     "cuda").expand(E, -1, -1).contiguous()
+        w, s, _ = autotune.random_weight(
+            "nvfp4" if eb == ElementB.NVFP4 else "mxfp4", n, k, gen)
+        words = w.expand(E, *w.shape).contiguous()
+        st = s.expand(E, *s.shape).contiguous()
+        del w, s
         gs = torch.ones((E,), device="cuda")
         for key, sid in entries:
             m = key[0]
@@ -1324,6 +1329,48 @@ def _tuned_table_check(rec, gen):
     return dict(entries=n_calls, launches=launches)
 
 
+def _bench_modes():
+    """(e) The other modes of the tune and bench entry points, each once on
+    a short run: tune_grouped_shape at one Mixtral expert shape (E = 8, cap
+    64, w_gate (n, k) = (14336, 4096), mxfp4); the port bench's --format
+    mxfp4, mxfp4z, w4a8 and hybrid on the quick suite, --trace, --shard70b
+    and --tune, at 2 timed calls a case; the bench CLI at one shape. Every
+    bench line's value and vs_baseline must be finite and positive, and the
+    CLI must print one row with positive times."""
+    t0 = time.perf_counter()
+    out = {}
+    sid = autotune.tune_grouped_shape(8, 64, 14336, 4096, ElementB.MXFP4,
+                                      verbose=True)
+    if sid is None or sid.weight_cache:
+        raise AssertionError(f"tune_grouped_shape picked {sid}")
+    out["tune_grouped"] = [sid.block_m, sid.block_n]
+    log(f"[solutions] tune_grouped_shape E=8 cap=64 n=14336 k=4096: "
+        f"{sid.block_m}x{sid.block_n}")
+    for args in (["--format", "mxfp4"], ["--format", "mxfp4z"],
+                 ["--format", "w4a8"], ["--format", "hybrid"], ["--trace"],
+                 ["--shard70b"], ["--tune"]):
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = port_bench.main(args + ["--iters", "2"])
+        if not all(math.isfinite(line[key]) and line[key] > 0
+                   for key in ("value", "vs_baseline")):
+            raise AssertionError(f"bench {args}: {line}")
+        out[" ".join(args)] = line
+        log(f"[solutions] bench {' '.join(args)}: {json.dumps(line)}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        port_cli.bench_main(["--shapes", "4096,4096", "--ms", "16",
+                             "--iters", "5"])
+    rows = buf.getvalue().splitlines()
+    times = [float(x) for x in re.findall(r"([0-9.]+) us", rows[0])
+             ] if rows else []
+    if len(rows) != 1 or len(times) != 2 or min(times) <= 0:
+        raise AssertionError(f"bench CLI printed {rows}")
+    out["bench_cli"] = rows[0]
+    log(f"[solutions] bench CLI: {rows[0]}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_solutions(rec):
     """The GEMM API's solution layer (phase 4 above). The tuned table is
     restored to what it was (empty) afterwards: the engines of the later
@@ -1342,6 +1389,7 @@ def phase_solutions(rec):
         with contextlib.redirect_stdout(io.StringIO()):
             out["bench"] = port_bench.main([])
         log(f"[solutions] bench: {json.dumps(out['bench'])}")
+        out["modes"] = _bench_modes()
     finally:
         gemm.set_tuned_table(saved)
     rec["solutions"] = out

@@ -5,8 +5,8 @@ reference's `bench_matmul --algo tune` flow (ops/autotune.py): it times every
 candidate of each shape and merges the fastest into the card's table
 (petit_kernel_tpu_torch/tuned/<device>.json). `petit-tpu-torch-bench` times
 the FP4 GEMM entry (table loaded, solution -1) against a dense bf16
-torch.matmul on the same shapes. Both take their times from
-utils/benchlib.cuda_time and raise without a card. Without the console
+torch.matmul on the same shapes, through bench.run. Both take their times
+from utils/benchlib.cuda_time and raise without a card. Without the console
 scripts:
 
     python -m petit_kernel_tpu_torch._cli tune [--format mxfp4] ...
@@ -69,45 +69,23 @@ def bench_main(argv=None) -> None:
     p.add_argument("--shapes", help="n,k;n,k;... (default: Llama-70B suite)")
     p.add_argument("--ms", default="16")
     p.add_argument("--format", choices=("nvfp4", "mxfp4"), default="nvfp4")
+    p.add_argument("--iters", type=int, default=20,
+                   help="timed calls a shape (median)")
     args = p.parse_args(argv)
 
     import torch
 
-    from . import mul_mxfp4_a16, mul_nvfp4_a16
-    from .numerics import formats
-    from .ops import autotune, layout
-    from .utils import benchlib
+    from . import bench
 
     if not torch.cuda.is_available():
         raise SystemExit("petit-tpu-torch-bench: no CUDA card; the bench "
                          "times only the card")
-    autotune.load_table()
-    group = 16 if args.format == "nvfp4" else 32
-    mul = mul_nvfp4_a16 if args.format == "nvfp4" else mul_mxfp4_a16
-    for (m, n, k) in _parse_shapes(args.shapes, args.ms):
-        gen = torch.Generator(device="cuda").manual_seed(n + k)
-
-        def draw(lo, hi, shape):
-            return torch.randint(lo, hi, shape, generator=gen,
-                                 dtype=torch.uint8, device="cuda")
-        qw = formats.pack_fp4_pairs(draw(0, 16, (n, k)))
-        words = layout.repack_fp4_weights(qw, n, k,
-                                          pad_to=layout.pad_multiple(group))
-        if args.format == "nvfp4":
-            raw = (draw(4, 11, (n, k // 16)) << 3) | draw(0, 8, (n, k // 16))
-        else:
-            raw = draw(110, 140, (n, k // 32))
-        s = layout.process_fp4_scales(raw, n, k, group_size=group)
-        a = torch.randn((m, k), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        bd = torch.randn((k, n), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        t_fp4 = benchlib.cuda_time(lambda: mul(a, words, s, 1.0, m, n, k, -1))
-        t_dense = benchlib.cuda_time(lambda: torch.matmul(a, bd))
-        tf = 2 * m * n * k / t_fp4 / 1e12
-        print(f"m={m:5d} n={n:6d} k={k:6d}  fp4 {t_fp4 * 1e6:9.1f} us "
-              f"({tf:6.2f} TFLOP/s)  dense {t_dense * 1e6:9.1f} us  "
-              f"speedup {t_dense / t_fp4:5.2f}x", flush=True)
+    for r in bench.run(_parse_shapes(args.shapes, args.ms), False,
+                       args.iters, args.format):
+        print(f"m={r['m']:5d} n={r['n']:6d} k={r['k']:6d}  fp4 "
+              f"{r['t_fp4'] * 1e6:9.1f} us ({r['tflops']:6.2f} TFLOP/s)  "
+              f"dense {r['t_dense'] * 1e6:9.1f} us  "
+              f"speedup {r['speedup']:5.2f}x", flush=True)
 
 
 if __name__ == "__main__":

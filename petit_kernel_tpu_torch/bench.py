@@ -66,37 +66,6 @@ FORMATS = ("nvfp4", "mxfp4", "mxfp4z", "nvfp4p2", "nvfp4p2z", "w4a8",
            "hybrid")
 
 
-def _weights(fmt: str, n: int, k: int, gen):
-    """A random quantized (n, k) weight of `fmt` on the card, bench.py's
-    draws: any FP4 byte (no zero codes for the zero-free formats), E4M3
-    scale bytes with exponent field 4..10 (mantissa zero for the pow2
-    formats) or E8M0 bytes 118..131. Returns (words, scales, element_b)."""
-    from . import (process_mxfp4_scales, process_nvfp4_scales, repack_mxfp4,
-                   repack_nvfp4)
-    from .ops.solution import ElementB
-
-    def draw(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.uint8,
-                             device="cuda")
-    group = 32 if fmt in ("mxfp4", "mxfp4z") else 16
-    qw = draw(0, 256, (n, k // 2))
-    if fmt in ("nvfp4p2z", "mxfp4z"):
-        # zero-free contract: no stored zero codes (0 = +0, 8 = -0)
-        lo, hi = qw & 0xF, qw >> 4
-        lo = torch.where(lo == 0, 1, torch.where(lo == 8, 9, lo))
-        hi = torch.where(hi == 0, 1, torch.where(hi == 8, 9, hi))
-        qw = (lo | (hi << 4)).to(torch.uint8)
-    if group == 32:
-        raw = draw(118, 132, (n, k // group))
-        return (repack_mxfp4(qw, n, k), process_mxfp4_scales(raw, n, k),
-                ElementB.MXFP4)
-    raw = draw(4, 11, (n, k // group)) << 3
-    if fmt in ("nvfp4", "w4a8"):
-        raw = raw | draw(0, 8, (n, k // group))
-    return (repack_nvfp4(qw, n, k), process_nvfp4_scales(raw, n, k),
-            ElementB.NVFP4)
-
-
 def run(cases, tune: bool, iters: int, fmt: str = "nvfp4") -> list[dict]:
     """cases: iterable of (m, n, k); consecutive equal (n, k) reuse one
     weight. Returns one dict a case (times in seconds)."""
@@ -119,7 +88,7 @@ def run(cases, tune: bool, iters: int, fmt: str = "nvfp4") -> list[dict]:
         if (n, k) != prev_nk:
             prev_nk = (n, k)
             gen = torch.Generator(device="cuda").manual_seed(n + k)
-            b, s, eb = _weights(fmt, n, k, gen)
+            b, s, eb = autotune.random_weight(fmt, n, k, gen)
             gs = torch.ones((1,), dtype=torch.float32, device="cuda")
             group = 16 if eb == ElementB.NVFP4 else 32
             # the dense (k, n) baseline operand, dequantized on the card

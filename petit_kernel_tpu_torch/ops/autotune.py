@@ -32,7 +32,6 @@ from typing import Sequence
 
 import torch
 
-from ..numerics import formats
 from ..utils import benchlib
 from . import gemm as gemm_mod
 from . import layout
@@ -68,16 +67,14 @@ def table_path(kind: str | None = None) -> str:
 
 def candidate_solutions(m: int, n: int, k: int,
                         element_b: ElementB = ElementB.NVFP4,
-                        mfma_type: MatmulType = MatmulType.BF16,
-                        max_candidates: int | None = 8) -> list[SolutionId]:
+                        mfma_type: MatmulType = MatmulType.BF16
+                        ) -> list[SolutionId]:
     """The heuristic default, then every other feasible non-high-precision
-    id (at most 8 a shape: 4 tiles, with and without the weight cache),
-    cut to max_candidates (None: all)."""
+    id (at most 8 a shape: 4 tiles, with and without the weight cache)."""
     base = solution_mod.choose_default_solution(m, n, k, element_b,
                                                 mfma_type)
-    rest = [sid for sid in solution_mod.get_solutions(
+    return [base] + [sid for sid in solution_mod.get_solutions(
         m, n, k, element_b, mfma_type) if sid != base]
-    return ([base] + rest)[:max_candidates]
 
 
 def time_solution(sid: SolutionId, a, b, s, gs, *, iters: int = 10,
@@ -94,50 +91,54 @@ def time_solution(sid: SolutionId, a, b, s, gs, *, iters: int = 10,
                               iters=iters, warmup=warmup)
 
 
-def _random_words(gen, shape, device) -> torch.Tensor:
-    """Random packed words: any word decodes (both zero codes give 0)."""
-    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
-                         dtype=torch.int32, device=device)
-
-
-def _random_scales(gen, element_b: ElementB, rows: int, n: int,
-                   device) -> torch.Tensor:
-    """Processed bf16 scales (rows, n) of random E4M3 bytes (exponent field
-    4..10, any mantissa) or E8M0 bytes (110..139, rows duplicated to stride
-    16), the JAX autotuner's draws."""
-    def draw(lo, hi, r):
-        return torch.randint(lo, hi, (r, n), generator=gen, dtype=torch.uint8,
+def random_weight(fmt: str, n: int, k: int, gen, device="cuda"):
+    """A random quantized (n, k) weight of `fmt` (a bench.py format name) on
+    `device`, bench.py's draws: any FP4 byte (no zero codes for the
+    zero-free formats), E4M3 scale bytes with exponent field 4..10
+    (mantissa zero for the pow2 formats) or E8M0 bytes 118..131. Returns
+    (words (kp/8, n) int32, scales (kp/16, n) bf16, element_b)."""
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.uint8,
                              device=device)
-    if element_b == ElementB.NVFP4:
-        dec = formats.e4m3_decode((draw(4, 11, rows) << 3) | draw(0, 8, rows))
+    group = 32 if fmt in ("mxfp4", "mxfp4z") else 16
+    qw = draw(0, 256, (n, k // 2))
+    if fmt in ("nvfp4p2z", "mxfp4z"):
+        # zero-free contract: no stored zero codes (0 = +0, 8 = -0)
+        lo, hi = qw & 0xF, qw >> 4
+        lo = torch.where(lo == 0, 1, torch.where(lo == 8, 9, lo))
+        hi = torch.where(hi == 0, 1, torch.where(hi == 8, 9, hi))
+        qw = (lo | (hi << 4)).to(torch.uint8)
+    if group == 32:
+        raw = draw(118, 132, (n, k // group))
     else:
-        dec = formats.e8m0_decode(draw(110, 140, rows // 2)
-                                  ).repeat_interleave(2, dim=0)
-    return dec.to(torch.bfloat16)
+        raw = draw(4, 11, (n, k // group)) << 3
+        if fmt in ("nvfp4", "w4a8"):
+            raw = raw | draw(0, 8, (n, k // group))
+    words = layout.repack_fp4_weights(qw, n, k,
+                                      pad_to=layout.pad_multiple(group))
+    scales = layout.process_fp4_scales(raw, n, k, group_size=group)
+    return (words, scales,
+            ElementB.MXFP4 if group == 32 else ElementB.NVFP4)
 
 
 def tune_shape(m: int, n: int, k: int,
                element_b: ElementB = ElementB.NVFP4,
                mfma_type: MatmulType = MatmulType.BF16,
                *, verbose: bool = False, update_table: bool = True,
-               max_candidates: int = 24, full: bool = False,
-               time_budget_s: float | None = None, top: int = 5,
-               device="cuda") -> SolutionId:
+               full: bool = False, time_budget_s: float | None = None,
+               top: int = 5, device="cuda") -> SolutionId:
     """Time the candidates of one shape on the card and return the fastest
     SolutionId; by default also record it in the dispatch table under
     _table_key(m, n, k, element_b, mfma_type, False). Operands come from a
     seeded generator on `device` (another device only for tests, which
     replace time_solution)."""
-    group = 16 if element_b == ElementB.NVFP4 else 32
-    kp = layout.padded_k(k, layout.pad_multiple(group))
     gen = torch.Generator(device=device).manual_seed(1234)
+    fmt = "nvfp4" if element_b == ElementB.NVFP4 else "mxfp4"
+    b, s, _ = random_weight(fmt, n, k, gen, device)
     a = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-    b = _random_words(gen, (kp // 8, n), device)
-    s = _random_scales(gen, element_b, kp // 16, n, device)
     gs = torch.ones((1,), dtype=torch.float32, device=device)
 
-    cands = candidate_solutions(m, n, k, element_b, mfma_type,
-                                None if full else max_candidates)
+    cands = candidate_solutions(m, n, k, element_b, mfma_type)
     t0 = time.perf_counter()
     timed: list[tuple[float, SolutionId]] = []
     for idx, sid in enumerate(cands):
@@ -174,14 +175,14 @@ def tune_grouped_shape(E: int, cap: int, n: int, k: int,
     n, k) with E experts and record the fastest under the grouped table
     key. The candidates are the dense ones without the weight cache, which
     the grouped kernel lacks."""
-    group = 16 if element_b == ElementB.NVFP4 else 32
-    kp = layout.padded_k(k, layout.pad_multiple(group))
     gen = torch.Generator(device="cuda").manual_seed(99)
+    fmt = "nvfp4" if element_b == ElementB.NVFP4 else "mxfp4"
+    # one expert's weight for all E: the time does not depend on the values
+    w, s, _ = random_weight(fmt, n, k, gen)
+    words = w.expand(E, *w.shape).contiguous()
+    st = s.expand(E, *s.shape).contiguous()
     xs = torch.randn((E, cap, k), generator=gen, device="cuda").to(
         torch.bfloat16)
-    words = _random_words(gen, (E, kp // 8, n), "cuda")
-    st = (torch.randn((E, kp // 16, n), generator=gen, device="cuda") * 0.1
-          + 1.0).to(torch.bfloat16)
     gs = torch.ones((E,), dtype=torch.float32, device="cuda")
 
     best, best_t = None, math.inf

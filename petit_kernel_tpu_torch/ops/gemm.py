@@ -106,9 +106,7 @@ def resolve_solution(m: int, n: int, k: int, element_b: ElementB,
 
 
 def resolve_grouped_solution(cap: int, n: int, k: int, element_b: ElementB,
-                             solution_id: int = -1,
-                             mfma_type: MatmulType = MatmulType.BF16
-                             ) -> SolutionId:
+                             solution_id: int = -1) -> SolutionId:
     """The tile of the grouped (MoE expert) kernel for the per-expert
     problem (cap, n, k): an explicit SolutionId.repr() must decode, match
     element_b and be feasible, or ValueError; -1 takes the grouped table
@@ -132,14 +130,14 @@ def resolve_grouped_solution(cap: int, n: int, k: int, element_b: ElementB,
                              f"k={k} (kErrorKernelShape)")
         return sid
     for grouped in (True, False):
-        key = _table_key(cap, n, k, element_b, mfma_type, False, grouped)
+        key = _table_key(cap, n, k, element_b, MatmulType.BF16, False,
+                         grouped)
         if key in _TUNED_TABLE:
             sid = SolutionId.from_repr(_TUNED_TABLE[key])
             if (not sid.weight_cache and not sid.high_precision
                     and solution_mod.is_feasible(sid, cap, n, k)):
                 return sid
-    return solution_mod.choose_default_solution(cap, n, k, element_b,
-                                                mfma_type)
+    return solution_mod.choose_default_solution(cap, n, k, element_b)
 
 
 def _validate_and_prepare(a, b, s, m, n, k, group: int):

@@ -11,20 +11,19 @@ BF16, the W4A8 GEMM (csrc/fp4_gemm_w4a8.cu) for MatmulType INT8, the
 high-precision GEMM (csrc/fp4_gemm_hp.cu, f32 activations) for
 high_precision=True, and the weight-cache variant of each
 (weight_cache=True), which runs several of the tiles per CTA and decodes
-each weight block once for them: WC_GROUP = 4 tiles in the bf16 and W4A8
-kernels, HP_WC_GROUP = 2 in the high-precision one.
+each weight block once for them: 4 tiles in the bf16 and W4A8 kernels
+(WC_GROUP), 2 in the high-precision one (HP_WC_GROUP).
 
-An id is feasible where its kernel fits the card: smem_bytes(sid), the
-dynamic shared memory its instance asks for (the kernels' own formulas,
-mirrored below), must not pass MAX_SMEM_BYTES, the 227 KB a Hopper block
-may use. The high-precision kernels stage A as f32, which doubles A's part
-of the budget; with 4 tiles a CTA the 64-row weight-cache tiles would ask
-for 270,336 bytes (64 x 64) and more. The high-precision weight-cache
-kernel therefore runs 2 tiles a CTA, where every tile fits (at most
-219,136 bytes, 64 x 128): the high-precision ids are then exactly the
-other ids with the hp bit, for every shape, and a tuned table can name any
-of them. There is no high-precision W4A8 kernel, so an hp INT8 id is
-infeasible.
+An id is feasible where a compiled kernel serves it. Each kernel
+instance must fit the 227 KB of shared memory a Hopper block may use, and
+each .cu file refuses at compile time (static_assert) a tile that does not.
+The high-precision kernels stage A as f32, which doubles A's part of the
+budget: with 4 tiles a CTA, the 64-row weight-cache tiles would ask for
+270,336 bytes (64 x 64) and more. The high-precision weight-cache kernel
+therefore runs 2 tiles a CTA, where every tile fits (at most 219,136
+bytes, 64 x 128). The high-precision ids are then exactly the other ids
+with the hp bit, for every shape, and a tuned table can name any of them.
+There is no high-precision W4A8 kernel, so an hp INT8 id is infeasible.
 
 The integer `repr` round-trips (SolutionId.from_repr(sid.repr()) == sid),
 like the reference library's SolutionId::Repr()/FromRepr. The JAX
@@ -61,17 +60,6 @@ class MatmulType(enum.IntEnum):
 TILE_SHAPES = ((16, 64), (16, 128), (64, 64), (64, 128))
 BLOCK_M_UNIT = 16
 BLOCK_N_UNIT = 64
-# csrc/fp4_gemm.cuh: natural k per main-loop step and the shared-memory row
-# stride of A and B in elements; csrc/fp4_gemm_w4a8.cu: the int8 row stride
-KSTEP = 256
-LDS = KSTEP + 8
-LDB8 = KSTEP + 16
-# m-tiles a CTA of the weight-cache kernels runs (fp4_gemm.cuh WC_GROUP,
-# fp4_gemm_hp.cu HP_WC_GROUP)
-WC_GROUP = 4
-HP_WC_GROUP = 2
-# dynamic shared memory a block may use on Hopper (227 KB)
-MAX_SMEM_BYTES = 232_448
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -81,8 +69,8 @@ class SolutionId:
     element_b: ElementB = ElementB.NVFP4
     mfma_type: MatmulType = MatmulType.BF16
     high_precision: bool = False
-    # the weight-cache kernel: WC_GROUP (HP_WC_GROUP) m-tiles per CTA share
-    # each decoded weight block (the JAX package's _fused_kernel_wc /
+    # the weight-cache kernel: 4 m-tiles per CTA (2 for high precision)
+    # share each decoded weight block (the JAX package's _fused_kernel_wc /
     # _fused_kernel_w4a8_wc)
     weight_cache: bool = False
 
@@ -132,32 +120,15 @@ def default_hints(device_name: str | None = None,
     return SolutionHints(b_type=b_type)
 
 
-def smem_bytes(sid: SolutionId) -> int:
-    """Dynamic shared memory of sid's kernel instance: A (G m-tiles; bf16,
-    f32 for high precision, int8 for W4A8), the decoded B tile and one
-    step's 32 f32 scale rows (fp4_gemm.cuh smem_bytes, fp4_gemm_hp.cu
-    hp_smem_bytes, fp4_gemm_w4a8.cu w4a8_smem_bytes)."""
-    g = 1
-    if sid.weight_cache:
-        g = HP_WC_GROUP if sid.high_precision else WC_GROUP
-    scales = (KSTEP // 8) * sid.block_n * 4
-    if sid.mfma_type == MatmulType.INT8:
-        return (g * sid.block_m + sid.block_n) * LDB8 + scales
-    a_elt = 4 if sid.high_precision else 2
-    return (g * sid.block_m * LDS * a_elt + sid.block_n * LDS * 2 + scales)
-
-
 def is_feasible(sid: SolutionId, m: int, n: int, k: int) -> bool:
     """Whether a compiled kernel serves sid at (m, n, k). The kernels mask
     ragged m and n edges and zero-fill A past k, so only the tile set, the
-    shared-memory budget, k % 128 and a soft cap on wasted tile rows and
-    columns apply; a weight-cache id needs more than one m-tile to share its
-    decodes (m > block_m), as in the JAX package."""
+    missing hp W4A8 kernel, k % 128 and a soft cap on wasted tile rows and
+    columns apply; a weight-cache id needs more than one m-tile to share
+    its decodes (m > block_m), as in the JAX package."""
     if (sid.block_m, sid.block_n) not in TILE_SHAPES:
         return False
     if sid.high_precision and sid.mfma_type == MatmulType.INT8:
-        return False
-    if smem_bytes(sid) > MAX_SMEM_BYTES:
         return False
     if k % 128 != 0:
         return False

@@ -8,11 +8,12 @@ products of the same exact operands and differ only in the order of the
 sums, so f32 outputs agree within 2^-20 * max(|A| @ |B|) * |gs|, and bf16
 and f16 outputs, each one rounding of such a sum, within one unit in the
 last place of their dtype (or, where a sum cancels to a value below that
-f32 bound's reach, within the bound plus one unit). Then the three-way bf16 split of the hp kernel,
-the tuned table (bucketing and keys equal to the JAX package's, lookup,
-fallback, grouped order, the W4A8 replacement, persistence), the tuner with
-its timing replaced, the suites of the CLI and the bench, and every id of
-the port's committed tables against the dequant oracle.
+f32 bound's reach, within the bound plus one unit). Then the three-way
+bf16 split of the hp kernel, the tuned table (bucketing and keys equal to
+the JAX package's, lookup, fallback, grouped order, the W4A8 replacement,
+persistence), the tuner with its timing replaced, the fabricated weights,
+the suites of the CLI and the bench, and every id of the port's committed
+tables against the dequant oracle.
 """
 
 import dataclasses
@@ -395,6 +396,28 @@ def test_timing_raises_without_a_card():
         assert e.value.code not in (None, 0)
 
 
+@pytest.mark.parametrize("fmt", [f for f in tbench.FORMATS
+                                 if f != "hybrid"])
+def test_random_weight_follows_the_format(fmt):
+    """The tuner's and the bench's fabricated weights: the repack layout of
+    the format, zero-free formats with no zero, pow2 formats with
+    power-of-two scales."""
+    n, k = 128, 512
+    gen = torch.Generator().manual_seed(0)
+    words, st, eb = tauto.random_weight(fmt, n, k, gen, device="cpu")
+    group = 32 if fmt.startswith("mx") else 16
+    kp = 1024 if group == 32 else k     # mxfp4 pads k to 1024
+    assert eb == (tsol.ElementB.MXFP4 if group == 32 else tsol.ElementB.NVFP4)
+    assert words.dtype == torch.int32 and tuple(words.shape) == (kp // 8, n)
+    assert st.dtype == torch.bfloat16 and tuple(st.shape) == (kp // 16, n)
+    deq = fused.dequant_tpu_layout(words, st, element_b=eb)[:k].float()
+    assert torch.isfinite(deq).all() and bool((deq != 0).any())
+    assert bool((deq != 0).all()) == fmt.endswith("z")
+    scales = st[:k // 16].float()
+    pow2 = bool((torch.frexp(scales).mantissa.abs() == 0.5).all())
+    assert pow2 == (fmt in ("nvfp4p2", "nvfp4p2z", "mxfp4", "mxfp4z"))
+
+
 def _jax_bench():
     """The repo's bench.py (the JAX package's bench), loaded by path."""
     spec = importlib.util.spec_from_file_location(
@@ -416,25 +439,15 @@ def test_cli_and_bench_suites_match_jax():
 
 
 def test_hp_dispatch_and_feasible_set_agree():
-    """The tiles csrc/fp4_gemm_hp.cu dispatches, its group and the shared
-    constants are solution.py's; every listed id fits the shared memory of a
-    block; the hp ids are the other ids with the hp bit; the G = 4
-    alternative would not fit at block_m = 64."""
+    """The tiles csrc/fp4_gemm_hp.cu dispatches are solution.py's (the .cu
+    file refuses at compile time a tile over the shared memory of a block);
+    the hp ids are the other ids with the hp bit; there is no hp INT8 id."""
     with open(os.path.join(_PORT, "csrc", "fp4_gemm_hp.cu")) as f:
         src = f.read()
-    with open(os.path.join(_PORT, "csrc", "fp4_gemm.cuh")) as f:
-        cuh = f.read()
     tiles = {(int(bm), int(bn)) for bm, bn in re.findall(
         r"block_m == (\d+) && block_n == (\d+)", src)}
     assert tiles == set(tsol.TILE_SHAPES)
-    assert re.search(r"HP_WC_GROUP = (\d+);", src).group(1) == \
-        str(tsol.HP_WC_GROUP)
-    assert re.search(r"MAX_SMEM = (\d+);", src).group(1) == \
-        str(tsol.MAX_SMEM_BYTES)
-    assert re.search(r"WC_GROUP = (\d+);", cuh).group(1) == \
-        str(tsol.WC_GROUP)
-    assert re.search(r"KSTEP = (\d+);", cuh).group(1) == str(tsol.KSTEP)
-    assert "LDS = KSTEP + 8;" in cuh
+    assert "static_assert(bytes <= MAX_SMEM" in src
     for m, n, k in ((1, 4096, 4096), (20, 256, 512), (100, 6144, 4096),
                     (2048, 4096, 14336)):
         for eb in (tsol.ElementB.NVFP4, tsol.ElementB.MXFP4):
@@ -442,16 +455,8 @@ def test_hp_dispatch_and_feasible_set_agree():
             hp = tsol.get_solutions(m, n, k, eb, high_precision=True)
             assert hp == [dataclasses.replace(s, high_precision=True)
                           for s in plain]
-            for s in plain + hp:
-                assert tsol.smem_bytes(s) <= tsol.MAX_SMEM_BYTES
             assert not tsol.get_solutions(m, n, k, eb, tsol.MatmulType.INT8,
                                           high_precision=True)
-    hp_wc = tsol.SolutionId(64, 64, high_precision=True, weight_cache=True)
-    four = (tsol.WC_GROUP * 64 * tsol.LDS * 4 + 64 * tsol.LDS * 2
-            + 32 * 64 * 4)
-    assert four == 312_320 > tsol.MAX_SMEM_BYTES >= tsol.smem_bytes(hp_wc)
-    assert tsol.smem_bytes(tsol.SolutionId(64, 128, weight_cache=True)) \
-        == 219_136
 
 
 def _table_cases():
@@ -478,9 +483,8 @@ def test_tuned_table_ids_match_the_oracle(key, sid):
     fields = key.split(",")
     mb, kn, kk = int(fields[0]), int(fields[1]), int(fields[2])
     assert tsol.is_feasible(sid, mb, kn, kk), (key, sid)
-    g = 1
-    if sid.weight_cache:
-        g = tsol.HP_WC_GROUP if sid.high_precision else tsol.WC_GROUP
+    # two groups of the weight-cache kernels' 4 m-tiles (four of hp's 2)
+    g = 4 if sid.weight_cache else 1
     m, n, k = 2 * g * sid.block_m + 5, 2 * sid.block_n + 16, 512
     assert tsol.is_feasible(sid, m, n, k)
     fmt = "nvfp4" if sid.element_b == tsol.ElementB.NVFP4 else "mxfp4"
