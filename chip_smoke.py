@@ -14,8 +14,11 @@ Phases (any failure raises and the script exits non-zero):
              twin and their non-cache counterparts, with a sweep of m
              against fp4_gemm; the dequant kernel at the four fused
              projections, nvfp4 and mxfp4, bit for bit; the hybrid GEMM at
-             the seven unfused projections, m = 8 and 512, its FP4 columns
-             bit for bit against fused_mul at the same tile) and, for the
+             the seven unfused projections, m = 8 and 512, at the default
+             k-splits and, at m = 8, at 1, 2, 3 and one per step, each
+             launched twice for the same bits, its FP4 columns bit for bit
+             against fused_mul at the same tile with one split, timed
+             L2-warm and L2-flushed) and, for the
              grouped expert GEMM, Mixtral-8x7B's expert shapes (E=8, cap 8
              and 128, mxfp4 and nvfp4, also bit for bit against fused_mul
              per expert), with CUDA-event times of the kernel, its twin and
@@ -90,6 +93,10 @@ Phases (any failure raises and the script exits non-zero):
              one 512-token prefill tick of the Llama Engine with nvfp4 and
              with W4A8 prefill, and one training step: kernels by device
              time and the device's idle share (PERF.md section 5)
+ 13 hybrid_layer (only when named) the hybrid GEMM alone at the seven
+             unfused projections, m = 8, default tile and splits, L2-warm
+             and L2-flushed: for an A/B against an older tree, which a
+             copy of this script in that tree's checkout times
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -138,7 +145,9 @@ from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
-          "profile")
+          "profile", "hybrid_layer")
+# run when --phases is not given: all but the A/B phase
+DEFAULT_PHASES = PHASES[:-1]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -308,6 +317,11 @@ def phase_build(rec):
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] {line.strip()}")
+        elif "Compiling entry function" in line:
+            # the kernel the next lines describe (mangled, shortened)
+            name = line.split("'")[1] if "'" in line else line
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_", "", name)
+            log(f"[build] {name[:90]}")
 
 
 def _close(name, got, want, rtol, atol):
@@ -972,77 +986,209 @@ def _dequant_kernels(res, rows, gen):
            "this layout")
 
 
+def _hybrid_operands(k, n, gen):
+    """A random (k, n) weight split 3:1 on the card as quantize_params(...,
+    "hybrid") splits it: (words, scales, gs (1,), wd)."""
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    hq = llama.quantize_linear(w, "hybrid")
+    return hq["words"], hq["scales"], hq["gs"].reshape(1), hq["wd"]
+
+
+def _flushed_ms(fn) -> float:
+    """Median ms of single calls of fn with L2 flushed before each."""
+    return benchlib.cuda_time(fn) * 1e3
+
+
+def _cold_ms(calls, reps: int = 24) -> float:
+    """Device ms a call of a CUDA graph that runs `calls` round robin, reps
+    launches a replay; the median of 5 replays. Each call closes over its
+    own copy of the weights, the copies together larger than the 50 MB L2,
+    so every call finds its weights cold, as a decode step does, with no
+    flush writing back beside it and no host time in the graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            calls[i % len(calls)]()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(times)[2]
+
+
+def _hybrid_cold_ms(a, words, st, gs, wd, **kw) -> float:
+    """_cold_ms of hybrid_mul over copies of (words, st, wd) that fill 120
+    MB."""
+    nbytes = _nbytes(words, st, wd)
+    copies = [(words, st, wd)] + [
+        (words.clone(), st.clone(), wd.clone())
+        for _ in range(max(2, math.ceil(120e6 / nbytes)) - 1)]
+    return _cold_ms([(lambda w=w, s=s, d=d: hybrid.hybrid_mul(
+        a, w, s, gs, d, **kw)) for w, s, d in copies])
+
+
 def _hybrid_kernels(res, rows, gen):
     """The hybrid GEMM at the seven unfused Llama-3-8B projections, each
     split as quantize_params(..., "hybrid") splits it (3:1), at m = 8 and
-    512: the FP4 columns bit for bit against fused_mul at the same tile,
-    the dense columns against the twin at the GEMM tolerance. Library:
+    512, at the heuristic's tile and hybrid_splits' splits: both halves
+    against the twin at the GEMM tolerance, a second launch bit for bit the
+    first; the FP4 columns bit for bit fused_mul's at the same tile with
+    one split (m = 8) and at m = 512 (block_m = 64, no split); at m = 8
+    also 2, 3 and one split per step, against the twin and repeated. Times
+    L2-warm (cuda_ms) and L2-flushed (benchlib.cuda_time). Library:
     torch.matmul of A by the whole bf16 (k, n) weight (the dequantized FP4
     columns and the dense ones side by side). The JSON row is m = 8 summed
-    over the seven (one layer of a hybrid decode step)."""
+    over the seven (one layer of a hybrid decode step), L2 flushed; at m =
+    8 the rows also hold the cold-weights graph time (_cold_ms)."""
     dev = torch.device("cuda")
-    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    layer = dict(ms=0.0, warm_ms=0.0, cold_ms=0.0, plain_ms=0.0,
+                 library_ms=0.0, nbytes=0, flops=0)
     err = 0.0
+    tol = dict(rtol=2 ** -7)
     for k, n in dict.fromkeys(LLAMA8B_UNFUSED_KN):
         times = LLAMA8B_UNFUSED_KN.count((k, n))
-        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
-        hq = llama.quantize_linear(w, "hybrid")
-        del w
-        words, st, wd = hq["words"], hq["scales"], hq["wd"]
-        gs = hq["gs"].reshape(1)
-        nf, nd = words.shape[1], wd.shape[1]
+        words, st, gs, wd = _hybrid_operands(k, n, gen)
+        nf, nd, kp = words.shape[1], wd.shape[1], wd.shape[0]
+        steps = kp // hybrid.KSTEP
         full = torch.cat([(layout.dequant_from_tpu_layout(words, st, nf, k)
                            * gs).to(torch.bfloat16), wd[:k]], dim=1)
         for m in (8, 512):
             a = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
             sid = solution_mod.choose_default_solution(m, nf, k)
-            outf, outd = hybrid.hybrid_mul(a, words, st, gs, wd, sid=sid)
+            sf, sd = hybrid.hybrid_splits(m, nf, nd, kp, sid.block_m,
+                                          sid.block_n, sms)
+            ctas = -(-m // sid.block_m) * (-(-nf // sid.block_n) * sf
+                                           + -(-nd // sid.block_n) * sd)
+            what = f"hybrid m={m} k={k} n={n} (nf={nf}, nd={nd})"
             plain_f = fused.fused_mul(a, words, st, gs, sid=sid)
             want_f, want_d = hybrid.hybrid_mul_reference(a, words, st, gs, wd,
                                                          sid=sid)
-            torch.cuda.synchronize()
-            what = f"hybrid m={m} k={k} n={n} (nf={nf}, nd={nd})"
-            if not torch.equal(outf.view(torch.int16),
-                               plain_f.view(torch.int16)):
-                raise AssertionError(f"{what}: FP4 columns differ from "
-                                     "fused_mul bit for bit")
-            e = max(_close(f"{what} FP4 columns", outf, want_f, 2 ** -7,
-                           2 ** -8 * want_f.float().abs().max()),
-                    _close(f"{what} dense columns", outd, want_d, 2 ** -7,
-                           2 ** -8 * want_d.float().abs().max()))
-            t_k = cuda_ms(lambda: hybrid.hybrid_mul(a, words, st, gs, wd,
-                                                    sid=sid))
+            e = 0.0
+            runs = [None] if sid.block_m == 64 else [None, 1, *sorted(
+                {s for s in (2, 3, steps) if s <= steps})]
+            for splits in runs:
+                outf, outd = hybrid.hybrid_mul(a, words, st, gs, wd, sid=sid,
+                                               splits=splits)
+                againf, againd = hybrid.hybrid_mul(a, words, st, gs, wd,
+                                                   sid=sid, splits=splits)
+                torch.cuda.synchronize()
+                tag = f"{what} splits={splits or (sf, sd)}"
+                if not (torch.equal(outf.view(torch.int16),
+                                    againf.view(torch.int16))
+                        and torch.equal(outd.view(torch.int16),
+                                        againd.view(torch.int16))):
+                    raise AssertionError(f"{tag}: two launches differ")
+                if (sid.block_m == 64 or splits == 1) and not torch.equal(
+                        outf.view(torch.int16), plain_f.view(torch.int16)):
+                    raise AssertionError(f"{tag}: FP4 columns differ from "
+                                         "fused_mul bit for bit")
+                e = max(e, _close(f"{tag} FP4 columns", outf, want_f,
+                                  atol=2 ** -8 * want_f.float().abs().max(),
+                                  **tol),
+                        _close(f"{tag} dense columns", outd, want_d,
+                               atol=2 ** -8 * want_d.float().abs().max(),
+                               **tol))
+            call = (lambda: hybrid.hybrid_mul(a, words, st, gs, wd, sid=sid))
+            t_k = cuda_ms(call)
+            t_kf = _flushed_ms(call)
             t_p = cuda_ms(lambda: hybrid.hybrid_mul_reference(
                 a, words, st, gs, wd, sid=sid), iters=2, warmup=1)
             t_l = cuda_ms(lambda: torch.matmul(a, full))
-            nbytes = _nbytes(a, words, st, gs, wd, outf, outd)
+            t_lf = _flushed_ms(lambda: torch.matmul(a, full))
+            t_kc = (_hybrid_cold_ms(a, words, st, gs, wd, sid=sid)
+                    if m == 8 else None)
+            nbytes = _nbytes(a, words, st, gs, wd, want_f, want_d)
             flops = 2 * m * n * k
             row = dict(kernel="hybrid_gemm", m=m, k=k, n=n, nf=nf, nd=nd,
-                       tile=[sid.block_m, sid.block_n], max_abs_err=e,
-                       ms=t_k, plain_ms=t_p, library_ms=t_l,
-                       **bound(nbytes, flops))
+                       tile=[sid.block_m, sid.block_n], splits=[sf, sd],
+                       ctas=ctas, max_abs_err=e, ms=t_k, flushed_ms=t_kf,
+                       cold_ms=t_kc, plain_ms=t_p, library_ms=t_l,
+                       library_flushed_ms=t_lf, **bound(nbytes, flops))
             rows.append(row)
             log(f"[kernels] {what} tile={sid.block_m}x{sid.block_n} "
-                f"err={e:.2e}, FP4 columns bit-equal to fused_mul; "
-                f"kernel={t_k:.4f} ms plain={t_p:.4f} ms "
-                f"matmul={t_l:.4f} ms bound={row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})")
+                f"splits={sf},{sd} ctas={ctas} err={e:.2e}, repeatable, "
+                f"FP4 columns bit-equal to fused_mul at one split; "
+                f"kernel={t_k:.4f} ms (flushed {t_kf:.4f}"
+                f"{'' if t_kc is None else f', cold {t_kc:.4f}'}) "
+                f"plain={t_p:.4f} "
+                f"ms matmul={t_l:.4f} ms (flushed {t_lf:.4f}) "
+                f"bound={row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                f"{nbytes / t_kf / 1e6:.0f} GB/s flushed)")
             err = max(err, e)
             if m == 8:
-                for key, v in (("ms", t_k), ("plain_ms", t_p),
-                               ("library_ms", t_l), ("nbytes", nbytes),
-                               ("flops", flops)):
+                for key, v in (("ms", t_kf), ("warm_ms", t_k),
+                               ("cold_ms", t_kc),
+                               ("plain_ms", t_p), ("library_ms", t_lf),
+                               ("nbytes", nbytes), ("flops", flops)):
                     layer[key] += times * v
-            del a, outf, outd, plain_f, want_f, want_d
-        del hq, words, st, wd, full
+            del a, plain_f, want_f, want_d, outf, outd, againf, againd
+        del words, st, wd, full
     res["hybrid_gemm"] = dict(
-        max_abs_err=err, ms=layer["ms"], plain_ms=layer["plain_ms"],
+        max_abs_err=err, ms=layer["ms"], warm_ms=layer["warm_ms"],
+        cold_ms=layer["cold_ms"], plain_ms=layer["plain_ms"],
         library_ms=layer["library_ms"],
         **bound(layer["nbytes"], layer["flops"]),
         at="m=8, sum of the 7 unfused Llama-3-8B projections (one layer of "
-           "a hybrid decode step), 3:1 FP4:dense columns; library: "
-           "torch.matmul on the whole bf16 weight")
+           "a hybrid decode step), 3:1 FP4:dense columns, hybrid_splits' "
+           "splits; ms and library_ms L2-flushed medians (warm_ms: "
+           "back-to-back mean; cold_ms: a CUDA graph over weight copies "
+           "larger than L2); library: torch.matmul on the whole bf16 "
+           "weight")
+    log(f"[kernels] hybrid layer (m=8, 7 projections): kernel "
+        f"{layer['ms']:.4f} ms flushed, {layer['warm_ms']:.4f} warm, "
+        f"{layer['cold_ms']:.4f} cold (graph); matmul "
+        f"{layer['library_ms']:.4f} flushed; bound "
+        f"{res['hybrid_gemm']['bound_ms']:.4f} ms")
+
+
+def phase_hybrid_layer(rec):
+    """The hybrid GEMM's decode layer alone, for an A/B of two trees: the
+    seven unfused Llama-3-8B projections at m = 8 through hybrid_mul with
+    its default tile and splits, L2-warm, L2-flushed and cold (a CUDA graph
+    over weight copies, _cold_ms), summed over the layer. It calls only
+    llama.quantize_linear, hybrid_mul(a, words, scales, gs, wd),
+    benchlib.cuda_time and torch.cuda graphs, which older trees have too, so
+    a copy of this script placed in an older checkout times that tree's
+    kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = dict(warm_ms=0.0, flushed_ms=0.0, cold_ms=0.0, per_projection=[])
+    for k, n in dict.fromkeys(LLAMA8B_UNFUSED_KN):
+        times = LLAMA8B_UNFUSED_KN.count((k, n))
+        words, st, gs, wd = _hybrid_operands(k, n, gen)
+        a = torch.randn((8, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        call = (lambda: hybrid.hybrid_mul(a, words, st, gs, wd))
+        warm, flushed = cuda_ms(call), _flushed_ms(call)
+        cold = _hybrid_cold_ms(a, words, st, gs, wd)
+        out["per_projection"].append(dict(k=k, n=n, warm_ms=warm,
+                                          flushed_ms=flushed, cold_ms=cold))
+        out["warm_ms"] += times * warm
+        out["flushed_ms"] += times * flushed
+        out["cold_ms"] += times * cold
+        log(f"[hybrid_layer] k={k} n={n} (x{times}): {warm:.4f} ms warm, "
+            f"{flushed:.4f} ms flushed, {cold:.4f} ms cold")
+        del words, st, wd, a
+    log(f"[hybrid_layer] layer (7 projections, m=8): {out['warm_ms']:.4f} "
+        f"ms warm, {out['flushed_ms']:.4f} ms flushed, {out['cold_ms']:.4f} "
+        "ms cold")
+    log(json.dumps({"hybrid_layer": out}))
+    rec["hybrid_layer"] = out
 
 
 def _quantized_weight(fmt, k, n, gen):
@@ -2361,8 +2507,9 @@ def phase_profile(rec):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (default: all but hybrid_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     args = ap.parse_args(argv)

@@ -1,0 +1,369 @@
+// The FP4 decode-regime stream body for Hopper (sm_90a): 16-row tiles that
+// read fp4_gemm.cuh's packed layout through a cp.async ring, decode the FP4
+// words straight into mma.sync B fragments, and sum k-split partials in a
+// fixed order. Used by hybrid_gemm.cu's 16-row instances, written so that
+// the plain and grouped FP4 GEMMs can take it over.
+//
+// What bounds it: at decode (m <= 16) the weight stream, 0.625 bytes a
+// weight, so the card needs many bytes in flight (about 3.4 MB at 3.35
+// TB/s and 1 us of latency) and few instructions per weight (an SM takes
+// about 20 FP4 weights a cycle at full rate). What the design does:
+//   - split-k: the caller cuts kp into whole 256-deep steps over several
+//     CTAs of one output tile (ops/kernels/hybrid.py: hybrid_splits), so a
+//     narrow projection still fills the card; their f32 partials meet in a
+//     workspace, and the tile's last CTA to arrive (a per-tile counter,
+//     reset by that CTA) sums them in split-index order: the same bits on
+//     every launch;
+//   - a ring of stages filled by 16-byte cp.async copies (zero-filled past
+//     M, K and N), STAGES - 1 steps ahead of the MMAs;
+//   - no bf16 B tile: each thread reads its own packed words and scales
+//     from the stage and builds its B fragments in registers, two values
+//     per 32-bit operation, one word pair feeding four MMAs.
+//
+// Fragment decode. In a step's local k order (fp4_gemm.cuh) the 16-deep
+// chunk kk = 4j + q of quarter j holds, for the thread (g = lane >> 2,
+// tg = lane & 3) at B column g, b[0] = the half-0 slots of word rows
+// q + 8tg and q + 8tg + 4 and b[1] = their half-1 slots, each of quarter j,
+// scaled by the step's scale rows 8j + 2q and 8j + 2q + 1. So the two words
+// of a q feed chunks q, 4 + q, 8 + q and 12 + q. The MMAs run in
+// fp4_gemm_tile's chunk order with the same k at the same fragment
+// positions, and value times scale is exact in bf16, so a packed bf16
+// multiply gives fp4_gemm_tile's B bits: with one split the output equals
+// fp4_gemm_tile<16, BN, 1>'s bit for bit.
+//
+// Column order. An mma.sync B fragment holds column g of an 8-column slice
+// and its accumulator columns 2tg, 2tg + 1; which tile column a slice
+// column stands for is free. Slice jn's column c here is warp column
+// c * NT + jn, so a thread's NT B columns are adjacent (one vector load of
+// words, one of scales) and its accumulators cover 2NT adjacent columns.
+
+#pragma once
+
+#include "fp4_gemm.cuh"
+
+namespace {
+
+constexpr int SBM = 16;   // rows of a stream tile
+
+// ---- cp.async, ldmatrix, packed bf16 ---------------------------------------
+
+// 16 bytes global -> shared; zeros when !valid (source size 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// vector loads of 1, 2 or 4 32-bit words from shared memory
+__device__ __forceinline__ void lds(uint32_t (&r)[1], const void* p) {
+  r[0] = *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ void lds(uint32_t (&r)[2], const void* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  r[0] = v.x; r[1] = v.y;
+}
+__device__ __forceinline__ void lds(uint32_t (&r)[4], const void* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+}
+
+// The slots of quarter J in both halves of x -> two bf16 bit patterns, the
+// same as decode_slot<J> rounded to bf16: (0x3F00 + t*0x40) | sign << 15,
+// and +0 for the stored zero t = 1. Quarters 1 and 2 move t to bits 6-8
+// and the sign to bit 15 with one multiply (a shift that keeps both).
+template <int J>
+__device__ __forceinline__ uint32_t decode_pair(uint32_t x) {
+  uint32_t v;
+  if constexpr (J == 0) {
+    v = (x & 0x81C081C0u) + 0x3F003F00u;
+  } else if constexpr (J == 1) {
+    v = (x & 0x10381038u) * 8u + 0x3F003F00u;
+  } else if constexpr (J == 2) {
+    v = (x & 0x02070207u) * 64u + 0x3F003F00u;
+  } else {
+    v = (((x >> 4) & 0x00C000C0u) | ((x >> 5) & 0x01000100u) | ((x << 1) & 0x80008000u)) +
+        0x3F003F00u;
+  }
+  // t = 1 gave magnitude 0x3F40 (0.75): clear those halves, sign included
+  uint32_t live;
+  asm("set.ne.u32.bf16x2 %0, %1, %2;\n" : "=r"(live) : "r"(v & 0x7FFF7FFFu), "r"(0x3F403F40u));
+  return v & live;
+}
+
+// ---- the FP4 stream --------------------------------------------------------
+
+// one stage: A [SBM][LDS] bf16 in local k order, the step's words
+// [WROWS][BN] (16-byte chunks swizzled), its scale rows [WROWS][BN] bf16
+template <int BN>
+__host__ __device__ constexpr int fp4_stage_bytes() {
+  return SBM * LDS * 2 + WROWS * BN * 4 + WROWS * BN * 2;
+}
+
+// Zero the A rows from `first` up in every stage of the ring (a_row_bytes
+// a row at the start of each stage): the loaders copy only the rows below
+// M, so these stay zero.
+__device__ __forceinline__ void zero_rows(unsigned char* smem, int stage_bytes, int stages,
+                                          int first, int a_row_bytes) {
+  if (first >= SBM) return;
+  const int chunks = (SBM - first) * a_row_bytes / 16;
+  for (int e = threadIdx.x; e < stages * chunks; e += THREADS) {
+    const int st = e / chunks, i = e % chunks;
+    *reinterpret_cast<uint4*>(smem + st * stage_bytes + first * a_row_bytes + i * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// physical 16-byte chunk of word chunk c in stage row r: rows 8 apart
+// (the rows one fragment load reads) land in different banks
+__device__ __forceinline__ int word_chunk(int r, int c) { return c ^ (((r >> 3) & 3) << 1); }
+
+// cp.async the operands of step `step` (A rows m0.., columns n0..) into `st`
+template <int BN>
+__device__ __forceinline__ void fp4_stage_load(unsigned char* st,
+                                               const __nv_bfloat16* __restrict__ A,
+                                               const uint32_t* __restrict__ W,
+                                               const __nv_bfloat16* __restrict__ S, int M,
+                                               int N, int K, int KP, int m0, int n0, int step) {
+  constexpr int WC = BN / 4, SC = BN / 8;   // 16-byte pieces of a word / scale row
+  static_assert((SBM * 32) % THREADS == 0 && (WROWS * WC) % THREADS == 0 &&
+                    (WROWS * SC) % THREADS == 0, "pieces per thread");
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(st);
+  uint32_t* Ws = reinterpret_cast<uint32_t*>(As + SBM * LDS);
+  __nv_bfloat16* Ss = reinterpret_cast<__nv_bfloat16*>(Ws + WROWS * BN);
+  const int tid = threadIdx.x;
+  const int c = step >> 1, hf = step & 1, kq = KP / 4, srq = KP / 64;
+  // A: the rows below M x 32 runs (run = j*8 + a) of 8 contiguous natural
+  // k (the rows past M stay zero: zero_rows)
+#pragma unroll
+  for (int i = 0; i < SBM * 32 / THREADS; ++i) {
+    const int e = tid + i * THREADS, m = e >> 5, run = e & 31;
+    const int kn = (run >> 3) * kq + c * 128 + (run & 7) * 16 + hf * 8;
+    const bool ok = kn < K;
+    if (m0 + m < M)
+      cp_async16(As + m * LDS + run * 8, ok ? A + (size_t)(m0 + m) * K + kn : A, ok);
+  }
+  // words: WROWS rows x WC chunks of 4 columns (N % 16 == 0)
+#pragma unroll
+  for (int i = 0; i < WROWS * WC / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / WC, cc = e % WC;
+    const bool ok = n0 + cc * 4 < N;
+    cp_async16(Ws + r * BN + word_chunk(r, cc) * 4,
+               ok ? W + (size_t)(step * WROWS + r) * N + n0 + cc * 4 : W, ok);
+  }
+  // scales: stage row j*8 + a <- scale row j*srq + c*8 + a
+#pragma unroll
+  for (int i = 0; i < WROWS * SC / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / SC, cc = e % SC;
+    const bool ok = n0 + cc * 8 < N;
+    cp_async16(Ss + r * BN + cc * 8,
+               ok ? S + (size_t)((r >> 3) * srq + c * 8 + (r & 7)) * N + n0 + cc * 8 : S, ok);
+  }
+}
+
+// the four MMAs of quarter J on every column slice, chunks 4J .. 4J + 3
+template <int J, int BN, int NT>
+__device__ __forceinline__ void fp4_quarter(float (&acc)[NT][4], const uint32_t (&lo)[4][NT],
+                                            const uint32_t (&hi)[4][NT],
+                                            const __nv_bfloat16* a_ptr,
+                                            const __nv_bfloat16* s_ptr) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t a[4], s0[(NT + 1) / 2], s1[(NT + 1) / 2];
+    ldmatrix_x4(a, a_ptr + (4 * J + q) * 16);
+    lds(s0, s_ptr + (8 * J + 2 * q) * BN);
+    lds(s1, s_ptr + (8 * J + 2 * q + 1) * BN);
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      const uint32_t sel = (jn & 1) ? 0x3232u : 0x1010u;   // broadcast column jn's scale
+      uint32_t b[2];
+      b[0] = mul_bf16x2(decode_pair<J>(lo[q][jn]), prmt(s0[jn >> 1], 0u, sel));
+      b[1] = mul_bf16x2(decode_pair<J>(hi[q][jn]), prmt(s1[jn >> 1], 0u, sel));
+      mma_bf16(acc[jn], a, b);
+    }
+  }
+}
+
+// the 16 chunks of one staged step, in fp4_gemm_tile's order
+template <int BN>
+__device__ __forceinline__ void fp4_stage_mma(const unsigned char* st, float (&acc)[BN / 32][4]) {
+  constexpr int NT = BN / 32;   // 8-column slices of a warp (BN / 4 columns)
+  static_assert(NT == 2 || NT == 4, "BN");
+  const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(st);
+  const uint32_t* Ws = reinterpret_cast<const uint32_t*>(As + SBM * LDS);
+  const __nv_bfloat16* Ss = reinterpret_cast<const __nv_bfloat16*>(Ws + WROWS * BN);
+  const int lane = threadIdx.x & 31, wn = threadIdx.x >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wcol = wn * (BN / 4) + g * NT;   // first of this thread's NT B columns
+  uint32_t lo[4][NT], hi[4][NT];             // per q: half-0 and half-1 slots of the word pair
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r0 = 8 * tg + q, r1 = r0 + 4;
+    uint32_t w0[NT], w1[NT];
+    lds(w0, Ws + r0 * BN + word_chunk(r0, wcol >> 2) * 4 + (wcol & 3));
+    lds(w1, Ws + r1 * BN + word_chunk(r1, wcol >> 2) * 4 + (wcol & 3));
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      lo[q][jn] = prmt(w0[jn], w1[jn], 0x5410u);
+      hi[q][jn] = prmt(w0[jn], w1[jn], 0x7632u);
+    }
+  }
+  const __nv_bfloat16* a_ptr = As + (lane & 15) * LDS + (lane >> 4) * 8;
+  const __nv_bfloat16* s_ptr = Ss + wcol;
+  fp4_quarter<0, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
+  fp4_quarter<1, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
+  fp4_quarter<2, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
+  fp4_quarter<3, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
+}
+
+// Steps [s_begin, s_end) of the (SBM, BN) FP4 tile at (m0, n0) into acc,
+// through a ring of STAGES stages of stage_bytes each at smem.
+template <int BN, int STAGES>
+__device__ __forceinline__ void fp4_stream(unsigned char* smem, int stage_bytes,
+                                           const __nv_bfloat16* __restrict__ A,
+                                           const uint32_t* __restrict__ W,
+                                           const __nv_bfloat16* __restrict__ S, int M, int N,
+                                           int K, int KP, int m0, int n0, int s_begin, int s_end,
+                                           float (&acc)[BN / 32][4]) {
+  const int n = s_end - s_begin;
+  zero_rows(smem, stage_bytes, STAGES, M - m0, LDS * 2);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n)
+      fp4_stage_load<BN>(smem + i * stage_bytes, A, W, S, M, N, K, KP, m0, n0, s_begin + i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // step i has landed; every thread is done with step i - 1's stage
+    const int nx = i + STAGES - 1;
+    if (nx < n)
+      fp4_stage_load<BN>(smem + (nx % STAGES) * stage_bytes, A, W, S, M, N, K, KP, m0, n0,
+                         s_begin + nx);
+    cp_async_commit();
+    fp4_stage_mma<BN>(smem + (i % STAGES) * stage_bytes, acc);
+  }
+}
+
+// ---- k-split partials ------------------------------------------------------
+
+// With splits > 1: store this CTA's partial acc (split `split` of its tile)
+// to ws, the tile's [splits][2][NT/2][THREADS] float4 block (rows g, g + 8
+// of each thread's fragments, skipped where past M), and count it in
+// *counter. Returns false except in the tile's last CTA to arrive, which
+// resets *counter to 0 and returns true with acc = the partials summed in
+// split order. With splits == 1 returns true and leaves acc as it is.
+// row_ok[h]: row g + 8h of the tile is below M. last: a __shared__ int.
+template <int NT>
+__device__ __forceinline__ bool reduce_splits(float (&acc)[NT][4], float* __restrict__ ws,
+                                              int splits, int split, int* counter,
+                                              const bool (&row_ok)[2], int& last) {
+  static_assert(NT % 2 == 0, "NT");
+  if (splits == 1) return true;
+  constexpr int P = NT / 2;
+  const int tid = threadIdx.x;
+  float4* part = reinterpret_cast<float4*>(ws);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      part[((split * 2 + h) * P + p) * THREADS + tid] =
+          make_float4(acc[2 * p][2 * h], acc[2 * p][2 * h + 1], acc[2 * p + 1][2 * h],
+                      acc[2 * p + 1][2 * h + 1]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  constexpr int BATCH = 8;   // partial loads in flight at once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float4* src = part + (h * P + p) * THREADS + tid;   // split s: + s * 2P*THREADS
+      float4 sum = __ldcg(src);
+      for (int s0 = 1; s0 < splits; s0 += BATCH) {
+        float4 v[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u)
+          if (s0 + u < splits) v[u] = __ldcg(src + (size_t)(s0 + u) * 2 * P * THREADS);
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u)
+          if (s0 + u < splits) {
+            sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
+          }
+      }
+      acc[2 * p][2 * h] = sum.x;
+      acc[2 * p][2 * h + 1] = sum.y;
+      acc[2 * p + 1][2 * h] = sum.z;
+      acc[2 * p + 1][2 * h + 1] = sum.w;
+    }
+  }
+  if (tid == 0) *counter = 0;
+  return true;
+}
+
+// bf16(acc * gs) of the FP4 stream's fragments into C (M, N): the thread's
+// 2NT adjacent columns from n0 + wn*BN/4 + 2tg*NT, rows m0 + g and + 8
+template <int BN>
+__device__ __forceinline__ void fp4_stream_store(const float (&acc)[BN / 32][4], float gs,
+                                                 __nv_bfloat16* __restrict__ C, int M, int N,
+                                                 int m0, int n0) {
+  constexpr int NT = BN / 32;
+  const int lane = threadIdx.x & 31, wn = threadIdx.x >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int col = n0 + wn * (BN / 4) + 2 * tg * NT;
+  if (col >= N) return;   // N % 16 == 0: the 2NT columns are all in or all out
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + g + 8 * h;
+    if (row >= M) continue;
+    uint32_t v[NT];   // columns 2i, 2i + 1: column p is acc[p % NT][2h + p / NT]
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int p0 = 2 * i, p1 = 2 * i + 1;
+      const __nv_bfloat162 b = __floats2bfloat162_rn(acc[p0 % NT][2 * h + p0 / NT] * gs,
+                                                     acc[p1 % NT][2 * h + p1 / NT] * gs);
+      v[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    __nv_bfloat16* dst = C + (size_t)row * N + col;
+    if constexpr (NT == 2)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(v[0], v[1]);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+}  // namespace

@@ -59,10 +59,10 @@ SIGNATURES = {
                             _P),
     # words, scales, out, kp, n, stream
     "pk_fp4_dequant": (_P, _P, _P, _I, _I, _P),
-    # a, words, scales, gs, wd, outf, outd, m, nf, nd, k, kp, block_m,
-    # block_n, stream
-    "pk_hybrid_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _P),
+    # a, words, scales, gs, wd, outf, outd, ws, counters, m, nf, nd, k, kp,
+    # block_m, block_n, splits_f, splits_d, stream
+    "pk_hybrid_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _P),
     # q, ck, cv, pos, out, B, H, Hkv, S, d, window, sm_scale, stream
     "pk_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P),

@@ -3,8 +3,11 @@
 Counterpart of petit_kernel_tpu/ops/kernels/hybrid.py:hybrid_mul. A weight
 matrix is split by columns (ops/hybrid.py): FP4 columns in the packed
 layout and the most salient columns kept dense in bf16. One launch of
-csrc/hybrid_gemm.cu computes both products, the FP4 tiles with
-fp4_gemm.cuh's tile body and the dense tiles with a bf16 mma.sync tile.
+csrc/hybrid_gemm.cu computes both products. Its decode tiles (block_m =
+16) cut each output tile's k range over several CTAs (hybrid_splits) that
+stream the weights through a cp.async ring (csrc/fp4_stream.cuh) and sum
+their partials in a fixed order; its prefill tiles (block_m = 64) run one
+CTA per tile with fp4_gemm.cuh's tile body and a bf16 mma.sync tile.
 The dense columns are held in natural k order, (kp, nd): the JAX package
 stores them pi-permuted to its kernel's A order, which the port's kernels
 do not use (models/convert.py undoes the permutation).
@@ -16,6 +19,7 @@ kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -23,6 +27,79 @@ import torch
 from .. import solution as solution_mod
 from ..solution import SolutionId
 from . import fused
+
+KSTEP = 256                 # natural k per step of the kernel
+STREAM_BLOCK_M = 16         # the tiles that split k
+# bytes a CTA streams per weight: FP4 a 4-bit value and a bf16 scale per 16
+# k; dense a bf16
+FP4_BYTES_PER_WEIGHT = 0.625
+DENSE_BYTES_PER_WEIGHT = 2.0
+
+
+@functools.lru_cache(maxsize=4096)
+def hybrid_splits(m: int, nf: int, nd: int, kp: int, block_m: int,
+                  block_n: int, num_sms: int) -> tuple[int, int]:
+    """(splits of an FP4 tile's k, splits of a dense tile's k) for the
+    launch: 1 and 1 for block_m = 64, whose tiles do not split. Split s of
+    S covers the 256-deep steps [s * steps // S, (s + 1) * steps // S) of
+    its tile (csrc/hybrid_gemm.cu).
+
+    At block_m = 16 a CTA streams about the bytes of its k range, so the
+    two kinds are balanced by bytes: a dense tile moves 2 / 0.625 = 3.2
+    times an FP4 tile's bytes per step and takes round(3.2 * sf) splits
+    (at most one per step) beside the FP4 tiles' sf. sf is the smallest
+    that gives at least two CTAs per SM (2 * num_sms, two waves of the
+    card's SMs, which hold two CTAs each); where even one step per CTA
+    falls short, every tile splits into single steps."""
+    if block_m != STREAM_BLOCK_M:
+        return 1, 1
+    steps = kp // KSTEP
+    m_tiles = -(-m // block_m)
+    f_tiles, d_tiles = -(-nf // block_n), -(-nd // block_n)
+    ratio = DENSE_BYTES_PER_WEIGHT / FP4_BYTES_PER_WEIGHT
+    for sf in range(1, steps + 1):
+        sd = min(steps, max(1, round(sf * ratio)))
+        if m_tiles * (f_tiles * sf + d_tiles * sd) >= 2 * num_sms:
+            return sf, sd
+    return steps, steps
+
+
+def _check_splits(splits, kp: int, block_m: int) -> tuple[int, int]:
+    """An explicit `splits` (for both kinds) as the launch's pair, or
+    ValueError."""
+    steps = kp // KSTEP
+    if not isinstance(splits, int) or not 1 <= splits <= steps:
+        raise ValueError(f"hybrid_mul: splits must be an int in [1, {steps}] "
+                         f"(kp / {KSTEP}), got {splits!r}")
+    if block_m != STREAM_BLOCK_M and splits != 1:
+        raise ValueError(f"hybrid_mul: block_m = {block_m} tiles do not "
+                         f"split k, got splits {splits!r}")
+    return splits, splits
+
+
+# the GEMM heuristic, pure in (m, n, k): cached, as it runs for every
+# projection of every decode step
+_default_sid = functools.lru_cache(maxsize=4096)(
+    solution_mod.choose_default_solution)
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per (device, stream): the kernel's split counters, zero between launches
+# (the last CTA of each tile resets its own)
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def hybrid_mul_reference(a: torch.Tensor, words: torch.Tensor,
@@ -39,7 +116,8 @@ def hybrid_mul_reference(a: torch.Tensor, words: torch.Tensor,
 
 def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
                global_scale: torch.Tensor, wd: torch.Tensor, *,
-               sid: Optional[SolutionId] = None):
+               sid: Optional[SolutionId] = None,
+               splits: Optional[int] = None):
     """(outf (m, nf), outd (m, nd)) bf16: the FP4 columns'
     bf16((a @ dequant(words, scales)) * gs) and the dense columns'
     bf16(a @ wd), from one launch.
@@ -51,8 +129,13 @@ def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     wd       : (kp, nd) bf16 dense columns, natural k order, rows past k
                zero; nd % 16 == 0
     sid      : the (block_m, block_n) tile of both halves; default the GEMM
-               heuristic at (m, nf, k). outf equals fused_mul's at the same
-               tile bit for bit.
+               heuristic at (m, nf, k)
+    splits   : k-splits of every output tile, in [1, kp / 256]; only
+               block_m = 16 tiles split. Default hybrid_splits' pair on
+               the card (unused on the CPU). With one split (and always at
+               block_m = 64) outf equals fused_mul's at the same tile bit
+               for bit; with more, the f32 partials are summed in split
+               order, so a launch repeats its bits.
 
     Launches csrc/hybrid_gemm.cu for CUDA tensors (counted in
     hybrid_mul.launches); runs hybrid_mul_reference for CPU tensors."""
@@ -60,10 +143,12 @@ def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     kp, nf = words.shape[0] * 8, words.shape[1]
     nd = wd.shape[1]
     if sid is None:
-        sid = solution_mod.choose_default_solution(m, nf, k)
+        sid = _default_sid(m, nf, k)
     if wd.dim() != 2 or wd.shape[0] != kp or nd % 16:
         raise ValueError(f"hybrid_mul: wd must be (kp, nd) = ({kp}, nd) with "
                          f"nd % 16 == 0, got {tuple(wd.shape)}")
+    if splits is not None:
+        splits = _check_splits(splits, kp, sid.block_m)
     if a.device.type == "cpu":
         return hybrid_mul_reference(a, words, scales_t, global_scale, wd,
                                     sid=sid)
@@ -73,17 +158,32 @@ def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
         raise ValueError(f"hybrid_mul: a must be bf16, got {a.dtype}")
     fused._check("pk_hybrid_gemm", a, words, scales_t, global_scale,
                  ("wd", wd, torch.bfloat16, (kp, nd)))
+    # the kernel copies every operand in 16-byte pieces
     a, wd = fused._aligned(a), fused._aligned(wd)
-    words, scales_t = words.contiguous(), scales_t.contiguous()
+    words, scales_t = fused._aligned(words), fused._aligned(scales_t)
     outf = torch.empty((m, nf), dtype=torch.bfloat16, device=a.device)
     outd = torch.empty((m, nd), dtype=torch.bfloat16, device=a.device)
     if m == 0 or nf + nd == 0:
         return outf, outd
+    bm, bn = sid.block_m, sid.block_n
+    if splits is None:
+        splits = hybrid_splits(m, nf, nd, kp, bm, bn,
+                               _num_sms(a.device.index))
+    sf, sd = splits
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    ws_ptr = cnt_ptr = None
+    if sf > 1 or sd > 1:
+        m_tiles = -(-m // bm)
+        f_tiles, d_tiles = -(-nf // bn), -(-nd // bn)
+        ws = torch.empty(m_tiles * (f_tiles * sf + d_tiles * sd) * bm * bn,
+                         dtype=torch.float32, device=a.device)
+        ws_ptr = ws.data_ptr()
+        cnt_ptr = _counters(a.device, stream,
+                            m_tiles * (f_tiles + d_tiles)).data_ptr()
     fused._launch("pk_hybrid_gemm", a.data_ptr(), words.data_ptr(),
                   scales_t.data_ptr(), global_scale.data_ptr(), wd.data_ptr(),
-                  outf.data_ptr(), outd.data_ptr(), m, nf, nd, k, kp,
-                  sid.block_m, sid.block_n,
-                  torch.cuda.current_stream(a.device).cuda_stream)
+                  outf.data_ptr(), outd.data_ptr(), ws_ptr, cnt_ptr, m, nf,
+                  nd, k, kp, bm, bn, sf, sd, stream)
     hybrid_mul.launches += 1
     return outf, outd
 

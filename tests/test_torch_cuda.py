@@ -15,7 +15,9 @@ weight-cache variant bit for bit against their twin (exact int32 sums);
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
 convert fp8 exactly); the KV appends and the dequant kernel bit-exact; the
 hybrid GEMM's FP4 columns bit for bit against fused_mul at the same tile
-and its dense columns at the GEMM tolerance; mul_fp4_diff's backward on
+with one k-split (and at block_m = 64), at the GEMM tolerance with more,
+its dense columns at the GEMM tolerance, and a second launch bit for bit
+the first at every split count; mul_fp4_diff's backward on
 the card (dequant kernel, cuBLAS dA) against the same on the CPU at the
 GEMM tolerance; the high-precision GEMMs against the f64 product of the
 same operands, within 4 times the f32 library product's distance from it
@@ -339,9 +341,13 @@ def test_dequant_kernel_bit_equal_to_twin(gen, fmt):
 
 @pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
 def test_hybrid_kernel_matches_fused_mul_and_twin(gen, bm, bn):
-    """The FP4 columns bit for bit fused_mul's at the same tile, the dense
-    columns at the GEMM tolerance; ragged m, k padded past itself, nf and
-    nd not multiples of the tile."""
+    """Ragged m, k padded past itself, nf and nd not multiples of the tile.
+    block_m = 16: with one split the FP4 columns bit for bit fused_mul's at
+    the same tile; at the default splits, 2, 3 and one split per step both
+    halves against the twin at the GEMM tolerance. block_m = 64 (no split):
+    the FP4 columns bit for bit fused_mul's at the default splits. The
+    dense columns against the twin, and a second launch repeats the bits,
+    at every split count."""
     for m, n, k, bnf, bnd in ((1, 512, 512, 384, 128),
                               (37, 1024, 640, 768, 256),
                               (70, 2048, 1024, 1536, 512)):
@@ -349,18 +355,46 @@ def test_hybrid_kernel_matches_fused_mul_and_twin(gen, bm, bn):
         hq = thybrid.quantize_hybrid(w, block_nf=bnf, block_nd=bnd)
         a = _bf16(gen, m, k)
         sid = sol.SolutionId(bm, bn)
-        gs = hq["gs"].reshape(1)
+        args = (a, hq["words"], hq["scales"], hq["gs"].reshape(1), hq["wd"])
+        steps = hq["words"].shape[0] * 8 // khybrid.KSTEP
+        plain = fused.fused_mul(*args[:4], sid=sid)
+        want_f, want_d = khybrid.hybrid_mul_reference(*args, sid=sid)
+        runs = [None] if bm == 64 else [1, None, *sorted(
+            {s for s in (2, 3, steps) if s <= steps})]
+        for splits in runs:
+            before = khybrid.hybrid_mul.launches
+            outf, outd = khybrid.hybrid_mul(*args, sid=sid, splits=splits)
+            assert khybrid.hybrid_mul.launches == before + 1
+            if bm == 64 or splits == 1:
+                assert torch.equal(outf.view(torch.int16),
+                                   plain.view(torch.int16)), splits
+            else:
+                torch.testing.assert_close(
+                    outf.float(), want_f.float(), rtol=2 ** -7,
+                    atol=2 ** -8 * want_f.float().abs().max().item())
+            torch.testing.assert_close(
+                outd.float(), want_d.float(), rtol=2 ** -7,
+                atol=2 ** -8 * want_d.float().abs().max().item())
+            againf, againd = khybrid.hybrid_mul(*args, sid=sid, splits=splits)
+            assert torch.equal(againf.view(torch.int16),
+                               outf.view(torch.int16)), splits
+            assert torch.equal(againd.view(torch.int16),
+                               outd.view(torch.int16)), splits
+
+
+def test_hybrid_kernel_rejects_bad_splits(gen):
+    w = torch.randn((640, 1024), generator=gen, device="cuda") / 32
+    hq = thybrid.quantize_hybrid(w, block_nf=768, block_nd=256)
+    args = (_bf16(gen, 8, 640), hq["words"], hq["scales"],
+            hq["gs"].reshape(1), hq["wd"])                 # kp 1024: 4 steps
+    for sid, splits in ((sol.SolutionId(16, 64), 0),
+                        (sol.SolutionId(16, 64), 5),
+                        (sol.SolutionId(16, 128), (1, 0)),
+                        (sol.SolutionId(64, 64), 2)):
         before = khybrid.hybrid_mul.launches
-        outf, outd = khybrid.hybrid_mul(a, hq["words"], hq["scales"], gs,
-                                        hq["wd"], sid=sid)
-        assert khybrid.hybrid_mul.launches == before + 1
-        plain = fused.fused_mul(a, hq["words"], hq["scales"], gs, sid=sid)
-        assert torch.equal(outf.view(torch.int16), plain.view(torch.int16))
-        _, want = khybrid.hybrid_mul_reference(a, hq["words"], hq["scales"],
-                                               gs, hq["wd"], sid=sid)
-        torch.testing.assert_close(
-            outd.float(), want.float(), rtol=2 ** -7,
-            atol=2 ** -8 * want.float().abs().max().item())
+        with pytest.raises(ValueError, match="split"):
+            khybrid.hybrid_mul(*args, sid=sid, splits=splits)
+        assert khybrid.hybrid_mul.launches == before
 
 
 def test_mul_fp4_diff_backward_runs_the_dequant_kernel(gen):

@@ -10,7 +10,10 @@ GEMM's rtol 2^-7 with atol 2^-8 * max|ref| (both halves sum exact bf16
 products in f32 in other orders and round once); logits within 2^-5 *
 max|logits| (test_torch_llama.py); the engines' greedy streams equal,
 except after a step whose JAX top-2 logit gap is below that tolerance
-(test_torch_serving.py).
+(test_torch_serving.py). The decode kernel's split choice (hybrid_splits:
+k ranges of whole 256-deep steps, two CTAs per SM of a 132-SM card where
+the steps allow) and hybrid_mul's check of an explicit `splits` need no
+JAX counterpart: the TPU kernel walks k in one grid.
 """
 
 import jax
@@ -26,6 +29,9 @@ from petit_kernel_tpu_torch.models import convert
 from petit_kernel_tpu_torch.models import llama as tllama
 from petit_kernel_tpu_torch.models import serving as tserving
 from petit_kernel_tpu_torch.ops import hybrid as thybrid
+from petit_kernel_tpu_torch.ops import layout as tlayout
+from petit_kernel_tpu_torch.ops import solution as tsol
+from petit_kernel_tpu_torch.ops.kernels import hybrid as khybrid
 
 # xdist workers share the host's cores: one torch thread each keeps
 # the port's CPU ops from oversubscribing them
@@ -169,3 +175,82 @@ def test_engine_hybrid_refuses_another_prefill_fmt(models):
     with pytest.raises(ValueError, match="prefill_fmt"):
         tserving.Engine(tparams, cfg, max_batch=1, fmt="hybrid",
                         prefill_fmt="nvfp4")
+
+
+# hybrid_splits at the seven unfused Llama-3-8B projections (k, n), split
+# 3:1 as quantize_params(..., "hybrid") splits them, and at the card tests'
+# shapes (tests/test_torch_cuda.py: (m, n, k, block_nf, block_nd))
+_LLAMA8B_UNFUSED_KN = ((4096, 4096), (4096, 1024), (4096, 1024),
+                       (4096, 4096), (4096, 14336), (4096, 14336),
+                       (14336, 4096))
+_CUDA_SHAPES = ((1, 512, 512, 384, 128), (37, 1024, 640, 768, 256),
+                (70, 2048, 1024, 1536, 512))
+_H100_SMS = 132
+
+
+def _split_ranges(steps, splits):
+    """csrc/hybrid_gemm.cu's k ranges: split s of a tile covers the steps
+    [s * steps // splits, (s + 1) * steps // splits)."""
+    return [(s * steps // splits, (s + 1) * steps // splits)
+            for s in range(splits)]
+
+
+def _split_cases():
+    cases = []
+    for k, n in dict.fromkeys(_LLAMA8B_UNFUSED_KN):
+        for m in (1, 4, 8, 16):
+            cases.append((m, 3 * n // 4, n // 4, k))
+    for m, n, k, bnf, bnd in _CUDA_SHAPES:
+        nd = n // (bnf + bnd) * bnd
+        cases.append((m, n - nd, nd, tlayout.padded_k(k)))
+    return cases
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("m,nf,nd,kp", _split_cases())
+def test_hybrid_splits_partition_k_and_fill_two_waves(m, nf, nd, kp, bn):
+    steps = kp // khybrid.KSTEP
+    sf, sd = khybrid.hybrid_splits(m, nf, nd, kp, 16, bn, _H100_SMS)
+    for s in (sf, sd):
+        assert 1 <= s <= steps
+        ranges = _split_ranges(steps, s)
+        assert ranges[0][0] == 0 and ranges[-1][1] == steps
+        assert all(r0 < r1 for r0, r1 in ranges)               # none empty
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    ctas = -(-m // 16) * (-(-nf // bn) * sf + -(-nd // bn) * sd)
+    assert ctas >= 2 * _H100_SMS or (sf, sd) == (steps, steps), (sf, sd, ctas)
+    # the dense tiles take about 3.2 times the FP4 tiles' splits
+    assert sd == min(steps, round(3.2 * sf)) or (sf, sd) == (steps, steps)
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_hybrid_splits_one_at_block_m_64(bn):
+    for k, n in dict.fromkeys(_LLAMA8B_UNFUSED_KN):
+        assert khybrid.hybrid_splits(512, 3 * n // 4, n // 4, k, 64, bn,
+                                     _H100_SMS) == (1, 1)
+
+
+def test_hybrid_mul_cpu_validates_splits():
+    """On CPU tensors an explicit `splits` is checked like on the card and
+    the reference comes back unchanged."""
+    w, rng = _weights(512, 640, 3)
+    hq = thybrid.quantize_hybrid(torch.from_numpy(w), block_nf=384,
+                                 block_nd=128)
+    a = torch.from_numpy(rng.standard_normal((5, 640)).astype(
+        np.float32)).to(torch.bfloat16)
+    args = (a, hq["words"], hq["scales"], hq["gs"].reshape(1), hq["wd"])
+    want = khybrid.hybrid_mul_reference(*args, sid=tsol.SolutionId(16, 64))
+    steps = hq["words"].shape[0] * 8 // khybrid.KSTEP             # kp 1024
+    for splits in (1, 3, steps, None):
+        got = khybrid.hybrid_mul(*args, sid=tsol.SolutionId(16, 64),
+                                 splits=splits)
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(_bits(g), _bits(w_))
+    for bad in (0, steps + 1, (1, 2), 1.0, "2"):
+        with pytest.raises(ValueError, match="splits"):
+            khybrid.hybrid_mul(*args, sid=tsol.SolutionId(16, 64),
+                               splits=bad)
+    assert khybrid.hybrid_mul(*args, sid=tsol.SolutionId(64, 128),
+                              splits=1)[0].shape == (5, 384)
+    with pytest.raises(ValueError, match="do not split"):
+        khybrid.hybrid_mul(*args, sid=tsol.SolutionId(64, 128), splits=2)
