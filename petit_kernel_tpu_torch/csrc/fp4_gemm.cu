@@ -10,11 +10,12 @@
 // k = 14336, block_n = 128) against 227 KB of shared memory, so here the
 // property carries over instead: one CTA of 4*WC_GROUP warps runs
 // WC_GROUP = 4 consecutive m-tiles of one n-tile and decodes each k-step's
-// weights once for all of them. The tile body, its layout, decode and what
-// bounds it are in fp4_gemm.cuh, shared with the grouped (per-expert)
-// kernel.
+// weights once for all of them. The 16-row (decode) tiles run the body of
+// fp4_gemm.cuh, the 64-row (prefill) tiles the wgmma body of
+// fp4_wgmma.cuh, both shared with the grouped (per-expert) kernel; those
+// headers hold the layout, the decode and what bounds each.
 
-#include "fp4_gemm.cuh"
+#include "fp4_wgmma.cuh"
 
 namespace {
 
@@ -43,6 +44,32 @@ cudaError_t launch(const void* a, const void* w, const void* s, const void* gs, 
   return cudaGetLastError();
 }
 
+// the 64-row tiles: G m-tiles of one n-tile, one warpgroup each
+template <int BN, int G>
+__global__ void __launch_bounds__(fp4_wgmma_threads<BN, G>(), 1)
+fp4_wgmma_kernel(const __nv_bfloat16* __restrict__ A, const uint32_t* __restrict__ W,
+                 const __nv_bfloat16* __restrict__ S, const float* __restrict__ gs,
+                 __nv_bfloat16* __restrict__ C, int M, int N, int K, int KP) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fp4_wgmma_tile<BN, G>(smem, A, W, S, gs, C, M, N, K, KP, blockIdx.y * (G * WG_BM),
+                        blockIdx.x * BN);
+}
+
+template <int BN, int G>
+cudaError_t launch_wgmma(const void* a, const void* w, const void* s, const void* gs,
+                         void* out, int m, int n, int k, int kp, cudaStream_t stream) {
+  constexpr int bytes = fp4_wgmma_smem_bytes<BN, G>();
+  cudaError_t err = cudaFuncSetAttribute(fp4_wgmma_kernel<BN, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + BN - 1) / BN, (m + G * WG_BM - 1) / (G * WG_BM));
+  fp4_wgmma_kernel<BN, G><<<grid, fp4_wgmma_threads<BN, G>(), bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const uint32_t*>(w),
+      static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(gs),
+      static_cast<__nv_bfloat16*>(out), m, n, k, kp);
+  return cudaGetLastError();
+}
+
 template <int G>
 int dispatch(const void* a, const void* w, const void* s, const void* gs, void* out, int m,
              int n, int k, int kp, int block_m, int block_n, void* stream) {
@@ -55,9 +82,9 @@ int dispatch(const void* a, const void* w, const void* s, const void* gs, void* 
   else if (block_m == 16 && block_n == 128)
     err = launch<16, 128, G>(a, w, s, gs, out, m, n, k, kp, st);
   else if (block_m == 64 && block_n == 64)
-    err = launch<64, 64, G>(a, w, s, gs, out, m, n, k, kp, st);
+    err = launch_wgmma<64, G>(a, w, s, gs, out, m, n, k, kp, st);
   else if (block_m == 64 && block_n == 128)
-    err = launch<64, 128, G>(a, w, s, gs, out, m, n, k, kp, st);
+    err = launch_wgmma<128, G>(a, w, s, gs, out, m, n, k, kp, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

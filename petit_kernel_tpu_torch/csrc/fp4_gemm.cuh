@@ -1,7 +1,10 @@
 // The FP4 dequant + GEMM tile body shared by fp4_gemm.cu (one matrix) and
 // grouped_fp4_gemm.cu (one matrix per expert):
 //     C[m, n] = bf16((A[m, :] @ dequant(W, S)[:, n]) * gs)
-// for the (BM, BN) output tile at (m0, n0). It reads the same packed bytes
+// for the (BM, BN) output tile at (m0, n0). Its launchers run it for their
+// 16-row (decode) tiles only: every 64-row (prefill) tile runs the wgmma
+// body of fp4_wgmma.cuh, which reads the same layout, decodes the same
+// values and sums them in another order. It reads the same packed bytes
 // as the TPU kernels (petit_kernel_tpu/ops/kernels/fused.py):
 //   W  (kp/8, n) 32-bit words, v6 q-coded layout (ops/layout.py): slot s of
 //      word row r holds natural k = j*(kp/4) + (r/64)*128 + pi(2*(r%64)+h),
@@ -10,8 +13,8 @@
 //   A  (m, k) bf16 in natural k order, k <= kp (k % 128 == 0).
 //
 // What bounds it: at decode (m <= 16) the weight stream, 0.625 bytes per
-// weight (a 4-bit value and a bf16 scale per 16 k); at prefill the tensor
-// cores. This first version is simple:
+// weight (a 4-bit value and a bf16 scale per 16 k). This first version is
+// simple:
 // one CTA per (block_m, block_n) output tile walks kp in steps of 32 word
 // rows (256 natural k). Each step stages A (zero past k and past m) and the
 // step's 32 scale rows in shared memory, decodes the words into a bf16 B

@@ -10,11 +10,12 @@
 //     S  (E, kp/16, n) bf16      + e*(kp/16)*n
 //     C  (E, cap, n) bf16        + e*cap*n
 //     gs (E,) f32 in device memory, read as gs[e],
-// and runs the tile body of fp4_gemm.cuh unchanged, so at the same
-// (block_m, block_n) each expert's output equals fused_mul's on its slice
-// bit for bit. The activations are read in natural k order: the TPU
-// kernel's pi-interleave of A (grouped.py:109-110) served its MXU chunking
-// and is not carried over.
+// and runs fused_mul's tile body unchanged (fp4_gemm.cuh at 16 rows,
+// fp4_wgmma.cuh's wgmma body at 64), so at the same (block_m, block_n)
+// each expert's output equals fused_mul's on its slice bit for bit. The
+// activations are read in natural k order: the TPU kernel's pi-interleave
+// of A (grouped.py:109-110) served its MXU chunking and is not carried
+// over.
 //
 // What bounds it: at decode (cap 8, Mixtral-8x7B) the weight stream of all
 // E experts, 0.625 bytes per weight, 293.6 MB for one (4096, 14336)
@@ -22,7 +23,7 @@
 // Every expert runs its cap rows, even an empty bucket, as on the TPU:
 // skipping empty experts needs device-side bucket counts (later work).
 
-#include "fp4_gemm.cuh"
+#include "fp4_wgmma.cuh"
 
 namespace {
 
@@ -33,15 +34,21 @@ grouped_fp4_gemm_kernel(const __nv_bfloat16* __restrict__ X, const uint32_t* __r
                         __nv_bfloat16* __restrict__ C, int cap, int N, int K, int KP) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t e = blockIdx.z;
-  fp4_gemm_tile<BM, BN>(smem, X + e * cap * K, W + e * (KP / 8) * N,
-                        S + e * (KP / 16) * N, gs + e, C + e * cap * N, cap, N, K,
-                        KP, blockIdx.y * BM, blockIdx.x * BN);
+  if constexpr (BM == WG_BM)
+    fp4_wgmma_tile<BN, 1>(smem, X + e * cap * K, W + e * (KP / 8) * N,
+                          S + e * (KP / 16) * N, gs + e, C + e * cap * N, cap, N, K,
+                          KP, blockIdx.y * BM, blockIdx.x * BN);
+  else
+    fp4_gemm_tile<BM, BN>(smem, X + e * cap * K, W + e * (KP / 8) * N,
+                          S + e * (KP / 16) * N, gs + e, C + e * cap * N, cap, N, K,
+                          KP, blockIdx.y * BM, blockIdx.x * BN);
 }
 
 template <int BM, int BN>
 cudaError_t launch(const void* x, const void* w, const void* s, const void* gs, void* out,
                    int experts, int cap, int n, int k, int kp, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<BM, BN>();
+  static_assert(BM != WG_BM || fp4_wgmma_threads<BN, 1>() == THREADS, "threads");
+  constexpr int bytes = BM == WG_BM ? fp4_wgmma_smem_bytes<BN, 1>() : smem_bytes<BM, BN>();
   cudaError_t err = cudaFuncSetAttribute(grouped_fp4_gemm_kernel<BM, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

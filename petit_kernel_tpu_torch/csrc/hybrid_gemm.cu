@@ -33,14 +33,14 @@
 // memory so that two fit on an SM.
 //
 // Prefill tiles (block_m = 64): hybrid_gemm_kernel, one CTA per output
-// tile. FP4 CTAs run fp4_gemm_tile<64, BN, 1>, so CF equals fused_mul's
-// output bit for bit; dense CTAs run dense_gemm_tile, which stages the same
-// A rows, copies a (256, BN) block of WD rows into a k-major shared tile in
-// 16-byte pieces and reads B with ldmatrix.trans. No pipeline: at prefill
-// the tensor cores bound it, and those tiles are the next redesign
-// (wgmma).
+// tile. FP4 CTAs run fp4_wgmma.cuh's wgmma body, fp4_wgmma_tile<BN, 1>, so
+// CF equals fused_mul's output bit for bit; dense CTAs run dense_gemm_tile
+// (mma.sync), which stages the same A rows, copies a (256, BN) block of WD
+// rows into a k-major shared tile in 16-byte pieces and reads B with
+// ldmatrix.trans. No pipeline there: the dense prefill CTAs are a later
+// redesign.
 
-#include "fp4_stream.cuh"
+#include "fp4_wgmma.cuh"
 
 namespace {
 
@@ -163,9 +163,10 @@ hybrid_gemm_kernel(const __nv_bfloat16* __restrict__ A, const uint32_t* __restri
                    __nv_bfloat16* __restrict__ CD, int M, int NF, int ND, int K, int KP,
                    int f_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
+  static_assert(BM == WG_BM, "prefill tiles only");
   const int m0 = blockIdx.y * BM;
   if (static_cast<int>(blockIdx.x) < f_tiles)
-    fp4_gemm_tile<BM, BN, 1>(smem, A, W, S, gs, CF, M, NF, K, KP, m0, blockIdx.x * BN);
+    fp4_wgmma_tile<BN, 1>(smem, A, W, S, gs, CF, M, NF, K, KP, m0, blockIdx.x * BN);
   else
     dense_gemm_tile<BM, BN>(smem, A, WD, CD, M, ND, K, KP, m0,
                             (static_cast<int>(blockIdx.x) - f_tiles) * BN);
@@ -175,8 +176,11 @@ template <int BM, int BN>
 cudaError_t launch(const void* a, const void* w, const void* s, const void* gs,
                    const void* wd, void* outf, void* outd, int m, int nf, int nd, int k,
                    int kp, cudaStream_t stream) {
-  static_assert(dense_smem_bytes<BM, BN>() <= smem_bytes<BM, BN, 1>(), "smem");
-  constexpr int bytes = smem_bytes<BM, BN, 1>();
+  static_assert(fp4_wgmma_threads<BN, 1>() == THREADS, "threads");
+  // the larger of the two kinds' budgets
+  constexpr int bytes = fp4_wgmma_smem_bytes<BN, 1>() > dense_smem_bytes<BM, BN>()
+                            ? fp4_wgmma_smem_bytes<BN, 1>()
+                            : dense_smem_bytes<BM, BN>();
   cudaError_t err = cudaFuncSetAttribute(hybrid_gemm_kernel<BM, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

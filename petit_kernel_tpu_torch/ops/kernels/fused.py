@@ -8,8 +8,11 @@ dequant_tpu_layout (the weights to a bf16 matrix, for the backward pass of
 gemm.mul_fp4_diff). Seven kernels, one wrapper each, each with its own
 launch count:
 
-  fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (mma.sync bf16)
-  fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache)
+  fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (bf16: mma.sync 16-row
+                     tiles, csrc/fp4_gemm.cuh; wgmma 64-row tiles,
+                     csrc/fp4_wgmma.cuh)
+  fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache, the
+                     same two bodies)
   fused_mul_hp       csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp (f32 A, three bf16
                      MMAs per fragment, f32 out)
   fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache)
@@ -130,7 +133,9 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
                so is the result), a weight_cache sid to fused_mul_wc
 
     Launches csrc/fp4_gemm.cu for CUDA tensors (counted in
-    fused_mul.launches); runs fused_mul_reference for CPU tensors.
+    fused_mul.launches; the 64-row tiles, whose kernel is the wgmma body of
+    csrc/fp4_wgmma.cuh, also in fused_mul.wgmma_launches); runs
+    fused_mul_reference for CPU tensors.
     """
     if sid.high_precision:
         hp = fused_mul_hp_wc if sid.weight_cache else fused_mul_hp
@@ -142,6 +147,8 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     out, launched = _fused_mul_cuda("pk_fp4_gemm", a, words, scales_t,
                                     global_scale, sid)
     fused_mul.launches += launched
+    if launched and sid.block_m == 64:
+        fused_mul.wgmma_launches += 1
     return out
 
 
@@ -149,8 +156,9 @@ def fused_mul_wc(a: torch.Tensor, words: torch.Tensor,
                  scales_t: torch.Tensor, global_scale: torch.Tensor, *,
                  sid: SolutionId) -> torch.Tensor:
     """fused_mul through the weight-cache kernel (pk_fp4_gemm_wc): each CTA
-    runs 4 m-tiles of sid's (block_m, block_n) and decodes each weight
-    block once for all of them. Bit for bit fused_mul's result at the same
+    runs 4 m-tiles of sid's (block_m, block_n), one warpgroup (16-row
+    tiles: four warps) each, and decodes each weight block once for all of
+    them. Bit for bit fused_mul's result at the same
     tile. Counted in fused_mul_wc.launches; fused_mul_reference on the
     CPU."""
     if a.device.type == "cpu":
@@ -162,6 +170,7 @@ def fused_mul_wc(a: torch.Tensor, words: torch.Tensor,
 
 
 fused_mul.launches = 0
+fused_mul.wgmma_launches = 0
 fused_mul_wc.launches = 0
 
 

@@ -4,8 +4,9 @@ plain twin.
 Counterpart of petit_kernel_tpu/ops/kernels/grouped.py:grouped_mul, the
 MoE expert GEMM: every expert's capacity bucket (cap, k) against its own
 stacked FP4 weights, in one launch. The kernel is
-csrc/grouped_fp4_gemm.cu (the tile body of csrc/fp4_gemm.cu with the
-expert as blockIdx.z); grouped_mul_reference is the same function in plain
+csrc/grouped_fp4_gemm.cu (fused_mul's tile bodies with the expert as
+blockIdx.z: mma.sync 16-row tiles for decode buckets, the wgmma 64-row
+tiles of csrc/fp4_wgmma.cuh for cap > 32); grouped_mul_reference is the same function in plain
 PyTorch, one fused_mul_reference per expert. grouped_mul takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.

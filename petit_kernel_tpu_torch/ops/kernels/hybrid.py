@@ -7,7 +7,8 @@ csrc/hybrid_gemm.cu computes both products. Its decode tiles (block_m =
 16) cut each output tile's k range over several CTAs (hybrid_splits) that
 stream the weights through a cp.async ring (csrc/fp4_stream.cuh) and sum
 their partials in a fixed order; its prefill tiles (block_m = 64) run one
-CTA per tile with fp4_gemm.cuh's tile body and a bf16 mma.sync tile.
+CTA per tile: FP4 tiles with the wgmma body of csrc/fp4_wgmma.cuh (the
+one fused_mul's 64-row tiles run), dense tiles with a bf16 mma.sync tile.
 The dense columns are held in natural k order, (kp, nd): the JAX package
 stores them pi-permuted to its kernel's A order, which the port's kernels
 do not use (models/convert.py undoes the permutation).

@@ -6,7 +6,9 @@ host it runs on its own, without tests/conftest.py's JAX set-up:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the GEMM and the grouped expert GEMM at rtol 2^-7 with atol
+Tolerances: the GEMM (its 64-row wgmma tiles also at full Llama-3-8B
+widths, and on a weight of mostly stored zeros) and the grouped expert
+GEMM at rtol 2^-7 with atol
 2^-8 * max|ref| (both sum exact bf16 products in f32, in other orders,
 then round once to bf16), the grouped GEMM also bit for bit against
 fused_mul on each expert at the same tile, and the weight-cache GEMM bit
@@ -81,6 +83,57 @@ def test_fp4_gemm_kernel_matches_twin(gen, fmt, bm, bn):
         torch.testing.assert_close(
             got.float(), want.float(), rtol=2 ** -7,
             atol=2 ** -8 * want.float().abs().max().item())
+
+
+_LLAMA_KN = ((4096, 6144), (14336, 4096))   # Llama-3-8B wqkv and w_down
+
+
+@pytest.mark.parametrize("fmt", sorted(_QUANT))
+@pytest.mark.parametrize("bn", [64, 128])
+def test_prefill_tiles_match_twin_at_llama_widths(gen, fmt, bn):
+    """The 64-row (wgmma) tiles at full Llama-3-8B widths, m = 130 (ragged)
+    and 2048, against the twin at the GEMM tolerance."""
+    quant, group = _QUANT[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    sid = sol.SolutionId(64, bn, eb)
+    for k, n in _LLAMA_KN:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        for m in (130, 2048):
+            a = _bf16(gen, m, k)
+            got = fused.fused_mul(a, words, st, gs.reshape(1), sid=sid)
+            want = fused.fused_mul_reference(a, words, st, gs.reshape(1),
+                                             sid=sid)
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=2 ** -7,
+                atol=2 ** -8 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_prefill_tiles_decode_stored_zeros(gen, bn):
+    """A weight three quarters zero (nvfp4: the zeros are stored zeros,
+    q-code t = 1), k = 4096 padded to nothing and 640 padded to 1024: the
+    64-row tiles, plain and weight cache, against the twin; stored zeros
+    must add nothing."""
+    for m, n, k in ((130, 4096, 4096), (200, 336, 640)):
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        w[torch.rand((n, k), generator=gen, device="cuda") < 0.75] = 0
+        qw, sc, gs = qref.quantize_nvfp4(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(16))
+        st = layout.process_fp4_scales(sc, n, k, group_size=16)
+        a = _bf16(gen, m, k)
+        want = fused.fused_mul_reference(a, words, st, gs.reshape(1),
+                                         sid=sol.SolutionId(64, bn))
+        for wc in (False, True):
+            sid = sol.SolutionId(64, bn, weight_cache=wc)
+            got = fused.fused_mul(a, words, st, gs.reshape(1), sid=sid)
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=2 ** -7,
+                atol=2 ** -8 * want.float().abs().max().item())
 
 
 def test_decode_attention_kernel_matches_twin(gen):
