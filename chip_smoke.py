@@ -27,7 +27,13 @@ Phases (any failure raises and the script exits non-zero):
              L2-warm and L2-flushed) and, for the
              grouped expert GEMM, Mixtral-8x7B's expert shapes (E=8, cap 8
              and 128, mxfp4 and nvfp4, also bit for bit against fused_mul
-             per expert), with CUDA-event times of the kernel, its twin and
+             per expert); the three prefill attention kernels (flat bf16,
+             headed fp8, paged fp8 at page size 16) also at the serving
+             shape, one 512-token chunk at pos0 = 0 (window 512) and at
+             pos0 = 1536 (window 2048), beside one SDPA call over bf16
+             K/V, each prefill row also timed as a CUDA graph of 24
+             launches (graph_ms: device time, no host time between
+             launches); with CUDA-event times of the kernel, its twin and
              one PyTorch library call for the same work where there is
              one, and each call's bound (bytes over 3.35 TB/s or operations
              over the peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s
@@ -416,6 +422,52 @@ def _prefill_mask(pos0, T, S):
     return p[None, None] <= qp[:, :, None]
 
 
+# the serving shapes of the prefill kernels: one 512-token chunk of one
+# sequence (B = 1, H = 32, Hkv = 8, d = 128) at the start of its prompt
+# (window 512) and late in it (pos0 1536, window 2048)
+SERVING_PREFILL = ((0, 512), (1536, 2048))
+
+
+def _prefill_serving(res, rows, gen, name, tag, kernel, twin, library,
+                     kv_elt, block, page_size=None):
+    """One prefill kernel at SERVING_PREFILL: kernel(q, pos0, ns) against
+    twin(q, pos0, ns) at 2^-7, with CUDA-event times of both and of
+    library(q, window, mask) (one scaled_dot_product_attention call over
+    bf16 K/V), the kernel's graph time (_cold_ms) and the bound of the
+    work (_prefill_work). ns = window / block. Kept as rows and as the
+    kernel's "serving" entry."""
+    H, Hkv, d, T = 32, 8, 128, 512
+    out = {}
+    for p0, window in SERVING_PREFILL:
+        q = torch.randn((1, T, H, d), generator=gen, device=gen.device).to(
+            torch.bfloat16)
+        pos0 = torch.tensor([p0], dtype=torch.int32, device=gen.device)
+        ns = window // block
+        got, want = kernel(q, pos0, ns), twin(q, pos0, ns)
+        torch.cuda.synchronize()
+        at = (f"{tag} B=1 T={T} pos0={p0} window={window} H={H} Hkv={Hkv} "
+              f"d={d}")
+        e = _close(f"{name} {at}", got, want, 2 ** -7, 2 ** -7)
+        mask = _prefill_mask(pos0, T, window)
+        t_k = cuda_ms(lambda: kernel(q, pos0, ns))
+        t_g = _cold_ms([lambda: kernel(q, pos0, ns)])
+        t_p = cuda_ms(lambda: twin(q, pos0, ns), iters=3)
+        t_l = cuda_ms(lambda: library(q, window, mask))
+        row = dict(kernel=name, variant=at, max_abs_err=e, ms=t_k,
+                   graph_ms=t_g, plain_ms=t_p, library_ms=t_l,
+                   **bound(*_prefill_work(q, pos0, Hkv, kv_elt,
+                                          page_size=page_size)))
+        rows.append(row)
+        log(f"[kernels] {name} {at} err={e:.2e} kernel={t_k:.4f} ms "
+            f"graph={t_g:.4f} ms plain={t_p:.4f} ms sdpa={t_l:.4f} ms "
+            f"bound={row['bound_ms']:.4f} ms ({row['bound_by']})")
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
+        out[f"pos0={p0}"] = {k: row[k] for k in (
+            "ms", "graph_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}
+    res[name]["serving"] = out
+
+
 def phase_kernels(rec):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -520,11 +572,25 @@ def phase_kernels(rec):
                                 cv[:2, :W].transpose(1, 2), pmask))
     res["prefill_attention"] = dict(
         max_abs_err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        graph_ms=_cold_ms([lambda: attention.flash_prefill_attention(
+            qp, ck[:2], cv[:2], pos0, ns=ns)]),
         **bound(*_prefill_work(qp, pos0, Hkv, 2)),
         at="B=2 T=256 pos0=(0,256) H=32 Hkv=8 d=128 S=2048; library: "
            "scaled_dot_product_attention(enable_gqa=True), causal mask")
     log(f"[kernels] flash prefill err={e:.2e} kernel={t_k:.4f} ms "
-        f"plain={t_p:.4f} ms sdpa={t_l:.4f} ms")
+        f"graph={res['prefill_attention']['graph_ms']:.4f} ms "
+        f"plain={t_p:.4f} ms sdpa={t_l:.4f} ms "
+        f"bound={res['prefill_attention']['bound_ms']:.4f} ms")
+    _prefill_serving(
+        res, rows, gen, "prefill_attention", "bf16 flat",
+        lambda q_, p_, n_: attention.flash_prefill_attention(
+            q_, ck[:1], cv[:1], p_, ns=n_),
+        lambda q_, p_, n_: attention.flash_prefill_reference(
+            q_, ck[:1], cv[:1], p_, ns=n_),
+        lambda q_, w_, m_: _sdpa(q_.transpose(1, 2),
+                                 ck[:1, :w_].transpose(1, 2),
+                                 cv[:1, :w_].transpose(1, 2), m_),
+        2, 128)
     # --- kv append ----------------------------------------------------------
     kn = torch.randn((B, Hkv, d), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -598,9 +664,13 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
         t_l = cuda_ms(library) if library else None
         row = dict(kernel=name, variant=variant, max_abs_err=e, ms=t_k,
                    plain_ms=t_p, library_ms=t_l, **bound(*work))
+        if "prefill" in name:
+            row["graph_ms"] = _cold_ms([kernel])
         rows.append(row)
-        log(f"[kernels] {name} {variant} err={e:.2e} kernel={t_k:.4f} ms "
-            f"plain={t_p:.4f} ms library={t_l} ms "
+        graph = (f" graph={row['graph_ms']:.4f} ms" if "graph_ms" in row
+                 else "")
+        log(f"[kernels] {name} {variant} err={e:.2e} kernel={t_k:.4f} ms"
+            f"{graph} plain={t_p:.4f} ms library={t_l} ms "
             f"bound={row['bound_ms']:.4f} ms")
         r = res.setdefault(name, dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], e)
@@ -608,6 +678,8 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
             r.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      at=variant)
+            if "graph_ms" in row:
+                r["graph_ms"] = row["graph_ms"]
 
     sel = mask.bool().nonzero().squeeze(1)
     for dtype in (torch.bfloat16, FP8):
@@ -637,6 +709,24 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
                       qp, kp, vp, bt[:2], pos0, ns=ns),
                   dtype == FP8 and ps == 16,
                   _prefill_work(qp, pos0, Hkv, elt, page_size=ps))
+            if dtype == FP8 and ps == 16:
+                # library: SDPA over the bf16 upcast of the gathered pages
+                # (gather and cast not timed)
+                k16, v16 = (attention._gather_pages(x, bt[:1], nb).to(
+                    torch.bfloat16).transpose(1, 2).contiguous()
+                    for x in (kp, vp))
+                _prefill_serving(
+                    res, rows, gen, "paged_prefill_attention",
+                    f"fp8 ps={ps}",
+                    lambda q_, p_, n_: attention.flash_prefill_paged(
+                        q_, kp, vp, bt[:1], p_, ns=n_),
+                    lambda q_, p_, n_: attention.flash_prefill_paged_reference(
+                        q_, kp, vp, bt[:1], p_, ns=n_),
+                    lambda q_, w_, m_: _sdpa(q_.transpose(1, 2),
+                                             k16[:, :, :w_], v16[:, :, :w_],
+                                             m_),
+                    elt, ps, page_size=ps)
+                del k16, v16
             del kp, vp
         ck, cv = kv(dtype, B, Hkv, S, d), kv(dtype, B, Hkv, S, d)
         bf16 = dtype == torch.bfloat16
@@ -659,6 +749,19 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
               library=bf16 and (lambda: _sdpa(
                   qp.transpose(1, 2), ck[:2, :, :512], cv[:2, :, :512],
                   pmask)))
+        if dtype == FP8:
+            # library: SDPA over the bf16 upcast (cast not timed)
+            k16, v16 = ck[:1].to(torch.bfloat16), cv[:1].to(torch.bfloat16)
+            _prefill_serving(
+                res, rows, gen, "prefill_attention_headed", "fp8 headed",
+                lambda q_, p_, n_: attention.flash_prefill_attention(
+                    q_, ck[:1], cv[:1], p_, ns=n_, headed=True),
+                lambda q_, p_, n_: attention.flash_prefill_headed_reference(
+                    q_, ck[:1], cv[:1], p_, ns=n_),
+                lambda q_, w_, m_: _sdpa(q_.transpose(1, 2), k16[:, :, :w_],
+                                         v16[:, :, :w_], m_),
+                elt, 128)
+            del k16, v16
         ck1, cv1, ck2, cv2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
         idx = (sel[:, None], torch.arange(Hkv, device=dev)[None],
                pos[sel].long()[:, None])

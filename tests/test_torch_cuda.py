@@ -150,18 +150,53 @@ def test_decode_attention_kernel_matches_twin(gen):
                                    atol=2 ** -7)
 
 
+# Prefill shapes (B, T, S, hkv, h, d, pos0, window): G = h / hkv of 1, 4,
+# 7 and 8, d 64 and 128, ragged last row tiles (T*G not a multiple of 64),
+# a window below pos0 + T that cuts a 64-position KV tile, and a late
+# chunk at 1536 in a 2048-position window
+_PREFILL_CASES = (
+    (2, 16, 256, 2, 8, 128, (0, 130), 256),
+    (2, 40, 256, 4, 28, 64, (0, 130), 256),
+    (2, 20, 256, 2, 2, 64, (3, 245), 240),
+    (2, 20, 256, 2, 16, 128, (3, 245), 240),
+    (2, 37, 256, 4, 16, 64, (0, 200), 256),
+    (1, 128, 2048, 8, 32, 128, (1536,), 2048),
+)
+
+
 def test_flash_prefill_kernel_matches_twin(gen):
-    for B, T, S, hkv, h, d in ((2, 16, 256, 2, 8, 128),
-                               (2, 40, 256, 4, 28, 64)):
+    for B, T, S, hkv, h, d, p0, window in _PREFILL_CASES:
         q, k, v = _bf16(gen, B, T, h, d), _bf16(gen, B, S, hkv, d), \
             _bf16(gen, B, S, hkv, d)
-        pos0 = torch.tensor([0, 130], dtype=torch.int32, device="cuda")
+        pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
         before = attention.flash_prefill_attention.launches
-        got = attention.flash_prefill_attention(q, k, v, pos0, ns=2)
+        got = attention.flash_prefill_attention(q, k, v, pos0,
+                                                ns=window // 16, block_s=16)
         assert attention.flash_prefill_attention.launches == before + 1
-        want = attention.flash_prefill_reference(q, k, v, pos0, ns=2)
+        want = attention.flash_prefill_reference(q, k, v, pos0,
+                                                 ns=window // 16, block_s=16)
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                    atol=2 ** -7)
+
+
+def test_prefill_kernels_zero_rows_without_position(gen):
+    """A window of 0 leaves every row without a valid position: each
+    prefill kernel writes zeros, not NaN."""
+    B, T, S, hkv, h, d = 2, 16, 256, 2, 8, 128
+    q = _bf16(gen, B, T, h, d)
+    pos0 = torch.tensor([0, 100], dtype=torch.int32, device="cuda")
+    flat = _bf16(gen, B, S, hkv, d)
+    headed = _kv(gen, torch.float8_e4m3fn, B, hkv, S, d)
+    pool = _kv(gen, torch.float8_e4m3fn, 2 * B + 1, hkv, 16, d)
+    bt = torch.arange(2 * B, dtype=torch.int32, device="cuda").reshape(B, 2)
+    for got in (attention.flash_prefill_attention(q, flat, flat, pos0, ns=0),
+                attention.flash_prefill_attention(q, headed, headed, pos0,
+                                                  ns=0, headed=True),
+                attention.flash_prefill_paged(q, pool, pool, bt, pos0,
+                                              ns=0)):
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert not got.float().any()
 
 
 def test_kv_append_kernel_bit_exact(gen):
@@ -234,14 +269,16 @@ def test_decode_headed_kernel_matches_twin(gen, dtype):
 @pytest.mark.parametrize("dtype", _KV_DTYPES)
 @pytest.mark.parametrize("ps", [16, 256])
 def test_paged_prefill_kernel_matches_twin(gen, dtype, ps):
-    for B, T, hkv, h, d in ((2, 16, 2, 8, 128), (2, 40, 4, 28, 64)):
-        ns = 512 // ps
+    """Permuted block tables over _PREFILL_CASES' shapes, the window
+    rounded up to whole pages."""
+    for B, T, _, hkv, h, d, p0, window in _PREFILL_CASES:
+        ns = -(-window // ps)
         P = B * ns + 1
         q = _bf16(gen, B, T, h, d)
         k, v = _kv(gen, dtype, P, hkv, ps, d), _kv(gen, dtype, P, hkv, ps, d)
         bt = torch.randperm(P - 1, generator=gen, device="cuda")[:B * ns]
         bt = bt.reshape(B, ns).to(torch.int32)
-        pos0 = torch.tensor([3, 300], dtype=torch.int32, device="cuda")
+        pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
         before = attention.flash_prefill_paged.launches
         got = attention.flash_prefill_paged(q, k, v, bt, pos0, ns=ns)
         assert attention.flash_prefill_paged.launches == before + 1
@@ -253,16 +290,17 @@ def test_paged_prefill_kernel_matches_twin(gen, dtype, ps):
 
 @pytest.mark.parametrize("dtype", _KV_DTYPES)
 def test_prefill_headed_kernel_matches_twin(gen, dtype):
-    for B, T, S, hkv, h, d in ((2, 16, 256, 2, 8, 128),
-                               (2, 40, 256, 4, 28, 64)):
+    for B, T, S, hkv, h, d, p0, window in _PREFILL_CASES:
         q = _bf16(gen, B, T, h, d)
         k, v = _kv(gen, dtype, B, hkv, S, d), _kv(gen, dtype, B, hkv, S, d)
-        pos0 = torch.tensor([0, 130], dtype=torch.int32, device="cuda")
+        pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
         before = attention.flash_prefill_headed.launches
-        got = attention.flash_prefill_attention(q, k, v, pos0, ns=2,
+        got = attention.flash_prefill_attention(q, k, v, pos0,
+                                                ns=window // 16, block_s=16,
                                                 headed=True)
         assert attention.flash_prefill_headed.launches == before + 1
-        want = attention.flash_prefill_headed_reference(q, k, v, pos0, ns=2)
+        want = attention.flash_prefill_headed_reference(
+            q, k, v, pos0, ns=window // 16, block_s=16)
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                    atol=2 ** -7)
 
