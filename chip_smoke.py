@@ -17,8 +17,14 @@ Phases (any failure raises and the script exits non-zero):
              cache, the grouped GEMM (cap 128) and the hybrid GEMM's FP4
              columns (m = 512) all run the wgmma body of
              csrc/fp4_wgmma.cuh, the 16-row tiles mma.sync bodies
-             (csrc/fp4_gemm.cuh, and csrc/fp4_stream.cuh for the hybrid
-             GEMM); the dequant kernel at the four fused
+             (the split-k stream csrc/fp4_stream.cuh for fp4_gemm and the
+             hybrid GEMM, csrc/fp4_gemm.cuh for the grouped GEMM and the
+             weight cache); fp4_gemm at the four Llama-3-8B projections,
+             m = 1, 8 and 256, its default tile and k-splits, two launches
+             bit for bit, L2-warm and L2-flushed beside torch.matmul, the
+             m = 8 layer also as a CUDA graph of the four (cold weights),
+             and a sweep of 1 to 8 splits there; the dequant kernel at the
+             four fused
              projections, nvfp4 and mxfp4, bit for bit; the hybrid GEMM at
              the seven unfused projections, m = 8 and 512, at the default
              k-splits and, at m = 8, at 1, 2, 3 and one per step, each
@@ -27,7 +33,8 @@ Phases (any failure raises and the script exits non-zero):
              L2-warm and L2-flushed) and, for the
              grouped expert GEMM, Mixtral-8x7B's expert shapes (E=8, cap 8
              and 128, mxfp4 and nvfp4, also bit for bit against fused_mul
-             per expert); the three prefill attention kernels (flat bf16,
+             per expert at one split); the three prefill attention
+             kernels (flat bf16,
              headed fp8, paged fp8 at page size 16) also at the serving
              shape, one 512-token chunk at pos0 = 0 (window 512) and at
              pos0 = 1536 (window 2048), beside one SDPA call over bf16
@@ -110,6 +117,9 @@ Phases (any failure raises and the script exits non-zero):
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
              copy of this script in that tree's checkout times
+ 14 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
+             Llama-3-8B projections at m = 8, default tile and splits,
+             L2-warm, L2-flushed and as a CUDA graph: the same kind of A/B
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -158,9 +168,9 @@ from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
-          "profile", "hybrid_layer")
-# run when --phases is not given: all but the A/B phase
-DEFAULT_PHASES = PHASES[:-1]
+          "profile", "hybrid_layer", "fp4_layer")
+# run when --phases is not given: all but the two A/B phases
+DEFAULT_PHASES = PHASES[:-2]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -468,13 +478,50 @@ def _prefill_serving(res, rows, gen, name, tag, kernel, twin, library,
     res[name]["serving"] = out
 
 
+def _split_sweep(layer, counts=range(1, 9)):
+    """fused_mul's 16-row tiles at each split count in `counts` for the
+    four Llama-3-8B projections at m = 8 (layer: (a, words, st, gs, sid,
+    deq) each): per projection L2-warm and L2-flushed, and the four as one
+    CUDA graph (cold weights), each count's output against the one-split
+    output at the GEMM tolerance."""
+    out = []
+    for sf in counts:
+        entry = dict(splits=sf, projections=[])
+        for a, words, st, gs, sid, _ in layer:
+            n = words.shape[1]
+            call = (lambda: fused.fused_mul(a, words, st, gs, sid=sid,
+                                            splits=sf))
+            one = fused.fused_mul(a, words, st, gs, sid=sid, splits=1)
+            _close(f"sweep splits={sf} n={n}", call(), one, 2 ** -7,
+                   2 ** -8 * one.float().abs().max())
+            entry["projections"].append(dict(
+                k=a.shape[1], n=n, warm_ms=cuda_ms(call),
+                flushed_ms=_flushed_ms(call)))
+        entry["warm_ms"] = sum(p["warm_ms"] for p in entry["projections"])
+        entry["flushed_ms"] = sum(p["flushed_ms"]
+                                  for p in entry["projections"])
+        entry["graph_ms"] = 4 * _cold_ms([(lambda c=c: fused.fused_mul(
+            c[0], c[1], c[2], c[3], sid=c[4], splits=sf)) for c in layer])
+        out.append(entry)
+        log(f"[kernels] gemm sweep splits={sf}: " + ", ".join(
+            f"n={p['n']} k={p['k']} {p['warm_ms']:.4f}/"
+            f"{p['flushed_ms']:.4f}" for p in entry["projections"])
+            + f" ms warm/flushed; layer {entry['warm_ms']:.4f} warm, "
+            f"{entry['flushed_ms']:.4f} flushed, {entry['graph_ms']:.4f} "
+            "graph")
+    return out
+
+
 def phase_kernels(rec):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, res = [], {}
     # --- fused FP4 GEMM -----------------------------------------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err_g = 0.0
-    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    sums = dict(ms=0.0, flushed_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                library_flushed_ms=0.0, nbytes=0, flops=0)
+    layer = []          # nvfp4 m = 8: (a, words, st, gs, sid, deq) each
     for fmt in ("nvfp4", "nvfp4p2z"):
         quant = (qref.quantize_nvfp4 if fmt == "nvfp4"
                  else qref.quantize_nvfp4_pow2z)
@@ -491,39 +538,77 @@ def phase_kernels(rec):
                     torch.bfloat16)
                 sid = solution_mod.choose_default_solution(m, n, k,
                                                            ElementB.NVFP4)
+                splits = fused.stream_splits(m, n, 0, words.shape[0] * 8,
+                                             sid.block_m, sid.block_n,
+                                             sms)[0]
                 got = fused.fused_mul(a, words, st, gs, sid=sid)
+                again = fused.fused_mul(a, words, st, gs, sid=sid)
                 want = fused.fused_mul_reference(a, words, st, gs, sid=sid)
                 torch.cuda.synchronize()
-                e = _close(f"gemm {fmt} m={m} k={k} n={n}", got, want,
-                           2 ** -7, 2 ** -8 * want.float().abs().max())
-                t_k = cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
-                                                      sid=sid))
+                what = f"gemm {fmt} m={m} k={k} n={n} splits={splits}"
+                if not torch.equal(got.view(torch.int16),
+                                   again.view(torch.int16)):
+                    raise AssertionError(f"{what}: two launches differ")
+                e = _close(what, got, want, 2 ** -7,
+                           2 ** -8 * want.float().abs().max())
+                call = (lambda: fused.fused_mul(a, words, st, gs, sid=sid))
+                lib = (lambda: torch.matmul(a, deq))
+                t_k, t_kf = cuda_ms(call), _flushed_ms(call)
                 t_p = cuda_ms(lambda: fused.fused_mul_reference(
                     a, words, st, gs, sid=sid), iters=5)
-                t_l = cuda_ms(lambda: torch.matmul(a, deq))
+                t_l, t_lf = cuda_ms(lib), _flushed_ms(lib)
                 nbytes = _nbytes(words, st, gs, a, got)
                 flops = 2 * m * n * k
                 rows.append(dict(kernel="fp4_gemm", fmt=fmt, m=m, k=k, n=n,
                                  tile=[sid.block_m, sid.block_n],
-                                 max_abs_err=e, ms=t_k, plain_ms=t_p,
-                                 library_ms=t_l, **bound(nbytes, flops)))
+                                 splits=splits, max_abs_err=e, ms=t_k,
+                                 flushed_ms=t_kf, plain_ms=t_p,
+                                 library_ms=t_l, library_flushed_ms=t_lf,
+                                 **bound(nbytes, flops)))
                 log(f"[kernels] gemm {fmt:8s} m={m:3d} k={k:5d} n={n:5d} "
-                    f"tile={sid.block_m}x{sid.block_n} err={e:.2e} "
-                    f"kernel={t_k:.4f} ms plain={t_p:.4f} ms "
-                    f"matmul={t_l:.4f} ms "
+                    f"tile={sid.block_m}x{sid.block_n} splits={splits} "
+                    f"err={e:.2e}, repeatable; kernel={t_k:.4f} ms "
+                    f"(flushed {t_kf:.4f}) plain={t_p:.4f} ms "
+                    f"matmul={t_l:.4f} ms (flushed {t_lf:.4f}) "
                     f"bound={rows[-1]['bound_ms']:.4f} ms")
                 err_g = max(err_g, e)
                 if fmt == "nvfp4" and m == 8:
-                    for key, v in (("ms", t_k), ("plain_ms", t_p),
-                                   ("library_ms", t_l), ("nbytes", nbytes),
-                                   ("flops", flops)):
+                    for key, v in (("ms", t_k), ("flushed_ms", t_kf),
+                                   ("plain_ms", t_p), ("library_ms", t_l),
+                                   ("library_flushed_ms", t_lf),
+                                   ("nbytes", nbytes), ("flops", flops)):
                         sums[key] += v
+                    layer.append((a, words, st, gs, sid, deq))
             del deq
+    # the four projections as one decode layer: a CUDA graph of the four
+    # launches (136 MB of weights, so each finds its own cold), against
+    # the four matmuls the same way; then the split sweep
+    graph_ms = 4 * _cold_ms([(lambda c=c: fused.fused_mul(
+        c[0], c[1], c[2], c[3], sid=c[4])) for c in layer])
+    library_graph_ms = 4 * _cold_ms([(lambda c=c: torch.matmul(c[0], c[5]))
+                                     for c in layer])
+    rec["fp4_gemm_sweep"] = _split_sweep(layer)
     res["fp4_gemm"] = dict(
-        max_abs_err=err_g, ms=sums["ms"], plain_ms=sums["plain_ms"],
-        library_ms=sums["library_ms"], **bound(sums["nbytes"], sums["flops"]),
-        at="nvfp4 m=8, sum of the 4 Llama-3-8B projections; library: "
-           "torch.matmul on the dequantized bf16 weights")
+        max_abs_err=err_g, ms=sums["ms"], flushed_ms=sums["flushed_ms"],
+        graph_ms=graph_ms, plain_ms=sums["plain_ms"],
+        library_ms=sums["library_ms"],
+        library_flushed_ms=sums["library_flushed_ms"],
+        library_graph_ms=library_graph_ms,
+        splits=[fused.stream_splits(8, c[1].shape[1], 0, c[1].shape[0] * 8,
+                                    c[4].block_m, c[4].block_n, sms)[0]
+                for c in layer],
+        **bound(sums["nbytes"], sums["flops"]),
+        at="nvfp4 m=8, sum of the 4 Llama-3-8B projections at the default "
+           "tile and splits; ms L2-warm (flushed_ms: L2 flushed; graph_ms: "
+           "a CUDA graph of the four, each finding its weights cold); "
+           "library: torch.matmul on the dequantized bf16 weights")
+    log(f"[kernels] gemm layer (nvfp4 m=8, 4 projections, splits "
+        f"{res['fp4_gemm']['splits']}): kernel {sums['ms']:.4f} ms warm, "
+        f"{sums['flushed_ms']:.4f} flushed, {graph_ms:.4f} graph; matmul "
+        f"{sums['library_ms']:.4f} warm, {sums['library_flushed_ms']:.4f} "
+        f"flushed, {library_graph_ms:.4f} graph; bound "
+        f"{res['fp4_gemm']['bound_ms']:.4f} ms")
+    del layer
     # --- decode attention ---------------------------------------------------
     B, H, Hkv, d, S = 8, 32, 8, 128, 2048
     q = torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -817,7 +902,7 @@ def _grouped_kernels(res, rows, gen):
                                2 ** -8 * want.float().abs().max())
                 for e in range(E):
                     one = fused.fused_mul(xs[e], words[e], st[e],
-                                          gs[e:e + 1], sid=sid)
+                                          gs[e:e + 1], sid=sid, splits=1)
                     if not torch.equal(one.view(torch.int16),
                                        got[e].view(torch.int16)):
                         raise AssertionError(f"{what}: expert {e} differs "
@@ -835,7 +920,7 @@ def _grouped_kernels(res, rows, gen):
                            library_ms=t_l, **bound(nbytes, flops))
                 rows.append(row)
                 log(f"[kernels] {what} tile={sid.block_m}x{sid.block_n} "
-                    f"err={e_max:.2e} bit-equal to fused_mul; "
+                    f"err={e_max:.2e} bit-equal to fused_mul (one split); "
                     f"kernel={t_k:.4f} ms plain={t_p:.4f} ms "
                     f"bmm={t_l:.4f} ms bound={row['bound_ms']:.4f} ms "
                     f"({row['bound_by']})")
@@ -1229,7 +1314,7 @@ def _hybrid_kernels(res, rows, gen):
             ctas = -(-m // sid.block_m) * (-(-nf // sid.block_n) * sf
                                            + -(-nd // sid.block_n) * sd)
             what = f"hybrid m={m} k={k} n={n} (nf={nf}, nd={nd})"
-            plain_f = fused.fused_mul(a, words, st, gs, sid=sid)
+            plain_f = fused.fused_mul(a, words, st, gs, sid=sid, splits=1)
             want_f, want_d = hybrid.hybrid_mul_reference(a, words, st, gs, wd,
                                                          sid=sid)
             e = 0.0
@@ -1354,6 +1439,70 @@ def phase_hybrid_layer(rec):
         "ms cold")
     log(json.dumps({"hybrid_layer": out}))
     rec["hybrid_layer"] = out
+
+
+def phase_fp4_layer(rec):
+    """The FP4 GEMM's decode layer alone, for an A/B of two trees: the four
+    Llama-3-8B projections (nvfp4) at m = 8 through fused_mul with its
+    default tile and splits, L2-warm, L2-flushed and as one CUDA graph of
+    the four (136 MB of weights: each launch finds its own cold), summed
+    over the layer; and the host time of one call (wo) through the
+    Engine's GEMM entry, gemm.mul_fp4_diff, and through fused_mul alone.
+    It calls only the quantizer, the layout, choose_default_solution,
+    fused_mul(a, words, scales, gs, sid=...), mul_fp4_diff,
+    benchlib.cuda_time and torch.cuda graphs, which older trees have too,
+    so a copy of this script placed in an older checkout times that tree's
+    kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = dict(warm_ms=0.0, flushed_ms=0.0, per_projection=[])
+    calls = []
+    for k, n in LLAMA8B_KN:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = qref.quantize_nvfp4(w)
+        del w
+        words = layout.repack_fp4_weights(qw, n, k)
+        st = layout.process_fp4_scales(sc, n, k, group_size=16)
+        a = torch.randn((8, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        sid = solution_mod.choose_default_solution(8, n, k, ElementB.NVFP4)
+        call = (lambda a=a, w=words, s=st, g=gs.reshape(1), sid=sid:
+                fused.fused_mul(a, w, s, g, sid=sid))
+        calls.append(call)
+        if (k, n) == LLAMA8B_KN[1]:
+            wo = (a, words, st, gs.reshape(1), sid)
+        warm, flushed = cuda_ms(call), _flushed_ms(call)
+        out["per_projection"].append(dict(k=k, n=n, warm_ms=warm,
+                                          flushed_ms=flushed))
+        out["warm_ms"] += warm
+        out["flushed_ms"] += flushed
+        log(f"[fp4_layer] k={k} n={n}: {warm:.4f} ms warm, {flushed:.4f} ms "
+            "flushed")
+    out["graph_ms"] = 4 * _cold_ms(calls)
+    log(f"[fp4_layer] layer (4 projections, m=8): {out['warm_ms']:.4f} ms "
+        f"warm, {out['flushed_ms']:.4f} ms flushed, {out['graph_ms']:.4f} ms "
+        "graph")
+    # host time a call: the wall clock of enqueueing 200 back-to-back calls
+    # (the device, at about 20 us a call, keeps up), as the Engine runs them
+    k, n = LLAMA8B_KN[1]
+    a, words, st, gs, sid = wo
+    for name, fn in (
+            ("mul_fp4_diff", lambda: gemm.mul_fp4_diff("nvfp4", k, a, words,
+                                                       st, gs)),
+            ("fused_mul", lambda: fused.fused_mul(a, words, st, gs,
+                                                  sid=sid))):
+        with torch.inference_mode():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            out[f"host_us_{name}"] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        log(f"[fp4_layer] host time a call, {name} (k={k} n={n} m=8): "
+            f"{out[f'host_us_{name}']:.1f} us")
+    log(json.dumps({"fp4_layer": out}))
+    rec["fp4_layer"] = out
 
 
 def _quantized_weight(fmt, k, n, gen):
@@ -2681,7 +2830,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but hybrid_layer)")
+                    + " (default: all but hybrid_layer and fp4_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     args = ap.parse_args(argv)

@@ -1,15 +1,16 @@
 // The FP4 decode-regime stream body for Hopper (sm_90a): 16-row tiles that
 // read fp4_gemm.cuh's packed layout through a cp.async ring, decode the FP4
 // words straight into mma.sync B fragments, and sum k-split partials in a
-// fixed order. Used by hybrid_gemm.cu's 16-row instances, written so that
-// the plain and grouped FP4 GEMMs can take it over.
+// fixed order. Used by the 16-row instances of fp4_gemm.cu (the plain FP4
+// GEMM) and hybrid_gemm.cu, written so that the grouped GEMM can take it
+// over too.
 //
 // What bounds it: at decode (m <= 16) the weight stream, 0.625 bytes a
 // weight, so the card needs many bytes in flight (about 3.4 MB at 3.35
 // TB/s and 1 us of latency) and few instructions per weight (an SM takes
 // about 20 FP4 weights a cycle at full rate). What the design does:
 //   - split-k: the caller cuts kp into whole 256-deep steps over several
-//     CTAs of one output tile (ops/kernels/hybrid.py: hybrid_splits), so a
+//     CTAs of one output tile (ops/kernels/fused.py: stream_splits), so a
 //     narrow projection still fills the card; their f32 partials meet in a
 //     workspace, and the tile's last CTA to arrive (a per-tile counter,
 //     reset by that CTA) sums them in split-index order: the same bits on

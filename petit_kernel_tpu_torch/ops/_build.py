@@ -42,8 +42,11 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points and their argument types (csrc/*.cu, extern "C")
 SIGNATURES = {
+    # a, words, scales, gs, out, ws, counters, m, n, k, kp, block_m,
+    # block_n, splits, stream
+    "pk_fp4_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _P),
     # a, words, scales, gs, out, m, n, k, kp, block_m, block_n, stream
-    "pk_fp4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pk_fp4_gemm_wc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # the same, with f32 a and out
     "pk_fp4_gemm_hp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -36,6 +36,7 @@ import math
 import torch
 
 from .. import _build
+from .fused import _aligned
 
 _NEG_INF = -1e30
 
@@ -185,7 +186,8 @@ def flash_prefill_attention(q: torch.Tensor, ck: torch.Tensor,
                                        block_s=block_s)
     _check_cuda_attention("flash prefill", q, ck, cv, pos0)
     S, Hkv = ck.shape[1], ck.shape[2]
-    q, pos0 = q.contiguous(), pos0.contiguous()
+    q, ck, cv = _aligned(q), _aligned(ck), _aligned(cv)
+    pos0 = pos0.contiguous()
     out = torch.empty_like(q)
     lib = _build.library()
     code = lib.pk_prefill_attention(
@@ -258,9 +260,7 @@ def kv_append(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
     row_bytes = Hkv * d * ck.element_size()
     if row_bytes % 16 or ck.data_ptr() % 16 or cv.data_ptr() % 16:
         raise ValueError("kv_append: cache rows must be 16-byte aligned")
-    # the kernel copies 16-byte words: a view at an odd offset is cloned
-    kn, vn = (quantize_kv(x, ck.dtype).contiguous() for x in (k_new, v_new))
-    kn, vn = (x.clone() if x.data_ptr() % 16 else x for x in (kn, vn))
+    kn, vn = (_aligned(quantize_kv(x, ck.dtype)) for x in (k_new, v_new))
     m = mask.to(torch.int32).contiguous()
     pos = pos.contiguous()
     lib = _build.library()
@@ -334,7 +334,8 @@ def _launch_headed(where: str, q, k, v, table, pos, *, ps: int,
     if H // hkv > 8 and q.dim() == 3:
         raise ValueError(f"{where}: {H // hkv} query heads per kv head, the "
                          "kernel takes at most 8")
-    q, pos, table = q.contiguous(), pos.contiguous(), table.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    pos, table = pos.contiguous(), table.contiguous()
     out = torch.empty_like(q)
     lib = _build.library()
     entry = ("pk_paged_decode_attention" if q.dim() == 3
@@ -579,8 +580,7 @@ def kv_append_headed(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
     if row_bytes % 16 or ck.data_ptr() % 16 or cv.data_ptr() % 16:
         raise ValueError("headed kv_append: cache rows must be 16-byte "
                          "aligned")
-    kn, vn = (quantize_kv(x, ck.dtype).contiguous() for x in (k_new, v_new))
-    kn, vn = (x.clone() if x.data_ptr() % 16 else x for x in (kn, vn))
+    kn, vn = (_aligned(quantize_kv(x, ck.dtype)) for x in (k_new, v_new))
     m = mask.to(torch.int32).contiguous()
     pos = pos.contiguous()
     lib = _build.library()

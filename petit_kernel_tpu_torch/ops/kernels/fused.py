@@ -8,11 +8,12 @@ dequant_tpu_layout (the weights to a bf16 matrix, for the backward pass of
 gemm.mul_fp4_diff). Seven kernels, one wrapper each, each with its own
 launch count:
 
-  fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (bf16: mma.sync 16-row
-                     tiles, csrc/fp4_gemm.cuh; wgmma 64-row tiles,
+  fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (bf16: split-k 16-row
+                     tiles on the stream body, csrc/fp4_stream.cuh; wgmma
+                     64-row tiles, csrc/fp4_wgmma.cuh)
+  fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache:
+                     16-row tiles csrc/fp4_gemm.cuh, 64-row tiles
                      csrc/fp4_wgmma.cuh)
-  fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache, the
-                     same two bodies)
   fused_mul_hp       csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp (f32 A, three bf16
                      MMAs per fragment, f32 out)
   fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache)
@@ -27,9 +28,16 @@ fused_mul_reference, fused_mul_hp_reference, fused_mul_w4a8_reference and
 dequant_tpu_layout_reference are the same functions in plain PyTorch; a
 wrapper takes its twin only for tensors on the CPU, and for CUDA tensors
 it launches its kernel or raises.
+
+The 16-row tiles of fused_mul and of hybrid_mul (kernels/hybrid.py) cut
+each output tile's k range over several CTAs: stream_splits is the rule
+for both, and one buffer of split counters per (device, stream) serves
+both (_counters).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -53,6 +61,86 @@ def fused_mul_reference(a: torch.Tensor, words: torch.Tensor,
                                        a.shape[1])
     acc = a.to(torch.bfloat16).float() @ b
     return (acc * global_scale.float()).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Split-k of the 16-row (decode) tiles, csrc/fp4_stream.cuh: fused_mul's and
+# hybrid_mul's
+# ---------------------------------------------------------------------------
+
+KSTEP = 256                 # natural k per step of the kernels
+STREAM_BLOCK_M = 16         # the tiles that split k
+# bytes a CTA streams per weight: FP4 a 4-bit value and a bf16 scale per 16
+# k; dense a bf16
+FP4_BYTES_PER_WEIGHT = 0.625
+DENSE_BYTES_PER_WEIGHT = 2.0
+
+
+@functools.lru_cache(maxsize=4096)
+def stream_splits(m: int, nf: int, nd: int, kp: int, block_m: int,
+                  block_n: int, num_sms: int) -> tuple[int, int]:
+    """(splits of an FP4 tile's k, splits of a dense tile's k) for a launch
+    of nf FP4 columns (fused_mul: all n; hybrid_mul: its FP4 columns) and
+    nd dense bf16 columns (fused_mul: 0): 1 and 1 for block_m = 64, whose
+    tiles do not split. Split s of S covers the 256-deep steps
+    [s * steps // S, (s + 1) * steps // S) of its tile.
+
+    At block_m = 16 a CTA streams about the bytes of its k range, so the
+    two kinds are balanced by bytes: a dense tile moves 2 / 0.625 = 3.2
+    times an FP4 tile's bytes per step and takes round(3.2 * sf) splits
+    (at most one per step) beside the FP4 tiles' sf. The stream body is
+    bound per SM (on the H100 one CTA streams about 7.5 GB/s, two on one
+    SM about 8.7), so what counts is the most work any SM gets: sf is the
+    largest count whose CTAs fit one wave of two per SM (2 * num_sms
+    slots), and 1 where even one split does not fit. A launch past one
+    wave leaves a tail (wo and w_down at 5 splits: 320 CTAs on 264 slots);
+    one that fits gives each SM one or two CTAs of equal depth."""
+    if block_m != STREAM_BLOCK_M:
+        return 1, 1
+    steps = kp // KSTEP
+    m_tiles = -(-m // block_m)
+    f_tiles, d_tiles = -(-nf // block_n), -(-nd // block_n)
+    ratio = DENSE_BYTES_PER_WEIGHT / FP4_BYTES_PER_WEIGHT
+    best = None
+    for sf in range(1, steps + 1):
+        sd = min(steps, max(1, round(sf * ratio)))
+        if best and m_tiles * (f_tiles * sf + d_tiles * sd) > 2 * num_sms:
+            break
+        best = sf, sd
+    return best
+
+
+def _check_splits(where: str, splits, kp: int, splittable: bool) -> int:
+    """An explicit k-split count, or ValueError: an int in [1, kp / 256],
+    above 1 only for tiles that split (`splittable`)."""
+    steps = kp // KSTEP
+    if not isinstance(splits, int) or not 1 <= splits <= steps:
+        raise ValueError(f"{where}: splits must be an int in [1, {steps}] "
+                         f"(kp / {KSTEP}), got {splits!r}")
+    if not splittable and splits != 1:
+        raise ValueError(f"{where}: these tiles do not split k (only the "
+                         f"16-row bf16 tiles do), got splits {splits!r}")
+    return splits
+
+
+@functools.cache
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per (device, stream): the split counters of the 16-row stream kernels,
+# zero between launches (the last CTA of each tile resets its own); launches
+# on one stream run in order, so fused_mul and hybrid_mul share them
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _check(where: str, a, words, scales_t, global_scale, *extra):
@@ -84,8 +172,8 @@ def _check(where: str, a, words, scales_t, global_scale, *extra):
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous at a 16-byte boundary (the kernels load A in 8- and
-    16-byte words)."""
+    """t contiguous at a 16-byte boundary: the kernels copy their operands
+    in 16-byte pieces, so a view at another offset is cloned."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -96,9 +184,10 @@ def _launch(entry: str, *args) -> None:
 
 
 def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid,
-                    dtype=torch.bfloat16):
+                    dtype=torch.bfloat16, splits=None):
     """Launch `entry` on A of `dtype` (bf16, f32 for the high-precision
-    kernels) into an output of the same dtype."""
+    kernels) into an output of the same dtype; `splits` (pk_fp4_gemm only)
+    adds the k-split count, its workspace and the split counters."""
     if a.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {a.device}")
     if a.dtype != dtype:
@@ -106,21 +195,31 @@ def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid,
     kp = _check(entry, a, words, scales_t, global_scale)
     m, k = a.shape
     n = words.shape[1]
-    a = _aligned(a)
-    words = words.contiguous()
-    scales_t = scales_t.contiguous()
+    # the kernels copy A, the words and the scales in 16-byte pieces
+    a, words, scales_t = _aligned(a), _aligned(words), _aligned(scales_t)
     out = torch.empty((m, n), dtype=dtype, device=a.device)
     if m == 0 or n == 0:
         return out, False
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    split_args = tail = ()
+    if splits is not None:
+        ws_ptr = cnt_ptr = None
+        if splits > 1:
+            tiles = -(-m // sid.block_m) * -(-n // sid.block_n)
+            ws = torch.empty(tiles * splits * sid.block_m * sid.block_n,
+                             dtype=torch.float32, device=a.device)
+            ws_ptr = ws.data_ptr()
+            cnt_ptr = _counters(a.device, stream, tiles).data_ptr()
+        split_args, tail = (ws_ptr, cnt_ptr), (splits,)
     _launch(entry, a.data_ptr(), words.data_ptr(), scales_t.data_ptr(),
-            global_scale.data_ptr(), out.data_ptr(), m, n, k, kp,
-            sid.block_m, sid.block_n,
-            torch.cuda.current_stream(a.device).cuda_stream)
+            global_scale.data_ptr(), out.data_ptr(), *split_args, m, n, k, kp,
+            sid.block_m, sid.block_n, *tail, stream)
     return out, True
 
 
 def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
-              global_scale: torch.Tensor, *, sid: SolutionId) -> torch.Tensor:
+              global_scale: torch.Tensor, *, sid: SolutionId,
+              splits: int | None = None) -> torch.Tensor:
     """c[m, n] = bf16((a[m, k] @ dequant(words, scales)[k, n]) * gs).
 
     a        : (m, k) bf16, natural k order, k % 128 == 0
@@ -131,12 +230,25 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     sid      : the (block_m, block_n) tile to launch; a high_precision sid
                goes to fused_mul_hp or fused_mul_hp_wc (then a is f32 and
                so is the result), a weight_cache sid to fused_mul_wc
+    splits   : k-splits of each 16-row output tile, an int in [1, kp /
+               256]; only the plain block_m = 16 tiles split (other ids
+               take 1). Default stream_splits' count on the card; checked
+               but unused on the CPU. With one split the output equals the
+               16-row tile body of csrc/fp4_gemm.cuh (the grouped kernel's,
+               the weight cache's) bit for bit; with more, the f32 partials
+               are summed in split order, so every launch repeats its bits.
 
     Launches csrc/fp4_gemm.cu for CUDA tensors (counted in
     fused_mul.launches; the 64-row tiles, whose kernel is the wgmma body of
     csrc/fp4_wgmma.cuh, also in fused_mul.wgmma_launches); runs
-    fused_mul_reference for CPU tensors.
+    fused_mul_reference for CPU tensors. Nothing syncs with the host, so a
+    CUDA graph can capture it.
     """
+    kp = words.shape[0] * 8
+    if splits is not None:
+        _check_splits("fused_mul", splits, kp,
+                      sid.block_m == STREAM_BLOCK_M
+                      and not (sid.high_precision or sid.weight_cache))
     if sid.high_precision:
         hp = fused_mul_hp_wc if sid.weight_cache else fused_mul_hp
         return hp(a, words, scales_t, global_scale, sid=sid)
@@ -144,8 +256,11 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
         return fused_mul_wc(a, words, scales_t, global_scale, sid=sid)
     if a.device.type == "cpu":
         return fused_mul_reference(a, words, scales_t, global_scale, sid=sid)
+    if splits is None and a.device.type == "cuda":
+        splits = stream_splits(a.shape[0], words.shape[1], 0, kp, sid.block_m,
+                               sid.block_n, _num_sms(a.device.index))[0]
     out, launched = _fused_mul_cuda("pk_fp4_gemm", a, words, scales_t,
-                                    global_scale, sid)
+                                    global_scale, sid, splits=splits)
     fused_mul.launches += launched
     if launched and sid.block_m == 64:
         fused_mul.wgmma_launches += 1

@@ -4,7 +4,8 @@ Counterpart of petit_kernel_tpu/ops/kernels/hybrid.py:hybrid_mul. A weight
 matrix is split by columns (ops/hybrid.py): FP4 columns in the packed
 layout and the most salient columns kept dense in bf16. One launch of
 csrc/hybrid_gemm.cu computes both products. Its decode tiles (block_m =
-16) cut each output tile's k range over several CTAs (hybrid_splits) that
+16) cut each output tile's k range over several CTAs (fused.stream_splits,
+the rule fused_mul's 16-row tiles follow too, here as hybrid_splits) that
 stream the weights through a cp.async ring (csrc/fp4_stream.cuh) and sum
 their partials in a fixed order; its prefill tiles (block_m = 64) run one
 CTA per tile: FP4 tiles with the wgmma body of csrc/fp4_wgmma.cuh (the
@@ -29,78 +30,15 @@ from .. import solution as solution_mod
 from ..solution import SolutionId
 from . import fused
 
-KSTEP = 256                 # natural k per step of the kernel
-STREAM_BLOCK_M = 16         # the tiles that split k
-# bytes a CTA streams per weight: FP4 a 4-bit value and a bf16 scale per 16
-# k; dense a bf16
-FP4_BYTES_PER_WEIGHT = 0.625
-DENSE_BYTES_PER_WEIGHT = 2.0
-
-
-@functools.lru_cache(maxsize=4096)
-def hybrid_splits(m: int, nf: int, nd: int, kp: int, block_m: int,
-                  block_n: int, num_sms: int) -> tuple[int, int]:
-    """(splits of an FP4 tile's k, splits of a dense tile's k) for the
-    launch: 1 and 1 for block_m = 64, whose tiles do not split. Split s of
-    S covers the 256-deep steps [s * steps // S, (s + 1) * steps // S) of
-    its tile (csrc/hybrid_gemm.cu).
-
-    At block_m = 16 a CTA streams about the bytes of its k range, so the
-    two kinds are balanced by bytes: a dense tile moves 2 / 0.625 = 3.2
-    times an FP4 tile's bytes per step and takes round(3.2 * sf) splits
-    (at most one per step) beside the FP4 tiles' sf. sf is the smallest
-    that gives at least two CTAs per SM (2 * num_sms, two waves of the
-    card's SMs, which hold two CTAs each); where even one step per CTA
-    falls short, every tile splits into single steps."""
-    if block_m != STREAM_BLOCK_M:
-        return 1, 1
-    steps = kp // KSTEP
-    m_tiles = -(-m // block_m)
-    f_tiles, d_tiles = -(-nf // block_n), -(-nd // block_n)
-    ratio = DENSE_BYTES_PER_WEIGHT / FP4_BYTES_PER_WEIGHT
-    for sf in range(1, steps + 1):
-        sd = min(steps, max(1, round(sf * ratio)))
-        if m_tiles * (f_tiles * sf + d_tiles * sd) >= 2 * num_sms:
-            return sf, sd
-    return steps, steps
-
-
-def _check_splits(splits, kp: int, block_m: int) -> tuple[int, int]:
-    """An explicit `splits` (for both kinds) as the launch's pair, or
-    ValueError."""
-    steps = kp // KSTEP
-    if not isinstance(splits, int) or not 1 <= splits <= steps:
-        raise ValueError(f"hybrid_mul: splits must be an int in [1, {steps}] "
-                         f"(kp / {KSTEP}), got {splits!r}")
-    if block_m != STREAM_BLOCK_M and splits != 1:
-        raise ValueError(f"hybrid_mul: block_m = {block_m} tiles do not "
-                         f"split k, got splits {splits!r}")
-    return splits, splits
+# the split rule and its step, shared with fused_mul's 16-row tiles
+KSTEP = fused.KSTEP
+hybrid_splits = fused.stream_splits
 
 
 # the GEMM heuristic, pure in (m, n, k): cached, as it runs for every
 # projection of every decode step
 _default_sid = functools.lru_cache(maxsize=4096)(
     solution_mod.choose_default_solution)
-
-
-@functools.cache
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-# per (device, stream): the kernel's split counters, zero between launches
-# (the last CTA of each tile resets its own)
-_COUNTERS: dict = {}
-
-
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
 
 
 def hybrid_mul_reference(a: torch.Tensor, words: torch.Tensor,
@@ -132,7 +70,7 @@ def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     sid      : the (block_m, block_n) tile of both halves; default the GEMM
                heuristic at (m, nf, k)
     splits   : k-splits of every output tile, in [1, kp / 256]; only
-               block_m = 16 tiles split. Default hybrid_splits' pair on
+               block_m = 16 tiles split. Default stream_splits' pair on
                the card (unused on the CPU). With one split (and always at
                block_m = 64) outf equals fused_mul's at the same tile bit
                for bit; with more, the f32 partials are summed in split
@@ -149,7 +87,9 @@ def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
         raise ValueError(f"hybrid_mul: wd must be (kp, nd) = ({kp}, nd) with "
                          f"nd % 16 == 0, got {tuple(wd.shape)}")
     if splits is not None:
-        splits = _check_splits(splits, kp, sid.block_m)
+        s = fused._check_splits("hybrid_mul", splits, kp,
+                                sid.block_m == fused.STREAM_BLOCK_M)
+        splits = s, s
     if a.device.type == "cpu":
         return hybrid_mul_reference(a, words, scales_t, global_scale, wd,
                                     sid=sid)
@@ -168,8 +108,8 @@ def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
         return outf, outd
     bm, bn = sid.block_m, sid.block_n
     if splits is None:
-        splits = hybrid_splits(m, nf, nd, kp, bm, bn,
-                               _num_sms(a.device.index))
+        splits = fused.stream_splits(m, nf, nd, kp, bm, bn,
+                                     fused._num_sms(a.device.index))
     sf, sd = splits
     stream = torch.cuda.current_stream(a.device).cuda_stream
     ws_ptr = cnt_ptr = None
@@ -179,8 +119,8 @@ def hybrid_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
         ws = torch.empty(m_tiles * (f_tiles * sf + d_tiles * sd) * bm * bn,
                          dtype=torch.float32, device=a.device)
         ws_ptr = ws.data_ptr()
-        cnt_ptr = _counters(a.device, stream,
-                            m_tiles * (f_tiles + d_tiles)).data_ptr()
+        cnt_ptr = fused._counters(a.device, stream,
+                                  m_tiles * (f_tiles + d_tiles)).data_ptr()
     fused._launch("pk_hybrid_gemm", a.data_ptr(), words.data_ptr(),
                   scales_t.data_ptr(), global_scale.data_ptr(), wd.data_ptr(),
                   outf.data_ptr(), outd.data_ptr(), ws_ptr, cnt_ptr, m, nf,

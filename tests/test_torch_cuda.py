@@ -15,9 +15,14 @@ fused_mul on each expert at the same tile, and the weight-cache GEMM bit
 for bit against fused_mul at the same tile; the W4A8 GEMM and its
 weight-cache variant bit for bit against their twin (exact int32 sums);
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
-convert fp8 exactly); the KV appends and the dequant kernel bit-exact; the
+convert fp8 exactly), the prefill wrappers also on views off a 16-byte
+boundary; the KV appends and the dequant kernel bit-exact; the
 hybrid GEMM's FP4 columns bit for bit against fused_mul at the same tile
-with one k-split (and at block_m = 64), at the GEMM tolerance with more,
+with one k-split (and at block_m = 64), at the GEMM tolerance with more
+(fused_mul at one split wherever another kernel is held to its bits);
+fused_mul's split-k 16-row tiles at every split count against the twin at
+the GEMM tolerance, a second launch and CUDA-graph replays bit for bit the
+first launch, the split counters zero after each;
 its dense columns at the GEMM tolerance, and a second launch bit for bit
 the first at every split count; mul_fp4_diff's backward on
 the card (dequant kernel, cuBLAS dA) against the same on the CPU at the
@@ -134,6 +139,83 @@ def test_prefill_tiles_decode_stored_zeros(gen, bn):
             torch.testing.assert_close(
                 got.float(), want.float(), rtol=2 ** -7,
                 atol=2 ** -8 * want.float().abs().max().item())
+
+
+_QUANT_ALL = {**_QUANT, "nvfp4p2": (qref.quantize_nvfp4_pow2, 16),
+              "mxfp4z": (qref.quantize_mxfp4z, 32)}
+
+
+@pytest.mark.parametrize("fmt", sorted(_QUANT_ALL))
+@pytest.mark.parametrize("bn", [64, 128])
+def test_split_k_tiles_match_twin_and_repeat(gen, fmt, bn):
+    """fused_mul's 16-row tiles (the split-k stream) at ragged m, k padded
+    past itself (640 -> 1024: 4 steps; 2176 -> 2560: 10 steps) and n not a
+    multiple of the tile, in all five formats: at 1, 2, 3 and kp / 256
+    splits and the default, against the twin at the GEMM tolerance; a
+    second launch repeats the bits."""
+    quant, group = _QUANT_ALL[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    sid = sol.SolutionId(16, bn, eb)
+    for n, k in ((336, 640), (208, 2176)):
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = quant(w)
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(group))
+        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        gs = gs.reshape(1)
+        steps = words.shape[0] * 8 // fused.KSTEP
+        for m in (1, 5, 16, 17, 32):
+            a = _bf16(gen, m, k)
+            want = fused.fused_mul_reference(a, words, st, gs, sid=sid)
+            for splits in (*sorted({1, 2, 3, steps}), None):
+                before = fused.fused_mul.launches
+                got = fused.fused_mul(a, words, st, gs, sid=sid,
+                                      splits=splits)
+                assert fused.fused_mul.launches == before + 1
+                torch.testing.assert_close(
+                    got.float(), want.float(), rtol=2 ** -7,
+                    atol=2 ** -8 * want.float().abs().max().item())
+                again = fused.fused_mul(a, words, st, gs, sid=sid,
+                                        splits=splits)
+                assert torch.equal(again.view(torch.int16),
+                                   got.view(torch.int16)), (m, n, splits)
+
+
+_LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+
+
+def test_split_k_tiles_replay_in_a_cuda_graph(gen):
+    """The four Llama-3-8B projections at m = 8, default tile and splits:
+    after one eager call, the four fused_mul calls captured in a CUDA graph
+    and replayed three times give the eager bits each time (outputs zeroed
+    before each replay), and every split counter reads zero afterwards:
+    nothing on the path syncs with the host or leaves state behind."""
+    calls = []
+    for k, n in _LLAMA8B_KN:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = qref.quantize_nvfp4(w)
+        del w
+        words = layout.repack_fp4_weights(qw, n, k)
+        st = layout.process_fp4_scales(sc, n, k, group_size=16)
+        sid = sol.choose_default_solution(8, n, k)
+        assert sid.block_m == 16
+        calls.append((_bf16(gen, 8, k), words, st, gs.reshape(1), sid))
+    eager = [fused.fused_mul(a, w, s, g, sid=sid)
+             for a, w, s, g, sid in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fused.fused_mul(a, w, s, g, sid=sid)
+                for a, w, s, g, sid in calls]
+    for _ in range(3):
+        for out in outs:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
 
 
 def test_decode_attention_kernel_matches_twin(gen):
@@ -305,6 +387,56 @@ def test_prefill_headed_kernel_matches_twin(gen, dtype):
                                    atol=2 ** -7)
 
 
+def _off_boundary(t):
+    """t's values in a contiguous view one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    return view
+
+
+def test_prefill_wrappers_realign_views_off_a_16_byte_boundary(gen):
+    """q and the K/V caches as views off a 16-byte boundary (2 bytes for
+    bf16, 1 for fp8): the flat, headed and paged prefill wrappers clone
+    them and match their twins."""
+    B, T, S, hkv, h, d, p0, window = _PREFILL_CASES[0]
+    pos0 = torch.tensor(p0, dtype=torch.int32, device="cuda")
+    q = _bf16(gen, B, T, h, d)
+    k, v = _bf16(gen, B, S, hkv, d), _bf16(gen, B, S, hkv, d)
+    ns = window // 16
+    got = attention.flash_prefill_attention(
+        _off_boundary(q), _off_boundary(k), _off_boundary(v), pos0, ns=ns,
+        block_s=16)
+    want = attention.flash_prefill_reference(q, k, v, pos0, ns=ns,
+                                             block_s=16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    fp8 = torch.float8_e4m3fn
+    kh, vh = _kv(gen, fp8, B, hkv, S, d), _kv(gen, fp8, B, hkv, S, d)
+    got = attention.flash_prefill_attention(
+        _off_boundary(q), _off_boundary(kh), _off_boundary(vh), pos0, ns=ns,
+        block_s=16, headed=True)
+    want = attention.flash_prefill_headed_reference(q, kh, vh, pos0, ns=ns,
+                                                    block_s=16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    ps = 16
+    pages = -(-window // ps)
+    P = B * pages + 1
+    kp, vp = _kv(gen, fp8, P, hkv, ps, d), _kv(gen, fp8, P, hkv, ps, d)
+    bt = torch.randperm(P - 1, generator=gen, device="cuda")[:B * pages]
+    bt = bt.reshape(B, pages).to(torch.int32)
+    got = attention.flash_prefill_paged(
+        _off_boundary(q), _off_boundary(kp), _off_boundary(vp), bt, pos0,
+        ns=pages)
+    want = attention.flash_prefill_paged_reference(q, kp, vp, bt, pos0,
+                                                   ns=pages)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -7)
+
+
 @pytest.mark.parametrize("dtype", _KV_DTYPES)
 def test_kv_append_headed_kernel_bit_exact(gen, dtype):
     B, S, hkv, d = 4, 64, 2, 128
@@ -344,7 +476,7 @@ def test_grouped_kernel_matches_twin_and_fused_mul(gen, fmt, cap):
         atol=2 ** -8 * want.float().abs().max().item())
     for e in range(E):
         one = fused.fused_mul(xs[e], ex["words"][e], ex["scales"][e],
-                              ex["gs"][e:e + 1], sid=sid)
+                              ex["gs"][e:e + 1], sid=sid, splits=1)
         assert torch.equal(one.view(torch.int16), got[e].view(torch.int16))
 
 
@@ -403,7 +535,7 @@ def test_weight_cache_kernel_bit_equal_to_fp4_gemm(gen, fmt, bm, bn):
         st = layout.process_fp4_scales(sc, n, k, group_size=group)
         a = _bf16(gen, m, k)
         plain = fused.fused_mul(a, words, st, gs.reshape(1),
-                                sid=sol.SolutionId(bm, bn, eb))
+                                sid=sol.SolutionId(bm, bn, eb), splits=1)
         wc = sol.SolutionId(bm, bn, eb, weight_cache=True)
         if not sol.is_feasible(wc, m, n, k):
             continue
@@ -448,7 +580,7 @@ def test_hybrid_kernel_matches_fused_mul_and_twin(gen, bm, bn):
         sid = sol.SolutionId(bm, bn)
         args = (a, hq["words"], hq["scales"], hq["gs"].reshape(1), hq["wd"])
         steps = hq["words"].shape[0] * 8 // khybrid.KSTEP
-        plain = fused.fused_mul(*args[:4], sid=sid)
+        plain = fused.fused_mul(*args[:4], sid=sid, splits=1)
         want_f, want_d = khybrid.hybrid_mul_reference(*args, sid=sid)
         runs = [None] if bm == 64 else [1, None, *sorted(
             {s for s in (2, 3, steps) if s <= steps})]

@@ -11,9 +11,9 @@ products in f32 in other orders and round once); logits within 2^-5 *
 max|logits| (test_torch_llama.py); the engines' greedy streams equal,
 except after a step whose JAX top-2 logit gap is below that tolerance
 (test_torch_serving.py). The decode kernel's split choice (hybrid_splits:
-k ranges of whole 256-deep steps, two CTAs per SM of a 132-SM card where
-the steps allow) and hybrid_mul's check of an explicit `splits` need no
-JAX counterpart: the TPU kernel walks k in one grid.
+k ranges of whole 256-deep steps, as many splits as fit one wave of two
+CTAs per SM of a 132-SM card) and hybrid_mul's check of an explicit
+`splits` need no JAX counterpart: the TPU kernel walks k in one grid.
 """
 
 import jax
@@ -217,10 +217,15 @@ def test_hybrid_splits_partition_k_and_fill_two_waves(m, nf, nd, kp, bn):
         assert ranges[0][0] == 0 and ranges[-1][1] == steps
         assert all(r0 < r1 for r0, r1 in ranges)               # none empty
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    ctas = -(-m // 16) * (-(-nf // bn) * sf + -(-nd // bn) * sd)
-    assert ctas >= 2 * _H100_SMS or (sf, sd) == (steps, steps), (sf, sd, ctas)
+    def ctas(sf):
+        sd = min(steps, max(1, round(3.2 * sf)))
+        return -(-m // 16) * (-(-nf // bn) * sf + -(-nd // bn) * sd)
+
+    # the most splits that fit one wave of two CTAs per SM, at least one
+    assert ctas(sf) <= 2 * _H100_SMS or sf == 1, (sf, sd, ctas(sf))
+    assert sf == steps or ctas(sf + 1) > 2 * _H100_SMS, (sf, sd, ctas(sf))
     # the dense tiles take about 3.2 times the FP4 tiles' splits
-    assert sd == min(steps, round(3.2 * sf)) or (sf, sd) == (steps, steps)
+    assert sd == min(steps, max(1, round(3.2 * sf)))
 
 
 @pytest.mark.parametrize("bn", [64, 128])
