@@ -17,8 +17,8 @@ Phases (any failure raises and the script exits non-zero):
              cache, the grouped GEMM (cap 128) and the hybrid GEMM's FP4
              columns (m = 512) all run the wgmma body of
              csrc/fp4_wgmma.cuh, the 16-row tiles mma.sync bodies
-             (the split-k stream csrc/fp4_stream.cuh for fp4_gemm and the
-             hybrid GEMM, csrc/fp4_gemm.cuh for the grouped GEMM and the
+             (the split-k stream csrc/fp4_stream.cuh for fp4_gemm, the
+             grouped GEMM and the hybrid GEMM, csrc/fp4_gemm.cuh for the
              weight cache); fp4_gemm at the four Llama-3-8B projections,
              m = 1, 8 and 256, its default tile and k-splits, two launches
              bit for bit, L2-warm and L2-flushed beside torch.matmul, the
@@ -33,7 +33,12 @@ Phases (any failure raises and the script exits non-zero):
              L2-warm and L2-flushed) and, for the
              grouped expert GEMM, Mixtral-8x7B's expert shapes (E=8, cap 8
              and 128, mxfp4 and nvfp4, also bit for bit against fused_mul
-             per expert at one split); the three prefill attention
+             per expert at the same split count), and one Mixtral layer's
+             three grouped calls at cap 8 with every bucket row filled and
+             with the buckets that top-2 routing of 4 seeded tokens fills
+             (rows past each bucket's count skipped through `rows`, bit for
+             bit the launch without it), warm and as a CUDA graph of the
+             three; the three prefill attention
              kernels (flat bf16,
              headed fp8, paged fp8 at page size 16) also at the serving
              shape, one 512-token chunk at pos0 = 0 (window 512) and at
@@ -120,6 +125,11 @@ Phases (any failure raises and the script exits non-zero):
  14 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
              Llama-3-8B projections at m = 8, default tile and splits,
              L2-warm, L2-flushed and as a CUDA graph: the same kind of A/B
+ 15 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
+             calls at cap 8 (mxfp4, E = 8) through grouped_mul's defaults,
+             every bucket row filled, warm and as a CUDA graph of the three;
+             where the tree's grouped_mul takes `rows`, also the routed
+             buckets of phase 3 with their rows: the same kind of A/B
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -141,6 +151,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import inspect
 import io
 import json
 import math
@@ -168,9 +179,9 @@ from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
-          "profile", "hybrid_layer", "fp4_layer")
-# run when --phases is not given: all but the two A/B phases
-DEFAULT_PHASES = PHASES[:-2]
+          "profile", "hybrid_layer", "fp4_layer", "grouped_layer")
+# run when --phases is not given: all but the three A/B phases
+DEFAULT_PHASES = PHASES[:-3]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -708,6 +719,7 @@ def phase_kernels(rec):
     _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask)
     del ck, cv, ck1, cv1, ck2, cv2
     _grouped_kernels(res, rows, gen)
+    _grouped_routed(res)
     _w4a8_kernels(rec, res, rows, gen)
     _dequant_kernels(res, rows, gen)
     _hybrid_kernels(res, rows, gen)
@@ -867,9 +879,10 @@ def _grouped_kernels(res, rows, gen):
     """The grouped expert GEMM at Mixtral-8x7B's expert shapes, E=8: w_gate
     and w_up (k, n) = (4096, 14336), w_down (14336, 4096), cap 8 (a 4-slot
     decode step) and 128 (a 64-token chunk), mxfp4 (the served format) and
-    nvfp4. Each is held against its plain twin (GEMM tolerance) and, bit
-    for bit, against fused_mul on each expert's slice at the same tile;
-    the library yardstick is torch.bmm on the dequantized bf16 experts.
+    nvfp4, at grouped_mul's default splits. Each is held against its plain
+    twin (GEMM tolerance) and, bit for bit, against fused_mul on each
+    expert's slice at the same tile and splits; the library yardstick is
+    torch.bmm on the dequantized bf16 experts.
     The JSON row is one MoE layer's decode GEMMs, mxfp4 cap 8: w_gate +
     w_up + w_down; the same sum at cap 128 (the 64-row wgmma tiles) is
     logged and kept as the row's "prefill"."""
@@ -893,6 +906,9 @@ def _grouped_kernels(res, rows, gen):
                 xs = torch.randn((E, cap, k), generator=gen,
                                  device=dev).to(torch.bfloat16)
                 sid = gemm.resolve_grouped_solution(cap, n, k, eb)
+                splits = grouped.grouped_splits(
+                    E, cap, n, words.shape[1] * 8, sid.block_m, sid.block_n,
+                    fused._num_sms(dev.index or 0))
                 got = grouped.grouped_mul(xs, words, st, gs, sid=sid)
                 want = grouped.grouped_mul_reference(xs, words, st, gs,
                                                      sid=sid)
@@ -902,7 +918,7 @@ def _grouped_kernels(res, rows, gen):
                                2 ** -8 * want.float().abs().max())
                 for e in range(E):
                     one = fused.fused_mul(xs[e], words[e], st[e],
-                                          gs[e:e + 1], sid=sid, splits=1)
+                                          gs[e:e + 1], sid=sid, splits=splits)
                     if not torch.equal(one.view(torch.int16),
                                        got[e].view(torch.int16)):
                         raise AssertionError(f"{what}: expert {e} differs "
@@ -916,11 +932,12 @@ def _grouped_kernels(res, rows, gen):
                 flops = 2 * E * cap * k * n
                 row = dict(kernel="grouped_fp4_gemm", fmt=fmt, E=E, cap=cap,
                            k=k, n=n, tile=[sid.block_m, sid.block_n],
+                           splits=splits,
                            max_abs_err=e_max, ms=t_k, plain_ms=t_p,
                            library_ms=t_l, **bound(nbytes, flops))
                 rows.append(row)
                 log(f"[kernels] {what} tile={sid.block_m}x{sid.block_n} "
-                    f"err={e_max:.2e} bit-equal to fused_mul (one split); "
+                    f"splits={splits} err={e_max:.2e} bit-equal to fused_mul; "
                     f"kernel={t_k:.4f} ms plain={t_p:.4f} ms "
                     f"bmm={t_l:.4f} ms bound={row['bound_ms']:.4f} ms "
                     f"({row['bound_by']})")
@@ -953,6 +970,121 @@ def _layer_row(acc, at):
     return dict(ms=acc["ms"], plain_ms=acc["plain_ms"],
                 library_ms=acc["library_ms"],
                 **bound(acc["nbytes"], acc["flops"]), at=at)
+
+
+def _mixtral_layer(gen):
+    """One Mixtral-8x7B MoE layer as a 4-slot decode step feeds it: the
+    three expert projections (w_gate, w_up, w_down; E = 8, mxfp4, each its
+    own weights) quantized on the card, and its cap-8 buckets filled two
+    ways: "full", every row (the `kernels` row's case), and "routed", the
+    rows that top-2 routing of 4 seeded tokens through a random router
+    fills, each bucket from row 0 up to its count, zero past it. Returns
+    (projections [(words, scales, gs)], {case: (x (E, cap, H), h (E, cap,
+    F), rows or None)}). Calls only moe.quantize_moe_linear, moe.route,
+    moe.capacity and moe.MoEConfig, which older trees have too."""
+    cfg = MIXTRAL_8X7B
+    E, H, F = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    projs = []
+    for k, n in ((H, F), (H, F), (F, H)):
+        w = torch.randn((E, k, n), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) / math.sqrt(k)
+        ex = moe.quantize_moe_linear(w, "mxfp4")
+        del w
+        projs.append((ex["words"], ex["scales"], ex["gs"]))
+    T = 4
+    cap = moe.capacity(T, moe.MoEConfig(E, cfg.top_k))
+    tok = torch.randn((T, H), generator=gen, device="cuda").to(torch.bfloat16)
+    router = torch.randn((H, E), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _, idx = moe.route(tok, router, cfg.top_k)
+    rows = torch.bincount(idx.reshape(-1), minlength=E).clamp_max(cap).to(
+        torch.int32)
+    x = torch.randn((E, cap, H), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    h = torch.randn((E, cap, F), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    live = (torch.arange(cap, device="cuda")[None] < rows[:, None])[..., None]
+    return projs, dict(full=(x, h, None),
+                       routed=(x * live, h * live, rows))
+
+
+def _grouped_layer(check=False):
+    """_mixtral_layer's three grouped calls through grouped_mul's defaults:
+    for each case the sum of their warm times (cuda_ms), the device time of
+    a CUDA graph of the three (3 x _cold_ms; 880.8 MB of weights, each call
+    finds its own cold) and the host time of one call. The routed case
+    runs only where the tree's grouped_mul takes `rows`. With `check`, the
+    routed calls are held bit for bit against the same calls without rows,
+    the experts no token chose give +0, and the routed layer is held
+    against the plain twin (GEMM tolerance); its bound counts the weights
+    of the chosen experts only."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    projs, cases = _mixtral_layer(gen)
+    takes_rows = "rows" in inspect.signature(grouped.grouped_mul).parameters
+    rows = cases["routed"][2]
+    out = dict(rows=rows.tolist(), experts_chosen=int((rows > 0).sum()))
+    for case, (x, h, r) in cases.items():
+        if r is not None and not takes_rows:
+            continue
+        kw = {} if r is None else dict(rows=r)
+        calls = [(lambda w=w, s=s, g=g, y=y: grouped.grouped_mul(
+            y, w, s, g, **kw)) for (w, s, g), y in zip(projs, (x, x, h))]
+        if check and r is not None:
+            chosen = rows > 0
+            nbytes, flops = 0, 0
+            for (w, s, g), y, call in zip(projs, (x, x, h), calls):
+                got = call()
+                plain = grouped.grouped_mul(y, w, s, g)
+                if not torch.equal(got.view(torch.int16),
+                                   plain.view(torch.int16)):
+                    raise AssertionError("grouped routed layer: rows changed "
+                                         "the bits")
+                if got[~chosen].view(torch.int16).any():
+                    raise AssertionError("grouped routed layer: an expert no "
+                                         "token chose is not +0")
+                want = grouped.grouped_mul_reference(y, w, s, g, sid=None)
+                out["max_abs_err"] = max(out.get("max_abs_err", 0.0), _close(
+                    "grouped routed layer", got, want, 2 ** -7,
+                    2 ** -8 * want.float().abs().max()))
+                nbytes += (int(chosen.sum()) * _nbytes(w[0], s[0])
+                           + _nbytes(g, y, got))
+                flops += 2 * int(rows.sum()) * y.shape[2] * w.shape[2]
+                del got, plain, want
+            out.update(bound(nbytes, flops))
+        out[case] = dict(warm_ms=sum(cuda_ms(c) for c in calls),
+                         graph_ms=3 * _cold_ms(calls))
+        # host time a call: the wall clock of enqueueing 100 back-to-back
+        # w_down calls (the launch queue holds them all)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                calls[2]()
+            out[case]["host_us"] = (time.perf_counter() - t0) / 100 * 1e6
+            torch.cuda.synchronize()
+        log(f"[grouped_layer] {case} ("
+            f"{'every row' if r is None else 'rows ' + str(out['rows'])}): "
+            f"{out[case]['warm_ms']:.4f} ms warm, "
+            f"{out[case]['graph_ms']:.4f} ms graph (w_gate + w_up + w_down); "
+            f"host {out[case]['host_us']:.1f} us a call")
+    return out
+
+
+def _grouped_routed(res):
+    """The `kernels` phase's grouped layer at cap 8, full and routed
+    (_grouped_layer with its checks), kept as the grouped row's "layer":
+    warm and graph times of both cases, the routed case's bound; the
+    library time is the full row's bmm sum, which does the same work on
+    either case."""
+    out = _grouped_layer(check=True)
+    row = res["grouped_fp4_gemm"]
+    row["max_abs_err"] = max(row["max_abs_err"], out.pop("max_abs_err"))
+    row["layer"] = dict(out, library_ms=row["library_ms"])
+    log(f"[kernels] grouped layer mxfp4 cap=8, {out['experts_chosen']} of "
+        f"{MIXTRAL_8X7B.num_experts} experts chosen: routed "
+        f"{out['routed']['graph_ms']:.4f} ms graph, full "
+        f"{out['full']['graph_ms']:.4f} ms graph; bmm "
+        f"{row['library_ms']:.4f} ms; routed bound {out['bound_ms']:.4f} ms")
 
 
 def _w4a8_launch(entry, a_i8, arow, words, r_t, acol, gs, out, sid):
@@ -1503,6 +1635,19 @@ def phase_fp4_layer(rec):
             f"{out[f'host_us_{name}']:.1f} us")
     log(json.dumps({"fp4_layer": out}))
     rec["fp4_layer"] = out
+
+
+def phase_grouped_layer(rec):
+    """The grouped GEMM's decode layer alone, for an A/B of two trees:
+    _grouped_layer without checks (one Mixtral-8x7B layer's three grouped
+    calls at cap 8, full buckets, and routed ones where the tree's
+    grouped_mul takes `rows`). It calls only the quantizer, moe's routing
+    helpers, grouped_mul(xs, words, scales, gs[, rows=...]) and
+    torch.cuda graphs, so a copy of this script placed in an older
+    checkout times that tree's kernel."""
+    out = _grouped_layer()
+    log(json.dumps({"grouped_layer": out}))
+    rec["grouped_layer"] = out
 
 
 def _quantized_weight(fmt, k, n, gen):
@@ -2830,7 +2975,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but hybrid_layer and fp4_layer)")
+                    + " (default: all but hybrid_layer, fp4_layer and "
+                    "grouped_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     args = ap.parse_args(argv)

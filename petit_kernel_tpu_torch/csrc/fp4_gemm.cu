@@ -23,9 +23,11 @@
 // card); each CTA runs fp4_stream.cuh's body (a cp.async ring STAGES - 1
 // steps ahead, FP4 decoded straight into the mma.sync B fragments) and the
 // partials meet in reduce_splits, summed in split order by the tile's last
-// CTA, so every launch repeats its bits and with one split the output
-// equals fp4_gemm_tile<16, BN, 1>'s (the grouped kernel's and the 16-row
-// weight cache's at the same tile) bit for bit. The 64-row (prefill) tiles
+// CTA, so every launch repeats its bits. The grouped GEMM's 16-row tiles
+// (grouped_fp4_gemm.cu) run the same body, steps and sum, so at one tile
+// and split count each expert's output equals this kernel's bit for bit;
+// with one split both equal fp4_gemm_tile<16, BN, 1>'s (the 16-row weight
+// cache's at the same tile). The 64-row (prefill) tiles
 // run the wgmma body of fp4_wgmma.cuh; the 16-row weight cache runs
 // fp4_gemm.cuh's body. Those headers hold the layout, the decode and what
 // bounds each.
@@ -61,19 +63,6 @@ cudaError_t launch(const void* a, const void* w, const void* s, const void* gs, 
 }
 
 // ---- the 16-row tiles: the split-k stream ----------------------------------
-
-// ring depth: 4 stages of 20,736 bytes at block_n = 64, 3 of 33,024 at 128
-template <int BN>
-__host__ __device__ constexpr int stream_stages() { return BN == 64 ? 4 : 3; }
-
-template <int BN>
-constexpr int stream_smem_bytes() { return stream_stages<BN>() * fp4_stage_bytes<BN>(); }
-
-// two CTAs an SM: 2 * (bytes + 1 KB reserved) <= 228 KB
-static_assert(stream_smem_bytes<64>() <= 113 * 1024, "smem (16, 64)");
-static_assert(stream_smem_bytes<128>() <= 113 * 1024, "smem (16, 128)");
-static_assert(fp4_stage_bytes<64>() % 128 == 0 && fp4_stage_bytes<128>() % 128 == 0,
-              "stages start on 128-byte boundaries");
 
 // grid (n_tiles * splits, ceil(M / 16)), x tile-major, split-minor. ws:
 // [ceil(M/16)][gridDim.x] blocks of 16*BN floats (read only when splits >

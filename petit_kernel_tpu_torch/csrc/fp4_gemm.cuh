@@ -1,11 +1,12 @@
-// The FP4 dequant + GEMM tile body of grouped_fp4_gemm.cu (one matrix per
-// expert) and of fp4_gemm.cu's 16-row weight cache:
+// The FP4 dequant + GEMM tile body of fp4_gemm.cu's 16-row weight cache,
+// its only launcher:
 //     C[m, n] = bf16((A[m, :] @ dequant(W, S)[:, n]) * gs)
-// for the (BM, BN) output tile at (m0, n0). Its launchers run it for their
-// 16-row (decode) tiles only: every 64-row (prefill) tile runs the wgmma
-// body of fp4_wgmma.cuh, which reads the same layout, decodes the same
-// values and sums them in another order, and fp4_gemm.cu's plain 16-row
-// tiles run fp4_stream.cuh, which with one k-split gives this body's bits.
+// for the (BM, BN) output tile at (m0, n0). Every other FP4 tile runs a
+// later body on this layout and decode: every 64-row (prefill) tile the
+// wgmma body of fp4_wgmma.cuh, which sums in another order, and the plain,
+// grouped and hybrid 16-row (decode) tiles fp4_stream.cuh, which with one
+// k-split gives this body's bits. Its constants, decode_slot and mma_bf16
+// serve fp4_stream.cuh, fp4_gemm_hp.cu, fp4_gemm_w4a8.cu and fp4_dequant.cu.
 // It reads the same packed bytes
 // as the TPU kernels (petit_kernel_tpu/ops/kernels/fused.py):
 //   W  (kp/8, n) 32-bit words, v6 q-coded layout (ops/layout.py): slot s of

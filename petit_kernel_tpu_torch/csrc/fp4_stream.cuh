@@ -1,9 +1,10 @@
 // The FP4 decode-regime stream body for Hopper (sm_90a): 16-row tiles that
 // read fp4_gemm.cuh's packed layout through a cp.async ring, decode the FP4
 // words straight into mma.sync B fragments, and sum k-split partials in a
-// fixed order. Used by the 16-row instances of fp4_gemm.cu (the plain FP4
-// GEMM) and hybrid_gemm.cu, written so that the grouped GEMM can take it
-// over too.
+// fixed order. Its three users are the 16-row tiles of fp4_gemm.cu (the
+// plain FP4 GEMM, fp4_stream_kernel), grouped_fp4_gemm.cu (the MoE expert
+// GEMM, grouped_stream_kernel) and hybrid_gemm.cu (its FP4 CTAs). One ring
+// depth, stream_stages, serves all three.
 //
 // What bounds it: at decode (m <= 16) the weight stream, 0.625 bytes a
 // weight, so the card needs many bytes in flight (about 3.4 MB at 3.35
@@ -128,6 +129,21 @@ template <int BN>
 __host__ __device__ constexpr int fp4_stage_bytes() {
   return SBM * LDS * 2 + WROWS * BN * 4 + WROWS * BN * 2;
 }
+
+// ring depth: 4 stages of 20,736 bytes at block_n = 64, 3 of 33,024 at 128
+template <int BN>
+__host__ __device__ constexpr int stream_stages() { return BN == 64 ? 4 : 3; }
+
+// a ring of FP4 stages: the shared memory of a CTA of fp4_stream_kernel
+// or grouped_stream_kernel
+template <int BN>
+constexpr int stream_smem_bytes() { return stream_stages<BN>() * fp4_stage_bytes<BN>(); }
+
+// two CTAs an SM: 2 * (bytes + 1 KB reserved) <= 228 KB
+static_assert(stream_smem_bytes<64>() <= 113 * 1024, "smem (16, 64)");
+static_assert(stream_smem_bytes<128>() <= 113 * 1024, "smem (16, 128)");
+static_assert(fp4_stage_bytes<64>() % 128 == 0 && fp4_stage_bytes<128>() % 128 == 0,
+              "stages start on 128-byte boundaries");
 
 // Zero the A rows from `first` up in every stage of the ring (a_row_bytes
 // a row at the start of each stage): the loaders copy only the rows below

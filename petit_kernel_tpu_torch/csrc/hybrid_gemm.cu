@@ -213,9 +213,6 @@ __host__ __device__ constexpr int dense_stage_bytes() {
 // of an ldmatrix land in eight different bank groups
 __device__ __forceinline__ int dense_chunk(int kk, int c) { return c ^ (kk & 7); }
 
-template <int BN>
-__host__ __device__ constexpr int stream_stages() { return BN == 64 ? 4 : 3; }
-
 // one ring slot: the larger of the two kinds' stages, in 128-byte units
 template <int BN>
 __host__ __device__ constexpr int stream_slot_bytes() {
@@ -224,14 +221,15 @@ __host__ __device__ constexpr int stream_slot_bytes() {
   return (b + 127) / 128 * 128;
 }
 
+// the ring: fp4_stream.cuh's depth, stream_stages, in slots of either kind
 template <int BN>
-__host__ __device__ constexpr int stream_smem_bytes() {
+__host__ __device__ constexpr int hybrid_smem_bytes() {
   return stream_stages<BN>() * stream_slot_bytes<BN>();
 }
 
 // two CTAs an SM: 2 * (bytes + 1 KB reserved) <= 228 KB
-static_assert(stream_smem_bytes<64>() <= 113 * 1024, "smem (16, 64)");
-static_assert(stream_smem_bytes<128>() <= 113 * 1024, "smem (16, 128)");
+static_assert(hybrid_smem_bytes<64>() <= 113 * 1024, "smem (16, 64)");
+static_assert(hybrid_smem_bytes<128>() <= 113 * 1024, "smem (16, 128)");
 
 // cp.async natural k [k0, k0 + DK) of A rows m0.. and WD rows k0.., columns
 // n0.., into `st`
@@ -384,7 +382,7 @@ cudaError_t launch_stream(const void* a, const void* w, const void* s, const voi
                           const void* wd, void* outf, void* outd, void* ws, void* counters,
                           int m, int nf, int nd, int k, int kp, int sf, int sd,
                           cudaStream_t stream) {
-  constexpr int bytes = stream_smem_bytes<BN>();
+  constexpr int bytes = hybrid_smem_bytes<BN>();
   cudaError_t err = cudaFuncSetAttribute(hybrid_stream_kernel<BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

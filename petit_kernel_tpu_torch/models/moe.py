@@ -135,11 +135,16 @@ def moe_mlp_partial(x: torch.Tensor, router_w: torch.Tensor, experts: dict,
     w_g = (buf_w[:num_local * cap] * vmask.reshape(-1)).reshape(num_local,
                                                                 cap)
     xsg = x[toks_g] * vmask[..., None].to(x.dtype)          # (El, cap, H)
+    # Each bucket fills from row 0 up (rank counts within its expert), so
+    # its filled rows are a count, on the device: the grouped kernel skips
+    # the 16-row tiles past it, whose rows are zero. The same count holds
+    # for the down projection: h is zero where xsg is, silu(0) * 0 = 0.
+    rows = vmask.sum(1, dtype=torch.int32)
 
     def gmul(ys, layer):
         return grouped_mod.grouped_mul(ys, layer["words"], layer["scales"],
                                        layer["gs"],
-                                       element_b=_element_b(fmt))
+                                       element_b=_element_b(fmt), rows=rows)
 
     g = gmul(xsg, experts["w_gate"])
     u = gmul(xsg, experts["w_up"])

@@ -57,9 +57,10 @@ SIGNATURES = {
                          _P),
     "pk_fp4_gemm_w4a8_wc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P),
-    # xs, words, scales, gs, out, E, cap, n, k, kp, block_m, block_n, stream
-    "pk_grouped_fp4_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P),
+    # xs, words, scales, gs, out, ws, counters, rows, E, cap, n, k, kp,
+    # block_m, block_n, splits, stream
+    "pk_grouped_fp4_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _P),
     # words, scales, out, kp, n, stream
     "pk_fp4_dequant": (_P, _P, _P, _I, _I, _P),
     # a, words, scales, gs, wd, outf, outd, ws, counters, m, nf, nd, k, kp,

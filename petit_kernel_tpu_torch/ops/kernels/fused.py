@@ -29,10 +29,10 @@ dequant_tpu_layout_reference are the same functions in plain PyTorch; a
 wrapper takes its twin only for tensors on the CPU, and for CUDA tensors
 it launches its kernel or raises.
 
-The 16-row tiles of fused_mul and of hybrid_mul (kernels/hybrid.py) cut
-each output tile's k range over several CTAs: stream_splits is the rule
-for both, and one buffer of split counters per (device, stream) serves
-both (_counters).
+The 16-row tiles of fused_mul, of hybrid_mul (kernels/hybrid.py) and of
+grouped_mul (kernels/grouped.py) cut each output tile's k range over
+several CTAs: stream_splits is the rule for all three, and one buffer of
+split counters per (device, stream) serves them all (_counters).
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ def fused_mul_reference(a: torch.Tensor, words: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Split-k of the 16-row (decode) tiles, csrc/fp4_stream.cuh: fused_mul's and
-# hybrid_mul's
+# Split-k of the 16-row (decode) tiles, csrc/fp4_stream.cuh: fused_mul's,
+# hybrid_mul's and grouped_mul's
 # ---------------------------------------------------------------------------
 
 KSTEP = 256                 # natural k per step of the kernels
@@ -130,7 +130,8 @@ def _num_sms(index: int) -> int:
 
 # per (device, stream): the split counters of the 16-row stream kernels,
 # zero between launches (the last CTA of each tile resets its own); launches
-# on one stream run in order, so fused_mul and hybrid_mul share them
+# on one stream run in order, so fused_mul, hybrid_mul and grouped_mul
+# share them
 _COUNTERS: dict = {}
 
 
@@ -233,10 +234,12 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     splits   : k-splits of each 16-row output tile, an int in [1, kp /
                256]; only the plain block_m = 16 tiles split (other ids
                take 1). Default stream_splits' count on the card; checked
-               but unused on the CPU. With one split the output equals the
-               16-row tile body of csrc/fp4_gemm.cuh (the grouped kernel's,
-               the weight cache's) bit for bit; with more, the f32 partials
-               are summed in split order, so every launch repeats its bits.
+               but unused on the CPU. The grouped kernel's 16-row tiles run
+               the same tile, so each expert of grouped_mul gives these
+               bits at the same split count; with one split the output
+               equals the 16-row tile body of csrc/fp4_gemm.cuh (the weight
+               cache's) bit for bit; with more, the f32 partials are summed
+               in split order, so every launch repeats its bits.
 
     Launches csrc/fp4_gemm.cu for CUDA tensors (counted in
     fused_mul.launches; the 64-row tiles, whose kernel is the wgmma body of

@@ -11,7 +11,9 @@ widths, and on a weight of mostly stored zeros) and the grouped expert
 GEMM at rtol 2^-7 with atol
 2^-8 * max|ref| (both sum exact bf16 products in f32, in other orders,
 then round once to bf16), the grouped GEMM also bit for bit against
-fused_mul on each expert at the same tile, and the weight-cache GEMM bit
+fused_mul on each expert at the same tile and k-splits, with `rows` bit
+for bit against the launch without them, and its layer's three calls
+replayed in a CUDA graph bit for bit the eager run; the weight-cache GEMM bit
 for bit against fused_mul at the same tile; the W4A8 GEMM and its
 weight-cache variant bit for bit against their twin (exact int32 sums);
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
@@ -455,9 +457,11 @@ def test_kv_append_headed_kernel_bit_exact(gen, dtype):
 
 
 @pytest.mark.parametrize("fmt", ["mxfp4", "nvfp4"])
-@pytest.mark.parametrize("cap", [8, 128])
-def test_grouped_kernel_matches_twin_and_fused_mul(gen, fmt, cap):
-    """E=4 experts, a k padded past itself (640) and a ragged n (336)."""
+@pytest.mark.parametrize("cap,splits", [(8, 1), (8, 2), (128, 1)])
+def test_grouped_kernel_matches_twin_and_fused_mul(gen, fmt, cap, splits):
+    """E=4 experts, a k padded past itself (640) and a ragged n (336); the
+    16-row tiles (cap 8) at 1 and 2 k-splits, the 64-row ones (cap 128) at
+    1: each expert bit for bit fused_mul at the same tile and splits."""
     E, k, n = 4, 640, 336
     eb = sol.ElementB.MXFP4 if fmt == "mxfp4" else sol.ElementB.NVFP4
     w = torch.randn((E, k, n), generator=gen, device="cuda") / math.sqrt(k)
@@ -467,7 +471,7 @@ def test_grouped_kernel_matches_twin_and_fused_mul(gen, fmt, cap):
     sid = sol.choose_default_solution(cap, n, k, eb)
     before = grouped.grouped_mul.launches
     got = grouped.grouped_mul(xs, ex["words"], ex["scales"], ex["gs"],
-                              sid=sid)
+                              sid=sid, splits=splits)
     assert grouped.grouped_mul.launches == before + 1
     want = grouped.grouped_mul_reference(xs, ex["words"], ex["scales"],
                                          ex["gs"], sid=sid)
@@ -476,8 +480,81 @@ def test_grouped_kernel_matches_twin_and_fused_mul(gen, fmt, cap):
         atol=2 ** -8 * want.float().abs().max().item())
     for e in range(E):
         one = fused.fused_mul(xs[e], ex["words"][e], ex["scales"][e],
-                              ex["gs"][e:e + 1], sid=sid, splits=1)
+                              ex["gs"][e:e + 1], sid=sid, splits=splits)
         assert torch.equal(one.view(torch.int16), got[e].view(torch.int16))
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+def _grouped_layer(gen, E=4, cap=8, H=512, F=768, fmt="mxfp4"):
+    """A small MoE layer's stacked experts (w_gate, w_up, w_down) and
+    buckets: expert 0 empty, expert 1 filled to cap / 2, the others full,
+    with their rows tensor."""
+    layer = {}
+    for name, (k, n) in (("w_gate", (H, F)), ("w_up", (H, F)),
+                         ("w_down", (F, H))):
+        w = torch.randn((E, k, n), generator=gen, device="cuda") / math.sqrt(k)
+        layer[name] = tmoe.quantize_moe_linear(w, fmt)
+    filled = [0, cap // 2] + [cap] * (E - 2)
+    xs = _bf16(gen, E, cap, H)
+    for e, f in enumerate(filled):
+        xs[e, f:] = 0
+    return layer, xs, torch.tensor(filled, dtype=torch.int32, device="cuda")
+
+
+def _layer_calls(layer, xs, **kw):
+    def gmul(ys, ex):
+        return grouped.grouped_mul(ys, ex["words"], ex["scales"], ex["gs"],
+                                   **kw)
+    g = gmul(xs, layer["w_gate"])
+    u = gmul(xs, layer["w_up"])
+    h = torch.nn.functional.silu(g.float()).to(torch.bfloat16) * u
+    return gmul(h, layer["w_down"])
+
+
+@pytest.mark.parametrize("cap", [8, 24])
+@pytest.mark.parametrize("splits", [1, 2, None])
+def test_grouped_rows_skip_empty_tiles_bit_for_bit(gen, cap, splits):
+    """rows skips the 16-row tiles at or past each bucket's filled rows
+    (cap 24: expert 1's second tile): the three calls of a layer give the
+    bits of the launch without rows, +0 for the empty expert, and leave
+    every split counter at zero."""
+    layer, xs, rows = _grouped_layer(gen, cap=cap)
+    for ex in layer.values():
+        want = grouped.grouped_mul(xs, ex["words"], ex["scales"], ex["gs"],
+                                   splits=splits)
+        got = grouped.grouped_mul(xs, ex["words"], ex["scales"], ex["gs"],
+                                  splits=splits, rows=rows)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert not got[0].view(torch.int16).any()          # +0, sign clear
+    want = _layer_calls(layer, xs, splits=splits)
+    got = _layer_calls(layer, xs, splits=splits, rows=rows)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+def test_grouped_layer_replays_in_a_cuda_graph(gen):
+    """The three grouped calls of a layer with rows, default splits (more
+    than one at these widths): captured after one eager run, replayed
+    twice, each replay the eager bits; the counters zero after."""
+    layer, xs, rows = _grouped_layer(gen)
+    ex = layer["w_gate"]
+    assert grouped.grouped_splits(
+        4, 8, ex["words"].shape[2], ex["words"].shape[1] * 8, 16, 64,
+        fused._num_sms(0)) > 1
+    eager = _layer_calls(layer, xs, rows=rows)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _layer_calls(layer, xs, rows=rows)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
 
 
 def test_init_cache_defaults_to_the_card(gen):
