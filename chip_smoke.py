@@ -16,11 +16,14 @@ Phases (any failure raises and the script exits non-zero):
              fp4_gemm_prefill; the 64-row tiles of fp4_gemm, its weight
              cache, the grouped GEMM (cap 128) and the hybrid GEMM's FP4
              columns (m = 512) all run the wgmma body of
-             csrc/fp4_wgmma.cuh, the 16-row tiles mma.sync bodies
-             (the split-k stream csrc/fp4_stream.cuh for fp4_gemm, the
-             grouped GEMM and the hybrid GEMM, csrc/fp4_gemm.cuh for the
-             weight cache); fp4_gemm at the four Llama-3-8B projections,
-             m = 1, 8 and 256, its default tile and k-splits, two launches
+             csrc/fp4_wgmma.cuh, the W4A8 GEMM's 64-row tiles the int8
+             wgmma body of csrc/w4a8_wgmma.cuh, the 16-row tiles mma.sync
+             bodies (the split-k stream csrc/fp4_stream.cuh for fp4_gemm,
+             the grouped GEMM and the hybrid GEMM, csrc/fp4_gemm.cuh for
+             the weight cache), the W4A8 weight cache its mma.sync s8
+             body of csrc/fp4_gemm_w4a8.cu; fp4_gemm at the four
+             Llama-3-8B projections, m = 1, 8 and 256, its default tile
+             and k-splits, two launches
              bit for bit, L2-warm and L2-flushed beside torch.matmul, the
              m = 8 layer also as a CUDA graph of the four (cold weights),
              and a sweep of 1 to 8 splits there; the dequant kernel at the
@@ -92,7 +95,8 @@ Phases (any failure raises and the script exits non-zero):
              Engine(max_batch=4, prefill_fmt="w4a8") over the flat bf16
              cache and PagedEngine(page_size=16, cache_dtype=fp8,
              prefill_fmt="w4a8"); W4A8 against exact prefill GEMM launches
-             and the share of token streams equal to those of the same
+             (every W4A8 launch on the 64-row int8 wgmma tiles) and the
+             share of token streams equal to those of the same
              engine with nvfp4 prefill (serve, serve_kv); then the
              weight-cache GEMMs through the public mul_* entries with
              explicit solution ids (the autotuner's route) on one layer
@@ -130,6 +134,12 @@ Phases (any failure raises and the script exits non-zero):
              every bucket row filled, warm and as a CUDA graph of the three;
              where the tree's grouped_mul takes `rows`, also the routed
              buckets of phase 3 with their rows: the same kind of A/B
+ 16 w4a8_layer (only when named) the W4A8 GEMM's 64-row tiles alone, the
+             four Llama-3-8B projections (nvfp4) at m = 512 and 2048, at
+             block_n 64 and 128, bare launches on activations quantized
+             beforehand, L2-warm, summed over the four: the same kind of
+             A/B, also of copies of the tile body edited to find what
+             bounds it (it checks no bits)
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -142,7 +152,9 @@ bound and library time (phases 3 and 4).
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 With --record PATH, every measurement (per-shape GEMM rows included) is
-also written there as JSON.
+also written there as JSON; with --parent-record PATH (another tree's
+record, the parent commit's in an A/B call) each kernel row also keeps that
+run's time as parent_ms.
 """
 
 from __future__ import annotations
@@ -179,9 +191,10 @@ from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
-          "profile", "hybrid_layer", "fp4_layer", "grouped_layer")
-# run when --phases is not given: all but the three A/B phases
-DEFAULT_PHASES = PHASES[:-3]
+          "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
+          "w4a8_layer")
+# run when --phases is not given: all but the four A/B phases
+DEFAULT_PHASES = PHASES[:-4]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -247,6 +260,9 @@ KERNELS = {
         route="cuda", source="petit_kernel_tpu_torch/csrc/grouped_fp4_gemm.cu",
         replaces="petit_kernel_tpu/ops/kernels/grouped.py:26",
         wrapper=grouped.grouped_mul),
+    # an engine reaches only its 64-row tiles, the int8 wgmma body
+    # csrc/w4a8_wgmma.cuh (fused_mul_w4a8.wgmma_launches; serve_w4a8 checks
+    # that every launch of its runs went there)
     "fp4_gemm_w4a8": dict(
         route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_gemm_w4a8.cu",
         replaces="petit_kernel_tpu/ops/kernels/fused.py:482",
@@ -1268,6 +1284,13 @@ def _w4a8_kernels(rec, res, rows, gen):
                     acc["peak"] = peak
             del a, got, want, got_b, exact, got_c, plain16, a_i8, arow, out
         del deq, b_i8
+    body = {"fp4_gemm_w4a8": "the 64-row int8 wgmma tiles of "
+                             "csrc/w4a8_wgmma.cuh",
+            "fp4_gemm_w4a8_wc": "the mma.sync s8 body of "
+                                "csrc/fp4_gemm_w4a8.cu",
+            "fp4_gemm_wc": "the 64-row wgmma tiles of csrc/fp4_wgmma.cuh",
+            "fp4_gemm_prefill": "the 64-row wgmma tiles of "
+                                "csrc/fp4_wgmma.cuh"}
     lib = {"fp4_gemm_w4a8": "torch._int_mm on the requantized int8 weights",
            "fp4_gemm_w4a8_wc": "torch._int_mm on the requantized int8 "
                                "weights",
@@ -1280,14 +1303,15 @@ def _w4a8_kernels(rec, res, rows, gen):
             library_ms=acc["library_ms"],
             **bound(acc["nbytes"], acc["flops"], acc["peak"]),
             at=f"nvfp4 m=2048, sum of the 4 Llama-3-8B projections at the "
-               f"default tile, " + (
-                   "the 64-row wgmma tiles" if name == "fp4_gemm_prefill"
-                   else "bit-equal to its non-cache counterpart") +
+               f"default tile, {body[name]}" + (
+                   "" if name in ("fp4_gemm_w4a8", "fp4_gemm_prefill")
+                   else ", bit-equal to its non-cache counterpart") +
                f"; error against its twin (the W4A8 kernels bit-equal); "
                f"library: {lib[name]}")
-        log(f"[kernels] {name} (nvfp4 m=2048, 4 projections): kernel "
-            f"{acc['ms']:.4f} ms, library {acc['library_ms']} ms, bound "
-            f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+        log(f"[kernels] {name} (nvfp4 m=2048, 4 projections; "
+            f"{body[name]}): kernel {acc['ms']:.4f} ms, library "
+            f"{acc['library_ms']} ms, bound {res[name]['bound_ms']:.4f} ms "
+            f"({res[name]['bound_by']})")
     sweep = []
     for m in (16, 32, 64, 128, 256, 384, 512, 1024, 2048):
         exact_ms = w4a8_ms = 0.0
@@ -1571,6 +1595,42 @@ def phase_hybrid_layer(rec):
         "ms cold")
     log(json.dumps({"hybrid_layer": out}))
     rec["hybrid_layer"] = out
+
+
+def phase_w4a8_layer(rec):
+    """The W4A8 GEMM's 64-row tiles alone, for an A/B of two trees or of
+    edited copies of csrc/w4a8_wgmma.cuh: the four Llama-3-8B projections
+    (nvfp4) at m = 512 and 2048, tiles (64, 64) and (64, 128), each a bare
+    launch of pk_fp4_gemm_w4a8 on activations quantized beforehand
+    (_w4a8_launch), L2-warm, summed over the four. Times only: the kernels
+    phase checks the bits."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for k, n in LLAMA8B_KN:
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        qw, sc, gs = qref.quantize_nvfp4(w)
+        del w
+        words = layout.repack_fp4_weights(qw, n, k,
+                                          pad_to=layout.pad_multiple(16))
+        st = layout.process_fp4_scales(sc, n, k, group_size=16)
+        gs = gs.reshape(1)
+        r_t, acol = fused.w4a8_requant_constants(st)
+        for m in (512, 2048):
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            a_i8, arow = fused.quantize_activations(a)
+            y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            for bn in (64, 128):
+                sid = solution_mod.SolutionId(64, bn, ElementB.NVFP4,
+                                              solution_mod.MatmulType.INT8)
+                key = f"m={m} tile=64x{bn}"
+                out[key] = out.get(key, 0.0) + cuda_ms(lambda: _w4a8_launch(
+                    "pk_fp4_gemm_w4a8", a_i8, arow, words, r_t, acol, gs, y,
+                    sid))
+    for key, t in out.items():
+        log(f"[w4a8_layer] {key}: 4 projections {t:.4f} ms")
+    rec["w4a8_layer"] = out
 
 
 def phase_fp4_layer(rec):
@@ -2633,6 +2693,7 @@ def phase_serve_w4a8(rec):
              lambda: serving.PagedEngine(params, cfg, max_batch=4,
                                          page_size=16, cache_dtype=FP8,
                                          prefill_fmt="w4a8"))):
+        wgmma0 = fused.fused_mul_w4a8.wgmma_launches
         run, eng = _serve(rec, path, make, reqs, cfg)
         dec = run["decode_launches"]
         if dec["fp4_gemm_w4a8"]:
@@ -2640,9 +2701,15 @@ def phase_serve_w4a8(rec):
                                  "kernel")
         run["prefill_gemm_launches"] = dict(
             w4a8=run["launches"]["fp4_gemm_w4a8"],
+            w4a8_wgmma=fused.fused_mul_w4a8.wgmma_launches - wgmma0,
             exact=run["launches"]["fp4_gemm"] - dec["fp4_gemm"])
+        if run["prefill_gemm_launches"]["w4a8_wgmma"] != run["launches"][
+                "fp4_gemm_w4a8"]:
+            raise AssertionError(f"{path}: a W4A8 launch missed the 64-row "
+                                 "int8 wgmma tiles")
         log(f"[{path}] prefill GEMM launches: "
-            f"{run['prefill_gemm_launches']['w4a8']} W4A8, "
+            f"{run['prefill_gemm_launches']['w4a8']} W4A8 (all on the "
+            "64-row int8 wgmma tiles), "
             f"{run['prefill_gemm_launches']['exact']} exact (m < "
             f"{llama.W4A8_MIN_M}); prefill chunk {eng.prefill_chunk}")
         if isinstance(eng, serving.PagedEngine) and (
@@ -2971,14 +3038,35 @@ def phase_profile(rec):
     rec["profile"] = out
 
 
+def _beside_parent(rec, path):
+    """Put the parent run's time of each kernel row beside this run's
+    (parent_ms) and log the ratio: an A/B call runs parent, change,
+    change, parent, each with --record, the change with --parent-record
+    of the run before it."""
+    with open(path) as f:
+        parent = json.load(f).get("kernels", {})
+    for name, row in rec["kernels"].items():
+        old = parent.get(name, {})
+        if not isinstance(row, dict) or "ms" not in row or "ms" not in old:
+            continue
+        row["parent_ms"] = old["ms"]
+        log(f"[kernels] against the parent: {name} {row['ms']:.4f} ms, "
+            f"parent {old['ms']:.4f} ms, ratio "
+            f"{row['ms'] / old['ms']:.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but hybrid_layer, fp4_layer and "
-                    "grouped_layer)")
+                    + " (default: all but hybrid_layer, fp4_layer, "
+                    "grouped_layer and w4a8_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
+    ap.add_argument("--parent-record", help="a --record file of another "
+                    "tree's run (the parent commit's, in an A/B call): each "
+                    "kernel row of this run also records that run's time "
+                    "as parent_ms, and the log compares the two")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -2991,6 +3079,8 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             globals()[f"phase_{name}"](rec)
             log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    if args.parent_record and "kernels" in rec:
+        _beside_parent(rec, args.parent_record)
     if args.record:
         os.makedirs(os.path.dirname(args.record) or ".", exist_ok=True)
         with open(args.record, "w") as f:

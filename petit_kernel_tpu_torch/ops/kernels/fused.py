@@ -17,8 +17,11 @@ launch count:
   fused_mul_hp       csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp (f32 A, three bf16
                      MMAs per fragment, f32 out)
   fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache)
-  fused_mul_w4a8     csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8 (mma.sync s8)
-  fused_mul_w4a8_wc  csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8_wc
+  fused_mul_w4a8     csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8 (64-row tiles:
+                     int8 wgmma, csrc/w4a8_wgmma.cuh; 16-row tiles:
+                     mma.sync s8)
+  fused_mul_w4a8_wc  csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8_wc (mma.sync
+                     s8)
   dequant_tpu_layout csrc/fp4_dequant.cu pk_fp4_dequant
 
 fused_mul hands a high_precision solution id to fused_mul_hp (or
@@ -521,8 +524,8 @@ def _fused_mul_w4a8_cuda(entry: str, a, words, scales_t, global_scale, sid,
                 ("r_t", r_t, torch.bfloat16, tuple(scales_t.shape)),
                 ("acol", acol, torch.float32, (1, n)))
     a_i8, arow = quantize_activations(a)
-    a_i8 = _aligned(a_i8)
-    words, r_t = words.contiguous(), r_t.contiguous()
+    # the 64-row tiles copy A8, the words and R in 16-byte pieces
+    a_i8, words, r_t = _aligned(a_i8), _aligned(words), _aligned(r_t)
     acol, arow = acol.contiguous(), arow.contiguous()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     if m == 0 or n == 0:
@@ -545,8 +548,10 @@ def fused_mul_w4a8(a: torch.Tensor, words: torch.Tensor,
     are w4a8_requant_constants(scales_t), computed per call unless given.
     sid: the (block_m, block_n) tile; a weight_cache sid goes to
     fused_mul_w4a8_wc. Launches csrc/fp4_gemm_w4a8.cu for CUDA tensors
-    (counted in fused_mul_w4a8.launches); runs fused_mul_w4a8_reference
-    for CPU tensors."""
+    (counted in fused_mul_w4a8.launches; the 64-row tiles, whose kernel is
+    the int8 wgmma body of csrc/w4a8_wgmma.cuh, also in
+    fused_mul_w4a8.wgmma_launches); runs fused_mul_w4a8_reference for CPU
+    tensors."""
     if sid.weight_cache:
         return fused_mul_w4a8_wc(a, words, scales_t, global_scale, sid=sid,
                                  r_t=r_t, acol=acol)
@@ -557,6 +562,8 @@ def fused_mul_w4a8(a: torch.Tensor, words: torch.Tensor,
                                          scales_t, global_scale, sid, r_t,
                                          acol)
     fused_mul_w4a8.launches += launched
+    if launched and sid.block_m == 64:
+        fused_mul_w4a8.wgmma_launches += 1
     return out
 
 
@@ -578,4 +585,5 @@ def fused_mul_w4a8_wc(a: torch.Tensor, words: torch.Tensor,
 
 
 fused_mul_w4a8.launches = 0
+fused_mul_w4a8.wgmma_launches = 0
 fused_mul_w4a8_wc.launches = 0

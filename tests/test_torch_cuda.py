@@ -15,7 +15,9 @@ fused_mul on each expert at the same tile and k-splits, with `rows` bit
 for bit against the launch without them, and its layer's three calls
 replayed in a CUDA graph bit for bit the eager run; the weight-cache GEMM bit
 for bit against fused_mul at the same tile; the W4A8 GEMM and its
-weight-cache variant bit for bit against their twin (exact int32 sums);
+weight-cache variant bit for bit against their twin (exact int32 sums),
+the plain kernel's 64-row int8 wgmma tiles also at k = 4096 over 5 and 32
+m-tiles, and the weight cache bit for bit against them;
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
 convert fp8 exactly), the prefill wrappers also on views off a 16-byte
 boundary; the KV appends and the dequant kernel bit-exact; the
@@ -597,6 +599,56 @@ def test_w4a8_kernels_bit_equal_to_twin(gen, fmt, bm, bn):
                                        r_t=r_t, acol=acol)
             assert fused.fused_mul_w4a8_wc.launches == before + 1
             assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def _w4a8_operands(gen, fmt, n, k):
+    quant, group = _QUANT[fmt]
+    w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+    qw, sc, gs = quant(w)
+    words = layout.repack_fp4_weights(qw, n, k,
+                                      pad_to=layout.pad_multiple(group))
+    st = layout.process_fp4_scales(sc, n, k, group_size=group)
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    return words, st, gs.reshape(1), eb
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_w4a8_wgmma_tiles_bit_equal_to_twin(gen, fmt, bn):
+    """The plain kernel's 64-row tiles (the int8 wgmma body) at k = 4096,
+    over 5 and 32 m-tiles (m = 300, ragged, and 2048), bit for bit the
+    twin, each launch counted as a wgmma launch."""
+    n, k = 512, 4096
+    words, st, gs, eb = _w4a8_operands(gen, fmt, n, k)
+    sid = sol.SolutionId(64, bn, eb, sol.MatmulType.INT8)
+    for m in (300, 2048):
+        a = _bf16(gen, m, k)
+        before = fused.fused_mul_w4a8.wgmma_launches
+        got = fused.fused_mul_w4a8(a, words, st, gs, sid=sid)
+        assert fused.fused_mul_w4a8.wgmma_launches == before + 1
+        want = fused.fused_mul_w4a8_reference(a, words, st, gs, sid=sid)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_w4a8_weight_cache_bit_equal_to_wgmma_tiles(gen, fmt, bn):
+    """The weight-cache kernel (the mma.sync body) against the plain
+    kernel's int8 wgmma tiles at the same widths, bit for bit."""
+    n, k = 512, 4096
+    words, st, gs, eb = _w4a8_operands(gen, fmt, n, k)
+    r_t, acol = fused.w4a8_requant_constants(st)
+    sid = sol.SolutionId(64, bn, eb, sol.MatmulType.INT8)
+    wc = sol.SolutionId(64, bn, eb, sol.MatmulType.INT8, weight_cache=True)
+    for m in (300, 2048):
+        a = _bf16(gen, m, k)
+        plain = fused.fused_mul_w4a8(a, words, st, gs, sid=sid, r_t=r_t,
+                                     acol=acol)
+        before = fused.fused_mul_w4a8_wc.launches
+        got = fused.fused_mul_w4a8(a, words, st, gs, sid=wc, r_t=r_t,
+                                   acol=acol)
+        assert fused.fused_mul_w4a8_wc.launches == before + 1
+        assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
 
 
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])

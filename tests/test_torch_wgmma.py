@@ -46,7 +46,7 @@ _WROWS = 32         # packed word rows a step
 
 
 @pytest.mark.parametrize("src", ["fp4_gemm.cu", "grouped_fp4_gemm.cu",
-                                 "hybrid_gemm.cu"])
+                                 "hybrid_gemm.cu", "fp4_gemm_w4a8.cu"])
 def test_launchers_dispatch_the_solution_tiles(src):
     """The (block_m, block_n) tiles a launcher dispatches are the ones
     solution.py lists, so every id the heuristic or a table picks has a
@@ -233,19 +233,21 @@ def test_decode_pair_matches_the_e2m1_table():
 
 # ---- the ring --------------------------------------------------------------
 
-def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1):
-    """Play fp4_wgmma_tile's order for every thread at once and return the
-    hazards found. A unit u = 4 * step + j runs: decode into B slot
-    u % b_slots; cp.async.wait_group(da - 1); barrier; copy A(u + da) into
-    slot (u + da) % a_slots (and, at j = 0, the next step's words and
-    scales into stage (step + 1) % 2); commit; wgmmas on A(u), B(u);
-    commit; wgmma.wait_group(mma_depth). The prologue commits da groups,
+def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4):
+    """Play fp4_wgmma_tile's order (`units` units a step; the W4A8 body,
+    w4a8_wgmma_tile, runs 2) for every thread at once and return the
+    hazards found. A unit u = units * step + j runs: decode into B slot
+    u % b_slots (reading the step's words and scales);
+    cp.async.wait_group(da - 1); barrier; copy A(u + da) into slot
+    (u + da) % a_slots (and, at j = 0, the next step's words and scales
+    into stage (step + 1) % 2); commit; wgmmas on A(u), B(u); commit;
+    wgmma.wait_group(mma_depth). The prologue commits da groups,
     A(v) for v < da with step 0's words in the first, then waits for
     da - 1 and meets a barrier. A copy group counts as landed for every
     thread once a wait has retired it and a barrier followed; a wgmma as
     done once a wait has retired it and a barrier followed."""
     a_slots = da + 2 if a_slots is None else a_slots
-    units = 4 * steps
+    n_units = units * steps
     faults = []
     groups = []                      # contents of each committed group
     group_of = {}                    # operand -> its group
@@ -278,12 +280,12 @@ def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1):
 
     for v in range(da):
         ops = [load_ws(0)] if v == 0 else []
-        if v < units:
+        if v < n_units:
             ops.append(load_a(v))
         commit(ops)
     landed = wait_copies(da - 1)          # prologue wait + barrier
-    for u in range(units):
-        step, j = divmod(u, 4)
+    for u in range(n_units):
+        step, j = divmod(u, units)
         # decode(u): reads the step's words and scales, writes B slot
         if group_of[("WS", step)] >= landed:
             faults.append(f"decode({u}) reads words({step}) not landed")
@@ -297,7 +299,7 @@ def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1):
         landed = wait_copies(da - 1)
         done_mma = retired_mma
         ops = []
-        if u + da < units:
+        if u + da < n_units:
             ops.append(load_a(u + da))
         if j == 0 and step + 1 < steps:
             ops.append(load_ws(step + 1))
