@@ -6,7 +6,9 @@
 
 Phases (any failure raises and the script exits non-zero):
   1 device   require CUDA; print the card, CUDA, nvcc and nvidia-smi lines
-  2 build    compile csrc/*.cu through ops/_build.py, print the seconds
+  2 build    compile csrc/*.cu through ops/_build.py, print the seconds;
+             log and record each kernel's ptxas registers, spills and
+             C7515 warnings
   3 kernels  each kernel against its plain PyTorch twin on the card, at the
              Llama-3-8B serving shapes (headed kernels at page sizes 16
              and 256, bf16 and fp8 K/V; the W4A8 GEMM and both weight-cache
@@ -16,7 +18,9 @@ Phases (any failure raises and the script exits non-zero):
              fp4_gemm_prefill; the 64-row tiles of fp4_gemm, its weight
              cache, the grouped GEMM (cap 128) and the hybrid GEMM's FP4
              columns (m = 512) all run the wgmma body of
-             csrc/fp4_wgmma.cuh, the W4A8 GEMM's 64-row tiles the int8
+             csrc/fp4_wgmma.cuh, the hybrid GEMM's dense columns the bf16
+             wgmma body of csrc/dense_wgmma.cuh (TMA copies), the W4A8
+             GEMM's 64-row tiles the int8
              wgmma body of csrc/w4a8_wgmma.cuh, the 16-row tiles mma.sync
              bodies (the split-k stream csrc/fp4_stream.cuh for fp4_gemm,
              the grouped GEMM and the hybrid GEMM, csrc/fp4_gemm.cuh for
@@ -33,7 +37,10 @@ Phases (any failure raises and the script exits non-zero):
              k-splits and, at m = 8, at 1, 2, 3 and one per step, each
              launched twice for the same bits, its FP4 columns bit for bit
              against fused_mul at the same tile with one split, timed
-             L2-warm and L2-flushed) and, for the
+             L2-warm and L2-flushed; at m = 512 also its dense columns
+             alone, a launch with no FP4 columns, bit for bit the full
+             launch's, beside torch.matmul(a, wd[:k]) and their bound, and
+             its FP4 columns alone through fused_mul) and, for the
              grouped expert GEMM, Mixtral-8x7B's expert shapes (E=8, cap 8
              and 128, mxfp4 and nvfp4, also bit for bit against fused_mul
              per expert at the same split count), and one Mixtral layer's
@@ -120,8 +127,9 @@ Phases (any failure raises and the script exits non-zero):
              torch.profiler, in Engine (Llama, bf16), PagedEngine (Llama,
              fp8, page size 16), the hybrid Engine and the Mixtral Engine,
              one 512-token prefill tick of the Llama Engine with nvfp4 and
-             with W4A8 prefill, and one training step: kernels by device
-             time and the device's idle share (PERF.md section 5)
+             with W4A8 prefill and of the hybrid Engine, and one training
+             step: kernels by device time and the device's idle share
+             (PERF.md section 5)
  13 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
@@ -140,6 +148,12 @@ Phases (any failure raises and the script exits non-zero):
              beforehand, L2-warm, summed over the four: the same kind of
              A/B, also of copies of the tile body edited to find what
              bounds it (it checks no bits)
+ 17 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
+             tiles alone, the seven unfused projections at m = 512, the
+             heuristic's tile, L2-warm, summed over the layer, with the
+             dense columns alone (a launch with no FP4 columns) beside
+             torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
+             the same kind of A/B
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -192,9 +206,9 @@ from petit_kernel_tpu_torch.utils import benchlib
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
-          "w4a8_layer")
-# run when --phases is not given: all but the four A/B phases
-DEFAULT_PHASES = PHASES[:-4]
+          "w4a8_layer", "hybrid_prefill_layer")
+# run when --phases is not given: all but the five A/B phases
+DEFAULT_PHASES = PHASES[:-5]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -366,20 +380,54 @@ def phase_device(rec):
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _ptxas_table(text: str) -> dict:
+    """Registers and spill bytes of every kernel in ptxas -v output, by a
+    short name (`hybrid_gemm_kernel<64, 128>`), and the kernels a C7515
+    warning (wgmma serialized) names."""
+    def short(mangled):
+        # _Z[N] <length><name> ... I<template arguments>E: the last name
+        if not mangled.startswith("_Z"):
+            return mangled[:90]
+        rest, names = mangled[3 if mangled.startswith("_ZN") else 2:], []
+        while rest[:1].isdigit():
+            digits = re.match(r"\d+", rest)[0]
+            names.append(rest[len(digits):len(digits) + int(digits)])
+            rest = rest[len(digits) + int(digits):]
+        if not names:
+            return mangled[:90]
+        args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+        if args:
+            return f"{names[-1]}<{', '.join(re.findall(r'Li(-?[0-9]+)E', args[1]))}>"
+        return names[-1] + (rest[:40] if rest.startswith("I") else "")
+    table, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line and "'" in line:
+            name = short(line.split("'")[1])
+            table[name] = dict(registers=None, spill_stores=None,
+                               spill_loads=None, c7515=False)
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            table[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and re.search(r"Used \d+ registers", line):
+            table[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+        if "C7515" in line:
+            for mangled in re.findall(r"'(_Z\w+)'", line):
+                table.setdefault(short(mangled), {})["c7515"] = True
+    return table
+
+
 def phase_build(rec):
     info = _build.build()
     _build.library()
     rec["build_seconds"] = info.seconds
     log(f"[build] {info.path.name} in {info.seconds:.1f} s "
         f"({'reused' if info.seconds == 0 else 'compiled'})")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
-        elif "Compiling entry function" in line:
-            # the kernel the next lines describe (mangled, shortened)
-            name = line.split("'")[1] if "'" in line else line
-            name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_", "", name)
-            log(f"[build] {name[:90]}")
+    rec["ptxas"] = _ptxas_table(info.log)
+    for name, p in rec["ptxas"].items():
+        log(f"[build] ptxas {name}: {p.get('registers')} registers, spill "
+            f"stores {p.get('spill_stores')} and loads {p.get('spill_loads')}"
+            f" bytes{', C7515 (wgmma serialized)' if p.get('c7515') else ''}")
 
 
 def _close(name, got, want, rtol, atol):
@@ -1432,6 +1480,42 @@ def _hybrid_cold_ms(a, words, st, gs, wd, **kw) -> float:
         a, w, s, gs, d, **kw)) for w, s, d in copies])
 
 
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of a CUDA graph of `reps` launches of fn, L2-warm
+    (one set of operands): no host time between the launches, which a
+    back-to-back mean of calls shorter than their host time includes."""
+    return _cold_ms([fn], reps=reps)
+
+
+def _hybrid_halves(a, words, st, gs, wd, sid, outd):
+    """The two kinds of CTAs of one 64-row hybrid launch timed apart,
+    L2-warm: the dense columns alone (a launch with no FP4 columns, which
+    runs only the dense CTAs; its output bit for bit the full launch's
+    `outd`), their yardstick torch.matmul(a, wd[:k]) and the work of
+    their bound, and the FP4 columns alone (fused_mul at the same tile
+    runs the same body as the FP4 CTAs). Back-to-back means (cuda_ms) and
+    graph times (_graph_ms, the "graph_" keys): the dense launches of the
+    small projections take less device time than the wrapper's host
+    time."""
+    k = a.shape[1]
+    no_w, no_s = words[:, :0].contiguous(), st[:, :0].contiguous()
+    dense = (lambda: hybrid.hybrid_mul(a, no_w, no_s, gs, wd, sid=sid))
+    _, alone = dense()
+    torch.cuda.synchronize()
+    if not torch.equal(alone.view(torch.int16), outd.view(torch.int16)):
+        raise AssertionError(f"hybrid m={a.shape[0]} k={k}: the dense CTAs "
+                             "alone differ from the full launch's")
+    wdk = wd[:k]
+    lib = (lambda: torch.matmul(a, wdk))
+    fp4 = (lambda: fused.fused_mul(a, words, st, gs, sid=sid))
+    return dict(dense_ms=cuda_ms(dense), graph_dense_ms=_graph_ms(dense),
+                dense_library_ms=cuda_ms(lib),
+                graph_dense_library_ms=_graph_ms(lib),
+                dense_nbytes=_nbytes(a, wdk, outd),
+                dense_flops=2 * a.shape[0] * wd.shape[1] * k,
+                fp4_ms=cuda_ms(fp4), graph_fp4_ms=_graph_ms(fp4))
+
+
 def _hybrid_kernels(res, rows, gen):
     """The hybrid GEMM at the seven unfused Llama-3-8B projections, each
     split as quantize_params(..., "hybrid") splits it (3:1), at m = 8 and
@@ -1445,13 +1529,20 @@ def _hybrid_kernels(res, rows, gen):
     columns and the dense ones side by side). The JSON row is m = 8 summed
     over the seven (one layer of a hybrid decode step), L2 flushed; at m =
     8 the rows also hold the cold-weights graph time (_cold_ms). The m =
-    512 sum (64-row tiles: the wgmma body for the FP4 columns), L2-warm,
-    is logged and kept as the row's "prefill"."""
+    512 sum (64-row tiles: fp4_wgmma.cuh for the FP4 columns,
+    dense_wgmma.cuh for the dense ones), L2-warm, is logged and kept as
+    the row's "prefill", with the two halves timed apart (_hybrid_halves):
+    "fp4_ms" and "dense", the dense columns' time beside
+    torch.matmul(a, wd[:k]) and their own bound."""
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     layer = dict(ms=0.0, warm_ms=0.0, cold_ms=0.0, plain_ms=0.0,
                  library_ms=0.0, nbytes=0, flops=0)
-    prefill = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    prefill = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0,
+                   graph_ms=0.0, dense_ms=0.0, graph_dense_ms=0.0,
+                   dense_library_ms=0.0, graph_dense_library_ms=0.0,
+                   dense_nbytes=0, dense_flops=0, fp4_ms=0.0,
+                   graph_fp4_ms=0.0)
     err = 0.0
     tol = dict(rtol=2 ** -7)
     for k, n in dict.fromkeys(LLAMA8B_UNFUSED_KN):
@@ -1507,6 +1598,11 @@ def _hybrid_kernels(res, rows, gen):
             t_lf = _flushed_ms(lambda: torch.matmul(a, full))
             t_kc = (_hybrid_cold_ms(a, words, st, gs, wd, sid=sid)
                     if m == 8 else None)
+            if m == 512:
+                split = _hybrid_halves(a, words, st, gs, wd, sid, outd)
+                split["graph_ms"] = _graph_ms(call)
+                for key, v in split.items():
+                    prefill[key] += times * v
             nbytes = _nbytes(a, words, st, gs, wd, want_f, want_d)
             flops = 2 * m * n * k
             row = dict(kernel="hybrid_gemm", m=m, k=k, n=n, nf=nf, nd=nd,
@@ -1549,13 +1645,34 @@ def _hybrid_kernels(res, rows, gen):
            "back-to-back mean; cold_ms: a CUDA graph over weight copies "
            "larger than L2); library: torch.matmul on the whole bf16 "
            "weight",
-        prefill=_layer_row(prefill, "m=512, the same 7 projections, "
-                                    "L2-warm"))
+        prefill=dict(
+            _layer_row(prefill, "m=512, the same 7 projections, L2-warm"),
+            graph_ms=prefill["graph_ms"], fp4_ms=prefill["fp4_ms"],
+            graph_fp4_ms=prefill["graph_fp4_ms"],
+            dense=dict(ms=prefill["dense_ms"],
+                       graph_ms=prefill["graph_dense_ms"],
+                       library_ms=prefill["dense_library_ms"],
+                       graph_library_ms=prefill["graph_dense_library_ms"],
+                       **bound(prefill["dense_nbytes"],
+                               prefill["dense_flops"]),
+                       at="the dense columns alone (no FP4 columns), m=512, "
+                          "the 7 projections, L2-warm; library: "
+                          "torch.matmul(a, wd[:k])")))
+    pre = res["hybrid_gemm"]["prefill"]
     log(f"[kernels] hybrid layer m=512 (7 projections, 64-row tiles): "
-        f"kernel {prefill['ms']:.4f} ms warm, matmul "
-        f"{prefill['library_ms']:.4f} ms, bound "
-        f"{res['hybrid_gemm']['prefill']['bound_ms']:.4f} ms "
-        f"({res['hybrid_gemm']['prefill']['bound_by']})")
+        f"kernel {prefill['ms']:.4f} ms warm (graph "
+        f"{prefill['graph_ms']:.4f}), matmul {prefill['library_ms']:.4f} ms, "
+        f"bound {pre['bound_ms']:.4f} ms ({pre['bound_by']}); FP4 columns "
+        f"alone (fused_mul) {prefill['fp4_ms']:.4f} ms (graph "
+        f"{prefill['graph_fp4_ms']:.4f}); dense columns alone "
+        f"{prefill['dense_ms']:.4f} ms (graph {prefill['graph_dense_ms']:.4f}"
+        f"), matmul(a, wd[:k]) {prefill['dense_library_ms']:.4f} ms (graph "
+        f"{prefill['graph_dense_library_ms']:.4f}; graph ratio "
+        f"{prefill['graph_dense_ms'] / prefill['graph_dense_library_ms']:.2f}"
+        f"x), bound {pre['dense']['bound_ms']:.4f} ms "
+        f"({pre['dense']['bound_by']}; "
+        f"{100 * pre['dense']['bound_ms'] / prefill['graph_dense_ms']:.1f}% "
+        "of the graph time)")
     log(f"[kernels] hybrid layer (m=8, 7 projections): kernel "
         f"{layer['ms']:.4f} ms flushed, {layer['warm_ms']:.4f} warm, "
         f"{layer['cold_ms']:.4f} cold (graph); matmul "
@@ -1595,6 +1712,55 @@ def phase_hybrid_layer(rec):
         "ms cold")
     log(json.dumps({"hybrid_layer": out}))
     rec["hybrid_layer"] = out
+
+
+def phase_hybrid_prefill_layer(rec):
+    """The hybrid GEMM's prefill layer alone, for an A/B of two trees: the
+    seven unfused Llama-3-8B projections at m = 512 through hybrid_mul at
+    the heuristic's 64-row tile, L2-warm (back-to-back and as a CUDA graph
+    of 20 launches), summed over the layer, and its two halves apart
+    (_hybrid_halves: the dense columns alone, their torch.matmul
+    yardstick, the FP4 columns through fused_mul). It calls
+    only APIs older trees have too, so a copy of this script placed in an
+    older checkout times that tree's kernel."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    keys = ("ms", "graph_ms", "dense_ms", "graph_dense_ms",
+            "dense_library_ms", "graph_dense_library_ms", "fp4_ms",
+            "graph_fp4_ms", "dense_nbytes", "dense_flops")
+    out = dict.fromkeys(keys, 0.0)
+    out["per_projection"] = []
+    for k, n in dict.fromkeys(LLAMA8B_UNFUSED_KN):
+        times = LLAMA8B_UNFUSED_KN.count((k, n))
+        words, st, gs, wd = _hybrid_operands(k, n, gen)
+        a = torch.randn((512, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        sid = solution_mod.choose_default_solution(512, words.shape[1], k)
+        call = (lambda: hybrid.hybrid_mul(a, words, st, gs, wd, sid=sid))
+        _, outd = call()
+        row = dict(k=k, n=n, tile=[sid.block_m, sid.block_n],
+                   ms=cuda_ms(call), graph_ms=_graph_ms(call),
+                   **_hybrid_halves(a, words, st, gs, wd, sid, outd))
+        out["per_projection"].append(row)
+        for key in keys:
+            out[key] += times * row[key]
+        log(f"[hybrid_prefill_layer] k={k} n={n} (x{times}) "
+            f"tile={sid.block_m}x{sid.block_n}: {row['ms']:.4f} ms (graph "
+            f"{row['graph_ms']:.4f}); dense alone {row['dense_ms']:.4f} "
+            f"(graph {row['graph_dense_ms']:.4f}; matmul "
+            f"{row['dense_library_ms']:.4f}, graph "
+            f"{row['graph_dense_library_ms']:.4f}), FP4 alone "
+            f"{row['fp4_ms']:.4f} (graph {row['graph_fp4_ms']:.4f})")
+        del words, st, wd, a, outd
+    out["dense_bound"] = bound(out["dense_nbytes"], out["dense_flops"])
+    log(f"[hybrid_prefill_layer] layer (7 projections, m=512): "
+        f"{out['ms']:.4f} ms (graph {out['graph_ms']:.4f}); dense columns "
+        f"alone {out['dense_ms']:.4f} ms (graph {out['graph_dense_ms']:.4f}),"
+        f" matmul(a, wd[:k]) {out['dense_library_ms']:.4f} ms (graph "
+        f"{out['graph_dense_library_ms']:.4f}), bound "
+        f"{out['dense_bound']['bound_ms']:.4f} ms; FP4 columns alone "
+        f"{out['fp4_ms']:.4f} ms (graph {out['graph_fp4_ms']:.4f})")
+    rec["hybrid_prefill_layer"] = out
 
 
 def phase_w4a8_layer(rec):
@@ -3001,7 +3167,8 @@ def phase_profile(rec):
     hybrid Engine, and serve_moe's Mixtral in its Engine, 4 slots each
     (_profile_engine); one training step of phase train; then a 512-token
     prefill tick of the Llama Engine with nvfp4 and with W4A8 prefill
-    GEMMs. Device idle share = 1 - (summed kernel time) / wall."""
+    GEMMs, and of the hybrid Engine. Device idle share = 1 - (summed
+    kernel time) / wall."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b()
     params, _ = _serve_model(cfg, dev)
@@ -3027,13 +3194,16 @@ def phase_profile(rec):
             mparams, mcfg, max_batch=4,
             forward_fn=moe.make_engine_forward(mcfg)), mcfg)
     gc.collect()
-    # one 512-token prefill tick, exact nvfp4 GEMMs against W4A8 ones
-    for tag, kw in (("nvfp4", dict(prefill_chunk=512)),
-                    ("w4a8", dict(prefill_fmt="w4a8"))):
+    # one 512-token prefill tick, exact nvfp4 GEMMs against W4A8 ones, and
+    # the hybrid Engine's (its 64-row tiles: both CTA kinds of the hybrid
+    # GEMM)
+    for tag, p, kw in (("nvfp4", params, dict(prefill_chunk=512)),
+                       ("w4a8", params, dict(prefill_fmt="w4a8")),
+                       ("hybrid", hparams, dict(prefill_chunk=512,
+                                                fmt="hybrid"))):
         out[f"prefill_512_{tag}"] = _profile_engine(
             f"bf16 Engine, {tag} prefill", serving.Engine(
-                params, cfg, max_batch=4, **kw), cfg, chunk=512,
-            decode=False)
+                p, cfg, max_batch=4, **kw), cfg, chunk=512, decode=False)
         gc.collect()
     rec["profile"] = out
 
@@ -3060,7 +3230,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all but hybrid_layer, fp4_layer, "
-                    "grouped_layer and w4a8_layer)")
+                    "grouped_layer, w4a8_layer and hybrid_prefill_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     ap.add_argument("--parent-record", help="a --record file of another "

@@ -33,32 +33,23 @@
 // memory so that two fit on an SM.
 //
 // Prefill tiles (block_m = 64): hybrid_gemm_kernel, one CTA per output
-// tile. FP4 CTAs run fp4_wgmma.cuh's wgmma body, fp4_wgmma_tile<BN, 1>, so
-// CF equals fused_mul's output bit for bit; dense CTAs run dense_gemm_tile
-// (mma.sync), which stages the same A rows, copies a (256, BN) block of WD
-// rows into a k-major shared tile in 16-byte pieces and reads B with
-// ldmatrix.trans. No pipeline there: the dense prefill CTAs are a later
-// redesign.
+// tile, one warpgroup each. FP4 CTAs run fp4_wgmma.cuh's wgmma body,
+// fp4_wgmma_tile<BN, 1>, so CF equals fused_mul's output bit for bit;
+// dense CTAs run dense_wgmma.cuh's, dense_wgmma_tile<BN>: bf16 wgmma with
+// A K-major and WD's rows copied as they are stored into MN-major
+// 128-byte-swizzled blocks read through B's transpose bit, in a 4-slot
+// ring that the tensor memory accelerator fills (two tensor maps, encoded
+// here on the host for each launch). What bounds the FP4 CTAs is their
+// decode; what bounds the dense ones, which hold a quarter of the
+// operations, is how fast a CTA can pull its operands from L2, which the
+// TMA copies raise over 16-byte cp.async copies. The grid puts the FP4
+// tiles first in x, so the heavier CTAs start first, and the launch's
+// shared memory is the FP4 body's, which the dense plan never exceeds:
+// two blocks an SM at BN = 128, three at 64.
 
-#include "fp4_wgmma.cuh"
+#include "dense_wgmma.cuh"
 
 namespace {
-
-// dense tile: k-major B rows of BN + DENSE_PAD bf16 (16 bytes of padding
-// put the eight rows of an ldmatrix four banks apart: no bank conflicts)
-constexpr int DENSE_PAD = 8;
-
-template <int BM, int BN>
-constexpr int dense_smem_bytes() {
-  return BM * LDS * 2 + KSTEP * (BN + DENSE_PAD) * 2;
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&b)[2], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], const void* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -67,99 +58,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], const void* 
                : "r"(addr));
 }
 
-// The (BM, BN) tile at (m0, n0) of C = bf16(A @ WD), WD (KP, N) row-major;
-// four warps laid out over the tile as in fp4_gemm_tile<BM, BN, 1>.
-template <int BM, int BN>
-__device__ __forceinline__ void dense_gemm_tile(unsigned char* smem,
-                                                const __nv_bfloat16* __restrict__ A,
-                                                const __nv_bfloat16* __restrict__ WD,
-                                                __nv_bfloat16* __restrict__ C, int M, int N,
-                                                int K, int KP, int m0, int n0) {
-  constexpr int WM = (BM == 16) ? 1 : 2;
-  constexpr int WN = 4 / WM;
-  constexpr int WTM = BM / WM, WTN = BN / WN;
-  constexpr int MT = WTM / 16, NT = WTN / 8;
-  constexpr int LDB = BN + DENSE_PAD;
-  constexpr int RUNS = BN / 8;   // 16-byte pieces of a WD row in the tile
-  static_assert(MT >= 1 && NT >= 1 && WTM % 16 == 0 && WTN % 8 == 0, "tile");
-
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [BM][LDS], natural k
-  __nv_bfloat16* Bs = As + BM * LDS;                             // [KSTEP][LDB], k-major
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
-  const int g = lane >> 2, tg = lane & 3;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += KSTEP) {
-    // A: BM rows x 32 runs of 8 contiguous natural k (zero past K and M)
-    for (int e = tid; e < BM * 32; e += THREADS) {
-      const int m = e >> 5, run = e & 31;
-      const int kn = k0 + run * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + m < M && kn < K)
-        v = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + m) * K + kn);
-      *reinterpret_cast<uint4*>(As + m * LDS + run * 8) = v;
-    }
-    // B: KSTEP rows of WD x RUNS pieces of 8 columns (N % 8 == 0)
-    for (int e = tid; e < KSTEP * RUNS; e += THREADS) {
-      const int kk = e / RUNS, nn = (e % RUNS) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + kk < KP && n0 + nn < N)
-        v = *reinterpret_cast<const uint4*>(WD + (size_t)(k0 + kk) * N + n0 + nn);
-      *reinterpret_cast<uint4*>(Bs + kk * LDB + nn) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KSTEP / 16; ++kk) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const __nv_bfloat16* p = As + (wm * WTM + i * 16 + g) * LDS + kk * 16 + tg * 2;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        ldmatrix_x2_trans(bfr[j], Bs + (kk * 16 + (lane & 15)) * LDB + wn * WTN + j * 8);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int row = m0 + wm * WTM + i * 16 + g;
-      const int col = n0 + wn * WTN + j * 8 + tg * 2;
-      if (col >= N) continue;
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * N + col) =
-            __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)(row + 8) * N + col) =
-            __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
-    }
-}
-
 template <int BM, int BN>
 __global__ void __launch_bounds__(THREADS)
 hybrid_gemm_kernel(const __nv_bfloat16* __restrict__ A, const uint32_t* __restrict__ W,
                    const __nv_bfloat16* __restrict__ S, const float* __restrict__ gs,
-                   const __nv_bfloat16* __restrict__ WD, __nv_bfloat16* __restrict__ CF,
+                   const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_wd, __nv_bfloat16* __restrict__ CF,
                    __nv_bfloat16* __restrict__ CD, int M, int NF, int ND, int K, int KP,
                    int f_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -168,8 +72,34 @@ hybrid_gemm_kernel(const __nv_bfloat16* __restrict__ A, const uint32_t* __restri
   if (static_cast<int>(blockIdx.x) < f_tiles)
     fp4_wgmma_tile<BN, 1>(smem, A, W, S, gs, CF, M, NF, K, KP, m0, blockIdx.x * BN);
   else
-    dense_gemm_tile<BM, BN>(smem, A, WD, CD, M, ND, K, KP, m0,
-                            (static_cast<int>(blockIdx.x) - f_tiles) * BN);
+    dense_wgmma_tile<BN>(smem, &map_a, &map_wd, CD, M, ND, K, m0,
+                         (static_cast<int>(blockIdx.x) - f_tiles) * BN);
+}
+
+// the tensor map of a (rows, cols) row-major bf16 matrix at `base` for
+// dense_wgmma.cuh: 64 x 64 boxes with the 128-byte swizzle, zeros past
+// the edges. The driver's encoder comes through the runtime, so the
+// library links no driver library.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+cudaError_t encode_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t row_bytes[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {DW_BOX, DW_BOX}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, row_bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int BM, int BN>
@@ -177,20 +107,24 @@ cudaError_t launch(const void* a, const void* w, const void* s, const void* gs,
                    const void* wd, void* outf, void* outd, int m, int nf, int nd, int k,
                    int kp, cudaStream_t stream) {
   static_assert(fp4_wgmma_threads<BN, 1>() == THREADS, "threads");
-  // the larger of the two kinds' budgets
-  constexpr int bytes = fp4_wgmma_smem_bytes<BN, 1>() > dense_smem_bytes<BM, BN>()
-                            ? fp4_wgmma_smem_bytes<BN, 1>()
-                            : dense_smem_bytes<BM, BN>();
-  cudaError_t err = cudaFuncSetAttribute(hybrid_gemm_kernel<BM, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // the FP4 body's budget, which the dense plan never raises
+  constexpr int bytes = fp4_wgmma_smem_bytes<BN, 1>();
+  static_assert(dense_wgmma_smem_bytes<BN>() <= bytes, "the dense plan raises the launch's smem");
+  CUtensorMap map_a{}, map_wd{};
+  cudaError_t err;
+  if (nd > 0 && ((err = encode_map(&map_a, a, m, k)) != cudaSuccess ||
+                 (err = encode_map(&map_wd, wd, kp, nd)) != cudaSuccess))
+    return err;
+  err = cudaFuncSetAttribute(hybrid_gemm_kernel<BM, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int f_tiles = (nf + BN - 1) / BN, d_tiles = (nd + BN - 1) / BN;
   dim3 grid(f_tiles + d_tiles, (m + BM - 1) / BM);
   hybrid_gemm_kernel<BM, BN><<<grid, THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const uint32_t*>(w),
-      static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(gs),
-      static_cast<const __nv_bfloat16*>(wd), static_cast<__nv_bfloat16*>(outf),
-      static_cast<__nv_bfloat16*>(outd), m, nf, nd, k, kp, f_tiles);
+      static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(gs), map_a, map_wd,
+      static_cast<__nv_bfloat16*>(outf), static_cast<__nv_bfloat16*>(outd), m, nf, nd, k, kp,
+      f_tiles);
   return cudaGetLastError();
 }
 

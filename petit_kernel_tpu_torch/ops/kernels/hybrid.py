@@ -9,8 +9,9 @@ the rule fused_mul's 16-row tiles follow too, here as hybrid_splits) that
 stream the weights through a cp.async ring (csrc/fp4_stream.cuh) and sum
 their partials in a fixed order; its prefill tiles (block_m = 64) run one
 CTA per tile: FP4 tiles with the wgmma body of csrc/fp4_wgmma.cuh (the
-one fused_mul's 64-row tiles run), dense tiles with a bf16 mma.sync tile.
-The dense columns are held in natural k order, (kp, nd): the JAX package
+one fused_mul's 64-row tiles run), dense tiles with the bf16 wgmma body of
+csrc/dense_wgmma.cuh, which reads wd's rows as they are stored (MN-major,
+through the transpose bit of B). The dense columns are held in natural k order, (kp, nd): the JAX package
 stores them pi-permuted to its kernel's A order, which the port's kernels
 do not use (models/convert.py undoes the permutation).
 

@@ -28,7 +28,9 @@ fused_mul's split-k 16-row tiles at every split count against the twin at
 the GEMM tolerance, a second launch and CUDA-graph replays bit for bit the
 first launch, the split counters zero after each;
 its dense columns at the GEMM tolerance, and a second launch bit for bit
-the first at every split count; mul_fp4_diff's backward on
+the first at every split count; its 64-row dense CTAs also alone (a launch
+with no FP4 columns, bit for bit the full launch's dense columns) and at
+w_down's full width (k = 14336, m = 512); mul_fp4_diff's backward on
 the card (dequant kernel, cuBLAS dA) against the same on the CPU at the
 GEMM tolerance; the high-precision GEMMs against the f64 product of the
 same operands, within 4 times the f32 library product's distance from it
@@ -732,6 +734,42 @@ def test_hybrid_kernel_matches_fused_mul_and_twin(gen, bm, bn):
                                outf.view(torch.int16)), splits
             assert torch.equal(againd.view(torch.int16),
                                outd.view(torch.int16)), splits
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_hybrid_dense_prefill_tiles_alone_and_at_full_width(gen, bn):
+    """The 64-row dense CTAs (csrc/dense_wgmma.cuh): a launch with no FP4
+    columns (nf = 0) runs them alone, and its dense columns are the full
+    launch's bit for bit; Llama-3-8B's w_down (k = 14336, n = 4096 split
+    3072 + 1024) at m = 512: the FP4 columns bit for bit fused_mul's, the
+    dense columns against the twin at the GEMM tolerance, a second launch
+    bit for bit the first."""
+    sid = sol.SolutionId(64, bn)
+    for m, n, k, bnf, bnd in ((70, 1024, 640, 768, 256),
+                              (130, 1280, 384, 960, 320),
+                              (512, 4096, 14336, 768, 256)):
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        hq = thybrid.quantize_hybrid(w, block_nf=bnf, block_nd=bnd)
+        a = _bf16(gen, m, k)
+        args = (a, hq["words"], hq["scales"], hq["gs"].reshape(1), hq["wd"])
+        want_f, want_d = khybrid.hybrid_mul_reference(*args, sid=sid)
+        outf, outd = khybrid.hybrid_mul(*args, sid=sid)
+        againf, againd = khybrid.hybrid_mul(*args, sid=sid)
+        assert torch.equal(outf.view(torch.int16),
+                           fused.fused_mul(*args[:4], sid=sid).view(
+                               torch.int16)), (m, k)
+        torch.testing.assert_close(
+            outd.float(), want_d.float(), rtol=2 ** -7,
+            atol=2 ** -8 * want_d.float().abs().max().item())
+        assert torch.equal(againf.view(torch.int16), outf.view(torch.int16))
+        assert torch.equal(againd.view(torch.int16), outd.view(torch.int16))
+        before = khybrid.hybrid_mul.launches
+        nof, alone = khybrid.hybrid_mul(a, hq["words"][:, :0],
+                                        hq["scales"][:, :0], args[3],
+                                        hq["wd"], sid=sid)
+        assert khybrid.hybrid_mul.launches == before + 1
+        assert nof.shape == (m, 0)
+        assert torch.equal(alone.view(torch.int16), outd.view(torch.int16))
 
 
 def test_hybrid_kernel_rejects_bad_splits(gen):
