@@ -20,12 +20,15 @@ Phases (any failure raises and the script exits non-zero):
              columns (m = 512) all run the wgmma body of
              csrc/fp4_wgmma.cuh, the hybrid GEMM's dense columns the bf16
              wgmma body of csrc/dense_wgmma.cuh (TMA copies), the W4A8
-             GEMM's 64-row tiles the int8
+             GEMM's 64-row tiles and its weight cache's (G m-tiles a CTA
+             sharing one requantization, also at m = 200 and 300, a
+             partial last m-group) the int8
              wgmma body of csrc/w4a8_wgmma.cuh, the 16-row tiles mma.sync
              bodies (the split-k stream csrc/fp4_stream.cuh for fp4_gemm,
              the grouped GEMM and the hybrid GEMM, csrc/fp4_gemm.cuh for
-             the weight cache), the W4A8 weight cache its mma.sync s8
-             body of csrc/fp4_gemm_w4a8.cu; fp4_gemm at the four
+             the weight cache, the s8 body of csrc/fp4_gemm_w4a8.cu for
+             W4A8; these last three also timed alone, the plain W4A8 tile
+             at m = 16 and the weight caches at m = 64); fp4_gemm at the four
              Llama-3-8B projections, m = 1, 8 and 256, its default tile
              and k-splits, two launches
              bit for bit, L2-warm and L2-flushed beside torch.matmul, the
@@ -144,7 +147,8 @@ Phases (any failure raises and the script exits non-zero):
              buckets of phase 3 with their rows: the same kind of A/B
  16 w4a8_layer (only when named) the W4A8 GEMM's 64-row tiles alone, the
              four Llama-3-8B projections (nvfp4) at m = 512 and 2048, at
-             block_n 64 and 128, bare launches on activations quantized
+             block_n 64 and 128, plain and weight cache (pk_fp4_gemm_w4a8
+             and pk_fp4_gemm_w4a8_wc), bare launches on activations quantized
              beforehand, L2-warm, summed over the four: the same kind of
              A/B, also of copies of the tile body edited to find what
              bounds it (it checks no bits)
@@ -1236,8 +1240,13 @@ def _w4a8_kernels(rec, res, rows, gen):
                                        acol=acol)
             want = fused.fused_mul_w4a8_reference(a, words, st, gs, sid=sid,
                                                   r_t=r_t, acol=acol)
+            wc_wgmma0 = fused.fused_mul_w4a8_wc.wgmma_launches
             got_b = mul8(a, words, st, gs, m, n, k, wc8.repr(), r_t=r_t,
                          acol=acol)
+            if fused.fused_mul_w4a8_wc.wgmma_launches != wc_wgmma0 + 1:
+                raise AssertionError(f"w4a8 weight cache m={m} k={k} n={n}: "
+                                     "the launch missed the 64-row int8 "
+                                     "wgmma tiles")
             exact = fused.fused_mul(a, words, st, gs, sid=sid16)
             got_c = mul16(a, words, st, gs, m, n, k, wc16.repr())
             plain16 = fused.fused_mul_reference(a, words, st, gs, sid=sid16)
@@ -1331,11 +1340,14 @@ def _w4a8_kernels(rec, res, rows, gen):
                     acc["flops"] += ops
                     acc["peak"] = peak
             del a, got, want, got_b, exact, got_c, plain16, a_i8, arow, out
+        if (k, n) == LLAMA8B_KN[0]:
+            _w4a8_partial_group(fmt, gen, words, st, gs, r_t, acol, eb)
         del deq, b_i8
     body = {"fp4_gemm_w4a8": "the 64-row int8 wgmma tiles of "
                              "csrc/w4a8_wgmma.cuh",
-            "fp4_gemm_w4a8_wc": "the mma.sync s8 body of "
-                                "csrc/fp4_gemm_w4a8.cu",
+            "fp4_gemm_w4a8_wc": "the 64-row int8 wgmma tiles of "
+                                "csrc/w4a8_wgmma.cuh, G m-tiles a CTA "
+                                "sharing one requantization",
             "fp4_gemm_wc": "the 64-row wgmma tiles of csrc/fp4_wgmma.cuh",
             "fp4_gemm_prefill": "the 64-row wgmma tiles of "
                                 "csrc/fp4_wgmma.cuh"}
@@ -1375,6 +1387,128 @@ def _w4a8_kernels(rec, res, rows, gen):
             f"{exact_ms:.4f} ms, W4A8 (quantization included) "
             f"{w4a8_ms:.4f} ms, ratio {exact_ms / w4a8_ms:.3f}")
     rec["w4a8_sweep"] = sweep
+    _small_tile_rows(res, kept, gen)
+
+
+def _w4a8_partial_group(fmt, gen, words, st, gs, r_t, acol, eb):
+    """The weight cache's 64-row tiles at m = 200 and 300, whose last
+    m-group is partial (rows past m zero-filled and never stored), at
+    both widths: bit for bit the plain kernel and the twin, each launch
+    counted as a wgmma launch."""
+    k, n = words.shape[0] * 8, words.shape[1]
+    i8 = solution_mod.MatmulType.INT8
+    for m in (200, 300):
+        a = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        want = fused.fused_mul_w4a8_reference(
+            a, words, st, gs, sid=solution_mod.SolutionId(64, 128, eb, i8),
+            r_t=r_t, acol=acol)
+        for bn in (64, 128):
+            sid = solution_mod.SolutionId(64, bn, eb, i8)
+            wc = dataclasses.replace(sid, weight_cache=True)
+            plain = fused.fused_mul_w4a8(a, words, st, gs, sid=sid, r_t=r_t,
+                                         acol=acol)
+            before = fused.fused_mul_w4a8_wc.wgmma_launches
+            got = fused.fused_mul_w4a8(a, words, st, gs, sid=wc, r_t=r_t,
+                                       acol=acol)
+            torch.cuda.synchronize()
+            what = f"w4a8 weight cache {fmt} m={m} k={k} n={n} tile=64x{bn}"
+            if fused.fused_mul_w4a8_wc.wgmma_launches != before + 1:
+                raise AssertionError(f"{what}: missed the int8 wgmma tiles")
+            for other, ref in (("the plain kernel", plain), ("its twin", want)):
+                if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                    raise AssertionError(f"{what}: differs from {other}")
+        log(f"[kernels] w4a8 weight cache {fmt} m={m} (partial last m-group) "
+            "bit-equal to the plain kernel and the twin at 64x64 and 64x128")
+
+
+# the 16-row tiles still on the first mma.sync bodies that no other row times:
+# (name, m, weight cache, int8)
+_SMALL_TILES = (("fp4_gemm_w4a8_16row", 16, False, True),
+                ("fp4_gemm_w4a8_wc_16row", 64, True, True),
+                ("fp4_gemm_wc_16row", 64, True, False))
+
+
+def _small_tile_rows(res, kept, gen):
+    """The 16-row tiles on the mma.sync bodies (the W4A8 plain tile at m =
+    16, the W4A8 and bf16 weight caches at m = 64, G = 4 m-tiles of 16),
+    nvfp4, 16x64 tiles, summed over the four Llama-3-8B projections:
+    checked against their twins (the W4A8 kernels bit for bit), timed
+    beside the twin and the library call (torch._int_mm on the
+    requantized int8 weights, which refuses m <= 16, or torch.matmul on the
+    dequantized bf16 weights). No engine path launches them."""
+    dev = torch.device("cuda")
+    for name, m, wc, int8 in _SMALL_TILES:
+        acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0,
+                   err=0.0)
+        for k, n, words, st, gs, r_t, acol in kept:
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sid = solution_mod.SolutionId(
+                16, 64, ElementB.NVFP4, solution_mod.MatmulType.INT8 if int8
+                else solution_mod.MatmulType.BF16, weight_cache=wc)
+            if int8:
+                got = fused.fused_mul_w4a8(a, words, st, gs, sid=sid,
+                                           r_t=r_t, acol=acol)
+                want = fused.fused_mul_w4a8_reference(a, words, st, gs,
+                                                      sid=sid, r_t=r_t,
+                                                      acol=acol)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int16),
+                                   want.view(torch.int16)):
+                    raise AssertionError(f"{name} k={k} n={n}: differs from "
+                                         "its twin")
+                a_i8, arow = fused.quantize_activations(a)
+                out = torch.empty_like(got)
+                entry = "pk_fp4_gemm_w4a8_wc" if wc else "pk_fp4_gemm_w4a8"
+                t_k = cuda_ms(lambda: _w4a8_launch(entry, a_i8, arow, words,
+                                                   r_t, acol, gs, out, sid))
+                t_p = cuda_ms(lambda: fused.fused_mul_w4a8_reference(
+                    a, words, st, gs, sid=sid, r_t=r_t, acol=acol),
+                    iters=2, warmup=1)
+                lib = _int_mm_col(a_i8, fused.requantized_weights(words, r_t,
+                                                                  k))
+                nbytes = _nbytes(a_i8, arow, words, r_t, acol, gs, got)
+                peak = INT8_OP_PER_S
+            else:
+                got = fused.fused_mul(a, words, st, gs, sid=sid)
+                want = fused.fused_mul_reference(a, words, st, gs, sid=sid)
+                torch.cuda.synchronize()
+                acc["err"] = max(acc["err"], _close(
+                    f"{name} k={k} n={n}", got, want, 2 ** -7,
+                    2 ** -8 * want.float().abs().max()))
+                t_k = cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
+                                                      sid=sid))
+                t_p = cuda_ms(lambda: fused.fused_mul_reference(
+                    a, words, st, gs, sid=sid), iters=2, warmup=1)
+                deq = (layout.dequant_from_tpu_layout(words, st, n, k)
+                       * gs).to(torch.bfloat16)
+                lib = lambda: torch.matmul(a, deq)
+                nbytes = _nbytes(a, words, st, gs, got)
+                peak = BF16_FLOP_PER_S
+            t_l = cuda_ms(lib) if lib else None
+            acc["ms"] += t_k
+            acc["plain_ms"] += t_p
+            acc["library_ms"] = (None if t_l is None or acc["library_ms"] is
+                                 None else acc["library_ms"] + t_l)
+            acc["nbytes"] += nbytes
+            acc["flops"] += 2 * m * n * k
+            log(f"[kernels] {name} m={m} k={k} n={n}: kernel {t_k:.4f} ms, "
+                f"plain {t_p:.2f} ms, library {t_l} ms")
+        res[name] = dict(
+            max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
+            library_ms=acc["library_ms"],
+            **bound(acc["nbytes"], acc["flops"], peak),
+            at=f"nvfp4 m={m}, sum of the 4 Llama-3-8B projections, tile 16x64"
+               f"{', weight cache (4 m-tiles a CTA)' if wc else ''}, the "
+               "mma.sync body; library: " + (
+                   "torch._int_mm on the requantized int8 weights (None: "
+                   "it refuses m <= 16)" if int8 else
+                   "torch.matmul on the dequantized bf16 weights"))
+        log(f"[kernels] {name} (nvfp4 m={m}, 4 projections): kernel "
+            f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.2f} ms, library "
+            f"{acc['library_ms']} ms, bound {res[name]['bound_ms']:.4f} ms "
+            f"({res[name]['bound_by']})")
 
 
 def _dequant_kernels(res, rows, gen):
@@ -1767,9 +1901,9 @@ def phase_w4a8_layer(rec):
     """The W4A8 GEMM's 64-row tiles alone, for an A/B of two trees or of
     edited copies of csrc/w4a8_wgmma.cuh: the four Llama-3-8B projections
     (nvfp4) at m = 512 and 2048, tiles (64, 64) and (64, 128), each a bare
-    launch of pk_fp4_gemm_w4a8 on activations quantized beforehand
-    (_w4a8_launch), L2-warm, summed over the four. Times only: the kernels
-    phase checks the bits."""
+    launch of pk_fp4_gemm_w4a8 and of its weight cache pk_fp4_gemm_w4a8_wc
+    on activations quantized beforehand (_w4a8_launch), L2-warm, summed
+    over the four. Times only: the kernels phase checks the bits."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -1790,10 +1924,14 @@ def phase_w4a8_layer(rec):
             for bn in (64, 128):
                 sid = solution_mod.SolutionId(64, bn, ElementB.NVFP4,
                                               solution_mod.MatmulType.INT8)
-                key = f"m={m} tile=64x{bn}"
-                out[key] = out.get(key, 0.0) + cuda_ms(lambda: _w4a8_launch(
-                    "pk_fp4_gemm_w4a8", a_i8, arow, words, r_t, acol, gs, y,
-                    sid))
+                for entry, tag, sid_ in (
+                        ("pk_fp4_gemm_w4a8", "", sid),
+                        ("pk_fp4_gemm_w4a8_wc", " weight cache",
+                         dataclasses.replace(sid, weight_cache=True))):
+                    key = f"m={m} tile=64x{bn}{tag}"
+                    out[key] = out.get(key, 0.0) + cuda_ms(
+                        lambda: _w4a8_launch(entry, a_i8, arow, words, r_t,
+                                             acol, gs, y, sid_))
     for key, t in out.items():
         log(f"[w4a8_layer] {key}: 4 projections {t:.4f} ms")
     rec["w4a8_layer"] = out
@@ -2916,6 +3054,7 @@ def _weight_cache_api_run(rec, params, cfg):
                      *fused.w4a8_requant_constants(layer["scales"])))
     torch.cuda.synchronize()
     _reset_launches()
+    wc_wgmma0 = fused.fused_mul_w4a8_wc.wgmma_launches
     outs = []
     for x, layer, n, k, r_t, acol in jobs:
         args = (x, layer["words"], layer["scales"], layer["gs"], m, n, k)
@@ -2929,6 +3068,10 @@ def _weight_cache_api_run(rec, params, cfg):
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing} "
                              f"({launches})")
+    if (fused.fused_mul_w4a8_wc.wgmma_launches - wc_wgmma0
+            != launches["fp4_gemm_w4a8_wc"]):
+        raise AssertionError(f"{path}: a W4A8 weight-cache launch missed "
+                             "the 64-row int8 wgmma tiles")
     for (x, layer, n, k, _, _), y16, y8 in zip(jobs, outs[::2], outs[1::2]):
         for y in (y16, y8):
             if tuple(y.shape) != (m, n) or not torch.isfinite(y).all():

@@ -24,24 +24,42 @@
 // What bounds it: at prefill the int8 tensor cores. At m = 2048, n =
 // 28672, k = 4096 (Llama-3-8B's fused gate/up) it does 481 G integer
 // operations against 0.2 GB of operands: 0.24 ms at 1,979 TOP/s int8, 0.06
-// ms at 3.35 TB/s. The plain kernel's 64-row tiles (the only ones an engine
-// reaches: W4A8 routes m >= 256) run the int8 wgmma body of w4a8_wgmma.cuh
-// (fp4_gemm_w4a8_wgmma_kernel: one warpgroup a tile, a cp.async ring, the
-// weights requantized two values per 32-bit operation into swizzled
-// K-major int8 B rows; its note gives the design and the shared memory).
-// The 16-row tiles and every weight-cache tile keep the first version
-// below, built on fp4_gemm.cuh's step structure: one CTA per (block_m,
-// block_n) tile (THREADS threads) walks kp in steps of 32 word rows (256
-// natural k); each step stages the int8 A rows (8-byte runs of contiguous
-// k) and the step's 32 R rows in shared memory, requantizes the words
-// into an n-major int8 B tile (one thread per four word rows of a column
-// writes 8 contiguous int8 values at a time, about ten scalar operations a
+// ms at 3.35 TB/s. Every 64-row tile runs the int8 wgmma body of
+// w4a8_wgmma.cuh (fp4_gemm_w4a8_wgmma_kernel<BN, G>: a warpgroup a 64-row
+// m-tile, a cp.async ring, the weights requantized two values per 32-bit
+// operation into swizzled K-major int8 B rows; its note gives the design
+// and the shared memory): the plain kernel's (the only ones an engine
+// reaches: W4A8 routes m >= 256) at G = 1, the weight cache's at G =
+// WC_GROUP = 4 m-tiles a CTA, which share one requantization of each
+// weight block. The requantization's integer operations set the plain
+// tile's time (PERF.md, section 6), so the weight cache divides them by G.
+// Why G = 4 at both widths:
+//   - G = 4 is 512 threads a CTA; __launch_bounds__(512, 1) caps a thread
+//     at 128 registers, where the G = 1 tile uses 176 at BN = 128. The
+//     shared cut needs 8 words a thread, not 32, beside 64 accumulators:
+//     ptxas (CUDA 12.9) gives <128, 4> 128 registers and a 16-byte
+//     spill, <64, 4> 107 and none;
+//   - G = 2 leaves 255 registers, and two blocks an SM at BN = 64, and
+//     gives m = 512's wo and w_down 128 CTAs where G = 4 gives 64;
+//   - shared memory fits either way (W8Plan): one block an SM at G = 4,
+//     140,288 bytes (one) and 95,232 (two) at G = 2;
+//   - on the card G = 4 was the faster at both widths and both m of the
+//     Llama-3-8B projections (m = 2048, 64x128: 1.70 ms against 2.48 at G
+//     = 2; m = 512: 0.63 against 0.67; PERF.md, section 6).
+//
+// The 16-row tiles of both kernels keep the first version below, built
+// on fp4_gemm.cuh's step structure: one CTA per (block_m, block_n) tile
+// (THREADS threads) walks kp in steps of 32 word rows (256 natural k);
+// each step stages the int8 A rows (8-byte runs of contiguous k) and the
+// step's 32 R rows in shared memory, requantizes the words into an
+// n-major int8 B tile (one thread per four word rows of a column writes 8
+// contiguous int8 values at a time, about ten scalar operations a
 // weight), and runs mma.sync m16n8k32 s8 with s32 accumulators. No
-// cp.async pipeline, TMA or wgmma. The weight-cache variant runs WC_GROUP
+// cp.async pipeline, TMA or wgmma. The 16-row weight cache runs WC_GROUP
 // m-tiles of one n-tile per CTA of 4*WC_GROUP warps and requantizes each
 // weight block once for all of them (fp4_gemm.cu explains why there is no
-// k-resident cache). The int32 sums are exact, so the two bodies agree bit
-// for bit.
+// k-resident cache). The int32 sums are exact, so the bodies agree bit for
+// bit.
 //
 // The mma.sync body's operands use fp4_gemm.cuh's local k order inside a
 // step, L = j*64 + a*8 + x; the int8 row stride LDB8 = 272 bytes puts the
@@ -232,28 +250,29 @@ cudaError_t launch(const void* a, const void* arow, const void* w, const void* r
   return cudaGetLastError();
 }
 
-// the plain 64-row tiles: one warpgroup each, the int8 wgmma body
-template <int BN>
-__global__ void __launch_bounds__(w4a8_wgmma_threads<BN, 1>(), 1)
+// the 64-row tiles: G m-tiles of one n-tile a CTA, one warpgroup each, the
+// int8 wgmma body
+template <int BN, int G>
+__global__ void __launch_bounds__(w4a8_wgmma_threads<BN, G>(), 1)
 fp4_gemm_w4a8_wgmma_kernel(const int8_t* __restrict__ A, const float* __restrict__ arow,
                            const uint32_t* __restrict__ W, const __nv_bfloat16* __restrict__ R,
                            const float* __restrict__ acol, const float* __restrict__ gs,
                            __nv_bfloat16* __restrict__ C, int M, int N, int K, int KP) {
   extern __shared__ __align__(16) unsigned char smem[];
-  w4a8_wgmma_tile<BN, 1>(smem, A, arow, W, R, acol, gs, C, M, N, K, KP, blockIdx.x * WG_BM,
-                         blockIdx.y * BN);
+  w4a8_wgmma_tile<BN, G>(smem, A, arow, W, R, acol, gs, C, M, N, K, KP,
+                         blockIdx.x * (G * WG_BM), blockIdx.y * BN);
 }
 
-template <int BN>
+template <int BN, int G>
 cudaError_t launch_wgmma(const void* a, const void* arow, const void* w, const void* r,
                          const void* acol, const void* gs, void* out, int m, int n, int k,
                          int kp, cudaStream_t stream) {
-  constexpr int bytes = w4a8_wgmma_smem_bytes<BN, 1>();
-  cudaError_t err = cudaFuncSetAttribute(fp4_gemm_w4a8_wgmma_kernel<BN>,
+  constexpr int bytes = w4a8_wgmma_smem_bytes<BN, G>();
+  cudaError_t err = cudaFuncSetAttribute(fp4_gemm_w4a8_wgmma_kernel<BN, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((m + WG_BM - 1) / WG_BM, (n + BN - 1) / BN);   // m-tiles first
-  fp4_gemm_w4a8_wgmma_kernel<BN><<<grid, w4a8_wgmma_threads<BN, 1>(), bytes, stream>>>(
+  dim3 grid((m + G * WG_BM - 1) / (G * WG_BM), (n + BN - 1) / BN);   // m-groups first
+  fp4_gemm_w4a8_wgmma_kernel<BN, G><<<grid, w4a8_wgmma_threads<BN, G>(), bytes, stream>>>(
       static_cast<const int8_t*>(a), static_cast<const float*>(arow),
       static_cast<const uint32_t*>(w), static_cast<const __nv_bfloat16*>(r),
       static_cast<const float*>(acol), static_cast<const float*>(gs),
@@ -261,6 +280,7 @@ cudaError_t launch_wgmma(const void* a, const void* arow, const void* w, const v
   return cudaGetLastError();
 }
 
+// G: m-tiles a CTA, 1 or WC_GROUP (the weight cache)
 template <int G>
 int dispatch(const void* a, const void* arow, const void* w, const void* r, const void* acol,
              const void* gs, void* out, int m, int n, int k, int kp, int block_m, int block_n,
@@ -273,17 +293,10 @@ int dispatch(const void* a, const void* arow, const void* w, const void* r, cons
     err = launch<16, 64, G>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
   else if (block_m == 16 && block_n == 128)
     err = launch<16, 128, G>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
-  else if (block_m == 64 && block_n == 64) {
-    if constexpr (G == 1)
-      err = launch_wgmma<64>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
-    else
-      err = launch<64, 64, G>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
-  } else if (block_m == 64 && block_n == 128) {
-    if constexpr (G == 1)
-      err = launch_wgmma<128>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
-    else
-      err = launch<64, 128, G>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
-  }
+  else if (block_m == 64 && block_n == 64)
+    err = launch_wgmma<64, G>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
+  else if (block_m == 64 && block_n == 128)
+    err = launch_wgmma<128, G>(a, arow, w, r, acol, gs, out, m, n, k, kp, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -7,9 +7,11 @@
 // fp4_gemm_w4a8.cu (W (kp/8, n) words of fp4_gemm.cuh's layout, R (kp/16,
 // n) bf16 requantization constants, A8 (m, k) int8 in natural k order,
 // arow (m,) and acol (n,) f32, gs). pk_fp4_gemm_w4a8's 64-row tiles run
-// it. It replaces, at prefill block sizes, the TPU kernel
-// petit_kernel_tpu/ops/kernels/fused.py:482 _fused_kernel_w4a8 (reached
-// through fused_mul_w4a8, its pallas_call at :695).
+// it at G = 1 and pk_fp4_gemm_w4a8_wc's at G > 1 (G m-tiles a CTA). It
+// replaces, at prefill block sizes, the TPU kernels
+// petit_kernel_tpu/ops/kernels/fused.py:482 _fused_kernel_w4a8 and :526
+// _fused_kernel_w4a8_wc (reached through fused_mul_w4a8, their
+// pallas_call at :695).
 //
 // What bounds it: the int8 tensor cores. The four Llama-3-8B projections
 // at m = 2048 are 8.93e11 integer operations, 0.451 ms at 1,979 TOP/s;
@@ -58,13 +60,25 @@
 //   - the launcher (fp4_gemm_w4a8.cu) puts the m-tiles first in the grid,
 //     so the CTAs in flight share their n-tiles' weights and stream them
 //     from device memory once, not once per m-tile (1.5% faster).
-// Shared memory: 3 A slots of 8 KB, 3 B slots of BN * 128 bytes, 2 stages
-// of BN * 160 bytes, 1 KB of alignment: 115,712 bytes at BN = 128 (two
-// blocks an SM), 70,656 at BN = 64 (three), the bf16 body's own plan
-// (static_assert below). ptxas (sm_90a, CUDA 12.9): 176 registers at BN =
-// 128, 117 at 64, no spill, no C7515. On the card the requantization's
-// arithmetic sets the time: without the wgmmas a launch takes as long,
-// without that arithmetic about half as long (PERF.md, section 6).
+//   - the weight cache (G > 1): one CTA runs G m-tiles of one n-tile, a
+//     warpgroup each, on one A slot of G*64 rows (each warpgroup's
+//     descriptor at its own 64 rows) and one requantized B slot that all
+//     G read, so each weight is requantized once per G*64 rows. All 128G
+//     threads share a unit's requantization (W8Share: a (column, chunk)
+//     a thread, one half of w8_quarter's pair), so none waits idle at the
+//     unit's barrier. G = 1 keeps its own cut (W8Decode).
+// Shared memory: 3 A slots of G * 8 KB, 3 B slots of BN * 128 bytes, 2
+// stages of BN * 160 bytes, 1 KB of alignment: at G = 1 115,712 bytes at
+// BN = 128 (two blocks an SM), 70,656 at BN = 64 (three), the bf16 body's
+// own plan; at G = 4 (the weight cache) 189,440 and 144,384 (one
+// block an SM each; static_asserts below). ptxas (sm_90a, CUDA 12.9): at
+// G = 1 176 registers at BN = 128, 117 at 64, no spill; at G = 4 128 (its
+// cap, a 16-byte spill) and 107; no C7515. On the card the
+// requantization's arithmetic sets the plain tile's time: without the
+// wgmmas a launch takes as long, without that arithmetic about half as
+// long. At G = 4 removing either leaves about 1.3 of 1.7 ms, and removing
+// both and the A copies 0.86: the copies' latency, which each unit waits
+// out (cp_async_wait<0>), and the barriers (PERF.md, section 6).
 //
 // Visibility: wgmma reads shared memory through the async proxy, and both
 // the requantization's stores and the cp.async copies are generic-proxy
@@ -95,6 +109,9 @@ struct W8Plan {
 static_assert(W8Plan<128, 1>::bytes == 115712 && W8Plan<128, 1>::blocks == 2 &&
                   W8Plan<64, 1>::bytes == 70656 && W8Plan<64, 1>::blocks == 3,
               "the plain tiles' plan: two blocks an SM at BN = 128, three at 64");
+static_assert(W8Plan<128, 4>::bytes == 189440 && W8Plan<128, 4>::blocks == 1 &&
+                  W8Plan<64, 4>::bytes == 144384 && W8Plan<64, 4>::blocks == 1,
+              "the weight cache's tiles (G = 4): one block an SM");
 
 template <int BN, int G>
 __host__ __device__ constexpr int w4a8_wgmma_threads() { return W8Plan<BN, G>::threads; }
@@ -215,23 +232,71 @@ __device__ __forceinline__ void w8_decode(unsigned char* bq, const __nv_bfloat16
   }
 }
 
+// ---- requantization at G > 1 -----------------------------------------------
+
+// How the requantization is cut at G > 1, so that all 128G threads share
+// each unit's: a task is (column c, quarter-local chunk A < 4 and, where
+// BN * 4 < 128G, quarter 2V + h of the unit, h < 2); thread t runs c = t %
+// BN, A = (t / BN) % 4, h = t / (4 BN). Chunk A = 2p + e is half e of the
+// stage rows of parity p, so the two threads of a (column, p) read the
+// same words and each requantizes one half of w8_quarter's pair. A and h
+// are the same across a warp.
+template <int BN, int G>
+struct W8Share {
+  static constexpr int QS = THREADS * G / (BN * 4);   // threads a (column, chunk)
+  static_assert((QS == 1 || QS == 2) && QS * BN * 4 == THREADS * G, "every thread one task");
+};
+
+// The thread's words of one step: pr[y] holds the half-e slots of stage
+// rows 4y + p and 4y + 2 + p of its column (values 2y and 2y + 1 of chunk
+// A)
+template <int BN, int G>
+__device__ __forceinline__ void w8_words(const uint32_t* Ws, uint32_t (&pr)[8]) {
+  const int c = threadIdx.x % BN, a = (threadIdx.x / BN) & 3;
+  const uint32_t sel = 0x5410u + (a & 1) * 0x2222u;   // e = 1: 0x7632
+  const uint32_t* col = Ws + (a >> 1) * BN + c;
+#pragma unroll
+  for (int y = 0; y < 8; ++y) pr[y] = prmt(col[4 * y * BN], col[(4 * y + 2) * BN], sel);
+}
+
+// Chunk A of quarter J of B row n, at row chunk base + A, under stage R
+// row 4J + A
+template <int J, int BN>
+__device__ __forceinline__ void w8_half(unsigned char* row, int n, int a, int base,
+                                        const unsigned short* r16, const uint32_t (&pr)[8]) {
+  const uint32_t s = r16[(4 * J + a) * BN + n];
+  *reinterpret_cast<uint4*>(row + (((base + a) ^ (n & 7)) << 4)) = w8_chunk<J>(pr, s | (s << 16));
+}
+
+// Unit V of the step (quarters 2V, 2V + 1) into the B slot `bq`, the
+// thread's share
+template <int V, int BN, int G>
+__device__ __forceinline__ void w8_decode(unsigned char* bq, const __nv_bfloat16* Rs,
+                                          const uint32_t (&pr)[8]) {
+  using S = W8Share<BN, G>;
+  const int n = threadIdx.x % BN, a = (threadIdx.x / BN) & 3;
+  const unsigned short* r16 = reinterpret_cast<const unsigned short*>(Rs);
+  unsigned char* row = bq + n * WG_ROW;
+  if (S::QS == 1 || threadIdx.x < 4 * BN) w8_half<2 * V, BN>(row, n, a, 0, r16, pr);
+  if (S::QS == 1 || threadIdx.x >= 4 * BN) w8_half<2 * V + 1, BN>(row, n, a, 4, r16, pr);
+}
+
 // ---- the tile --------------------------------------------------------------
 
-// Unit u = 2 * step + V: requantize into B slot u % 3, wait for A(u), then
-// queue the copies of A(u + 1) (and, at V = 0, the words and R of step + 1)
-// and run the unit's four wgmmas.
-template <int V, int BN, int G>
+// Unit u = 2 * step + V: requantize into B slot u % 3 (the thread's words:
+// lo, hi at G = 1, pr above), wait for A(u), then queue the copies of A(u +
+// 1) (and, at V = 0, the words and R of step + 1) and run the unit's four
+// wgmmas, each warpgroup on its own 64 A rows and the one B slot.
+template <int V, int BN, int G, class... Words>
 __device__ __forceinline__ void w8_unit(const WgRing& ring, const __nv_bfloat16* Rs,
-                                        const uint32_t (&lo)[W8Decode<BN, G>::CW][8],
-                                        const uint32_t (&hi)[W8Decode<BN, G>::CW][8],
                                         int (&acc)[BN / 2], const int8_t* __restrict__ A,
                                         const uint32_t* __restrict__ W,
                                         const __nv_bfloat16* __restrict__ R, int M, int N, int K,
-                                        int KP, int m0, int n0, int step) {
+                                        int KP, int m0, int n0, int step, const Words&... words) {
   using P = W8Plan<BN, G>;
   const int u = 2 * step + V, units = KP / KSTEP * 2;
   unsigned char* bq = ring.b + (u % WG_B_SLOTS) * P::b_slot;
-  w8_decode<V, BN, G>(bq, Rs, lo, hi);
+  w8_decode<V, BN, G>(bq, Rs, words...);
   cp_async_wait<0>();   // A(u) and, at V = 1, the next step's words have landed
   fence_proxy_async();
   __syncthreads();      // B(u) complete; every warp is past wgmma(u - 2)
@@ -288,10 +353,17 @@ __device__ __forceinline__ void w4a8_wgmma_tile(
   for (int step = 0; step < steps; ++step) {
     const uint32_t* Ws = reinterpret_cast<const uint32_t*>(ring.ws + (step & 1) * P::ws_stage);
     const __nv_bfloat16* Rs = reinterpret_cast<const __nv_bfloat16*>(Ws + WROWS * BN);
-    uint32_t lo[D::CW][8], hi[D::CW][8];
-    w8_words<BN, G>(Ws, lo, hi);
-    w8_unit<0, BN, G>(ring, Rs, lo, hi, acc, A, W, R, M, N, K, KP, m0, n0, step);
-    w8_unit<1, BN, G>(ring, Rs, lo, hi, acc, A, W, R, M, N, K, KP, m0, n0, step);
+    if constexpr (G == 1) {
+      uint32_t lo[D::CW][8], hi[D::CW][8];
+      w8_words<BN, G>(Ws, lo, hi);
+      w8_unit<0, BN, G>(ring, Rs, acc, A, W, R, M, N, K, KP, m0, n0, step, lo, hi);
+      w8_unit<1, BN, G>(ring, Rs, acc, A, W, R, M, N, K, KP, m0, n0, step, lo, hi);
+    } else {
+      uint32_t pr[8];
+      w8_words<BN, G>(Ws, pr);
+      w8_unit<0, BN, G>(ring, Rs, acc, A, W, R, M, N, K, KP, m0, n0, step, pr);
+      w8_unit<1, BN, G>(ring, Rs, acc, A, W, R, M, N, K, KP, m0, n0, step, pr);
+    }
   }
   wgmma_wait<0>();
   fence_acc(acc);

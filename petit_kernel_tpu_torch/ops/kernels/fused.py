@@ -571,9 +571,12 @@ def fused_mul_w4a8_wc(a: torch.Tensor, words: torch.Tensor,
                       scales_t: torch.Tensor, global_scale: torch.Tensor, *,
                       sid: SolutionId, r_t=None, acol=None) -> torch.Tensor:
     """fused_mul_w4a8 through the weight-cache kernel
-    (pk_fp4_gemm_w4a8_wc): each CTA runs 4 m-tiles and requantizes each
-    weight block once for all of them. Bit for bit fused_mul_w4a8's
-    result. Counted in fused_mul_w4a8_wc.launches; the twin on the CPU."""
+    (pk_fp4_gemm_w4a8_wc): each CTA runs several m-tiles of one n-tile
+    and requantizes each weight block once for all of them. Bit for bit
+    fused_mul_w4a8's result. Counted in fused_mul_w4a8_wc.launches; the
+    64-row tiles, whose kernel is the int8 wgmma body of
+    csrc/w4a8_wgmma.cuh with its m-tiles sharing one requantization, also
+    in fused_mul_w4a8_wc.wgmma_launches. The twin on the CPU."""
     if a.device.type == "cpu":
         return fused_mul_w4a8_reference(a, words, scales_t, global_scale,
                                         sid=sid, r_t=r_t, acol=acol)
@@ -581,9 +584,12 @@ def fused_mul_w4a8_wc(a: torch.Tensor, words: torch.Tensor,
                                          scales_t, global_scale, sid, r_t,
                                          acol)
     fused_mul_w4a8_wc.launches += launched
+    if launched and sid.block_m == 64:
+        fused_mul_w4a8_wc.wgmma_launches += 1
     return out
 
 
 fused_mul_w4a8.launches = 0
 fused_mul_w4a8.wgmma_launches = 0
 fused_mul_w4a8_wc.launches = 0
+fused_mul_w4a8_wc.wgmma_launches = 0

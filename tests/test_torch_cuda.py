@@ -635,21 +635,26 @@ def test_w4a8_wgmma_tiles_bit_equal_to_twin(gen, fmt, bn):
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
 @pytest.mark.parametrize("bn", [64, 128])
 def test_w4a8_weight_cache_bit_equal_to_wgmma_tiles(gen, fmt, bn):
-    """The weight-cache kernel (the mma.sync body) against the plain
-    kernel's int8 wgmma tiles at the same widths, bit for bit."""
+    """The weight-cache kernel's 64-row tiles (the int8 wgmma body, G
+    m-tiles a CTA sharing one requantization) against the plain kernel's
+    at the same widths, bit for bit, at m = 200 (one partial m-group at G
+    = 4), 300 (a partial group after full ones) and 2048, each launch
+    counted as a wgmma launch of the weight cache."""
     n, k = 512, 4096
     words, st, gs, eb = _w4a8_operands(gen, fmt, n, k)
     r_t, acol = fused.w4a8_requant_constants(st)
     sid = sol.SolutionId(64, bn, eb, sol.MatmulType.INT8)
     wc = sol.SolutionId(64, bn, eb, sol.MatmulType.INT8, weight_cache=True)
-    for m in (300, 2048):
+    for m in (200, 300, 2048):
         a = _bf16(gen, m, k)
         plain = fused.fused_mul_w4a8(a, words, st, gs, sid=sid, r_t=r_t,
                                      acol=acol)
         before = fused.fused_mul_w4a8_wc.launches
+        wgmma = fused.fused_mul_w4a8_wc.wgmma_launches
         got = fused.fused_mul_w4a8(a, words, st, gs, sid=wc, r_t=r_t,
                                    acol=acol)
         assert fused.fused_mul_w4a8_wc.launches == before + 1
+        assert fused.fused_mul_w4a8_wc.wgmma_launches == wgmma + 1
         assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
 
 

@@ -56,6 +56,17 @@ def test_launchers_dispatch_the_solution_tiles(src):
     tiles = {(int(bm), int(bn)) for bm, bn in re.findall(
         r"block_m == (\d+) && block_n == (\d+)", text)}
     assert tiles == set(tsol.TILE_SHAPES)
+    if src == "fp4_gemm_w4a8.cu":
+        # both entries' 64-row tiles launch the int8 wgmma body, at G = 1
+        # (pk_fp4_gemm_w4a8) or WC_GROUP m-tiles a CTA (the weight cache)
+        for bn in (64, 128):
+            assert re.search(
+                rf"block_m == 64 && block_n == {bn}\)\s*err = "
+                rf"launch_wgmma<{bn}, G>", text)
+        for entry, g in (("pk_fp4_gemm_w4a8", "1"),
+                         ("pk_fp4_gemm_w4a8_wc", "WC_GROUP")):
+            assert re.search(rf"{entry}\([^{{]*\{{\s*return dispatch<{g}>",
+                             text)
 
 
 # ---- the data movement -----------------------------------------------------
@@ -245,14 +256,18 @@ def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4):
     A(v) for v < da with step 0's words in the first, then waits for
     da - 1 and meets a barrier. A copy group counts as landed for every
     thread once a wait has retired it and a barrier followed; a wgmma as
-    done once a wait has retired it and a barrier followed."""
+    done once a wait has retired it and a barrier followed. A tuple
+    mma_depth plays one warpgroup a depth, each waiting only for its own
+    wgmmas, all reading one A slot (their own rows) and one B slot: a
+    wgmma is done for all threads once every warpgroup's is."""
+    depths = (mma_depth,) if isinstance(mma_depth, int) else mma_depth
     a_slots = da + 2 if a_slots is None else a_slots
     n_units = units * steps
     faults = []
     groups = []                      # contents of each committed group
     group_of = {}                    # operand -> its group
     landed = 0                       # groups landed for all threads
-    retired_mma = -1                 # last wgmma retired by this thread
+    retired_mma = [-1] * len(depths)   # last wgmma each warpgroup retired
     done_mma = -1                    # last wgmma done for all threads
     a_holder = {}                    # A slot -> unit whose A it holds
     ws_holder = {}                   # stage -> step whose words it holds
@@ -297,7 +312,7 @@ def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4):
                           f"wgmma({b_reader[b]})")
         # wait, barrier
         landed = wait_copies(da - 1)
-        done_mma = retired_mma
+        done_mma = min(retired_mma)
         ops = []
         if u + da < n_units:
             ops.append(load_a(u + da))
@@ -310,7 +325,7 @@ def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4):
         if a_holder[u % a_slots] != u:
             faults.append(f"wgmma({u}) finds A({a_holder[u % a_slots]})")
         b_reader[b] = u
-        retired_mma = u - mma_depth
+        retired_mma = [u - d for d in depths]
     return faults
 
 
