@@ -26,9 +26,12 @@ Phases (any failure raises and the script exits non-zero):
              wgmma body of csrc/w4a8_wgmma.cuh, the 16-row tiles mma.sync
              bodies (the split-k stream csrc/fp4_stream.cuh for fp4_gemm,
              the grouped GEMM and the hybrid GEMM, csrc/fp4_gemm.cuh for
-             the weight cache, the s8 body of csrc/fp4_gemm_w4a8.cu for
-             W4A8; these last three also timed alone, the plain W4A8 tile
-             at m = 16 and the weight caches at m = 64); fp4_gemm at the four
+             the weight cache, the split-k int8 stream csrc/w4a8_stream.cuh
+             for both W4A8 kernels; these last three also timed alone,
+             warm and as a CUDA graph of the four projections, the plain
+             W4A8 tile at m = 16 and the weight caches at m = 64, the W4A8
+             ones at their default splits and counted as stream launches);
+             fp4_gemm at the four
              Llama-3-8B projections, m = 1, 8 and 256, its default tile
              and k-splits, two launches
              bit for bit, L2-warm and L2-flushed beside torch.matmul, the
@@ -56,9 +59,9 @@ Phases (any failure raises and the script exits non-zero):
              headed fp8, paged fp8 at page size 16) also at the serving
              shape, one 512-token chunk at pos0 = 0 (window 512) and at
              pos0 = 1536 (window 2048), beside one SDPA call over bf16
-             K/V, each prefill row also timed as a CUDA graph of 24
-             launches (graph_ms: device time, no host time between
-             launches); with CUDA-event times of the kernel, its twin and
+             K/V, each prefill and KV append row also timed as a CUDA
+             graph of 20 or 24 launches (graph_ms: device time, no host
+             time between launches); with CUDA-event times of the kernel, its twin and
              one PyTorch library call for the same work where there is
              one, and each call's bound (bytes over 3.35 TB/s or operations
              over the peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s
@@ -145,19 +148,25 @@ Phases (any failure raises and the script exits non-zero):
              every bucket row filled, warm and as a CUDA graph of the three;
              where the tree's grouped_mul takes `rows`, also the routed
              buckets of phase 3 with their rows: the same kind of A/B
- 16 w4a8_layer (only when named) the W4A8 GEMM's 64-row tiles alone, the
-             four Llama-3-8B projections (nvfp4) at m = 512 and 2048, at
-             block_n 64 and 128, plain and weight cache (pk_fp4_gemm_w4a8
-             and pk_fp4_gemm_w4a8_wc), bare launches on activations quantized
-             beforehand, L2-warm, summed over the four: the same kind of
-             A/B, also of copies of the tile body edited to find what
-             bounds it (it checks no bits)
+ 16 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
+             Llama-3-8B projections (nvfp4): the 64-row tiles at m = 512
+             and 2048, the 16-row tiles at m = 16 (plain) and 64 (weight
+             cache) at their default splits, at block_n 64 and 128, plain
+             and weight cache (pk_fp4_gemm_w4a8 and pk_fp4_gemm_w4a8_wc),
+             bare launches on activations quantized beforehand, L2-warm,
+             summed over the four, the 16-row ones also as a CUDA graph of
+             the four: the same kind of A/B, also of copies of the tile
+             bodies edited to find what bounds them (it checks no bits)
  17 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
              tiles alone, the seven unfused projections at m = 512, the
              heuristic's tile, L2-warm, summed over the layer, with the
              dense columns alone (a launch with no FP4 columns) beside
              torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
              the same kind of A/B
+ 18 append_layer (only when named) the KV appends alone, flat bf16 and
+             headed bf16 and fp8, each as a CUDA graph of 20 launches: the
+             same kind of A/B, which a copy of this script in an older
+             tree's checkout times
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -210,9 +219,9 @@ from petit_kernel_tpu_torch.utils import benchlib
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
-          "w4a8_layer", "hybrid_prefill_layer")
-# run when --phases is not given: all but the five A/B phases
-DEFAULT_PHASES = PHASES[:-5]
+          "w4a8_layer", "hybrid_prefill_layer", "append_layer")
+# run when --phases is not given: all but the six A/B phases
+DEFAULT_PHASES = PHASES[:-6]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -432,6 +441,17 @@ def phase_build(rec):
         log(f"[build] ptxas {name}: {p.get('registers')} registers, spill "
             f"stores {p.get('spill_stores')} and loads {p.get('spill_loads')}"
             f" bytes{', C7515 (wgmma serialized)' if p.get('c7515') else ''}")
+    # the W4A8 16-row tiles' four instances (csrc/w4a8_stream.cuh), plain
+    # (G = 1) and weight cache (G = 4) at block_n 64 and 128
+    stream = {name: p for name, p in rec["ptxas"].items()
+              if name.startswith("w4a8_stream_kernel<")}
+    if info.log and len(stream) != 4:
+        raise AssertionError(f"build: ptxas compiled {sorted(stream)}, not "
+                             "the four w4a8_stream_kernel instances")
+    for name, p in sorted(stream.items()):
+        log(f"[build] W4A8 16-row stream body {name}: {p.get('registers')} "
+            f"registers, spill {p.get('spill_stores')}/{p.get('spill_loads')}"
+            f" bytes, C7515 {'yes' if p.get('c7515') else 'no'}")
 
 
 def _close(name, got, want, rtol, atol):
@@ -771,6 +791,7 @@ def phase_kernels(rec):
             and torch.equal(cv1.view(torch.int16), cv2.view(torch.int16))):
         raise AssertionError("kv_append: cache bytes differ from the twin")
     t_k = cuda_ms(lambda: attention.kv_append(ck1, cv1, kn, vn, pos, mask))
+    t_g = _graph_ms(lambda: attention.kv_append(ck1, cv1, kn, vn, pos, mask))
     t_p = cuda_ms(lambda: attention.kv_append_reference(ck2, cv2, kn, vn,
                                                         pos, mask))
     sel = mask.bool().nonzero().squeeze(1)
@@ -778,12 +799,13 @@ def phase_kernels(rec):
     t_l = cuda_ms(lambda: (ck2.index_put_(idx, kv_rows[0]),
                            cv2.index_put_(idx, kv_rows[1])))
     res["kv_append"] = dict(
-        max_abs_err=0.0, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        max_abs_err=0.0, ms=t_k, graph_ms=t_g, plain_ms=t_p, library_ms=t_l,
         **bound(*_append_work(kn, mask, 2)),
-        at="B=8 S=2048 Hkv=8 d=128, mixed mask, bit-exact; library: "
-           "index_put_ on K and V with the masked rows' indices")
-    log(f"[kernels] kv_append bit-exact kernel={t_k:.4f} ms "
-        f"plain={t_p:.4f} ms index_put_={t_l:.4f} ms")
+        at="B=8 S=2048 Hkv=8 d=128, mixed mask, bit-exact; graph_ms: a CUDA "
+           "graph of 20 launches; library: index_put_ on K and V with the "
+           "masked rows' indices")
+    log(f"[kernels] kv_append bit-exact kernel={t_k:.4f} ms graph={t_g:.4f} "
+        f"ms plain={t_p:.4f} ms index_put_={t_l:.4f} ms")
     _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask)
     del ck, cv, ck1, cv1, ck2, cv2
     _grouped_kernels(res, rows, gen)
@@ -829,7 +851,7 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
         t_l = cuda_ms(library) if library else None
         row = dict(kernel=name, variant=variant, max_abs_err=e, ms=t_k,
                    plain_ms=t_p, library_ms=t_l, **bound(*work))
-        if "prefill" in name:
+        if "prefill" in name or "append" in name:
             row["graph_ms"] = _cold_ms([kernel])
         rows.append(row)
         graph = (f" graph={row['graph_ms']:.4f} ms" if "graph_ms" in row
@@ -1155,17 +1177,12 @@ def _grouped_routed(res):
         f"{row['library_ms']:.4f} ms; routed bound {out['bound_ms']:.4f} ms")
 
 
-def _w4a8_launch(entry, a_i8, arow, words, r_t, acol, gs, out, sid):
-    """One bare launch of a W4A8 kernel on activations quantized
-    beforehand: the kernel's own time, without fused_mul_w4a8's torch
-    glue, and not counted as a launch of the path."""
-    m, k = a_i8.shape
-    code = getattr(_build.library(), entry)(
-        a_i8.data_ptr(), arow.data_ptr(), words.data_ptr(), r_t.data_ptr(),
-        acol.data_ptr(), gs.data_ptr(), out.data_ptr(), m, words.shape[1], k,
-        words.shape[0] * 8, sid.block_m, sid.block_n,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(entry, code)
+def _w4a8_launch(a_i8, arow, words, r_t, acol, gs, out, sid):
+    """One bare launch of a W4A8 kernel (the weight cache's for a
+    weight_cache sid) on activations quantized beforehand, at the default
+    k-splits: the kernel's own time, without fused_mul_w4a8's torch glue,
+    and not counted as a launch of the path."""
+    fused.launch_w4a8(a_i8, arow, words, r_t, acol, gs, out, sid)
 
 
 def _int_mm_col(a_i8, b_i8):
@@ -1281,11 +1298,9 @@ def _w4a8_kernels(rec, res, rows, gen):
             out = torch.empty_like(got)
             t = dict(
                 w4a8=cuda_ms(lambda: _w4a8_launch(
-                    "pk_fp4_gemm_w4a8", a_i8, arow, words, r_t, acol, gs,
-                    out, sid)),
+                    a_i8, arow, words, r_t, acol, gs, out, sid)),
                 w4a8_wc=cuda_ms(lambda: _w4a8_launch(
-                    "pk_fp4_gemm_w4a8_wc", a_i8, arow, words, r_t, acol, gs,
-                    out, wc8)),
+                    a_i8, arow, words, r_t, acol, gs, out, wc8)),
                 w4a8_wrapper=cuda_ms(lambda: fused.fused_mul_w4a8(
                     a, words, st, gs, sid=sid, r_t=r_t, acol=acol)),
                 wc=cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
@@ -1422,25 +1437,30 @@ def _w4a8_partial_group(fmt, gen, words, st, gs, r_t, acol, eb):
             "bit-equal to the plain kernel and the twin at 64x64 and 64x128")
 
 
-# the 16-row tiles still on the first mma.sync bodies that no other row times:
-# (name, m, weight cache, int8)
+# the 16-row tiles that no other row times: (name, m, weight cache, int8)
 _SMALL_TILES = (("fp4_gemm_w4a8_16row", 16, False, True),
                 ("fp4_gemm_w4a8_wc_16row", 64, True, True),
                 ("fp4_gemm_wc_16row", 64, True, False))
 
 
 def _small_tile_rows(res, kept, gen):
-    """The 16-row tiles on the mma.sync bodies (the W4A8 plain tile at m =
-    16, the W4A8 and bf16 weight caches at m = 64, G = 4 m-tiles of 16),
-    nvfp4, 16x64 tiles, summed over the four Llama-3-8B projections:
-    checked against their twins (the W4A8 kernels bit for bit), timed
-    beside the twin and the library call (torch._int_mm on the
-    requantized int8 weights, which refuses m <= 16, or torch.matmul on the
-    dequantized bf16 weights). No engine path launches them."""
+    """The 16-row tiles no other row times: the W4A8 plain tile at m = 16
+    and its weight cache at m = 64 (4 m-tiles of 16 a CTA), both on the
+    split-k int8 stream body at their default splits, and the bf16 weight
+    cache at m = 64 (csrc/fp4_gemm.cuh); nvfp4, 16x64 tiles, summed over
+    the four Llama-3-8B projections: checked against their twins (the W4A8
+    kernels bit for bit, through the wrapper, whose launch must count as a
+    stream launch), timed warm (back to back) and as one CUDA graph of the
+    four (graph_ms: 136 MB of weights, so each launch finds its own cold),
+    beside the twin and the library call: torch._int_mm on the requantized
+    int8 weights (it refuses m <= 16, so at m = 16 on A zero-padded to 32
+    rows, labelled so), or torch.matmul on the dequantized bf16 weights.
+    No engine path launches them."""
     dev = torch.device("cuda")
     for name, m, wc, int8 in _SMALL_TILES:
         acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0,
                    err=0.0)
+        calls, lib_note = [], ""
         for k, n, words, st, gs, r_t, acol in kept:
             a = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
@@ -1448,8 +1468,13 @@ def _small_tile_rows(res, kept, gen):
                 16, 64, ElementB.NVFP4, solution_mod.MatmulType.INT8 if int8
                 else solution_mod.MatmulType.BF16, weight_cache=wc)
             if int8:
+                wrapper = fused.fused_mul_w4a8_wc if wc else fused.fused_mul_w4a8
+                before = wrapper.stream_launches
                 got = fused.fused_mul_w4a8(a, words, st, gs, sid=sid,
                                            r_t=r_t, acol=acol)
+                if wrapper.stream_launches != before + 1:
+                    raise AssertionError(f"{name} k={k} n={n}: the launch "
+                                         "missed the 16-row stream tiles")
                 want = fused.fused_mul_w4a8_reference(a, words, st, gs,
                                                       sid=sid, r_t=r_t,
                                                       acol=acol)
@@ -1460,14 +1485,23 @@ def _small_tile_rows(res, kept, gen):
                                          "its twin")
                 a_i8, arow = fused.quantize_activations(a)
                 out = torch.empty_like(got)
-                entry = "pk_fp4_gemm_w4a8_wc" if wc else "pk_fp4_gemm_w4a8"
-                t_k = cuda_ms(lambda: _w4a8_launch(entry, a_i8, arow, words,
-                                                   r_t, acol, gs, out, sid))
+                call = (lambda a_i8=a_i8, arow=arow, w=words, r=r_t, c=acol,
+                        g=gs, o=out, sid=sid:
+                        _w4a8_launch(a_i8, arow, w, r, c, g, o, sid))
                 t_p = cuda_ms(lambda: fused.fused_mul_w4a8_reference(
                     a, words, st, gs, sid=sid, r_t=r_t, acol=acol),
                     iters=2, warmup=1)
-                lib = _int_mm_col(a_i8, fused.requantized_weights(words, r_t,
-                                                                  k))
+                a_lib = a_i8
+                if m <= 16:   # _int_mm refuses m <= 16: pad A with zero rows
+                    a_lib = torch.zeros((32, k), dtype=torch.int8, device=dev)
+                    a_lib[:m] = a_i8
+                    lib_note = ("torch._int_mm on the requantized int8 "
+                                "weights, A zero-padded to 32 rows (it "
+                                "refuses m <= 16)")
+                else:
+                    lib_note = "torch._int_mm on the requantized int8 weights"
+                lib = _int_mm_col(a_lib, fused.requantized_weights(words, r_t,
+                                                                   k))
                 nbytes = _nbytes(a_i8, arow, words, r_t, acol, gs, got)
                 peak = INT8_OP_PER_S
             else:
@@ -1477,15 +1511,18 @@ def _small_tile_rows(res, kept, gen):
                 acc["err"] = max(acc["err"], _close(
                     f"{name} k={k} n={n}", got, want, 2 ** -7,
                     2 ** -8 * want.float().abs().max()))
-                t_k = cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
-                                                      sid=sid))
+                call = (lambda a=a, w=words, s_=st, g=gs, sid=sid:
+                        fused.fused_mul(a, w, s_, g, sid=sid))
                 t_p = cuda_ms(lambda: fused.fused_mul_reference(
                     a, words, st, gs, sid=sid), iters=2, warmup=1)
                 deq = (layout.dequant_from_tpu_layout(words, st, n, k)
                        * gs).to(torch.bfloat16)
                 lib = lambda: torch.matmul(a, deq)
+                lib_note = "torch.matmul on the dequantized bf16 weights"
                 nbytes = _nbytes(a, words, st, gs, got)
                 peak = BF16_FLOP_PER_S
+            t_k = cuda_ms(call)
+            calls.append(call)
             t_l = cuda_ms(lib) if lib else None
             acc["ms"] += t_k
             acc["plain_ms"] += t_p
@@ -1495,19 +1532,22 @@ def _small_tile_rows(res, kept, gen):
             acc["flops"] += 2 * m * n * k
             log(f"[kernels] {name} m={m} k={k} n={n}: kernel {t_k:.4f} ms, "
                 f"plain {t_p:.2f} ms, library {t_l} ms")
+        graph_ms = len(calls) * _cold_ms(calls)
+        body = ("the split-k int8 stream body of csrc/w4a8_stream.cuh at "
+                "the default splits" if int8
+                else "the mma.sync body of csrc/fp4_gemm.cuh")
         res[name] = dict(
-            max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
-            library_ms=acc["library_ms"],
+            max_abs_err=acc["err"], ms=acc["ms"], graph_ms=graph_ms,
+            plain_ms=acc["plain_ms"], library_ms=acc["library_ms"],
             **bound(acc["nbytes"], acc["flops"], peak),
             at=f"nvfp4 m={m}, sum of the 4 Llama-3-8B projections, tile 16x64"
-               f"{', weight cache (4 m-tiles a CTA)' if wc else ''}, the "
-               "mma.sync body; library: " + (
-                   "torch._int_mm on the requantized int8 weights (None: "
-                   "it refuses m <= 16)" if int8 else
-                   "torch.matmul on the dequantized bf16 weights"))
-        log(f"[kernels] {name} (nvfp4 m={m}, 4 projections): kernel "
-            f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.2f} ms, library "
-            f"{acc['library_ms']} ms, bound {res[name]['bound_ms']:.4f} ms "
+               f"{', weight cache (4 m-tiles a CTA)' if wc else ''}, {body}; "
+               f"ms back to back, graph_ms a CUDA graph of the four; "
+               f"library: {lib_note}")
+        log(f"[kernels] {name} (nvfp4 m={m}, 4 projections; {body}): kernel "
+            f"{acc['ms']:.4f} ms warm, {graph_ms:.4f} ms graph, plain "
+            f"{acc['plain_ms']:.2f} ms, library {acc['library_ms']} ms "
+            f"({lib_note}), bound {res[name]['bound_ms']:.4f} ms "
             f"({res[name]['bound_by']})")
 
 
@@ -1898,15 +1938,20 @@ def phase_hybrid_prefill_layer(rec):
 
 
 def phase_w4a8_layer(rec):
-    """The W4A8 GEMM's 64-row tiles alone, for an A/B of two trees or of
-    edited copies of csrc/w4a8_wgmma.cuh: the four Llama-3-8B projections
-    (nvfp4) at m = 512 and 2048, tiles (64, 64) and (64, 128), each a bare
-    launch of pk_fp4_gemm_w4a8 and of its weight cache pk_fp4_gemm_w4a8_wc
-    on activations quantized beforehand (_w4a8_launch), L2-warm, summed
-    over the four. Times only: the kernels phase checks the bits."""
+    """The W4A8 GEMM's tiles alone, for an A/B of two trees or of edited
+    copies of csrc/w4a8_wgmma.cuh or csrc/w4a8_stream.cuh: the four
+    Llama-3-8B projections (nvfp4), each a bare launch of pk_fp4_gemm_w4a8
+    and of its weight cache pk_fp4_gemm_w4a8_wc on activations quantized
+    beforehand (_w4a8_launch), L2-warm, summed over the four: the 64-row
+    tiles (64x64, 64x128) at m = 512 and 2048; the 16-row tiles (16x64,
+    16x128) at their default splits, the plain tile at m = 16 and the
+    weight cache at m = 64, also as one CUDA graph of the four (each
+    launch finds its weights cold). Times only: the kernels phase checks
+    the bits."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {}
+    out, graphs = {}, {}
+    i8 = solution_mod.MatmulType.INT8
     for k, n in LLAMA8B_KN:
         w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
         qw, sc, gs = qref.quantize_nvfp4(w)
@@ -1916,24 +1961,31 @@ def phase_w4a8_layer(rec):
         st = layout.process_fp4_scales(sc, n, k, group_size=16)
         gs = gs.reshape(1)
         r_t, acol = fused.w4a8_requant_constants(st)
-        for m in (512, 2048):
+        runs = [(m, bm, bn, wc) for m in (512, 2048)
+                for bm, bn in ((64, 64), (64, 128)) for wc in (False, True)]
+        runs += [(m, 16, bn, m == 64) for bn in (64, 128) for m in (16, 64)]
+        for m in sorted({r[0] for r in runs}):
             a = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
             a_i8, arow = fused.quantize_activations(a)
             y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-            for bn in (64, 128):
-                sid = solution_mod.SolutionId(64, bn, ElementB.NVFP4,
-                                              solution_mod.MatmulType.INT8)
-                for entry, tag, sid_ in (
-                        ("pk_fp4_gemm_w4a8", "", sid),
-                        ("pk_fp4_gemm_w4a8_wc", " weight cache",
-                         dataclasses.replace(sid, weight_cache=True))):
-                    key = f"m={m} tile=64x{bn}{tag}"
-                    out[key] = out.get(key, 0.0) + cuda_ms(
-                        lambda: _w4a8_launch(entry, a_i8, arow, words, r_t,
-                                             acol, gs, y, sid_))
+            for m_, bm, bn, wc in runs:
+                if m_ != m:
+                    continue
+                sid = solution_mod.SolutionId(bm, bn, ElementB.NVFP4, i8,
+                                              weight_cache=wc)
+                key = f"m={m} tile={bm}x{bn}{' weight cache' if wc else ''}"
+                call = (lambda a_i8=a_i8, arow=arow, w=words, r=r_t, c=acol,
+                        g=gs, o=y, sid=sid:
+                        _w4a8_launch(a_i8, arow, w, r, c, g, o, sid))
+                out[key] = out.get(key, 0.0) + cuda_ms(call)
+                if bm == 16:
+                    graphs.setdefault(key, []).append(call)
     for key, t in out.items():
         log(f"[w4a8_layer] {key}: 4 projections {t:.4f} ms")
+    for key, calls in graphs.items():
+        out[f"{key} graph"] = t = len(calls) * _cold_ms(calls)
+        log(f"[w4a8_layer] {key}: 4 projections {t:.4f} ms as a CUDA graph")
     rec["w4a8_layer"] = out
 
 
@@ -2012,6 +2064,36 @@ def phase_grouped_layer(rec):
     out = _grouped_layer()
     log(json.dumps({"grouped_layer": out}))
     rec["grouped_layer"] = out
+
+
+def phase_append_layer(rec):
+    """The KV appends alone, for an A/B of two trees: kv_append into a flat
+    bf16 cache and into headed bf16 and fp8 caches (B = 8, S = 2048, Hkv =
+    8, d = 128, the kernels phase's mixed mask), each as a CUDA graph of 20
+    launches (their back-to-back launches wait on the host). It calls only
+    attention.kv_append and torch.cuda graphs, so a copy of this script
+    placed in an older checkout times that tree's kernels."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, Hkv, d, S = 8, 8, 128, 2048
+    pos = torch.tensor([0, 5, 127, 128, 700, 1023, 1500, 2047],
+                       dtype=torch.int32, device=dev)
+    mask = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.int32,
+                        device=dev)
+    kn, vn = (torch.randn((B, Hkv, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    out = {}
+    for name, shape, dtype, headed in (
+            ("kv_append", (B, S, Hkv, d), torch.bfloat16, False),
+            ("kv_append_headed bf16", (B, Hkv, S, d), torch.bfloat16, True),
+            ("kv_append_headed fp8", (B, Hkv, S, d), FP8, True)):
+        ck = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cv = ck.clone()
+        out[name] = _graph_ms(lambda: attention.kv_append(
+            ck, cv, kn, vn, pos, mask, headed=headed))
+        log(f"[append_layer] {name}: {out[name] * 1e3:.3f} us a launch as a "
+            "CUDA graph")
+    rec["append_layer"] = out
 
 
 def _quantized_weight(fmt, k, n, gen):
@@ -3373,7 +3455,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all but hybrid_layer, fp4_layer, "
-                    "grouped_layer, w4a8_layer and hybrid_prefill_layer)")
+                    "grouped_layer, w4a8_layer, hybrid_prefill_layer and "
+                    "append_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     ap.add_argument("--parent-record", help="a --record file of another "

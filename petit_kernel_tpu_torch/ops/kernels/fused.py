@@ -18,10 +18,10 @@ launch count:
                      MMAs per fragment, f32 out)
   fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache)
   fused_mul_w4a8     csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8 (64-row tiles:
-                     int8 wgmma, csrc/w4a8_wgmma.cuh; 16-row tiles:
-                     mma.sync s8)
-  fused_mul_w4a8_wc  csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8_wc (mma.sync
-                     s8)
+                     int8 wgmma, csrc/w4a8_wgmma.cuh; 16-row tiles: the
+                     split-k int8 stream body, csrc/w4a8_stream.cuh)
+  fused_mul_w4a8_wc  csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8_wc (the same
+                     two bodies, 4 m-tiles a CTA)
   dequant_tpu_layout csrc/fp4_dequant.cu pk_fp4_dequant
 
 fused_mul hands a high_precision solution id to fused_mul_hp (or
@@ -32,14 +32,16 @@ dequant_tpu_layout_reference are the same functions in plain PyTorch; a
 wrapper takes its twin only for tensors on the CPU, and for CUDA tensors
 it launches its kernel or raises.
 
-The 16-row tiles of fused_mul, of hybrid_mul (kernels/hybrid.py) and of
-grouped_mul (kernels/grouped.py) cut each output tile's k range over
-several CTAs: stream_splits is the rule for all three, and one buffer of
+The 16-row tiles of fused_mul, of hybrid_mul (kernels/hybrid.py), of
+grouped_mul (kernels/grouped.py) and of fused_mul_w4a8 cut each output
+tile's k range over several CTAs: stream_splits is the rule for all four
+(w4a8_splits counts the W4A8 weight cache's CTAs), and one buffer of
 split counters per (device, stream) serves them all (_counters).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -122,8 +124,27 @@ def _check_splits(where: str, splits, kp: int, splittable: bool) -> int:
                          f"(kp / {KSTEP}), got {splits!r}")
     if not splittable and splits != 1:
         raise ValueError(f"{where}: these tiles do not split k (only the "
-                         f"16-row bf16 tiles do), got splits {splits!r}")
+                         f"plain 16-row bf16 tiles and the 16-row W4A8 "
+                         f"tiles do), got splits {splits!r}")
     return splits
+
+
+# m-tiles of 16 rows a CTA of the W4A8 weight cache's 16-row tiles
+# (csrc/fp4_gemm.cuh WC_GROUP)
+W4A8_WC_GROUP = 4
+
+
+def w4a8_splits(m: int, n: int, kp: int, sid: SolutionId,
+                num_sms: int) -> int:
+    """k-splits of fused_mul_w4a8's tiles: stream_splits over the launch's
+    CTAs, 1 for block_m = 64. The plain 16-row tiles have ceil(m / 16)
+    m-tiles, the weight cache's ceil(m / 64) m-groups of W4A8_WC_GROUP
+    tiles a CTA; both stream 0.625 bytes a weight, as fused_mul's do."""
+    if sid.block_m != STREAM_BLOCK_M:
+        return 1
+    rows = STREAM_BLOCK_M * (W4A8_WC_GROUP if sid.weight_cache else 1)
+    return stream_splits(-(-m // rows) * STREAM_BLOCK_M, n, 0, kp,
+                         STREAM_BLOCK_M, sid.block_n, num_sms)[0]
 
 
 @functools.cache
@@ -512,34 +533,69 @@ def fused_mul_w4a8_reference(a: torch.Tensor, words: torch.Tensor,
     return out.to(torch.bfloat16)
 
 
+def launch_w4a8(a_i8, arow, words, r_t, acol, global_scale, out,
+                sid: SolutionId, splits: int | None = None) -> None:
+    """One launch of pk_fp4_gemm_w4a8 (pk_fp4_gemm_w4a8_wc for a
+    weight_cache sid) on activations quantized beforehand, into `out` (m,
+    n) bf16, with the k-split workspace and counters; splits None takes
+    w4a8_splits. The operands are contiguous CUDA tensors at 16-byte
+    boundaries (the kernels copy A8, the words and R in 16-byte pieces).
+    Not counted: the wrappers count their launches."""
+    m, k = a_i8.shape
+    kp, n = words.shape[0] * 8, words.shape[1]
+    if splits is None:
+        splits = w4a8_splits(m, n, kp, sid, _num_sms(a_i8.device.index))
+    stream = torch.cuda.current_stream(a_i8.device).cuda_stream
+    ws_ptr = cnt_ptr = None
+    if splits > 1:
+        rows = STREAM_BLOCK_M * (W4A8_WC_GROUP if sid.weight_cache else 1)
+        tiles = -(-m // rows) * -(-n // sid.block_n)
+        ws = torch.empty(tiles * splits * rows * sid.block_n,
+                         dtype=torch.int32, device=a_i8.device)
+        ws_ptr = ws.data_ptr()
+        cnt_ptr = _counters(a_i8.device, stream, tiles).data_ptr()
+    _launch("pk_fp4_gemm_w4a8_wc" if sid.weight_cache else "pk_fp4_gemm_w4a8",
+            a_i8.data_ptr(), arow.data_ptr(), words.data_ptr(),
+            r_t.data_ptr(), acol.data_ptr(), global_scale.data_ptr(),
+            out.data_ptr(), ws_ptr, cnt_ptr, m, n, k, kp, sid.block_m,
+            sid.block_n, splits, stream)
+
+
 def _fused_mul_w4a8_cuda(entry: str, a, words, scales_t, global_scale, sid,
-                         r_t, acol):
+                         r_t, acol, splits):
     if a.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {a.device}")
     m, k = a.shape
     n = words.shape[1]
     if r_t is None or acol is None:
         r_t, acol = w4a8_requant_constants(scales_t)
-    kp = _check(entry, a, words, scales_t, global_scale,
-                ("r_t", r_t, torch.bfloat16, tuple(scales_t.shape)),
-                ("acol", acol, torch.float32, (1, n)))
+    _check(entry, a, words, scales_t, global_scale,
+           ("r_t", r_t, torch.bfloat16, tuple(scales_t.shape)),
+           ("acol", acol, torch.float32, (1, n)))
     a_i8, arow = quantize_activations(a)
-    # the 64-row tiles copy A8, the words and R in 16-byte pieces
+    # the kernels copy A8, the words and R in 16-byte pieces
     a_i8, words, r_t = _aligned(a_i8), _aligned(words), _aligned(r_t)
     acol, arow = acol.contiguous(), arow.contiguous()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     if m == 0 or n == 0:
         return out, False
-    _launch(entry, a_i8.data_ptr(), arow.data_ptr(), words.data_ptr(),
-            r_t.data_ptr(), acol.data_ptr(), global_scale.data_ptr(),
-            out.data_ptr(), m, n, k, kp, sid.block_m, sid.block_n,
-            torch.cuda.current_stream(a.device).cuda_stream)
+    launch_w4a8(a_i8, arow, words, r_t, acol, global_scale, out, sid, splits)
     return out, True
+
+
+def _count_w4a8(wrapper, sid: SolutionId, launched: bool) -> None:
+    wrapper.launches += launched
+    if launched:
+        if sid.block_m == 64:
+            wrapper.wgmma_launches += 1
+        else:
+            wrapper.stream_launches += 1
 
 
 def fused_mul_w4a8(a: torch.Tensor, words: torch.Tensor,
                    scales_t: torch.Tensor, global_scale: torch.Tensor, *,
-                   sid: SolutionId, r_t=None, acol=None) -> torch.Tensor:
+                   sid: SolutionId, r_t=None, acol=None,
+                   splits: int | None = None) -> torch.Tensor:
     """W4A8 fused_mul over the same (words, scales_t) operands:
     bf16(((f32(Σ_k a_i8 · b_i8) * arow) * acol) * gs).
 
@@ -547,49 +603,64 @@ def fused_mul_w4a8(a: torch.Tensor, words: torch.Tensor,
     package): quantize_activations. r_t (kp/16, n) bf16 and acol (1, n) f32
     are w4a8_requant_constants(scales_t), computed per call unless given.
     sid: the (block_m, block_n) tile; a weight_cache sid goes to
-    fused_mul_w4a8_wc. Launches csrc/fp4_gemm_w4a8.cu for CUDA tensors
-    (counted in fused_mul_w4a8.launches; the 64-row tiles, whose kernel is
-    the int8 wgmma body of csrc/w4a8_wgmma.cuh, also in
-    fused_mul_w4a8.wgmma_launches); runs fused_mul_w4a8_reference for CPU
+    fused_mul_w4a8_wc. splits: k-splits of each 16-row output tile, an int
+    in [1, kp / 256]; the 64-row tiles take 1. Default w4a8_splits' count
+    on the card; checked but unused on the CPU. The integer sums are exact,
+    so every tile and split count gives the same bits.
+
+    Launches csrc/fp4_gemm_w4a8.cu for CUDA tensors (counted in
+    fused_mul_w4a8.launches; the 64-row tiles, whose kernel is the int8
+    wgmma body of csrc/w4a8_wgmma.cuh, also in
+    fused_mul_w4a8.wgmma_launches, the 16-row tiles, the split-k int8
+    stream body of csrc/w4a8_stream.cuh, in
+    fused_mul_w4a8.stream_launches); runs fused_mul_w4a8_reference for CPU
     tensors."""
     if sid.weight_cache:
         return fused_mul_w4a8_wc(a, words, scales_t, global_scale, sid=sid,
-                                 r_t=r_t, acol=acol)
+                                 r_t=r_t, acol=acol, splits=splits)
+    if splits is not None:
+        _check_splits("fused_mul_w4a8", splits, words.shape[0] * 8,
+                      sid.block_m == STREAM_BLOCK_M)
     if a.device.type == "cpu":
         return fused_mul_w4a8_reference(a, words, scales_t, global_scale,
                                         sid=sid, r_t=r_t, acol=acol)
     out, launched = _fused_mul_w4a8_cuda("pk_fp4_gemm_w4a8", a, words,
                                          scales_t, global_scale, sid, r_t,
-                                         acol)
-    fused_mul_w4a8.launches += launched
-    if launched and sid.block_m == 64:
-        fused_mul_w4a8.wgmma_launches += 1
+                                         acol, splits)
+    _count_w4a8(fused_mul_w4a8, sid, launched)
     return out
 
 
 def fused_mul_w4a8_wc(a: torch.Tensor, words: torch.Tensor,
                       scales_t: torch.Tensor, global_scale: torch.Tensor, *,
-                      sid: SolutionId, r_t=None, acol=None) -> torch.Tensor:
+                      sid: SolutionId, r_t=None, acol=None,
+                      splits: int | None = None) -> torch.Tensor:
     """fused_mul_w4a8 through the weight-cache kernel
-    (pk_fp4_gemm_w4a8_wc): each CTA runs several m-tiles of one n-tile
-    and requantizes each weight block once for all of them. Bit for bit
-    fused_mul_w4a8's result. Counted in fused_mul_w4a8_wc.launches; the
-    64-row tiles, whose kernel is the int8 wgmma body of
-    csrc/w4a8_wgmma.cuh with its m-tiles sharing one requantization, also
-    in fused_mul_w4a8_wc.wgmma_launches. The twin on the CPU."""
+    (pk_fp4_gemm_w4a8_wc): each CTA runs 4 m-tiles of one n-tile and
+    requantizes each weight block once for all of them. Bit for bit
+    fused_mul_w4a8's result. splits as fused_mul_w4a8's (the 16-row tiles
+    split k; their default counts the CTAs of 64 rows). Counted in
+    fused_mul_w4a8_wc.launches; the 64-row tiles, whose kernel is the int8
+    wgmma body of csrc/w4a8_wgmma.cuh with its m-tiles sharing one
+    requantization, also in fused_mul_w4a8_wc.wgmma_launches, the 16-row
+    tiles, the stream body of csrc/w4a8_stream.cuh, in
+    fused_mul_w4a8_wc.stream_launches. The twin on the CPU."""
+    if splits is not None:
+        _check_splits("fused_mul_w4a8_wc", splits, words.shape[0] * 8,
+                      sid.block_m == STREAM_BLOCK_M)
     if a.device.type == "cpu":
         return fused_mul_w4a8_reference(a, words, scales_t, global_scale,
                                         sid=sid, r_t=r_t, acol=acol)
-    out, launched = _fused_mul_w4a8_cuda("pk_fp4_gemm_w4a8_wc", a, words,
-                                         scales_t, global_scale, sid, r_t,
-                                         acol)
-    fused_mul_w4a8_wc.launches += launched
-    if launched and sid.block_m == 64:
-        fused_mul_w4a8_wc.wgmma_launches += 1
+    out, launched = _fused_mul_w4a8_cuda(
+        "pk_fp4_gemm_w4a8_wc", a, words, scales_t, global_scale,
+        dataclasses.replace(sid, weight_cache=True), r_t, acol, splits)
+    _count_w4a8(fused_mul_w4a8_wc, sid, launched)
     return out
 
 
 fused_mul_w4a8.launches = 0
 fused_mul_w4a8.wgmma_launches = 0
+fused_mul_w4a8.stream_launches = 0
 fused_mul_w4a8_wc.launches = 0
 fused_mul_w4a8_wc.wgmma_launches = 0
+fused_mul_w4a8_wc.stream_launches = 0

@@ -17,7 +17,11 @@ replayed in a CUDA graph bit for bit the eager run; the weight-cache GEMM bit
 for bit against fused_mul at the same tile; the W4A8 GEMM and its
 weight-cache variant bit for bit against their twin (exact int32 sums),
 the plain kernel's 64-row int8 wgmma tiles also at k = 4096 over 5 and 32
-m-tiles, and the weight cache bit for bit against them;
+m-tiles, and the weight cache bit for bit against them; their 16-row
+tiles (the split-k int8 stream body) at every split count, two launches
+the same bits, the weight cache bit for bit the plain tile, and the split
+counters they share with fused_mul zero after a W4A8 launch and an FP4
+one;
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
 convert fp8 exactly), the prefill wrappers also on views off a 16-byte
 boundary; the KV appends and the dequant kernel bit-exact; the
@@ -656,6 +660,81 @@ def test_w4a8_weight_cache_bit_equal_to_wgmma_tiles(gen, fmt, bn):
         assert fused.fused_mul_w4a8_wc.launches == before + 1
         assert fused.fused_mul_w4a8_wc.wgmma_launches == wgmma + 1
         assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_w4a8_stream_tiles_every_split_count(gen, fmt, bn):
+    """The 16-row tiles of both W4A8 kernels (the split-k int8 stream body
+    of csrc/w4a8_stream.cuh) on _W4A8_CASES at 1, 2, 3 (where kp / 256
+    allows) and kp / 256 splits and the default: bit for bit the twin, a
+    second launch the same bits, each launch counted as a stream launch;
+    the weight cache (where its id is feasible, m > 16) bit for bit the
+    plain 16-row tile."""
+    for m, n, k in _W4A8_CASES:
+        words, st, gs, eb = _w4a8_operands(gen, fmt, n, k)
+        r_t, acol = fused.w4a8_requant_constants(st)
+        a = _bf16(gen, m, k)
+        sid = sol.SolutionId(16, bn, eb, sol.MatmulType.INT8)
+        wc = sol.SolutionId(16, bn, eb, sol.MatmulType.INT8,
+                            weight_cache=True)
+        want = fused.fused_mul_w4a8_reference(a, words, st, gs, sid=sid,
+                                              r_t=r_t, acol=acol)
+        steps = words.shape[0] * 8 // fused.KSTEP
+        counts = sorted({c for c in (1, 2, 3, steps) if c <= steps})
+        for splits in (*counts, None):
+            plain = None
+            for s_, wrapper in ((sid, fused.fused_mul_w4a8),
+                                (wc, fused.fused_mul_w4a8_wc)):
+                if s_.weight_cache and not sol.is_feasible(s_, m, n, k):
+                    continue
+                before = wrapper.stream_launches
+                got = fused.fused_mul_w4a8(a, words, st, gs, sid=s_, r_t=r_t,
+                                           acol=acol, splits=splits)
+                assert wrapper.stream_launches == before + 1
+                what = (m, n, k, s_.weight_cache, splits)
+                assert torch.equal(got.view(torch.int16),
+                                   want.view(torch.int16)), what
+                again = fused.fused_mul_w4a8(a, words, st, gs, sid=s_,
+                                             r_t=r_t, acol=acol,
+                                             splits=splits)
+                assert torch.equal(again.view(torch.int16),
+                                   got.view(torch.int16)), what
+                if plain is None:
+                    plain = got
+                else:
+                    assert torch.equal(got.view(torch.int16),
+                                       plain.view(torch.int16)), what
+
+
+def test_w4a8_and_fp4_stream_tiles_leave_the_split_counters_zero(gen):
+    """Llama-3-8B's wo (k = n = 4096) at 4 splits: a W4A8 16-row launch
+    (the plain tile at m = 16, then the weight cache at m = 64) followed
+    by fused_mul's 16-row tiles on the same stream, which share the
+    counter buffer: every result right (the W4A8 ones bit for bit, the FP4
+    one at the GEMM tolerance) and every split counter zero afterwards."""
+    n = k = 4096
+    words, st, gs, eb = _w4a8_operands(gen, "nvfp4", n, k)
+    r_t, acol = fused.w4a8_requant_constants(st)
+    fp4 = sol.SolutionId(16, 64, eb)
+    for m, wc in ((16, False), (64, True)):
+        a = _bf16(gen, m, k)
+        sid = sol.SolutionId(16, 64, eb, sol.MatmulType.INT8,
+                             weight_cache=wc)
+        got = fused.fused_mul_w4a8(a, words, st, gs, sid=sid, r_t=r_t,
+                                   acol=acol, splits=4)
+        a8 = a[:8].contiguous()
+        out = fused.fused_mul(a8, words, st, gs, sid=fp4, splits=4)
+        torch.cuda.synchronize()
+        for buf in fused._COUNTERS.values():
+            assert not buf.any(), (m, wc)
+        want = fused.fused_mul_w4a8_reference(a, words, st, gs, sid=sid,
+                                              r_t=r_t, acol=acol)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        ref = fused.fused_mul_reference(a8, words, st, gs, sid=fp4)
+        torch.testing.assert_close(
+            out.float(), ref.float(), rtol=2 ** -7,
+            atol=2 ** -8 * ref.float().abs().max().item())
 
 
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])

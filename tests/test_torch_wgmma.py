@@ -244,7 +244,8 @@ def test_decode_pair_matches_the_e2m1_table():
 
 # ---- the ring --------------------------------------------------------------
 
-def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4):
+def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4,
+                 words=True):
     """Play fp4_wgmma_tile's order (`units` units a step; the W4A8 body,
     w4a8_wgmma_tile, runs 2) for every thread at once and return the
     hazards found. A unit u = units * step + j runs: decode into B slot
@@ -259,7 +260,11 @@ def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4):
     done once a wait has retired it and a barrier followed. A tuple
     mma_depth plays one warpgroup a depth, each waiting only for its own
     wgmmas, all reading one A slot (their own rows) and one B slot: a
-    wgmma is done for all threads once every warpgroup's is."""
+    wgmma is done for all threads once every warpgroup's is. words=False
+    plays a ring whose stages carry the words and scales with A
+    (csrc/w4a8_stream.cuh, at units=1 and mma_depth=0: its MMAs are done
+    when a thread leaves the step): no decode into shared memory, no
+    separate stages of words."""
     depths = (mma_depth,) if isinstance(mma_depth, int) else mma_depth
     a_slots = da + 2 if a_slots is None else a_slots
     n_units = units * steps
@@ -294,29 +299,31 @@ def _ring_faults(da, steps, a_slots=None, b_slots=3, mma_depth=1, units=4):
         return ("WS", step)
 
     for v in range(da):
-        ops = [load_ws(0)] if v == 0 else []
+        ops = [load_ws(0)] if v == 0 and words else []
         if v < n_units:
             ops.append(load_a(v))
         commit(ops)
     landed = wait_copies(da - 1)          # prologue wait + barrier
     for u in range(n_units):
         step, j = divmod(u, units)
-        # decode(u): reads the step's words and scales, writes B slot
-        if group_of[("WS", step)] >= landed:
-            faults.append(f"decode({u}) reads words({step}) not landed")
-        if ws_holder[step % 2] != step:
-            faults.append(f"decode({u}) finds words({ws_holder[step % 2]})")
         b = u % b_slots
-        if b in b_reader and b_reader[b] > done_mma:
-            faults.append(f"decode({u}) overwrites B slot {b} under "
-                          f"wgmma({b_reader[b]})")
+        if words:
+            # decode(u): reads the step's words and scales, writes B slot
+            if group_of[("WS", step)] >= landed:
+                faults.append(f"decode({u}) reads words({step}) not landed")
+            if ws_holder[step % 2] != step:
+                faults.append(
+                    f"decode({u}) finds words({ws_holder[step % 2]})")
+            if b in b_reader and b_reader[b] > done_mma:
+                faults.append(f"decode({u}) overwrites B slot {b} under "
+                              f"wgmma({b_reader[b]})")
         # wait, barrier
         landed = wait_copies(da - 1)
         done_mma = min(retired_mma)
         ops = []
         if u + da < n_units:
             ops.append(load_a(u + da))
-        if j == 0 and step + 1 < steps:
+        if words and j == 0 and step + 1 < steps:
             ops.append(load_ws(step + 1))
         commit(ops)
         # wgmma(u)
