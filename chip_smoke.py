@@ -25,12 +25,15 @@ Phases (any failure raises and the script exits non-zero):
              partial last m-group) the int8
              wgmma body of csrc/w4a8_wgmma.cuh, the 16-row tiles mma.sync
              bodies (the split-k stream csrc/fp4_stream.cuh for fp4_gemm,
-             the grouped GEMM and the hybrid GEMM, csrc/fp4_gemm.cuh for
-             the weight cache, the split-k int8 stream csrc/w4a8_stream.cuh
-             for both W4A8 kernels; these last three also timed alone,
-             warm and as a CUDA graph of the four projections, the plain
-             W4A8 tile at m = 16 and the weight caches at m = 64, the W4A8
-             ones at their default splits and counted as stream launches);
+             its weight cache (4 m-tiles a CTA), the grouped GEMM and the
+             hybrid GEMM, the split-k int8 stream csrc/w4a8_stream.cuh for
+             both W4A8 kernels; the three 16-row weight caches and the
+             plain W4A8 tile also timed alone, warm and as a CUDA graph of
+             the four projections, the plain W4A8 tile at m = 16 and the
+             weight caches at m = 64, at their default splits and counted
+             as stream launches, the FP4 weight cache at 16x64 and 16x128,
+             bit for bit fused_mul's plain 16-row tile at the same splits,
+             with a sweep of 1 to 8 splits at 16x64);
              fp4_gemm at the four
              Llama-3-8B projections, m = 1, 8 and 256, its default tile
              and k-splits, two launches
@@ -167,6 +170,13 @@ Phases (any failure raises and the script exits non-zero):
              headed bf16 and fp8, each as a CUDA graph of 20 launches: the
              same kind of A/B, which a copy of this script in an older
              tree's checkout times
+ 19 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
+             alone: the four Llama-3-8B projections (nvfp4) at m = 64
+             through fused_mul with weight-cache ids 16x64 and 16x128 at
+             their default splits, beside the plain 16-row tile, L2-warm
+             and as a CUDA graph of the four: the same kind of A/B, also of
+             copies of csrc/fp4_stream.cuh with another plan (it checks no
+             bits)
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -219,9 +229,10 @@ from petit_kernel_tpu_torch.utils import benchlib
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
-          "w4a8_layer", "hybrid_prefill_layer", "append_layer")
-# run when --phases is not given: all but the six A/B phases
-DEFAULT_PHASES = PHASES[:-6]
+          "w4a8_layer", "hybrid_prefill_layer", "append_layer",
+          "fp4_wc_layer")
+# run when --phases is not given: all but the seven A/B phases
+DEFAULT_PHASES = PHASES[:-7]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -302,6 +313,13 @@ KERNELS = {
                         source="petit_kernel_tpu_torch/csrc/fp4_gemm.cu",
                         replaces="petit_kernel_tpu/ops/kernels/fused.py:259",
                         wrapper=fused.fused_mul_wc),
+    # fused_mul_wc's 16-row tiles, the stream body at 4 m-tiles a CTA:
+    # their own kernel, counted apart (fused_mul_wc.stream_launches) and
+    # inside fp4_gemm_wc's count
+    "fp4_gemm_wc_16row": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_stream.cuh",
+        replaces="petit_kernel_tpu/ops/kernels/fused.py:259",
+        wrapper=fused.fused_mul_wc, counter="stream_launches"),
     "fp4_gemm_hp": dict(route="cuda",
                         source="petit_kernel_tpu_torch/csrc/fp4_gemm_hp.cu",
                         replaces="petit_kernel_tpu/ops/kernels/fused.py:230",
@@ -339,12 +357,13 @@ PATHS = {
     "serve_w4a8 fp8 PagedEngine": ("fp4_gemm_w4a8", "fp4_gemm",
                                    "paged_decode_attention",
                                    "paged_prefill_attention"),
-    "gemm_api weight-cache ids": ("fp4_gemm_wc", "fp4_gemm_w4a8_wc"),
+    "gemm_api weight-cache ids": ("fp4_gemm_wc", "fp4_gemm_wc_16row",
+                                  "fp4_gemm_w4a8_wc"),
     "serve_hybrid bf16 Engine": ("hybrid_gemm", "decode_attention",
                                  "prefill_attention", "kv_append"),
     "train nvfp4 Llama": ("fp4_gemm", "fp4_gemm_prefill", "fp4_dequant"),
-    "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_hp",
-                        "fp4_gemm_hp_wc"),
+    "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_wc_16row",
+                        "fp4_gemm_hp", "fp4_gemm_hp_wc"),
 }
 FP8 = torch.float8_e4m3fn
 
@@ -452,6 +471,17 @@ def phase_build(rec):
         log(f"[build] W4A8 16-row stream body {name}: {p.get('registers')} "
             f"registers, spill {p.get('spill_stores')}/{p.get('spill_loads')}"
             f" bytes, C7515 {'yes' if p.get('c7515') else 'no'}")
+    # the FP4 16-row tiles of fp4_gemm.cu (csrc/fp4_stream.cuh), plain (G =
+    # 1) and weight cache (G = 4) at block_n 64 and 128
+    fp4 = {name: p for name, p in rec["ptxas"].items()
+           if name.startswith("fp4_stream_kernel<")}
+    if info.log and len(fp4) != 4:
+        raise AssertionError(f"build: ptxas compiled {sorted(fp4)}, not "
+                             "the four fp4_stream_kernel instances")
+    for name, p in sorted(fp4.items()):
+        log(f"[build] FP4 16-row stream body {name}: {p.get('registers')} "
+            f"registers, spill {p.get('spill_stores')}/{p.get('spill_loads')}"
+            f" bytes")
 
 
 def _close(name, got, want, rtol, atol):
@@ -1403,6 +1433,7 @@ def _w4a8_kernels(rec, res, rows, gen):
             f"{w4a8_ms:.4f} ms, ratio {exact_ms / w4a8_ms:.3f}")
     rec["w4a8_sweep"] = sweep
     _small_tile_rows(res, kept, gen)
+    rec["fp4_wc_sweep"] = _fp4_wc_16row(res, kept, gen)
 
 
 def _w4a8_partial_group(fmt, gen, words, st, gs, r_t, acol, eb):
@@ -1437,90 +1468,62 @@ def _w4a8_partial_group(fmt, gen, words, st, gs, r_t, acol, eb):
             "bit-equal to the plain kernel and the twin at 64x64 and 64x128")
 
 
-# the 16-row tiles that no other row times: (name, m, weight cache, int8)
-_SMALL_TILES = (("fp4_gemm_w4a8_16row", 16, False, True),
-                ("fp4_gemm_w4a8_wc_16row", 64, True, True),
-                ("fp4_gemm_wc_16row", 64, True, False))
+# the W4A8 16-row tiles that no other row times: (name, m, weight cache)
+_SMALL_TILES = (("fp4_gemm_w4a8_16row", 16, False),
+                ("fp4_gemm_w4a8_wc_16row", 64, True))
 
 
 def _small_tile_rows(res, kept, gen):
-    """The 16-row tiles no other row times: the W4A8 plain tile at m = 16
+    """The W4A8 16-row tiles no other row times: the plain tile at m = 16
     and its weight cache at m = 64 (4 m-tiles of 16 a CTA), both on the
-    split-k int8 stream body at their default splits, and the bf16 weight
-    cache at m = 64 (csrc/fp4_gemm.cuh); nvfp4, 16x64 tiles, summed over
-    the four Llama-3-8B projections: checked against their twins (the W4A8
-    kernels bit for bit, through the wrapper, whose launch must count as a
-    stream launch), timed warm (back to back) and as one CUDA graph of the
-    four (graph_ms: 136 MB of weights, so each launch finds its own cold),
-    beside the twin and the library call: torch._int_mm on the requantized
-    int8 weights (it refuses m <= 16, so at m = 16 on A zero-padded to 32
-    rows, labelled so), or torch.matmul on the dequantized bf16 weights.
-    No engine path launches them."""
+    split-k int8 stream body at their default splits; nvfp4, 16x64 tiles,
+    summed over the four Llama-3-8B projections: bit for bit their twin,
+    through the wrapper, whose launch must count as a stream launch, timed
+    warm (back to back) and as one CUDA graph of the four (graph_ms: 136
+    MB of weights, so each launch finds its own cold), beside the twin and
+    torch._int_mm on the requantized int8 weights (it refuses m <= 16, so
+    at m = 16 on A zero-padded to 32 rows, labelled so). No engine path
+    launches them."""
     dev = torch.device("cuda")
-    for name, m, wc, int8 in _SMALL_TILES:
-        acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0,
-                   err=0.0)
+    for name, m, wc in _SMALL_TILES:
+        acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
         calls, lib_note = [], ""
         for k, n, words, st, gs, r_t, acol in kept:
             a = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
-            sid = solution_mod.SolutionId(
-                16, 64, ElementB.NVFP4, solution_mod.MatmulType.INT8 if int8
-                else solution_mod.MatmulType.BF16, weight_cache=wc)
-            if int8:
-                wrapper = fused.fused_mul_w4a8_wc if wc else fused.fused_mul_w4a8
-                before = wrapper.stream_launches
-                got = fused.fused_mul_w4a8(a, words, st, gs, sid=sid,
-                                           r_t=r_t, acol=acol)
-                if wrapper.stream_launches != before + 1:
-                    raise AssertionError(f"{name} k={k} n={n}: the launch "
-                                         "missed the 16-row stream tiles")
-                want = fused.fused_mul_w4a8_reference(a, words, st, gs,
-                                                      sid=sid, r_t=r_t,
-                                                      acol=acol)
-                torch.cuda.synchronize()
-                if not torch.equal(got.view(torch.int16),
-                                   want.view(torch.int16)):
-                    raise AssertionError(f"{name} k={k} n={n}: differs from "
-                                         "its twin")
-                a_i8, arow = fused.quantize_activations(a)
-                out = torch.empty_like(got)
-                call = (lambda a_i8=a_i8, arow=arow, w=words, r=r_t, c=acol,
-                        g=gs, o=out, sid=sid:
-                        _w4a8_launch(a_i8, arow, w, r, c, g, o, sid))
-                t_p = cuda_ms(lambda: fused.fused_mul_w4a8_reference(
-                    a, words, st, gs, sid=sid, r_t=r_t, acol=acol),
-                    iters=2, warmup=1)
-                a_lib = a_i8
-                if m <= 16:   # _int_mm refuses m <= 16: pad A with zero rows
-                    a_lib = torch.zeros((32, k), dtype=torch.int8, device=dev)
-                    a_lib[:m] = a_i8
-                    lib_note = ("torch._int_mm on the requantized int8 "
-                                "weights, A zero-padded to 32 rows (it "
-                                "refuses m <= 16)")
-                else:
-                    lib_note = "torch._int_mm on the requantized int8 weights"
-                lib = _int_mm_col(a_lib, fused.requantized_weights(words, r_t,
-                                                                   k))
-                nbytes = _nbytes(a_i8, arow, words, r_t, acol, gs, got)
-                peak = INT8_OP_PER_S
+            sid = solution_mod.SolutionId(16, 64, ElementB.NVFP4,
+                                          solution_mod.MatmulType.INT8,
+                                          weight_cache=wc)
+            wrapper = fused.fused_mul_w4a8_wc if wc else fused.fused_mul_w4a8
+            before = wrapper.stream_launches
+            got = fused.fused_mul_w4a8(a, words, st, gs, sid=sid, r_t=r_t,
+                                       acol=acol)
+            if wrapper.stream_launches != before + 1:
+                raise AssertionError(f"{name} k={k} n={n}: the launch missed "
+                                     "the 16-row stream tiles")
+            want = fused.fused_mul_w4a8_reference(a, words, st, gs, sid=sid,
+                                                  r_t=r_t, acol=acol)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"{name} k={k} n={n}: differs from its "
+                                     "twin")
+            a_i8, arow = fused.quantize_activations(a)
+            out = torch.empty_like(got)
+            call = (lambda a_i8=a_i8, arow=arow, w=words, r=r_t, c=acol,
+                    g=gs, o=out, sid=sid:
+                    _w4a8_launch(a_i8, arow, w, r, c, g, o, sid))
+            t_p = cuda_ms(lambda: fused.fused_mul_w4a8_reference(
+                a, words, st, gs, sid=sid, r_t=r_t, acol=acol),
+                iters=2, warmup=1)
+            a_lib = a_i8
+            if m <= 16:   # _int_mm refuses m <= 16: pad A with zero rows
+                a_lib = torch.zeros((32, k), dtype=torch.int8, device=dev)
+                a_lib[:m] = a_i8
+                lib_note = ("torch._int_mm on the requantized int8 weights, "
+                            "A zero-padded to 32 rows (it refuses m <= 16)")
             else:
-                got = fused.fused_mul(a, words, st, gs, sid=sid)
-                want = fused.fused_mul_reference(a, words, st, gs, sid=sid)
-                torch.cuda.synchronize()
-                acc["err"] = max(acc["err"], _close(
-                    f"{name} k={k} n={n}", got, want, 2 ** -7,
-                    2 ** -8 * want.float().abs().max()))
-                call = (lambda a=a, w=words, s_=st, g=gs, sid=sid:
-                        fused.fused_mul(a, w, s_, g, sid=sid))
-                t_p = cuda_ms(lambda: fused.fused_mul_reference(
-                    a, words, st, gs, sid=sid), iters=2, warmup=1)
-                deq = (layout.dequant_from_tpu_layout(words, st, n, k)
-                       * gs).to(torch.bfloat16)
-                lib = lambda: torch.matmul(a, deq)
-                lib_note = "torch.matmul on the dequantized bf16 weights"
-                nbytes = _nbytes(a, words, st, gs, got)
-                peak = BF16_FLOP_PER_S
+                lib_note = "torch._int_mm on the requantized int8 weights"
+            lib = _int_mm_col(a_lib, fused.requantized_weights(words, r_t, k))
             t_k = cuda_ms(call)
             calls.append(call)
             t_l = cuda_ms(lib) if lib else None
@@ -1528,18 +1531,17 @@ def _small_tile_rows(res, kept, gen):
             acc["plain_ms"] += t_p
             acc["library_ms"] = (None if t_l is None or acc["library_ms"] is
                                  None else acc["library_ms"] + t_l)
-            acc["nbytes"] += nbytes
+            acc["nbytes"] += _nbytes(a_i8, arow, words, r_t, acol, gs, got)
             acc["flops"] += 2 * m * n * k
             log(f"[kernels] {name} m={m} k={k} n={n}: kernel {t_k:.4f} ms, "
                 f"plain {t_p:.2f} ms, library {t_l} ms")
         graph_ms = len(calls) * _cold_ms(calls)
-        body = ("the split-k int8 stream body of csrc/w4a8_stream.cuh at "
-                "the default splits" if int8
-                else "the mma.sync body of csrc/fp4_gemm.cuh")
+        body = ("the split-k int8 stream body of csrc/w4a8_stream.cuh at the "
+                "default splits")
         res[name] = dict(
-            max_abs_err=acc["err"], ms=acc["ms"], graph_ms=graph_ms,
+            max_abs_err=0.0, ms=acc["ms"], graph_ms=graph_ms,
             plain_ms=acc["plain_ms"], library_ms=acc["library_ms"],
-            **bound(acc["nbytes"], acc["flops"], peak),
+            **bound(acc["nbytes"], acc["flops"], INT8_OP_PER_S),
             at=f"nvfp4 m={m}, sum of the 4 Llama-3-8B projections, tile 16x64"
                f"{', weight cache (4 m-tiles a CTA)' if wc else ''}, {body}; "
                f"ms back to back, graph_ms a CUDA graph of the four; "
@@ -1549,6 +1551,124 @@ def _small_tile_rows(res, kept, gen):
             f"{acc['plain_ms']:.2f} ms, library {acc['library_ms']} ms "
             f"({lib_note}), bound {res[name]['bound_ms']:.4f} ms "
             f"({res[name]['bound_by']})")
+
+
+def _fp4_wc_16row(res, kept, gen, m=64):
+    """The FP4 weight cache's 16-row tiles (fused_mul_wc at block_m 16:
+    fp4_stream_kernel<BN, 4>, 4 m-tiles a CTA sharing each decoded B
+    fragment) at m = 64, nvfp4, the four Llama-3-8B projections, 16x64 and
+    16x128 at their default splits: each launch counted as a stream launch,
+    bit for bit fused_mul's plain 16-row tile at the same tile and splits,
+    within the GEMM tolerance of the twin; timed warm (back to back) and as
+    one CUDA graph of the four (each launch finds its weights cold), beside
+    the twin and torch.matmul on the dequantized bf16 weights, summed over
+    the four. The row fp4_gemm_wc_16row is 16x64 (ms_16x128, graph_ms_16x128
+    the other width). Then the sweep of 1 to 8 splits at 16x64; returns it."""
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    acc = dict(plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0, err=0.0)
+    layer, widths = [], {}
+    for k, n, words, st, gs, _, _ in kept:
+        kp = words.shape[0] * 8
+        a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        want = fused.fused_mul_reference(a, words, st, gs, sid=None)
+        for bn in (64, 128):
+            sid = solution_mod.SolutionId(16, bn, ElementB.NVFP4,
+                                          weight_cache=True)
+            splits = fused.fp4_wc_splits(m, n, kp, sid, sms)
+            before = fused.fused_mul_wc.stream_launches
+            got = fused.fused_mul(a, words, st, gs, sid=sid)
+            if fused.fused_mul_wc.stream_launches != before + 1:
+                raise AssertionError(f"fp4_gemm_wc_16row k={k} n={n}: the "
+                                     "launch missed the 16-row stream tiles")
+            plain = fused.fused_mul(
+                a, words, st, gs, sid=dataclasses.replace(
+                    sid, weight_cache=False), splits=splits)
+            torch.cuda.synchronize()
+            what = f"fp4_gemm_wc_16row k={k} n={n} tile=16x{bn} splits={splits}"
+            if not torch.equal(got.view(torch.int16), plain.view(torch.int16)):
+                raise AssertionError(f"{what}: differs from the plain 16-row "
+                                     "tile at the same splits")
+            acc["err"] = max(acc["err"], _close(
+                what, got, want, 2 ** -7, 2 ** -8 * want.float().abs().max()))
+            call = (lambda a=a, w=words, s_=st, g=gs, sid=sid:
+                    fused.fused_mul(a, w, s_, g, sid=sid))
+            t_k = cuda_ms(call)
+            w_ = widths.setdefault(bn, dict(ms=0.0, calls=[], splits=[]))
+            w_["ms"] += t_k
+            w_["calls"].append(call)
+            w_["splits"].append(splits)
+            log(f"[kernels] {what}: bit-equal to the plain tile, err "
+                f"{acc['err']:.2e}; kernel {t_k:.4f} ms")
+        deq = (layout.dequant_from_tpu_layout(words, st, n, k)
+               * gs).to(torch.bfloat16)
+        acc["plain_ms"] += cuda_ms(lambda: fused.fused_mul_reference(
+            a, words, st, gs, sid=None), iters=2, warmup=1)
+        acc["library_ms"] += cuda_ms(lambda: torch.matmul(a, deq))
+        acc["nbytes"] += _nbytes(a, words, st, gs, want)
+        acc["flops"] += 2 * m * n * k
+        layer.append((a, words, st, gs))
+        del deq, want
+    for w_ in widths.values():
+        w_["graph_ms"] = len(w_["calls"]) * _cold_ms(w_["calls"])
+    body = ("the split-k stream body of csrc/fp4_stream.cuh, 4 m-tiles a CTA "
+            "sharing each decoded B fragment, at the default splits")
+    res["fp4_gemm_wc_16row"] = dict(
+        max_abs_err=acc["err"], ms=widths[64]["ms"],
+        graph_ms=widths[64]["graph_ms"], splits=widths[64]["splits"],
+        ms_16x128=widths[128]["ms"], graph_ms_16x128=widths[128]["graph_ms"],
+        splits_16x128=widths[128]["splits"], plain_ms=acc["plain_ms"],
+        library_ms=acc["library_ms"], **bound(acc["nbytes"], acc["flops"]),
+        at=f"nvfp4 m={m}, sum of the 4 Llama-3-8B projections, tile 16x64 "
+           f"weight cache, {body}, bit-equal to fused_mul's plain 16-row "
+           "tile at the same splits; ms back to back, graph_ms a CUDA graph "
+           "of the four (ms_16x128, graph_ms_16x128: tile 16x128); library: "
+           "torch.matmul on the dequantized bf16 weights")
+    r = res["fp4_gemm_wc_16row"]
+    log(f"[kernels] fp4_gemm_wc_16row (nvfp4 m={m}, 4 projections; {body}): "
+        f"16x64 {r['ms']:.4f} ms warm, {r['graph_ms']:.4f} ms graph (splits "
+        f"{r['splits']}); 16x128 {r['ms_16x128']:.4f} warm, "
+        f"{r['graph_ms_16x128']:.4f} graph (splits {r['splits_16x128']}); "
+        f"plain {r['plain_ms']:.2f} ms, matmul {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return _wc_split_sweep(layer)
+
+
+def _wc_split_sweep(layer, counts=range(1, 9)):
+    """The FP4 weight cache's 16x64 tiles at each split count in `counts`
+    on the four Llama-3-8B projections at m = 64 (layer: (a, words, st, gs)
+    each): per projection L2-warm, the four as one CUDA graph, each output
+    bit for bit fused_mul's plain 16-row tile at the same count."""
+    out = []
+    for sf in counts:
+        entry = dict(splits=sf, projections=[])
+        calls = []
+        for a, words, st, gs in layer:
+            n = words.shape[1]
+            sf_ = min(sf, words.shape[0] * 8 // fused.KSTEP)
+            sid = solution_mod.SolutionId(16, 64, ElementB.NVFP4,
+                                          weight_cache=True)
+            call = (lambda a=a, w=words, s_=st, g=gs, sid=sid, sf_=sf_:
+                    fused.fused_mul(a, w, s_, g, sid=sid, splits=sf_))
+            plain = fused.fused_mul(a, words, st, gs, sid=dataclasses.replace(
+                sid, weight_cache=False), splits=sf_)
+            if not torch.equal(call().view(torch.int16),
+                               plain.view(torch.int16)):
+                raise AssertionError(f"wc sweep splits={sf_} n={n}: differs "
+                                     "from the plain 16-row tile")
+            calls.append(call)
+            entry["projections"].append(dict(k=a.shape[1], n=n,
+                                             warm_ms=cuda_ms(call)))
+        entry["warm_ms"] = sum(p["warm_ms"] for p in entry["projections"])
+        entry["graph_ms"] = len(calls) * _cold_ms(calls)
+        out.append(entry)
+        log(f"[kernels] wc sweep splits={sf} (m=64, 16x64, bit-equal to the "
+            "plain tile): " + ", ".join(
+                f"n={p['n']} k={p['k']} {p['warm_ms']:.4f}"
+                for p in entry["projections"])
+            + f" ms warm; layer {entry['warm_ms']:.4f} warm, "
+            f"{entry['graph_ms']:.4f} graph")
+    return out
 
 
 def _dequant_kernels(res, rows, gen):
@@ -1987,6 +2107,42 @@ def phase_w4a8_layer(rec):
         out[f"{key} graph"] = t = len(calls) * _cold_ms(calls)
         log(f"[w4a8_layer] {key}: 4 projections {t:.4f} ms as a CUDA graph")
     rec["w4a8_layer"] = out
+
+
+def phase_fp4_wc_layer(rec):
+    """The FP4 weight cache's 16-row tiles alone, for an A/B of two trees or
+    of copies of csrc/fp4_stream.cuh with another plan (warps, ring depth):
+    the four Llama-3-8B projections (nvfp4) at m = 64 through
+    fused_mul(..., sid=...) with weight-cache ids 16x64 and 16x128 at their
+    default splits, and the plain 16-row tile 16x64 beside them, L2-warm,
+    summed over the four, and as one CUDA graph of the four (each launch
+    finds its weights cold). It calls only the quantizer, the layout,
+    SolutionId and fused_mul, which older trees have too. Times only: the
+    kernels phase checks the bits."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    m, out, graphs = 64, {}, {}
+    for k, n in LLAMA8B_KN:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = qref.quantize_nvfp4(w)
+        del w
+        words = layout.repack_fp4_weights(qw, n, k)
+        st = layout.process_fp4_scales(sc, n, k, group_size=16)
+        a = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for bn, wc in ((64, True), (128, True), (64, False)):
+            sid = solution_mod.SolutionId(16, bn, ElementB.NVFP4,
+                                          weight_cache=wc)
+            key = f"m={m} tile=16x{bn}{' weight cache' if wc else ''}"
+            call = (lambda a=a, w=words, s=st, g=gs.reshape(1), sid=sid:
+                    fused.fused_mul(a, w, s, g, sid=sid))
+            out[key] = out.get(key, 0.0) + cuda_ms(call)
+            graphs.setdefault(key, []).append(call)
+    for key, calls in graphs.items():
+        out[f"{key} graph"] = len(calls) * _cold_ms(calls)
+        log(f"[fp4_wc_layer] {key}: 4 projections {out[key]:.4f} ms warm, "
+            f"{out[f'{key} graph']:.4f} ms as a CUDA graph")
+    log(json.dumps({"fp4_wc_layer": out}))
+    rec["fp4_wc_layer"] = out
 
 
 def phase_fp4_layer(rec):
@@ -3119,12 +3275,16 @@ def _weight_cache_api_run(rec, params, cfg):
     """The weight-cache kernels' path: layer 0's four projections, one
     512-row chunk each, through gemm.mul_nvfp4_a16 and gemm.mul_nvfp4_a8
     with explicit weight-cache solution ids (64 x 128 tiles, 4 m-tiles a
-    CTA), as an autotuner calls them. The launch counts are set to 0 just
-    before and read just after; the outputs are checked afterwards."""
+    CTA), and its first 64 rows through mul_nvfp4_a16 with a 16 x 64
+    weight-cache id (the 16-row stream tiles, 4 m-tiles a CTA), as an
+    autotuner calls them. The launch counts are set to 0 just before and
+    read just after; the outputs are checked afterwards (the 16-row ones
+    against the 64-row ones' first rows at the GEMM tolerance)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
-    m = 512
+    m, m16 = 512, 64
     wc16 = solution_mod.SolutionId(64, 128, weight_cache=True)
+    wc_stream = solution_mod.SolutionId(16, 64, weight_cache=True)
     wc8 = solution_mod.SolutionId(64, 128, mfma_type=solution_mod.MatmulType
                                   .INT8, weight_cache=True)
     jobs = []
@@ -3137,12 +3297,15 @@ def _weight_cache_api_run(rec, params, cfg):
     torch.cuda.synchronize()
     _reset_launches()
     wc_wgmma0 = fused.fused_mul_w4a8_wc.wgmma_launches
-    outs = []
+    outs, outs_stream = [], []
     for x, layer, n, k, r_t, acol in jobs:
         args = (x, layer["words"], layer["scales"], layer["gs"], m, n, k)
         outs.append(gemm.mul_nvfp4_a16(*args, wc16.repr()))
         outs.append(gemm.mul_nvfp4_a8(*args, wc8.repr(), r_t=r_t,
                                       acol=acol))
+        outs_stream.append(gemm.mul_nvfp4_a16(
+            x[:m16], layer["words"], layer["scales"], layer["gs"], m16, n, k,
+            wc_stream.repr()))
     torch.cuda.synchronize()
     launches = _launch_counts()
     path = "gemm_api weight-cache ids"
@@ -3154,10 +3317,13 @@ def _weight_cache_api_run(rec, params, cfg):
             != launches["fp4_gemm_w4a8_wc"]):
         raise AssertionError(f"{path}: a W4A8 weight-cache launch missed "
                              "the 64-row int8 wgmma tiles")
-    for (x, layer, n, k, _, _), y16, y8 in zip(jobs, outs[::2], outs[1::2]):
+    for (x, layer, n, k, _, _), y16, y8, ys in zip(jobs, outs[::2],
+                                                    outs[1::2], outs_stream):
         for y in (y16, y8):
             if tuple(y.shape) != (m, n) or not torch.isfinite(y).all():
                 raise AssertionError(f"{path}: bad output {tuple(y.shape)}")
+        _close(f"{path}: 16-row weight cache k={k}", ys, y16[:m16], 2 ** -7,
+               2 ** -8 * y16[:m16].float().abs().max())
         rel = ((y8.float() - y16.float()).norm() / y16.float().norm()).item()
         if not rel < 0.03:
             raise AssertionError(f"{path}: W4A8 {rel} from bf16 (k={k})")
@@ -3455,8 +3621,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all but hybrid_layer, fp4_layer, "
-                    "grouped_layer, w4a8_layer, hybrid_prefill_layer and "
-                    "append_layer)")
+                    "grouped_layer, w4a8_layer, hybrid_prefill_layer, "
+                    "append_layer and fp4_wc_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     ap.add_argument("--parent-record", help="a --record file of another "

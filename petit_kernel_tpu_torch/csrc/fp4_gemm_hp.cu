@@ -23,14 +23,16 @@
 // of the bf16 kernel, fewer than the six passes an f32 split of both
 // operands would take.
 //
-// The layout, decode and main loop are fp4_gemm.cuh's (decode_slot,
-// mma_bf16, KSTEP, LDS; fp4_gemm_tile itself stays untouched): A is staged
-// as f32 in shared memory, LDS floats a row, and split as fragments load, so
-// the budget is hp_smem_bytes below. The weight-cache variant runs
-// HP_WC_GROUP = 2 consecutive m-tiles per CTA (4, as the bf16 cache kernel
-// runs, would ask for 270,336 bytes at block_m = 64, over the 232,448 a
-// Hopper block may use); every output element sees the plain kernel's MMA
-// sequence, so the two agree bit for bit.
+// The layout, decode and constants are fp4_gemm.cuh's (decode_slot,
+// mma_bf16, KSTEP, LDS). The main loop is the first FP4 tile body's, which
+// the bf16 kernels have since left for fp4_stream.cuh and fp4_wgmma.cuh:
+// each step stages A and the scales, decodes the words into a bf16 B tile
+// in shared memory and runs mma.sync on it. A is staged as f32, LDS floats
+// a row, and split as fragments load, so the budget is hp_smem_bytes below.
+// The weight-cache variant runs HP_WC_GROUP = 2 consecutive m-tiles per CTA
+// (4, as the bf16 cache kernel runs, would ask for 270,336 bytes at block_m
+// = 64, over the 232,448 a Hopper block may use); every output element
+// sees the plain kernel's MMA sequence, so the two agree bit for bit.
 //
 // What bounds it: the weight stream at decode, as for fp4_gemm.cu, and the
 // tensor cores, now three passes, at prefill. A first, simple version: no
@@ -67,7 +69,8 @@ __device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid,
 
 // The G tiles (m0 + i*BM, n0), i < G, run by one CTA of THREADS*G threads
 // with hp_smem_bytes<BM, BN, G>() of dynamic shared memory at `smem`; warps
-// 4i..4i+3 own m-tile i and lay out over it as fp4_gemm_tile's do.
+// 4i..4i+3 own m-tile i: one warp a 16-row m-tile's column quarter, or a
+// 2 x 2 grid of warps over a 64-row one.
 template <int BM, int BN, int G>
 __device__ __forceinline__ void fp4_gemm_hp_tile(
     unsigned char* smem, const float* __restrict__ A, const uint32_t* __restrict__ W,
@@ -121,7 +124,7 @@ __device__ __forceinline__ void fp4_gemm_hp_tile(
       Ss[r * BN + n] = v;
     }
     __syncthreads();
-    // B: decode 32 word rows x BN columns into Bs[n][L], as fp4_gemm_tile
+    // B: decode 32 word rows x BN columns into Bs[n][L] (local k order)
     for (int e = tid; e < WROWS * BN; e += NTH) {
       const int rr = e / BN, n = e % BN;
       uint32_t w = 0u;

@@ -1,10 +1,12 @@
 // The FP4 decode-regime stream body for Hopper (sm_90a): 16-row tiles that
 // read fp4_gemm.cuh's packed layout through a cp.async ring, decode the FP4
 // words straight into mma.sync B fragments, and sum k-split partials in a
-// fixed order. Its three users are the 16-row tiles of fp4_gemm.cu (the
-// plain FP4 GEMM, fp4_stream_kernel), grouped_fp4_gemm.cu (the MoE expert
-// GEMM, grouped_stream_kernel) and hybrid_gemm.cu (its FP4 CTAs). One ring
-// depth, stream_stages, serves all three.
+// fixed order. Its users are the 16-row tiles of fp4_gemm.cu (the plain FP4
+// GEMM, fp4_stream_kernel<BN, 1>, and its weight cache, fp4_stream_kernel<BN,
+// WC_GROUP>), grouped_fp4_gemm.cu (the MoE expert GEMM,
+// grouped_stream_kernel) and hybrid_gemm.cu (its FP4 CTAs). One ring depth,
+// stream_stages, serves the three one-m-tile kernels; the weight cache has
+// its own plan (FsPlan).
 //
 // What bounds it: at decode (m <= 16) the weight stream, 0.625 bytes a
 // weight, so the card needs many bytes in flight (about 3.4 MB at 3.35
@@ -27,17 +29,41 @@
 // tg = lane & 3) at B column g, b[0] = the half-0 slots of word rows
 // q + 8tg and q + 8tg + 4 and b[1] = their half-1 slots, each of quarter j,
 // scaled by the step's scale rows 8j + 2q and 8j + 2q + 1. So the two words
-// of a q feed chunks q, 4 + q, 8 + q and 12 + q. The MMAs run in
-// fp4_gemm_tile's chunk order with the same k at the same fragment
-// positions, and value times scale is exact in bf16, so a packed bf16
-// multiply gives fp4_gemm_tile's B bits: with one split the output equals
-// fp4_gemm_tile<16, BN, 1>'s bit for bit.
+// of a q feed chunks q, 4 + q, 8 + q and 12 + q. The MMAs of a step run
+// chunk by chunk, kk = 0 .. 15, and value times scale is exact in bf16, so
+// a packed bf16 multiply gives the exact decoded weight: every 16-row tile
+// of every kernel on this body feeds each output element the same products
+// in the same order, and so gives the same bits at the same split count.
 //
 // Column order. An mma.sync B fragment holds column g of an 8-column slice
 // and its accumulator columns 2tg, 2tg + 1; which tile column a slice
 // column stands for is free. Slice jn's column c here is warp column
 // c * NT + jn, so a thread's NT B columns are adjacent (one vector load of
 // words, one of scales) and its accumulators cover 2NT adjacent columns.
+//
+// The weight cache (fp4_stream_kernel<BN, G>, G = WC_GROUP = 4) replaces,
+// at decode block sizes, petit_kernel_tpu/ops/kernels/fused.py:259
+// _fused_kernel_wc, which decodes each weight block once per n-block into a
+// VMEM cache that every m-block reads. Here one CTA of four warps runs G
+// m-tiles of 16 rows of one n-tile: a stage holds 16G A rows, and each
+// thread's decoded B fragments feed the MMAs of all G m-tiles, so a weight
+// is decoded once per 64 rows. Each m-tile sees the MMA sequence of the
+// plain tile, chunk for chunk at the same fragment positions, and its
+// split partials are summed in the same order: at the same split count the
+// weight cache gives the plain 16-row tile's bits.
+// What bounds it at m = 64: the weight stream as above, beside A, which
+// every n-tile reads from L2 (the four Llama-3-8B projections: 436 MB at
+// BN = 64, 218 MB at 128, against 136 MB of weights), and a step's A copy
+// takes 16 bytes of each 32-byte sector (the step's local k order), the
+// next step the other 16. On the card the A copies set the time (PERF.md
+// section 6: edited copies without them take 0.6 of it, without the MMAs
+// or the decode 0.9). The plan (FsPlan, static_asserts below): a stage is
+// 16G rows of A (528 bytes each) besides the words and scales (46,080
+// bytes at BN = 64, 58,368 at 128); four warps (eight were 6% slower); two
+// stages, so that two CTAs share an SM at BN = 64 (one at 128); the A
+// copies through L1 (cp.async.ca), 20% faster than past it. The split rule
+// (fused.py fp4_wc_splits) counts the launch's CTAs against those an SM
+// holds.
 
 #pragma once
 
@@ -53,6 +79,14 @@ constexpr int SBM = 16;   // rows of a stream tile
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// the same through L1 (cp.async.ca)
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");
 }
@@ -123,19 +157,20 @@ __device__ __forceinline__ uint32_t decode_pair(uint32_t x) {
 
 // ---- the FP4 stream --------------------------------------------------------
 
-// one stage: A [SBM][LDS] bf16 in local k order, the step's words
-// [WROWS][BN] (16-byte chunks swizzled), its scale rows [WROWS][BN] bf16
-template <int BN>
+// one stage: A [SBM * G][LDS] bf16 in local k order (G m-tiles), the step's
+// words [WROWS][BN] (16-byte chunks swizzled), its scale rows [WROWS][BN]
+// bf16
+template <int BN, int G = 1>
 __host__ __device__ constexpr int fp4_stage_bytes() {
-  return SBM * LDS * 2 + WROWS * BN * 4 + WROWS * BN * 2;
+  return SBM * G * LDS * 2 + WROWS * BN * 4 + WROWS * BN * 2;
 }
 
 // ring depth: 4 stages of 20,736 bytes at block_n = 64, 3 of 33,024 at 128
 template <int BN>
 __host__ __device__ constexpr int stream_stages() { return BN == 64 ? 4 : 3; }
 
-// a ring of FP4 stages: the shared memory of a CTA of fp4_stream_kernel
-// or grouped_stream_kernel
+// a ring of FP4 stages: the shared memory of a CTA of the one-m-tile
+// kernels (fp4_stream_kernel<BN, 1>, grouped_stream_kernel)
 template <int BN>
 constexpr int stream_smem_bytes() { return stream_stages<BN>() * fp4_stage_bytes<BN>(); }
 
@@ -145,13 +180,39 @@ static_assert(stream_smem_bytes<128>() <= 113 * 1024, "smem (16, 128)");
 static_assert(fp4_stage_bytes<64>() % 128 == 0 && fp4_stage_bytes<128>() % 128 == 0,
               "stages start on 128-byte boundaries");
 
-// Zero the A rows from `first` up in every stage of the ring (a_row_bytes
-// a row at the start of each stage): the loaders copy only the rows below
-// M, so these stay zero.
+// The CTA of fp4_stream_kernel<BN, G>: G m-tiles of 16 rows of one n-tile,
+// four warps, each a column quarter of all G m-tiles; a ring of `stages`
+// stages of `stage` bytes; `per_sm` CTAs an SM. G = 1 is the plain tile;
+// G = WC_GROUP the weight cache, two stages (PERF.md section 6: deeper
+// rings were no faster once A went through L1), two CTAs an SM at BN = 64
+// and one at 128.
+template <int BN, int G>
+struct FsPlan {
+  static constexpr int stage = fp4_stage_bytes<BN, G>();
+  static constexpr int stages = G == 1 ? stream_stages<BN>() : 2;
+  static constexpr int bytes = stages * stage;
+  static constexpr int per_sm = G == 1 || BN == 64 ? 2 : 1;
+  static_assert(G == 1 || G == WC_GROUP, "G");
+  static_assert(stage % 128 == 0 && stages >= 2, "plan");
+  // per_sm CTAs an SM: per_sm * (bytes + 1 KB reserved) <= 228 KB
+  static_assert(bytes <= 232448 && per_sm * (bytes + 1024) <= 228 * 1024, "smem");
+};
+static_assert(FsPlan<64, 1>::bytes == stream_smem_bytes<64>() &&
+                  FsPlan<128, 1>::bytes == stream_smem_bytes<128>(),
+              "the one-m-tile ring");
+static_assert(FsPlan<64, 4>::stage == 46080 && FsPlan<64, 4>::stages == 2 &&
+                  FsPlan<64, 4>::per_sm == 2 && FsPlan<128, 4>::stage == 58368 &&
+                  FsPlan<128, 4>::stages == 2 && FsPlan<128, 4>::per_sm == 1,
+              "the weight cache's plan in the note above");
+
+// Zero the A rows from `first` up to ROWS in every stage of the ring
+// (a_row_bytes a row at the start of each stage): the loaders
+// copy only the rows below M, so these stay zero.
+template <int ROWS = SBM>
 __device__ __forceinline__ void zero_rows(unsigned char* smem, int stage_bytes, int stages,
                                           int first, int a_row_bytes) {
-  if (first >= SBM) return;
-  const int chunks = (SBM - first) * a_row_bytes / 16;
+  if (first >= ROWS) return;
+  const int chunks = (ROWS - first) * a_row_bytes / 16;
   for (int e = threadIdx.x; e < stages * chunks; e += THREADS) {
     const int st = e / chunks, i = e % chunks;
     *reinterpret_cast<uint4*>(smem + st * stage_bytes + first * a_row_bytes + i * 16) =
@@ -163,30 +224,36 @@ __device__ __forceinline__ void zero_rows(unsigned char* smem, int stage_bytes, 
 // (the rows one fragment load reads) land in different banks
 __device__ __forceinline__ int word_chunk(int r, int c) { return c ^ (((r >> 3) & 3) << 1); }
 
-// cp.async the operands of step `step` (A rows m0.., columns n0..) into `st`
-template <int BN>
+// cp.async the operands of step `step` (A rows m0 .. m0 + 16G - 1, columns
+// n0 ..) into `st`; the weight cache's A through L1 (a step reads 16 bytes
+// of each 32-byte sector of A, the next step the other 16)
+template <int BN, int G = 1>
 __device__ __forceinline__ void fp4_stage_load(unsigned char* st,
                                                const __nv_bfloat16* __restrict__ A,
                                                const uint32_t* __restrict__ W,
                                                const __nv_bfloat16* __restrict__ S, int M,
                                                int N, int K, int KP, int m0, int n0, int step) {
   constexpr int WC = BN / 4, SC = BN / 8;   // 16-byte pieces of a word / scale row
-  static_assert((SBM * 32) % THREADS == 0 && (WROWS * WC) % THREADS == 0 &&
+  static_assert((SBM * G * 32) % THREADS == 0 && (WROWS * WC) % THREADS == 0 &&
                     (WROWS * SC) % THREADS == 0, "pieces per thread");
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(st);
-  uint32_t* Ws = reinterpret_cast<uint32_t*>(As + SBM * LDS);
+  uint32_t* Ws = reinterpret_cast<uint32_t*>(As + SBM * G * LDS);
   __nv_bfloat16* Ss = reinterpret_cast<__nv_bfloat16*>(Ws + WROWS * BN);
   const int tid = threadIdx.x;
   const int c = step >> 1, hf = step & 1, kq = KP / 4, srq = KP / 64;
   // A: the rows below M x 32 runs (run = j*8 + a) of 8 contiguous natural
   // k (the rows past M stay zero: zero_rows)
 #pragma unroll
-  for (int i = 0; i < SBM * 32 / THREADS; ++i) {
+  for (int i = 0; i < SBM * G * 32 / THREADS; ++i) {
     const int e = tid + i * THREADS, m = e >> 5, run = e & 31;
     const int kn = (run >> 3) * kq + c * 128 + (run & 7) * 16 + hf * 8;
     const bool ok = kn < K;
-    if (m0 + m < M)
-      cp_async16(As + m * LDS + run * 8, ok ? A + (size_t)(m0 + m) * K + kn : A, ok);
+    if (m0 + m < M) {
+      if constexpr (G == 1)
+        cp_async16(As + m * LDS + run * 8, ok ? A + (size_t)(m0 + m) * K + kn : A, ok);
+      else
+        cp_async16_ca(As + m * LDS + run * 8, ok ? A + (size_t)(m0 + m) * K + kn : A, ok);
+    }
   }
   // words: WROWS rows x WC chunks of 4 columns (N % 16 == 0)
 #pragma unroll
@@ -206,16 +273,20 @@ __device__ __forceinline__ void fp4_stage_load(unsigned char* st,
   }
 }
 
-// the four MMAs of quarter J on every column slice, chunks 4J .. 4J + 3
-template <int J, int BN, int NT>
-__device__ __forceinline__ void fp4_quarter(float (&acc)[NT][4], const uint32_t (&lo)[4][NT],
+// the four MMAs of quarter J on every column slice, chunks 4J .. 4J + 3,
+// for each of the G m-tiles (A rows 16mt apart from a_ptr): each B
+// fragment is decoded once and feeds G MMAs
+template <int J, int BN, int NT, int G>
+__device__ __forceinline__ void fp4_quarter(float (&acc)[G][NT][4],
+                                            const uint32_t (&lo)[4][NT],
                                             const uint32_t (&hi)[4][NT],
                                             const __nv_bfloat16* a_ptr,
                                             const __nv_bfloat16* s_ptr) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    uint32_t a[4], s0[(NT + 1) / 2], s1[(NT + 1) / 2];
-    ldmatrix_x4(a, a_ptr + (4 * J + q) * 16);
+    uint32_t a[G][4], s0[(NT + 1) / 2], s1[(NT + 1) / 2];
+#pragma unroll
+    for (int mt = 0; mt < G; ++mt) ldmatrix_x4(a[mt], a_ptr + mt * SBM * LDS + (4 * J + q) * 16);
     lds(s0, s_ptr + (8 * J + 2 * q) * BN);
     lds(s1, s_ptr + (8 * J + 2 * q + 1) * BN);
 #pragma unroll
@@ -224,18 +295,21 @@ __device__ __forceinline__ void fp4_quarter(float (&acc)[NT][4], const uint32_t 
       uint32_t b[2];
       b[0] = mul_bf16x2(decode_pair<J>(lo[q][jn]), prmt(s0[jn >> 1], 0u, sel));
       b[1] = mul_bf16x2(decode_pair<J>(hi[q][jn]), prmt(s1[jn >> 1], 0u, sel));
-      mma_bf16(acc[jn], a, b);
+#pragma unroll
+      for (int mt = 0; mt < G; ++mt) mma_bf16(acc[mt][jn], a[mt], b);
     }
   }
 }
 
-// the 16 chunks of one staged step, in fp4_gemm_tile's order
-template <int BN>
-__device__ __forceinline__ void fp4_stage_mma(const unsigned char* st, float (&acc)[BN / 32][4]) {
+// the 16 chunks of one staged step, kk = 0 .. 15, for each of the G
+// m-tiles of the stage
+template <int BN, int G>
+__device__ __forceinline__ void fp4_stage_mma(const unsigned char* st,
+                                              float (&acc)[G][BN / 32][4]) {
   constexpr int NT = BN / 32;   // 8-column slices of a warp (BN / 4 columns)
   static_assert(NT == 2 || NT == 4, "BN");
   const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(st);
-  const uint32_t* Ws = reinterpret_cast<const uint32_t*>(As + SBM * LDS);
+  const uint32_t* Ws = reinterpret_cast<const uint32_t*>(As + SBM * G * LDS);
   const __nv_bfloat16* Ss = reinterpret_cast<const __nv_bfloat16*>(Ws + WROWS * BN);
   const int lane = threadIdx.x & 31, wn = threadIdx.x >> 5;
   const int g = lane >> 2, tg = lane & 3;
@@ -255,27 +329,27 @@ __device__ __forceinline__ void fp4_stage_mma(const unsigned char* st, float (&a
   }
   const __nv_bfloat16* a_ptr = As + (lane & 15) * LDS + (lane >> 4) * 8;
   const __nv_bfloat16* s_ptr = Ss + wcol;
-  fp4_quarter<0, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
-  fp4_quarter<1, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
-  fp4_quarter<2, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
-  fp4_quarter<3, BN, NT>(acc, lo, hi, a_ptr, s_ptr);
+  fp4_quarter<0, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
+  fp4_quarter<1, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
+  fp4_quarter<2, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
+  fp4_quarter<3, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
 }
 
-// Steps [s_begin, s_end) of the (SBM, BN) FP4 tile at (m0, n0) into acc,
-// through a ring of STAGES stages of stage_bytes each at smem.
-template <int BN, int STAGES>
+// Steps [s_begin, s_end) of the G FP4 tiles (m0 + 16i, n0), i < G, into
+// acc, through a ring of STAGES stages of stage_bytes each at smem.
+template <int BN, int STAGES, int G>
 __device__ __forceinline__ void fp4_stream(unsigned char* smem, int stage_bytes,
                                            const __nv_bfloat16* __restrict__ A,
                                            const uint32_t* __restrict__ W,
                                            const __nv_bfloat16* __restrict__ S, int M, int N,
                                            int K, int KP, int m0, int n0, int s_begin, int s_end,
-                                           float (&acc)[BN / 32][4]) {
+                                           float (&acc)[G][BN / 32][4]) {
   const int n = s_end - s_begin;
-  zero_rows(smem, stage_bytes, STAGES, M - m0, LDS * 2);
+  zero_rows<SBM * G>(smem, stage_bytes, STAGES, M - m0, LDS * 2);
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n)
-      fp4_stage_load<BN>(smem + i * stage_bytes, A, W, S, M, N, K, KP, m0, n0, s_begin + i);
+      fp4_stage_load<BN, G>(smem + i * stage_bytes, A, W, S, M, N, K, KP, m0, n0, s_begin + i);
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
@@ -283,40 +357,43 @@ __device__ __forceinline__ void fp4_stream(unsigned char* smem, int stage_bytes,
     __syncthreads();   // step i has landed; every thread is done with step i - 1's stage
     const int nx = i + STAGES - 1;
     if (nx < n)
-      fp4_stage_load<BN>(smem + (nx % STAGES) * stage_bytes, A, W, S, M, N, K, KP, m0, n0,
-                         s_begin + nx);
+      fp4_stage_load<BN, G>(smem + (nx % STAGES) * stage_bytes, A, W, S, M, N, K, KP, m0, n0,
+                            s_begin + nx);
     cp_async_commit();
-    fp4_stage_mma<BN>(smem + (i % STAGES) * stage_bytes, acc);
+    fp4_stage_mma<BN, G>(smem + (i % STAGES) * stage_bytes, acc);
   }
 }
 
 // ---- k-split partials ------------------------------------------------------
 
-// With splits > 1: store this CTA's partial acc (split `split` of its tile)
-// to ws, the tile's [splits][2][NT/2][THREADS] float4 block (rows g, g + 8
-// of each thread's fragments, skipped where past M), and count it in
-// *counter. Returns false except in the tile's last CTA to arrive, which
-// resets *counter to 0 and returns true with acc = the partials summed in
-// split order. With splits == 1 returns true and leaves acc as it is.
-// row_ok[h]: row g + 8h of the tile is below M. last: a __shared__ int.
-template <int NT>
-__device__ __forceinline__ bool reduce_splits(float (&acc)[NT][4], float* __restrict__ ws,
+// With splits > 1: store this CTA's partial acc (split `split` of its G
+// tiles) to ws, the [splits][G][2][NT/2][THREADS] float4 block of its
+// m-group and n-tile (rows g, g + 8 of each m-tile, skipped where past M),
+// and count it in *counter. Returns false except in the last CTA of the
+// group to arrive, which resets *counter to 0 and returns true with acc =
+// the partials summed in split order. With splits == 1 returns true and
+// leaves acc as it is. row_ok[mt][h]: row g + 8h of m-tile mt is below M.
+// last: a __shared__ int.
+template <int NT, int G>
+__device__ __forceinline__ bool reduce_splits(float (&acc)[G][NT][4], float* __restrict__ ws,
                                               int splits, int split, int* counter,
-                                              const bool (&row_ok)[2], int& last) {
+                                              const bool (&row_ok)[G][2], int& last) {
   static_assert(NT % 2 == 0, "NT");
   if (splits == 1) return true;
   constexpr int P = NT / 2;
   const int tid = threadIdx.x;
   float4* part = reinterpret_cast<float4*>(ws);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!row_ok[h]) continue;
+  for (int mt = 0; mt < G; ++mt)
 #pragma unroll
-    for (int p = 0; p < P; ++p)
-      part[((split * 2 + h) * P + p) * THREADS + tid] =
-          make_float4(acc[2 * p][2 * h], acc[2 * p][2 * h + 1], acc[2 * p + 1][2 * h],
-                      acc[2 * p + 1][2 * h + 1]);
-  }
+    for (int h = 0; h < 2; ++h) {
+      if (!row_ok[mt][h]) continue;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        part[(((split * G + mt) * 2 + h) * P + p) * THREADS + tid] =
+            make_float4(acc[mt][2 * p][2 * h], acc[mt][2 * p][2 * h + 1],
+                        acc[mt][2 * p + 1][2 * h], acc[mt][2 * p + 1][2 * h + 1]);
+    }
   __threadfence();
   __syncthreads();
   if (tid == 0) last = atomicAdd(counter, 1) == splits - 1;
@@ -325,37 +402,41 @@ __device__ __forceinline__ bool reduce_splits(float (&acc)[NT][4], float* __rest
   __threadfence();
   constexpr int BATCH = 8;   // partial loads in flight at once
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!row_ok[h]) continue;
+  for (int mt = 0; mt < G; ++mt)
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const float4* src = part + (h * P + p) * THREADS + tid;   // split s: + s * 2P*THREADS
-      float4 sum = __ldcg(src);
-      for (int s0 = 1; s0 < splits; s0 += BATCH) {
-        float4 v[BATCH];
+    for (int h = 0; h < 2; ++h) {
+      if (!row_ok[mt][h]) continue;
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u)
-          if (s0 + u < splits) v[u] = __ldcg(src + (size_t)(s0 + u) * 2 * P * THREADS);
+      for (int p = 0; p < P; ++p) {
+        // split s: + s * G*2P*THREADS
+        const float4* src = part + ((mt * 2 + h) * P + p) * THREADS + tid;
+        float4 sum = __ldcg(src);
+        for (int s0 = 1; s0 < splits; s0 += BATCH) {
+          float4 v[BATCH];
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u)
-          if (s0 + u < splits) {
-            sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
-          }
+          for (int u = 0; u < BATCH; ++u)
+            if (s0 + u < splits) v[u] = __ldcg(src + (size_t)(s0 + u) * G * 2 * P * THREADS);
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u)
+            if (s0 + u < splits) {
+              sum.x += v[u].x; sum.y += v[u].y; sum.z += v[u].z; sum.w += v[u].w;
+            }
+        }
+        acc[mt][2 * p][2 * h] = sum.x;
+        acc[mt][2 * p][2 * h + 1] = sum.y;
+        acc[mt][2 * p + 1][2 * h] = sum.z;
+        acc[mt][2 * p + 1][2 * h + 1] = sum.w;
       }
-      acc[2 * p][2 * h] = sum.x;
-      acc[2 * p][2 * h + 1] = sum.y;
-      acc[2 * p + 1][2 * h] = sum.z;
-      acc[2 * p + 1][2 * h + 1] = sum.w;
     }
-  }
   if (tid == 0) *counter = 0;
   return true;
 }
 
 // bf16(acc * gs) of the FP4 stream's fragments into C (M, N): the thread's
-// 2NT adjacent columns from n0 + wn*BN/4 + 2tg*NT, rows m0 + g and + 8
-template <int BN>
-__device__ __forceinline__ void fp4_stream_store(const float (&acc)[BN / 32][4], float gs,
+// 2NT adjacent columns from n0 + wn*BN/4 + 2tg*NT, rows m0 + 16mt + g and
+// + 8 of the G m-tiles
+template <int BN, int G>
+__device__ __forceinline__ void fp4_stream_store(const float (&acc)[G][BN / 32][4], float gs,
                                                  __nv_bfloat16* __restrict__ C, int M, int N,
                                                  int m0, int n0) {
   constexpr int NT = BN / 32;
@@ -364,23 +445,62 @@ __device__ __forceinline__ void fp4_stream_store(const float (&acc)[BN / 32][4],
   const int col = n0 + wn * (BN / 4) + 2 * tg * NT;
   if (col >= N) return;   // N % 16 == 0: the 2NT columns are all in or all out
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = m0 + g + 8 * h;
-    if (row >= M) continue;
-    uint32_t v[NT];   // columns 2i, 2i + 1: column p is acc[p % NT][2h + p / NT]
+  for (int mt = 0; mt < G; ++mt)
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int p0 = 2 * i, p1 = 2 * i + 1;
-      const __nv_bfloat162 b = __floats2bfloat162_rn(acc[p0 % NT][2 * h + p0 / NT] * gs,
-                                                     acc[p1 % NT][2 * h + p1 / NT] * gs);
-      v[i] = *reinterpret_cast<const uint32_t*>(&b);
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + SBM * mt + g + 8 * h;
+      if (row >= M) continue;
+      uint32_t v[NT];   // columns 2i, 2i + 1: column p is acc[mt][p % NT][2h + p / NT]
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const int p0 = 2 * i, p1 = 2 * i + 1;
+        const __nv_bfloat162 b = __floats2bfloat162_rn(acc[mt][p0 % NT][2 * h + p0 / NT] * gs,
+                                                       acc[mt][p1 % NT][2 * h + p1 / NT] * gs);
+        v[i] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+      __nv_bfloat16* dst = C + (size_t)row * N + col;
+      if constexpr (NT == 2)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(v[0], v[1]);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
     }
-    __nv_bfloat16* dst = C + (size_t)row * N + col;
-    if constexpr (NT == 2)
-      *reinterpret_cast<uint2*>(dst) = make_uint2(v[0], v[1]);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-  }
+}
+
+// ---- the one-m-tile forms ---------------------------------------------------
+// grouped_stream_kernel and hybrid_stream_kernel run one 16-row tile a CTA
+// and keep its accumulators as acc[NT][4]: these forms pass them to the
+// bodies above as the one m-tile of G = 1.
+
+template <int NT>
+__device__ __forceinline__ float (&one_tile(float (&acc)[NT][4]))[1][NT][4] {
+  return reinterpret_cast<float (&)[1][NT][4]>(acc);
+}
+
+template <int BN, int STAGES>
+__device__ __forceinline__ void fp4_stream(unsigned char* smem, int stage_bytes,
+                                           const __nv_bfloat16* __restrict__ A,
+                                           const uint32_t* __restrict__ W,
+                                           const __nv_bfloat16* __restrict__ S, int M, int N,
+                                           int K, int KP, int m0, int n0, int s_begin, int s_end,
+                                           float (&acc)[BN / 32][4]) {
+  fp4_stream<BN, STAGES, 1>(smem, stage_bytes, A, W, S, M, N, K, KP, m0, n0, s_begin, s_end,
+                            one_tile(acc));
+}
+
+template <int NT>
+__device__ __forceinline__ bool reduce_splits(float (&acc)[NT][4], float* __restrict__ ws,
+                                              int splits, int split, int* counter,
+                                              const bool (&row_ok)[2], int& last) {
+  return reduce_splits<NT, 1>(one_tile(acc), ws, splits, split, counter,
+                              reinterpret_cast<const bool(&)[1][2]>(row_ok), last);
+}
+
+template <int BN>
+__device__ __forceinline__ void fp4_stream_store(const float (&acc)[BN / 32][4], float gs,
+                                                 __nv_bfloat16* __restrict__ C, int M, int N,
+                                                 int m0, int n0) {
+  fp4_stream_store<BN, 1>(reinterpret_cast<const float(&)[1][BN / 32][4]>(acc), gs, C, M, N,
+                          m0, n0);
 }
 
 }  // namespace

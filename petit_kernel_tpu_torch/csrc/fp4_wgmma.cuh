@@ -37,7 +37,7 @@
 //     unit-local k 16A + 8b + x (chunk 2A + b) of column n is the slot of
 //     quarter j in half A & 1 of word row 4(8b + x) + 2g + (A >> 1) of the
 //     block, under scale row 8c + 4g + A (WgDecode below). Value times
-//     scale is exact in bf16, so these are fp4_gemm_tile's B values;
+//     scale is exact in bf16, so these are the exact decoded weights;
 //   - a ring: three B slots (one quarter each), A slots DA + 2 quarters
 //     deep, loaded DA units ahead, and two stages of words and scales,
 //     loaded one step ahead. Unit u decodes into B slot u % 3 while unit

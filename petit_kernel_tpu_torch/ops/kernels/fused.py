@@ -11,9 +11,9 @@ launch count:
   fused_mul          csrc/fp4_gemm.cu pk_fp4_gemm (bf16: split-k 16-row
                      tiles on the stream body, csrc/fp4_stream.cuh; wgmma
                      64-row tiles, csrc/fp4_wgmma.cuh)
-  fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache:
-                     16-row tiles csrc/fp4_gemm.cuh, 64-row tiles
-                     csrc/fp4_wgmma.cuh)
+  fused_mul_wc       csrc/fp4_gemm.cu pk_fp4_gemm_wc (weight cache, 4
+                     m-tiles a CTA: split-k 16-row tiles on the stream
+                     body, 64-row tiles on csrc/fp4_wgmma.cuh)
   fused_mul_hp       csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp (f32 A, three bf16
                      MMAs per fragment, f32 out)
   fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache)
@@ -32,11 +32,13 @@ dequant_tpu_layout_reference are the same functions in plain PyTorch; a
 wrapper takes its twin only for tensors on the CPU, and for CUDA tensors
 it launches its kernel or raises.
 
-The 16-row tiles of fused_mul, of hybrid_mul (kernels/hybrid.py), of
-grouped_mul (kernels/grouped.py) and of fused_mul_w4a8 cut each output
-tile's k range over several CTAs: stream_splits is the rule for all four
-(w4a8_splits counts the W4A8 weight cache's CTAs), and one buffer of
-split counters per (device, stream) serves them all (_counters).
+The 16-row tiles of fused_mul and fused_mul_wc, of hybrid_mul
+(kernels/hybrid.py), of grouped_mul (kernels/grouped.py) and of
+fused_mul_w4a8 cut each output tile's k range over several CTAs:
+stream_splits is the rule for all of them (fp4_wc_splits and w4a8_splits
+count the CTAs of m-groups and the CTAs an SM their plan allows), and one
+buffer of split counters per (device, stream) serves them all
+(_counters).
 """
 
 from __future__ import annotations
@@ -83,7 +85,8 @@ DENSE_BYTES_PER_WEIGHT = 2.0
 
 @functools.lru_cache(maxsize=4096)
 def stream_splits(m: int, nf: int, nd: int, kp: int, block_m: int,
-                  block_n: int, num_sms: int) -> tuple[int, int]:
+                  block_n: int, num_sms: int,
+                  per_sm: int = 2) -> tuple[int, int]:
     """(splits of an FP4 tile's k, splits of a dense tile's k) for a launch
     of nf FP4 columns (fused_mul: all n; hybrid_mul: its FP4 columns) and
     nd dense bf16 columns (fused_mul: 0): 1 and 1 for block_m = 64, whose
@@ -96,7 +99,8 @@ def stream_splits(m: int, nf: int, nd: int, kp: int, block_m: int,
     (at most one per step) beside the FP4 tiles' sf. The stream body is
     bound per SM (on the H100 one CTA streams about 7.5 GB/s, two on one
     SM about 8.7), so what counts is the most work any SM gets: sf is the
-    largest count whose CTAs fit one wave of two per SM (2 * num_sms
+    largest count whose CTAs fit one wave of `per_sm` CTAs an SM (what the
+    kernel's shared-memory plan allows: two for these tiles, 2 * num_sms
     slots), and 1 where even one split does not fit. A launch past one
     wave leaves a tail (wo and w_down at 5 splits: 320 CTAs on 264 slots);
     one that fits gives each SM one or two CTAs of equal depth."""
@@ -109,7 +113,7 @@ def stream_splits(m: int, nf: int, nd: int, kp: int, block_m: int,
     best = None
     for sf in range(1, steps + 1):
         sd = min(steps, max(1, round(sf * ratio)))
-        if best and m_tiles * (f_tiles * sf + d_tiles * sd) > 2 * num_sms:
+        if best and m_tiles * (f_tiles * sf + d_tiles * sd) > per_sm * num_sms:
             break
         best = sf, sd
     return best
@@ -124,27 +128,47 @@ def _check_splits(where: str, splits, kp: int, splittable: bool) -> int:
                          f"(kp / {KSTEP}), got {splits!r}")
     if not splittable and splits != 1:
         raise ValueError(f"{where}: these tiles do not split k (only the "
-                         f"plain 16-row bf16 tiles and the 16-row W4A8 "
-                         f"tiles do), got splits {splits!r}")
+                         f"16-row bf16 and W4A8 tiles do, high precision "
+                         f"not), got splits {splits!r}")
     return splits
 
 
-# m-tiles of 16 rows a CTA of the W4A8 weight cache's 16-row tiles
-# (csrc/fp4_gemm.cuh WC_GROUP)
-W4A8_WC_GROUP = 4
+# m-tiles a CTA of the weight-cache kernels (csrc/fp4_gemm.cuh WC_GROUP)
+WC_GROUP = 4
+# CTAs an SM of the FP4 weight cache's 16-row tiles by block_n: their
+# two-stage rings of 16 * WC_GROUP A rows (csrc/fp4_stream.cuh FsPlan)
+FP4_WC_PER_SM = {64: 2, 128: 1}
+
+
+def _group_splits(m: int, n: int, kp: int, sid: SolutionId, num_sms: int,
+                  group: int, per_sm: int) -> int:
+    """stream_splits over the CTAs of a launch whose CTAs run `group`
+    m-tiles of 16 rows (ceil(m / 16 group) m-groups), `per_sm` CTAs an SM;
+    1 for block_m = 64."""
+    if sid.block_m != STREAM_BLOCK_M:
+        return 1
+    return stream_splits(-(-m // (STREAM_BLOCK_M * group)) * STREAM_BLOCK_M,
+                         n, 0, kp, STREAM_BLOCK_M, sid.block_n, num_sms,
+                         per_sm)[0]
+
+
+def fp4_wc_splits(m: int, n: int, kp: int, sid: SolutionId,
+                  num_sms: int) -> int:
+    """k-splits of fused_mul_wc's tiles: the 16-row ones run ceil(m / 64)
+    m-groups of WC_GROUP tiles, FP4_WC_PER_SM CTAs an SM; the 64-row ones
+    take 1."""
+    return _group_splits(m, n, kp, sid, num_sms, WC_GROUP,
+                         FP4_WC_PER_SM[sid.block_n])
 
 
 def w4a8_splits(m: int, n: int, kp: int, sid: SolutionId,
                 num_sms: int) -> int:
-    """k-splits of fused_mul_w4a8's tiles: stream_splits over the launch's
-    CTAs, 1 for block_m = 64. The plain 16-row tiles have ceil(m / 16)
-    m-tiles, the weight cache's ceil(m / 64) m-groups of W4A8_WC_GROUP
-    tiles a CTA; both stream 0.625 bytes a weight, as fused_mul's do."""
-    if sid.block_m != STREAM_BLOCK_M:
-        return 1
-    rows = STREAM_BLOCK_M * (W4A8_WC_GROUP if sid.weight_cache else 1)
-    return stream_splits(-(-m // rows) * STREAM_BLOCK_M, n, 0, kp,
-                         STREAM_BLOCK_M, sid.block_n, num_sms)[0]
+    """k-splits of fused_mul_w4a8's tiles: the plain 16-row tiles have
+    ceil(m / 16) m-tiles, the weight cache's ceil(m / 64) m-groups of
+    WC_GROUP tiles a CTA, two CTAs an SM; both stream 0.625 bytes a
+    weight, as fused_mul's do. The 64-row tiles take 1."""
+    return _group_splits(m, n, kp, sid, num_sms,
+                         WC_GROUP if sid.weight_cache else 1, 2)
 
 
 @functools.cache
@@ -209,10 +233,11 @@ def _launch(entry: str, *args) -> None:
 
 
 def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid,
-                    dtype=torch.bfloat16, splits=None):
+                    dtype=torch.bfloat16, splits=None, group=1):
     """Launch `entry` on A of `dtype` (bf16, f32 for the high-precision
-    kernels) into an output of the same dtype; `splits` (pk_fp4_gemm only)
-    adds the k-split count, its workspace and the split counters."""
+    kernels) into an output of the same dtype; `splits` (pk_fp4_gemm and
+    pk_fp4_gemm_wc) adds the k-split count, its workspace and the split
+    counters, for CTAs of `group` m-tiles."""
     if a.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {a.device}")
     if a.dtype != dtype:
@@ -230,8 +255,9 @@ def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid,
     if splits is not None:
         ws_ptr = cnt_ptr = None
         if splits > 1:
-            tiles = -(-m // sid.block_m) * -(-n // sid.block_n)
-            ws = torch.empty(tiles * splits * sid.block_m * sid.block_n,
+            rows = sid.block_m * group
+            tiles = -(-m // rows) * -(-n // sid.block_n)
+            ws = torch.empty(tiles * splits * rows * sid.block_n,
                              dtype=torch.float32, device=a.device)
             ws_ptr = ws.data_ptr()
             cnt_ptr = _counters(a.device, stream, tiles).data_ptr()
@@ -256,14 +282,14 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
                goes to fused_mul_hp or fused_mul_hp_wc (then a is f32 and
                so is the result), a weight_cache sid to fused_mul_wc
     splits   : k-splits of each 16-row output tile, an int in [1, kp /
-               256]; only the plain block_m = 16 tiles split (other ids
-               take 1). Default stream_splits' count on the card; checked
-               but unused on the CPU. The grouped kernel's 16-row tiles run
-               the same tile, so each expert of grouped_mul gives these
-               bits at the same split count; with one split the output
-               equals the 16-row tile body of csrc/fp4_gemm.cuh (the weight
-               cache's) bit for bit; with more, the f32 partials are summed
-               in split order, so every launch repeats its bits.
+               256]; only the block_m = 16 tiles split, plain and weight
+               cache (the 64-row and high-precision ids take 1). Default
+               stream_splits' count on the card (fp4_wc_splits' for a
+               weight_cache id); checked but unused on the CPU. The f32
+               partials are summed in split order, so every launch repeats
+               its bits; the weight cache's 16-row tiles and the grouped
+               kernel's run the same tile body, so at the same split count
+               they give these bits.
 
     Launches csrc/fp4_gemm.cu for CUDA tensors (counted in
     fused_mul.launches; the 64-row tiles, whose kernel is the wgmma body of
@@ -274,13 +300,13 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     kp = words.shape[0] * 8
     if splits is not None:
         _check_splits("fused_mul", splits, kp,
-                      sid.block_m == STREAM_BLOCK_M
-                      and not (sid.high_precision or sid.weight_cache))
+                      sid.block_m == STREAM_BLOCK_M and not sid.high_precision)
     if sid.high_precision:
         hp = fused_mul_hp_wc if sid.weight_cache else fused_mul_hp
         return hp(a, words, scales_t, global_scale, sid=sid)
     if sid.weight_cache:
-        return fused_mul_wc(a, words, scales_t, global_scale, sid=sid)
+        return fused_mul_wc(a, words, scales_t, global_scale, sid=sid,
+                            splits=splits)
     if a.device.type == "cpu":
         return fused_mul_reference(a, words, scales_t, global_scale, sid=sid)
     if splits is None and a.device.type == "cuda":
@@ -296,24 +322,39 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
 
 def fused_mul_wc(a: torch.Tensor, words: torch.Tensor,
                  scales_t: torch.Tensor, global_scale: torch.Tensor, *,
-                 sid: SolutionId) -> torch.Tensor:
+                 sid: SolutionId, splits: int | None = None) -> torch.Tensor:
     """fused_mul through the weight-cache kernel (pk_fp4_gemm_wc): each CTA
-    runs 4 m-tiles of sid's (block_m, block_n), one warpgroup (16-row
-    tiles: four warps) each, and decodes each weight block once for all of
-    them. Bit for bit fused_mul's result at the same
-    tile. Counted in fused_mul_wc.launches; fused_mul_reference on the
-    CPU."""
+    runs WC_GROUP = 4 m-tiles of sid's (block_m, block_n) and decodes each
+    weight block once for all of them (the 64-row tiles: one warpgroup an
+    m-tile on csrc/fp4_wgmma.cuh; the 16-row tiles: the split-k stream body
+    of csrc/fp4_stream.cuh, each B fragment feeding several m-tiles'
+    MMAs). splits as fused_mul's; default fp4_wc_splits' count (the 16-row
+    tiles split, their CTAs counted by m-groups of 64 rows). Bit for bit
+    fused_mul's result at the same tile and split count. Counted in
+    fused_mul_wc.launches, the 16-row tiles also in
+    fused_mul_wc.stream_launches; fused_mul_reference on the CPU."""
+    kp = words.shape[0] * 8
+    if splits is not None:
+        _check_splits("fused_mul_wc", splits, kp,
+                      sid.block_m == STREAM_BLOCK_M)
     if a.device.type == "cpu":
         return fused_mul_reference(a, words, scales_t, global_scale, sid=sid)
+    if splits is None and a.device.type == "cuda":
+        splits = fp4_wc_splits(a.shape[0], words.shape[1], kp, sid,
+                               _num_sms(a.device.index))
     out, launched = _fused_mul_cuda("pk_fp4_gemm_wc", a, words, scales_t,
-                                    global_scale, sid)
+                                    global_scale, sid, splits=splits,
+                                    group=WC_GROUP)
     fused_mul_wc.launches += launched
+    if launched and sid.block_m == STREAM_BLOCK_M:
+        fused_mul_wc.stream_launches += 1
     return out
 
 
 fused_mul.launches = 0
 fused_mul.wgmma_launches = 0
 fused_mul_wc.launches = 0
+fused_mul_wc.stream_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +589,7 @@ def launch_w4a8(a_i8, arow, words, r_t, acol, global_scale, out,
     stream = torch.cuda.current_stream(a_i8.device).cuda_stream
     ws_ptr = cnt_ptr = None
     if splits > 1:
-        rows = STREAM_BLOCK_M * (W4A8_WC_GROUP if sid.weight_cache else 1)
+        rows = STREAM_BLOCK_M * (WC_GROUP if sid.weight_cache else 1)
         tiles = -(-m // rows) * -(-n // sid.block_n)
         ws = torch.empty(tiles * splits * rows * sid.block_n,
                          dtype=torch.int32, device=a_i8.device)

@@ -14,7 +14,10 @@ then round once to bf16), the grouped GEMM also bit for bit against
 fused_mul on each expert at the same tile and k-splits, with `rows` bit
 for bit against the launch without them, and its layer's three calls
 replayed in a CUDA graph bit for bit the eager run; the weight-cache GEMM bit
-for bit against fused_mul at the same tile; the W4A8 GEMM and its
+for bit against fused_mul at the same tile and split count (its 16-row
+tiles at m = 1 to 130, every split count from 1 to 4 and the default of
+each, counted as stream launches, and replayed in a CUDA graph bit for
+bit); the W4A8 GEMM and its
 weight-cache variant bit for bit against their twin (exact int32 sums),
 the plain kernel's 64-row int8 wgmma tiles also at k = 4096 over 5 and 32
 m-tiles, and the weight cache bit for bit against them; their 16-row
@@ -737,27 +740,149 @@ def test_w4a8_and_fp4_stream_tiles_leave_the_split_counters_zero(gen):
             atol=2 ** -8 * ref.float().abs().max().item())
 
 
+def _fp4_operands(gen, fmt, n, k):
+    quant, group = _QUANT[fmt]
+    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+    qw, sc, gs = quant(w)
+    words = layout.repack_fp4_weights(qw, n, k,
+                                      pad_to=layout.pad_multiple(group))
+    st = layout.process_fp4_scales(sc, n, k, group_size=group)
+    return words, st, gs.reshape(1), eb
+
+
+def _wc_split_counts(m, n, words, bm, bn, eb):
+    """The split counts both sides take: 1 to 4 (as kp / 256 allows) and
+    the default of each entry, passed to both; 1 at block_m = 64."""
+    if bm == 64:
+        return [1]
+    kp = words.shape[0] * 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plain = fused.stream_splits(m, n, 0, kp, bm, bn, sms)[0]
+    wc = fused.fp4_wc_splits(m, n, kp, sol.SolutionId(bm, bn, eb,
+                                                      weight_cache=True), sms)
+    return sorted({c for c in (1, 2, 3, 4) if c <= kp // fused.KSTEP}
+                  | {plain, wc})
+
+
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
 @pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
 def test_weight_cache_kernel_bit_equal_to_fp4_gemm(gen, fmt, bm, bn):
-    quant, group = _QUANT[fmt]
-    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    """The weight cache (4 m-tiles a CTA) bit for bit fused_mul's plain
+    tile at the same tile and split count: every count from 1 to 4 and the
+    default of each entry at the 16-row tiles, one split at the 64-row
+    ones; its 16-row launches counted as stream launches."""
     for m, n, k in _W4A8_CASES[1:]:
-        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
-        qw, sc, gs = quant(w)
-        words = layout.repack_fp4_weights(qw, n, k,
-                                          pad_to=layout.pad_multiple(group))
-        st = layout.process_fp4_scales(sc, n, k, group_size=group)
+        words, st, gs, eb = _fp4_operands(gen, fmt, n, k)
         a = _bf16(gen, m, k)
-        plain = fused.fused_mul(a, words, st, gs.reshape(1),
-                                sid=sol.SolutionId(bm, bn, eb), splits=1)
         wc = sol.SolutionId(bm, bn, eb, weight_cache=True)
         if not sol.is_feasible(wc, m, n, k):
             continue
-        before = fused.fused_mul_wc.launches
-        got = fused.fused_mul(a, words, st, gs.reshape(1), sid=wc)
-        assert fused.fused_mul_wc.launches == before + 1
-        assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
+        for splits in _wc_split_counts(m, n, words, bm, bn, eb):
+            plain = fused.fused_mul(a, words, st, gs,
+                                    sid=sol.SolutionId(bm, bn, eb),
+                                    splits=splits)
+            before = fused.fused_mul_wc.launches
+            stream = fused.fused_mul_wc.stream_launches
+            got = fused.fused_mul(a, words, st, gs, sid=wc, splits=splits)
+            assert fused.fused_mul_wc.launches == before + 1
+            assert fused.fused_mul_wc.stream_launches == stream + (bm == 16)
+            assert torch.equal(got.view(torch.int16),
+                               plain.view(torch.int16)), (m, n, k, splits)
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_weight_cache_16_row_tiles_every_split_count(gen, fmt, bn):
+    """The weight cache's 16-row tiles (the stream body, 4 m-tiles a CTA)
+    at m = 1 to 130 (one m-group partial, several, rows past m in every
+    m-tile position), n = 336 (a ragged last n-tile), k = 640 padded to
+    1024 (four steps): at 1 to 4 splits and both defaults bit for bit the
+    plain 16-row tile at the same count, within the GEMM tolerance of the
+    twin, a second launch the same bits."""
+    n, k = 336, 640
+    words, st, gs, eb = _fp4_operands(gen, fmt, n, k)
+    wc = sol.SolutionId(16, bn, eb, weight_cache=True)
+    for m in (1, 16, 17, 63, 64, 65, 130):
+        a = _bf16(gen, m, k)
+        want = fused.fused_mul_reference(a, words, st, gs, sid=wc)
+        for splits in _wc_split_counts(m, n, words, 16, bn, eb):
+            plain = fused.fused_mul(a, words, st, gs,
+                                    sid=sol.SolutionId(16, bn, eb),
+                                    splits=splits)
+            got = fused.fused_mul(a, words, st, gs, sid=wc, splits=splits)
+            again = fused.fused_mul_wc(a, words, st, gs, sid=wc,
+                                       splits=splits)
+            what = (m, bn, splits)
+            assert torch.equal(got.view(torch.int16),
+                               plain.view(torch.int16)), what
+            assert torch.equal(again.view(torch.int16),
+                               got.view(torch.int16)), what
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=2 ** -7,
+                atol=2 ** -8 * want.float().abs().max().item())
+    torch.cuda.synchronize()
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+def test_weight_cache_16_row_launch_counts_as_a_stream_launch(gen):
+    """fused_mul_wc counts each launch in .launches, the 16-row ones also
+    in .stream_launches, the 64-row ones not."""
+    words, st, gs, eb = _fp4_operands(gen, "nvfp4", 256, 512)
+    a = _bf16(gen, 300, 512)
+    for bm, bn in sol.TILE_SHAPES:
+        sid = sol.SolutionId(bm, bn, eb, weight_cache=True)
+        launches = fused.fused_mul_wc.launches
+        stream = fused.fused_mul_wc.stream_launches
+        fused.fused_mul_wc(a, words, st, gs, sid=sid)
+        assert fused.fused_mul_wc.launches == launches + 1
+        assert fused.fused_mul_wc.stream_launches == stream + (bm == 16)
+
+
+def test_weight_cache_16_row_tiles_replay_in_a_cuda_graph(gen):
+    """The weight cache's 16-row tiles (16x64 and 16x128) captured in one
+    CUDA graph: the four Llama-3-8B projections at m = 64 and default
+    splits, and n = 336, k = 640 at m = 1 to 130 in nvfp4 and mxfp4 at
+    their default splits and at 3. After one eager call, three replays
+    (outputs zeroed before each) give the eager bits each time, which are
+    the plain 16-row tile's at the same splits, and every split counter
+    reads zero afterwards."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    calls = []
+    shapes = [("nvfp4", 64, n, k, None) for k, n in _LLAMA8B_KN]
+    shapes += [(fmt, m, 336, 640, s) for fmt in ("nvfp4", "mxfp4")
+               for m in (1, 16, 17, 63, 64, 65, 130) for s in (None, 3)]
+    for fmt, m, n, k, splits in shapes:
+        words, st, gs, eb = _fp4_operands(gen, fmt, n, k)
+        a = _bf16(gen, m, k)
+        for bn in (64, 128):
+            sid = sol.SolutionId(16, bn, eb, weight_cache=True)
+            s_ = splits or fused.fp4_wc_splits(m, n, words.shape[0] * 8,
+                                               sid, sms)
+            calls.append((a, words, st, gs, sid, s_))
+    eager = [fused.fused_mul(a, w, s, g, sid=sid, splits=sp)
+             for a, w, s, g, sid, sp in calls]
+    plain = [fused.fused_mul(a, w, s, g, sid=sol.SolutionId(16, sid.block_n,
+                                                            sid.element_b),
+                             splits=sp)
+             for a, w, s, g, sid, sp in calls]
+    torch.cuda.synchronize()
+    for got, want in zip(eager, plain):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fused.fused_mul(a, w, s, g, sid=sid, splits=sp)
+                for a, w, s, g, sid, sp in calls]
+    for _ in range(3):
+        for out in outs:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
 
 
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])

@@ -139,16 +139,22 @@ def test_fused_mul_cpu_rejects_bad_splits(bad):
 
 
 def test_fused_mul_cpu_splits_only_the_plain_16_row_tiles():
-    """Block_m = 64, weight-cache and high-precision ids take one split."""
+    """Block_m = 64 and high-precision ids take one split; the 16-row
+    tiles split, plain and weight cache (the twin's bits either way)."""
     _, a, words, st, gs = _operands(m=70)
     for sid in (tsol.SolutionId(64, 128), tsol.SolutionId(64, 64),
-                tsol.SolutionId(16, 64, weight_cache=True),
+                tsol.SolutionId(64, 64, weight_cache=True),
                 tsol.SolutionId(16, 64, high_precision=True)):
         a_ = a.float() if sid.high_precision else a
         assert fused.fused_mul(a_, words, st, gs, sid=sid,
                                splits=1).shape == (70, 128)
         with pytest.raises(ValueError, match="do not split"):
             fused.fused_mul(a_, words, st, gs, sid=sid, splits=2)
+    want = fused.fused_mul_reference(a, words, st, gs, sid=None)
+    for sid in (tsol.SolutionId(16, 64),
+                tsol.SolutionId(16, 64, weight_cache=True)):
+        got = fused.fused_mul(a, words, st, gs, sid=sid, splits=2)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 # ---- the split sum against the JAX package -----------------------------------

@@ -347,7 +347,7 @@ def _emulated_stream(a_i8, arow, words, r_bits, acol, gs, k, bn, g,
     return outs
 
 
-@pytest.mark.parametrize("g", [1, fused.W4A8_WC_GROUP])
+@pytest.mark.parametrize("g", [1, fused.WC_GROUP])
 @pytest.mark.parametrize("bn", [64, 128])
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
 def test_stream_body_data_movement_matches_jax(fmt, bn, g):
@@ -567,7 +567,7 @@ def test_fused_mul_w4a8_cpu_64_row_tiles_take_one_split(bn, wc):
 
 def test_launcher_runs_every_16_row_tile_on_the_stream_body():
     """Both entries' 16-row tiles launch w4a8_stream_kernel<BN, G>, the
-    weight cache at WC_GROUP, which W4A8_WC_GROUP names for the wrapper's
+    weight cache at WC_GROUP, which fused.WC_GROUP names for the wrapper's
     split rule and workspace; the old mma.sync s8 body is gone."""
     text = _source("fp4_gemm_w4a8.cu")
     for bn in (64, 128):
@@ -576,7 +576,7 @@ def test_launcher_runs_every_16_row_tile_on_the_stream_body():
     assert "w4a8_stream_kernel<BN, G><<<" in text
     group = int(re.search(r"constexpr int WC_GROUP = (\d+);",
                           _source("fp4_gemm.cuh"))[1])
-    assert group == fused.W4A8_WC_GROUP
+    assert group == fused.WC_GROUP
     for name in os.listdir(_CSRC):
         src = _source(name)
         for gone in ("fp4_gemm_w4a8_kernel", "LDB8", "requant<",
