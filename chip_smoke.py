@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
   1 device   require CUDA; print the card, CUDA, nvcc and nvidia-smi lines
   2 build    compile csrc/*.cu through ops/_build.py, print the seconds;
              log and record each kernel's ptxas registers, spills and
-             C7515 warnings
+             C7515 warnings (the six instances of the split-KV decode body
+             csrc/decode_attention.cuh among them)
   3 kernels  each kernel against its plain PyTorch twin on the card, at the
              Llama-3-8B serving shapes (headed kernels at page sizes 16
              and 256, bf16 and fp8 K/V; the W4A8 GEMM and both weight-cache
@@ -64,7 +65,11 @@ Phases (any failure raises and the script exits non-zero):
              pos0 = 1536 (window 2048), beside one SDPA call over bf16
              K/V, each prefill and KV append row also timed as a CUDA
              graph of 20 or 24 launches (graph_ms: device time, no host
-             time between launches); with CUDA-event times of the kernel, its twin and
+             time between launches; the decode attention rows, the
+             split-KV body csrc/decode_attention.cuh, too, each also
+             launched twice for the same bits, the flat row beside SDPA
+             over the strided view and over a contiguous copy, labelled);
+             with CUDA-event times of the kernel, its twin and
              one PyTorch library call for the same work where there is
              one, and each call's bound (bytes over 3.35 TB/s or operations
              over the peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s
@@ -177,6 +182,13 @@ Phases (any failure raises and the script exits non-zero):
              and as a CUDA graph of the four: the same kind of A/B, also of
              copies of csrc/fp4_stream.cuh with another plan (it checks no
              bits)
+ 20 decode_attn_layer (only when named) decode attention alone, at the
+             Engine's decode shape (B = 4, positions 274, 316, 177 and 108,
+             window 512) and the kernels phase's (B = 8, S = 2048): flat
+             bf16, headed fp8 and paged fp8 (page size 16), each as a CUDA
+             graph of 32 launches, one a layer over its own cache, beside
+             SDPA over the same bf16 K/V as a graph: the same kind of A/B,
+             which a copy of this script in an older tree's checkout times
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -230,9 +242,9 @@ PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
           "w4a8_layer", "hybrid_prefill_layer", "append_layer",
-          "fp4_wc_layer")
-# run when --phases is not given: all but the seven A/B phases
-DEFAULT_PHASES = PHASES[:-7]
+          "fp4_wc_layer", "decode_attn_layer")
+# run when --phases is not given: all but the eight A/B phases
+DEFAULT_PHASES = PHASES[:-8]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -258,8 +270,11 @@ KERNELS = {
         route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_wgmma.cuh",
         replaces="petit_kernel_tpu/ops/kernels/fused.py:195",
         wrapper=fused.fused_mul, counter="wgmma_launches"),
+    # the three decode entries launch one split-KV body,
+    # csrc/decode_attention.cuh (through decode_attention.cu and
+    # paged_decode_attention.cu)
     "decode_attention": dict(
-        route="cuda", source="petit_kernel_tpu_torch/csrc/decode_attention.cu",
+        route="cuda", source="petit_kernel_tpu_torch/csrc/decode_attention.cuh",
         replaces="petit_kernel_tpu/ops/kernels/attention.py:169",
         wrapper=attention.decode_attention_contiguous),
     "prefill_attention": dict(
@@ -272,12 +287,12 @@ KERNELS = {
                       wrapper=attention.kv_append),
     "decode_attention_headed": dict(
         route="cuda",
-        source="petit_kernel_tpu_torch/csrc/paged_decode_attention.cu",
+        source="petit_kernel_tpu_torch/csrc/decode_attention.cuh",
         replaces="petit_kernel_tpu/ops/kernels/attention.py:87",
         wrapper=attention.decode_attention_contiguous_headed),
     "paged_decode_attention": dict(
         route="cuda",
-        source="petit_kernel_tpu_torch/csrc/paged_decode_attention.cu",
+        source="petit_kernel_tpu_torch/csrc/decode_attention.cuh",
         replaces="petit_kernel_tpu/ops/kernels/attention.py:87",
         wrapper=attention.paged_decode_attention),
     "prefill_attention_headed": dict(
@@ -482,6 +497,17 @@ def phase_build(rec):
         log(f"[build] FP4 16-row stream body {name}: {p.get('registers')} "
             f"registers, spill {p.get('spill_stores')}/{p.get('spill_loads')}"
             f" bytes")
+    # the split-KV decode body (csrc/decode_attention.cuh), <d, fp8, paged>:
+    # flat bf16 at d 64 and 128, headed or paged bf16 and fp8 at both
+    dec = {name: p for name, p in rec["ptxas"].items()
+           if name.startswith("decode_split_kernel<")}
+    if info.log and len(dec) != 6:
+        raise AssertionError(f"build: ptxas compiled {sorted(dec)}, not the "
+                             "six decode_split_kernel instances")
+    for name, p in sorted(dec.items()):
+        log(f"[build] decode attention body {name}: {p.get('registers')} "
+            f"registers, spill {p.get('spill_stores')}/{p.get('spill_loads')}"
+            f" bytes")
 
 
 def _close(name, got, want, rtol, atol):
@@ -548,6 +574,21 @@ def _sdpa(q_bhtd, k_bhsd, v_bhsd, mask_bts):
     scaled_dot_product_attention call with the row's boolean mask."""
     return torch.nn.functional.scaled_dot_product_attention(
         q_bhtd, k_bhsd, v_bhsd, attn_mask=mask_bts[:, None], enable_gqa=True)
+
+
+def _decode_sdpa(q, k_bhsd, v_bhsd, mask, label):
+    """The decode rows' library yardstick, labelled by layout: one
+    scaled_dot_product_attention call with the boolean position mask
+    (B, 1, 1, S), over K/V as given (`label`) and over contiguous copies;
+    back-to-back mean (ms) and a CUDA graph of 20 calls (graph_ms)."""
+    out = {}
+    for name, k, v in ((label, k_bhsd, v_bhsd),
+                       ("contiguous (B, Hkv, S, d) bf16",
+                        k_bhsd.contiguous(), v_bhsd.contiguous())):
+        call = (lambda k=k, v=v: _sdpa(q[:, :, None], k, v, mask))
+        out[name] = dict(ms=cuda_ms(call), graph_ms=_graph_ms(call),
+                         mask="boolean (B, 1, 1, S): p <= pos[b]")
+    return out
 
 
 def _decode_mask(pos, S, window):
@@ -756,16 +797,30 @@ def phase_kernels(rec):
         q, ck, cv, pos, nb=nb))
     t_p = cuda_ms(lambda: attention.decode_attention_reference(
         q, ck, cv, pos, nb=nb), iters=5)
+    again = attention.decode_attention_contiguous(q, ck, cv, pos, nb=nb)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError("decode attention: two launches differ")
+    t_g = _graph_ms(lambda: attention.decode_attention_contiguous(
+        q, ck, cv, pos, nb=nb))
     dmask = _decode_mask(pos, S, S)
-    t_l = cuda_ms(lambda: _sdpa(q[:, :, None], ck.transpose(1, 2),
-                                cv.transpose(1, 2), dmask))
+    sdpa = _decode_sdpa(q, ck.transpose(1, 2), cv.transpose(1, 2), dmask,
+                        "flat cache as a strided (B, Hkv, S, d) view")
+    t_l = sdpa["flat cache as a strided (B, Hkv, S, d) view"]["ms"]
     res["decode_attention"] = dict(
-        max_abs_err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
+        max_abs_err=e, ms=t_k, graph_ms=t_g, plain_ms=t_p, library_ms=t_l,
+        library=sdpa, splits=attention.decode_split_plan(B, Hkv, S),
         **bound(*_decode_work(q, pos, Hkv, 2)),
-        at="B=8 H=32 Hkv=8 d=128 S=2048 ragged pos; library: "
-           "scaled_dot_product_attention(enable_gqa=True), position mask")
-    log(f"[kernels] decode attention err={e:.2e} kernel={t_k:.4f} ms "
-        f"plain={t_p:.4f} ms sdpa={t_l:.4f} ms")
+        at="B=8 H=32 Hkv=8 d=128 S=2048 ragged pos, two launches bit for "
+           "bit; graph_ms: a CUDA graph of 20 launches; library: "
+           "scaled_dot_product_attention(enable_gqa=True) with a boolean "
+           "position mask (B, 1, 1, S) over the flat cache's strided view "
+           "(library) and over a contiguous copy")
+    log(f"[kernels] decode attention err={e:.2e}, repeatable; kernel="
+        f"{t_k:.4f} ms graph={t_g:.4f} ms plain={t_p:.4f} ms sdpa "
+        + ", ".join(f"{k} {v['ms']:.4f} ms (graph {v['graph_ms']:.4f})"
+                    for k, v in sdpa.items())
+        + f" bound={res['decode_attention']['bound_ms']:.4f} ms")
     # --- flash prefill ------------------------------------------------------
     T = 256
     pos0 = torch.tensor([0, 256], dtype=torch.int32, device=dev)
@@ -865,7 +920,7 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def check(name, variant, kernel, twin, served, work, library=None,
-              exact=False):
+              exact=False, label=None):
         got, want = kernel(), twin()
         torch.cuda.synchronize()
         if exact:
@@ -876,12 +931,17 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
             e = 0.0
         else:
             e = _close(f"{name} {variant}", got, want, 2 ** -7, 2 ** -7)
+        if "decode" in name and not torch.equal(
+                got.view(torch.int16), kernel().view(torch.int16)):
+            raise AssertionError(f"{name} {variant}: two launches differ")
         t_k = cuda_ms(kernel)
         t_p = cuda_ms(twin, iters=5)
         t_l = cuda_ms(library) if library else None
         row = dict(kernel=name, variant=variant, max_abs_err=e, ms=t_k,
                    plain_ms=t_p, library_ms=t_l, **bound(*work))
-        if "prefill" in name or "append" in name:
+        if label:
+            row["library"] = label
+        if "prefill" in name or "append" in name or "decode" in name:
             row["graph_ms"] = _cold_ms([kernel])
         rows.append(row)
         graph = (f" graph={row['graph_ms']:.4f} ms" if "graph_ms" in row
@@ -955,7 +1015,10 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
               lambda: attention.decode_attention_headed_reference(
                   q, ck, cv, pos, nb=S // 128, page_size=128),
               dtype == FP8, _decode_work(q, pos, Hkv, elt),
-              library=bf16 and (lambda: _sdpa(q[:, :, None], ck, cv, dmask)))
+              library=bf16 and (lambda: _sdpa(q[:, :, None], ck, cv, dmask)),
+              label=bf16 and "scaled_dot_product_attention(enable_gqa=True) "
+              "over the contiguous (B, Hkv, S, d) bf16 cache, boolean "
+              "position mask (B, 1, 1, S)")
         check("prefill_attention_headed",
               f"{tag} B=2 T=256 pos0=(0,256) H={H} Hkv={Hkv} S={S}",
               lambda: attention.flash_prefill_attention(
@@ -2250,6 +2313,79 @@ def phase_append_layer(rec):
         log(f"[append_layer] {name}: {out[name] * 1e3:.3f} us a launch as a "
             "CUDA graph")
     rec["append_layer"] = out
+
+
+# decode attention's A/B shapes (H = 32, Hkv = 8, d = 128): the Engine's
+# decode step, 4 slots mid-decode (the serve phase's prompts of 258, 300,
+# 161 and 92 tokens 16 steps in, window 512), and the kernels phase's 8
+# ragged sequences over 2048 positions
+DECODE_LAYER_SHAPES = (("engine B=4 window=512", (274, 316, 177, 108), 512),
+                       ("kernels B=8 window=2048",
+                        (0, 5, 127, 128, 700, 1023, 1500, 2047), 2048))
+
+
+def phase_decode_attn_layer(rec):
+    """Decode attention alone, for an A/B of two trees: at each of
+    DECODE_LAYER_SHAPES, flat bf16, headed fp8 and paged fp8 (page size 16)
+    decode attention, each as a CUDA graph of 32 launches, one a layer over
+    the layer's own cache (so each launch finds its K/V cold, as a decode
+    step does), beside scaled_dot_product_attention over the same bf16 K/V
+    ((B, Hkv, S, d) contiguous, boolean position mask) as a graph of 32.
+    Times are device us a launch and ms the 32; bound: the bytes of the
+    positions attended (_decode_work). It calls only the public wrappers
+    with the arguments every tree's take, so a copy of this script placed
+    in an older checkout times that tree's kernels."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    H, Hkv, d, layers, ps = 32, 8, 128, 32, 16
+    out = {}
+    for shape, pos_l, window in DECODE_LAYER_SHAPES:
+        B = len(pos_l)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        nb = window // ps
+        mask = _decode_mask(pos, window, window)
+        calls = {"flat bf16": [], "headed fp8": [], "paged fp8 ps=16": [],
+                 "sdpa bf16": []}
+        for _ in range(layers):
+            k, v = (torch.randn((B, window, Hkv, d), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            kh, vh = k.transpose(1, 2).contiguous(), v.transpose(
+                1, 2).contiguous()
+            k8, v8 = kh.to(FP8), vh.to(FP8)
+            bt = torch.randperm(B * nb, generator=gen, device=dev).reshape(
+                B, nb).to(torch.int32)
+            kp, vp = (torch.randn((B * nb + 1, Hkv, ps, d), generator=gen,
+                                  device=dev).to(FP8) for _ in range(2))
+            calls["flat bf16"].append(
+                lambda k=k, v=v: attention.decode_attention_contiguous(
+                    q, k, v, pos, nb=nb, page_size=ps))
+            calls["headed fp8"].append(
+                lambda k=k8, v=v8: attention.decode_attention_contiguous_headed(
+                    q, k, v, pos, nb=nb, page_size=ps))
+            calls["paged fp8 ps=16"].append(
+                lambda k=kp, v=vp, t=bt: attention.paged_decode_attention(
+                    q, k, v, t, pos, nb=nb, page_size=ps))
+            calls["sdpa bf16"].append(
+                lambda k=kh, v=vh: _sdpa(q[:, :, None], k, v, mask))
+            del k, v
+        row = {}
+        for name, cs in calls.items():
+            t = _cold_ms(cs, reps=layers)
+            elt = 1 if "fp8" in name else 2
+            b = bound(*_decode_work(q, pos, Hkv, elt,
+                                    page_size=ps if "paged" in name else None))
+            row[name] = dict(us_a_launch=t * 1e3, ms_32=t * layers, **b)
+            log(f"[decode_attn_layer] {shape} {name}: {t * 1e3:.3f} us a "
+                f"launch, {t * layers:.4f} ms the 32 (graph); bound "
+                f"{b['bound_ms'] * 1e3:.3f} us")
+        out[shape] = row
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["decode_attn_layer"] = out
 
 
 def _quantized_weight(fmt, k, n, gen):
@@ -3622,7 +3758,7 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all but hybrid_layer, fp4_layer, "
                     "grouped_layer, w4a8_layer, hybrid_prefill_layer, "
-                    "append_layer and fp4_wc_layer)")
+                    "append_layer, fp4_wc_layer and decode_attn_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     ap.add_argument("--parent-record", help="a --record file of another "

@@ -9,8 +9,9 @@ interface, for sm_90a:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o <build>/libpetit_<hash>.so <tmp>/*.o
 
-The library name carries a hash of the sources and flags, so an unchanged
-tree loads the library it built before and a changed one rebuilds. The
+The library name carries a hash of the sources and flags (csrc/*.cu and
+the headers csrc/*.cuh they include), so an unchanged tree loads the
+library it built before and an edit of any source or header rebuilds. The
 build directory is petit_kernel_tpu_torch/_build/ (git-ignored). The
 library is loaded with ctypes: every pointer and the stream pass as
 c_void_p, every size as c_int and every element stride as c_longlong;
@@ -68,9 +69,10 @@ SIGNATURES = {
     # block_m, block_n, splits_f, splits_d, stream
     "pk_hybrid_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P),
-    # q, ck, cv, pos, out, B, H, Hkv, S, d, window, sm_scale, stream
-    "pk_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _P),
+    # q, ck, cv, pos, out, ws, counters, B, H, Hkv, S, d, window, splits,
+    # chunk, sm_scale, stream
+    "pk_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _P),
     # q, ck, cv, pos0, out, B, T, H, Hkv, S, d, window, sm_scale, stream
     "pk_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _P),
@@ -78,10 +80,11 @@ SIGNATURES = {
     "pk_kv_append": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ck, cv, kn, vn, pos, mask, B, Hkv, S, row_bytes, stream
     "pk_kv_append_headed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, k, v, block_tables, pos, out, B, H, Hkv, d, max_pages, ps,
-    # page_stride, head_stride, window, kv_fp8, sm_scale, stream
-    "pk_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _L, _L, _I, _I, _F, _P),
+    # q, k, v, block_tables, pos, out, ws, counters, B, H, Hkv, d,
+    # max_pages, ps, page_stride, head_stride, window, kv_fp8, splits, chunk,
+    # sm_scale, stream
+    "pk_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _L, _L, _I, _I, _I, _I, _F, _P),
     # q, k, v, block_tables, pos0, out, B, T, H, Hkv, d, max_pages, ps,
     # page_stride, head_stride, window, kv_fp8, sm_scale, stream
     "pk_paged_prefill_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

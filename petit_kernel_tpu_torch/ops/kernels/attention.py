@@ -21,8 +21,10 @@ cache:
   kv_append(headed=True)              <- _kv_append_kernel_headed
                                          (csrc/kv_append.cu)
 
-Each wrapper takes its `*_reference` twin only for tensors on the CPU; for
-CUDA tensors it launches its kernel or raises. JAX's immutable cache with
+The three decode entries launch one split-KV body, csrc/decode_attention.cuh,
+split over positions by decode_split_plan. Each wrapper takes its
+`*_reference` twin only for tensors on the CPU; for CUDA tensors it
+launches its kernel or raises. JAX's immutable cache with
 buffer donation becomes an in-place update of the cache tensor here. fp8
 K/V converts exactly to f32 in every kernel and twin (the JAX decode
 kernel's SWAR upcast flushes fp8 subnormals to zero; the port does not).
@@ -36,9 +38,16 @@ import math
 import torch
 
 from .. import _build
-from .fused import _aligned
+from .fused import _aligned, _counters
 
 _NEG_INF = -1e30
+# the decode body's split plan: positions a CTA tile, and the CTAs it aims
+# for, four for each of the H100's 132 SMs, where two fit at once
+# (csrc/decode_attention.cuh's shared memory and registers): shorter
+# splits even out ragged lengths (264 and 1056 measured slower, PERF.md)
+DECODE_TILE = 64
+DECODE_CTAS = 4 * 132
+DECODE_MAX_SPLITS = 512     # DA_MAX_SPLITS: the merge's rows fit shared memory
 
 
 def _on_one_cuda_device(where: str, *ts: torch.Tensor) -> None:
@@ -69,6 +78,38 @@ def _check_cuda_attention(where: str, q, ck, cv, pos) -> None:
 # decode attention
 # ---------------------------------------------------------------------------
 
+def decode_split_plan(batch: int, hkv: int, window: int,
+                      splits: int | None = None) -> tuple[int, int]:
+    """(splits, chunk) of a decode launch: CTA s of a (sequence, kv head)
+    takes the positions [s * chunk, (s + 1) * chunk) below the window,
+    chunk a multiple of DECODE_TILE. A function of (batch, hkv, window)
+    alone, never of the positions, so a launch needs no host sync and
+    replays in a CUDA graph. By default about DECODE_CTAS CTAs in all, at
+    most one split a tile of the window and DECODE_MAX_SPLITS; a given
+    `splits` is cut to those. Every position below the window lies in
+    exactly one split, and none is empty."""
+    tiles = max(1, -(-window // DECODE_TILE))
+    if splits is None:
+        splits = -(-DECODE_CTAS // max(1, batch * hkv))
+    if splits < 1:
+        raise ValueError(f"decode attention: splits {splits} < 1")
+    per = -(-tiles // min(splits, tiles, DECODE_MAX_SPLITS))   # tiles a split
+    return -(-tiles // per), per * DECODE_TILE
+
+
+def _decode_workspace(q: torch.Tensor, hkv: int, window: int,
+                      splits: int | None):
+    """The plan, the f32 workspace of its partials (B*H*splits*(d + 2),
+    one element when it does not split) and the split counters of q's
+    device and stream (zero between launches, shared with fused_mul)."""
+    B, H, d = q.shape
+    n, chunk = decode_split_plan(B, hkv, window, splits)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = torch.empty(B * H * n * (d + 2) if n > 1 else 1,
+                     dtype=torch.float32, device=q.device)
+    return n, chunk, ws, _counters(q.device, stream, B * hkv), stream
+
+
 def decode_attention_reference(q: torch.Tensor, ck: torch.Tensor,
                                cv: torch.Tensor, pos: torch.Tensor, *,
                                nb: int, page_size: int = 128) -> torch.Tensor:
@@ -91,8 +132,8 @@ def decode_attention_reference(q: torch.Tensor, ck: torch.Tensor,
 
 def decode_attention_contiguous(q: torch.Tensor, ck: torch.Tensor,
                                 cv: torch.Tensor, pos: torch.Tensor, *,
-                                nb: int, page_size: int = 128
-                                ) -> torch.Tensor:
+                                nb: int, page_size: int = 128,
+                                splits: int | None = None) -> torch.Tensor:
     """One-token attention per sequence over a contiguous flat cache.
 
     q      : (B, H, d) bf16 post-RoPE queries
@@ -100,6 +141,7 @@ def decode_attention_contiguous(q: torch.Tensor, ck: torch.Tensor,
     pos    : (B,) int32 absolute position of each query
     nb, page_size : attend only p < nb * page_size (callers pass the
              batch's bucketed window, so traffic tracks the context)
+    splits : CTAs a (sequence, kv head), default decode_split_plan's
     returns (B, H, d) bf16.
 
     Launches csrc/decode_attention.cu for CUDA tensors (counted in
@@ -109,6 +151,8 @@ def decode_attention_contiguous(q: torch.Tensor, ck: torch.Tensor,
             or H % ck.shape[2] or tuple(pos.shape) != (B,):
         raise ValueError(f"decode attention: q {tuple(q.shape)}, cache "
                          f"{tuple(ck.shape)}, pos {tuple(pos.shape)}")
+    if splits is not None:
+        decode_split_plan(B, ck.shape[2], nb * page_size, splits)
     if q.device.type == "cpu":
         return decode_attention_reference(q, ck, cv, pos, nb=nb,
                                           page_size=page_size)
@@ -117,13 +161,15 @@ def decode_attention_contiguous(q: torch.Tensor, ck: torch.Tensor,
     if H // Hkv > 8:
         raise ValueError(f"decode attention: {H // Hkv} query heads per kv "
                          "head, the kernel takes at most 8")
-    q, pos = q.contiguous(), pos.contiguous()
+    q, ck, cv = _aligned(q), _aligned(ck), _aligned(cv)
+    pos = pos.contiguous()
+    window = min(nb * page_size, S)
+    n, chunk, ws, counters, stream = _decode_workspace(q, Hkv, window, splits)
     out = torch.empty_like(q)
-    lib = _build.library()
-    code = lib.pk_decode_attention(
+    code = _build.library().pk_decode_attention(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, H, Hkv, S, d, nb * page_size,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, H, Hkv, S, d,
+        window, n, chunk, 1.0 / math.sqrt(d), stream)
     _build.check("pk_decode_attention", code)
     decode_attention_contiguous.launches += 1
     return out
@@ -311,11 +357,12 @@ def _sequence_table(batch: int, hkv: int, device: torch.device
 
 
 def _launch_headed(where: str, q, k, v, table, pos, *, ps: int,
-                   page_stride: int, head_stride: int,
-                   window: int) -> torch.Tensor:
-    """Run pk_paged_decode_attention (q (B, H, d)) or
-    pk_paged_prefill_attention (q (B, T, H, d)) over a headed layout whose
-    position p of sequence b, kv head h lies at element
+                   page_stride: int, head_stride: int, window: int,
+                   splits: int | None = None) -> torch.Tensor:
+    """Run pk_paged_decode_attention (q (B, H, d), split by
+    decode_split_plan or `splits`) or pk_paged_prefill_attention (q (B, T,
+    H, d)) over a headed layout whose position p of sequence b, kv head h
+    lies at element
     table[b, p // ps] * page_stride + h * head_stride + (p % ps) * d."""
     _on_one_cuda_device(where, q, k, v, table, pos)
     if q.dtype != torch.bfloat16 or k.dtype not in _KV_DTYPES \
@@ -338,15 +385,24 @@ def _launch_headed(where: str, q, k, v, table, pos, *, ps: int,
     pos, table = pos.contiguous(), table.contiguous()
     out = torch.empty_like(q)
     lib = _build.library()
-    entry = ("pk_paged_decode_attention" if q.dim() == 3
-             else "pk_paged_prefill_attention")
-    lead = (q.shape[0],) if q.dim() == 3 else (q.shape[0], q.shape[1])
-    code = getattr(lib, entry)(
+    kv_fp8 = int(k.dtype == torch.float8_e4m3fn)
+    if q.dim() == 3:
+        n, chunk, ws, counters, stream = _decode_workspace(q, hkv, window,
+                                                           splits)
+        code = lib.pk_paged_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), q.shape[0], H, hkv, d, table.shape[1], ps,
+            page_stride, head_stride, window, kv_fp8, n, chunk,
+            1.0 / math.sqrt(d), stream)
+        _build.check("pk_paged_decode_attention", code)
+        return out
+    code = lib.pk_paged_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), *lead, H, hkv, d, table.shape[1], ps,
-        page_stride, head_stride, window, int(k.dtype == torch.float8_e4m3fn),
+        pos.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1], H, hkv, d,
+        table.shape[1], ps, page_stride, head_stride, window, kv_fp8,
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(entry, code)
+    _build.check("pk_paged_prefill_attention", code)
     return out
 
 
@@ -374,7 +430,8 @@ def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            pos: torch.Tensor, *, nb: int, page_size: int,
-                           headed: bool = True) -> torch.Tensor:
+                           headed: bool = True,
+                           splits: int | None = None) -> torch.Tensor:
     """One-token attention per sequence over a paged KV pool.
 
     q            : (B, H, d) bf16 post-RoPE queries
@@ -384,6 +441,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     block_tables : (B, >= nb) int32 page ids
     pos          : (B,) int32 absolute position of each query
     nb           : pages to visit; attend only p <= pos[b], p < nb * ps
+    splits       : CTAs a (sequence, kv head), default decode_split_plan's
     returns (B, H, d) bf16.
 
     Launches csrc/paged_decode_attention.cu for CUDA tensors (counted in
@@ -399,12 +457,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged decode attention: q {tuple(q.shape)}, pool "
                          f"{tuple(k_pages.shape)}, page_size {page_size}, "
                          f"pos {tuple(pos.shape)}")
+    if splits is not None:
+        decode_split_plan(B, Hkv, nb * ps, splits)
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, block_tables, pos,
                                       nb=nb, page_size=ps)
     out = _launch_headed("paged decode attention", q, k_pages, v_pages,
                          block_tables, pos, ps=ps, page_stride=Hkv * ps * d,
-                         head_stride=ps * d, window=nb * ps)
+                         head_stride=ps * d, window=nb * ps, splits=splits)
     paged_decode_attention.launches += 1
     return out
 
@@ -424,11 +484,14 @@ def decode_attention_headed_reference(q: torch.Tensor, ck: torch.Tensor,
 
 def decode_attention_contiguous_headed(q: torch.Tensor, ck: torch.Tensor,
                                        cv: torch.Tensor, pos: torch.Tensor,
-                                       *, nb: int, page_size: int = 256
+                                       *, nb: int, page_size: int = 256,
+                                       splits: int | None = None
                                        ) -> torch.Tensor:
     """decode_attention_contiguous over a headed (B, Hkv, S, d) bf16 or fp8
     cache: attend p <= pos[b], p < nb * page_size. page_size only sets the
-    window; the kernel reads each sequence as one page of S positions.
+    window; the kernel reads each sequence as one page of S positions, and
+    its splits (`splits`, default decode_split_plan's) need not end on a
+    page.
 
     Launches csrc/paged_decode_attention.cu for CUDA tensors (counted in
     decode_attention_contiguous_headed.launches)."""
@@ -438,6 +501,8 @@ def decode_attention_contiguous_headed(q: torch.Tensor, ck: torch.Tensor,
             or tuple(pos.shape) != (B,):
         raise ValueError(f"headed decode attention: q {tuple(q.shape)}, "
                          f"cache {tuple(ck.shape)}, pos {tuple(pos.shape)}")
+    if splits is not None:
+        decode_split_plan(B, ck.shape[1], nb * page_size, splits)
     if q.device.type == "cpu":
         return decode_attention_headed_reference(q, ck, cv, pos, nb=nb,
                                                  page_size=page_size)
@@ -445,7 +510,7 @@ def decode_attention_contiguous_headed(q: torch.Tensor, ck: torch.Tensor,
     out = _launch_headed("headed decode attention", q, ck, cv,
                          _sequence_table(B, Hkv, ck.device), pos, ps=S,
                          page_stride=S * d, head_stride=S * d,
-                         window=min(nb * page_size, S))
+                         window=min(nb * page_size, S), splits=splits)
     decode_attention_contiguous_headed.launches += 1
     return out
 

@@ -26,8 +26,11 @@ the same bits, the weight cache bit for bit the plain tile, and the split
 counters they share with fused_mul zero after a W4A8 launch and an FP4
 one;
 attention at rtol = atol = 2^-7, flat or headed, bf16 or fp8 K/V (both
-convert fp8 exactly), the prefill wrappers also on views off a 16-byte
-boundary; the KV appends and the dequant kernel bit-exact; the
+convert fp8 exactly), the decode entries (one split-KV body) at every
+split count from 1 to one a 64-position tile and at the serving shapes, a
+second launch bit for bit the first, and a CUDA-graph replay after pos
+and the cache change in place bit for bit an eager launch, the prefill
+wrappers also on views off a 16-byte boundary; the KV appends and the dequant kernel bit-exact; the
 hybrid GEMM's FP4 columns bit for bit against fused_mul at the same tile
 with one k-split (and at block_m = 64), at the GEMM tolerance with more
 (fused_mul at one split wherever another kernel is held to its bits);
@@ -359,6 +362,137 @@ def test_decode_headed_kernel_matches_twin(gen, dtype):
                                                            page_size=128)
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                    atol=2 ** -7)
+
+
+# The split-KV decode body (csrc/decode_attention.cuh) through its three
+# entries, as the CPU model plays it (tests/test_torch_decode_split.py):
+# positions 0 (every split past the first wholly past pos), a 64-position
+# tile's last and first, one past a 16-position page, one past the window;
+# G = 1, 4, 8; d = 64, 128; bf16 and fp8; page sizes 16, 128, 256.
+_DECODE_POS = (0, 63, 64, 16, 200)
+_DECODE_GD = ((1, 64), (4, 128), (8, 64), (8, 128))
+_DECODE_ENTRIES = ("flat", "headed bf16", "headed fp8", "paged bf16 16",
+                   "paged fp8 16", "paged fp8 128", "paged bf16 256")
+
+
+def _decode_case(gen, entry, B, hkv, G, d, pos, window, S=None):
+    """(kernel(splits), twin(), wrapper, window, K, V) of one decode entry
+    over random caches: flat (B, S, Hkv, d), headed (B, Hkv, S, d) or a
+    permuted pool of pages; S defaults to the window."""
+    kind, *rest = entry.split()
+    dtype = torch.float8_e4m3fn if rest and rest[0] == "fp8" else \
+        torch.bfloat16
+    S = S or window
+    q = _bf16(gen, B, G * hkv, d)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    if kind == "flat":
+        k, v = _bf16(gen, B, S, hkv, d), _bf16(gen, B, S, hkv, d)
+        return (lambda s: attention.decode_attention_contiguous(
+                    q, k, v, pos, nb=window // 16, page_size=16, splits=s),
+                lambda: attention.decode_attention_reference(
+                    q, k, v, pos, nb=window // 16, page_size=16),
+                attention.decode_attention_contiguous, pos, k, v)
+    if kind == "headed":
+        k, v = _kv(gen, dtype, B, hkv, S, d), _kv(gen, dtype, B, hkv, S, d)
+        return (lambda s: attention.decode_attention_contiguous_headed(
+                    q, k, v, pos, nb=window // 16, page_size=16, splits=s),
+                lambda: attention.decode_attention_headed_reference(
+                    q, k, v, pos, nb=window // 16, page_size=16),
+                attention.decode_attention_contiguous_headed, pos, k, v)
+    ps = int(rest[1])
+    nb = -(-window // ps)
+    P = B * nb + 1
+    k, v = _kv(gen, dtype, P, hkv, ps, d), _kv(gen, dtype, P, hkv, ps, d)
+    bt = torch.randperm(P - 1, generator=gen, device="cuda")[:B * nb]
+    bt = bt.reshape(B, nb).to(torch.int32)
+    return (lambda s: attention.paged_decode_attention(
+                q, k, v, bt, pos, nb=nb, page_size=ps, splits=s),
+            lambda: attention.paged_decode_reference(
+                q, k, v, bt, pos, nb=nb, page_size=ps),
+            attention.paged_decode_attention, pos, k, v)
+
+
+def _split_counts_zero():
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+@pytest.mark.parametrize("entry", _DECODE_ENTRIES)
+def test_decode_split_body_every_split_count(gen, entry):
+    """Each entry against its twin at 2^-7 at the default split count and
+    at every count from 1 to one split a 64-position tile (and one past
+    it, cut to that), a second launch bit for bit the first, one launch
+    counted a call, the split counters zero after each."""
+    for G, d in _DECODE_GD:
+        window = 192 if entry.split()[-1] not in ("128", "256") else 256
+        kernel, twin, wrapper, *_ = _decode_case(gen, entry, 5, 2, G, d,
+                                                 _DECODE_POS, window)
+        want = twin()
+        tiles = -(-window // 64)
+        for splits in (None, *range(1, tiles + 2)):
+            before = wrapper.launches
+            got = kernel(splits)
+            again = kernel(splits)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 2
+            assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=2 ** -7)
+            _split_counts_zero()
+
+
+# the Engine's decode shape (4 slots mid-decode, window 512) and the
+# kernels phase's (8 ragged sequences over 2048 positions)
+_DECODE_SERVING = ((4, (274, 316, 177, 108), 512),
+                   (8, (0, 5, 127, 128, 700, 1023, 1500, 2047), 2048))
+
+
+@pytest.mark.parametrize("entry", ("flat", "headed fp8", "paged fp8 16"))
+def test_decode_split_body_at_serving_shapes(gen, entry):
+    """H = 32, Hkv = 8, d = 128 at the serving shapes: the twin at 2^-7 at
+    1 split, the plan's and one split a tile, each launch repeatable."""
+    for B, pos, window in _DECODE_SERVING:
+        kernel, twin, *_ = _decode_case(gen, entry, B, 8, 4, 128, pos, window)
+        want = twin()
+        for splits in (1, None, window // 64):
+            got = kernel(splits)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int16),
+                               kernel(splits).view(torch.int16))
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=2 ** -7)
+        _split_counts_zero()
+
+
+@pytest.mark.parametrize("entry", ("flat", "headed fp8", "paged fp8 16"))
+def test_decode_attention_replays_in_a_cuda_graph(gen, entry):
+    """Each entry captured in a CUDA graph at the Engine's decode shape and
+    replayed after pos and the cache change in place (the next decode
+    step's positions, fresh K/V values): each replay gives the bits of an
+    eager launch on the changed inputs. The launch count moves at capture,
+    not at replay; the split counters are zero after each replay."""
+    B, pos, window = _DECODE_SERVING[0]
+    kernel, _, wrapper, pos_t, k, v = _decode_case(gen, entry, B, 8, 4, 128,
+                                                   pos, window)
+    kernel(None)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = wrapper.launches
+    with torch.cuda.graph(graph):
+        out = kernel(None)
+    assert wrapper.launches == before + 1
+    for step in range(1, 4):
+        pos_t.add_(step * 37).clamp_(max=window - 1)
+        for c in (k, v):
+            c.copy_(torch.randn(c.shape, generator=gen, device="cuda").to(
+                c.dtype))
+        out.zero_()
+        graph.replay()
+        want = kernel(None)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+        _split_counts_zero()
+    assert wrapper.launches == before + 4
 
 
 @pytest.mark.parametrize("dtype", _KV_DTYPES)
