@@ -77,8 +77,14 @@ Phases (any failure raises and the script exits non-zero):
              m = 512 layer sums with their bound and library time
   4 solutions the GEMM API's solution layer: (a) the high-precision
              kernels, fp4_gemm_hp at the four Llama-3-8B projections, m =
-             8, nvfp4 with f32 and with bf16 activations and mxfp4 on wqkv,
-             and fp4_gemm_hp_wc at m = 2048 (bit for bit fp4_gemm_hp), each
+             8, nvfp4 with f32 and with bf16 activations at 16x64, f32 at
+             16x128, and mxfp4 on wqkv, fp4_gemm_hp_wc at m = 64 (16x64,
+             its 16-row tiles) and 2048 (the default tile), each weight
+             cache bit for bit fp4_gemm_hp at the same tile and splits,
+             every 16-row launch counted as a launch of the stream kernel,
+             two launches the same bits, the 16-row rows also L2-flushed
+             and as a CUDA graph of the four projections beside f32
+             torch.matmul, each
              held against an f64 product of the same dequantized weights:
              max|hp - f64| <= 4 max|f32 library - f64| + 2^-24 max(|A| @
              |B|) |gs|, the f32 library being the plain version's
@@ -189,6 +195,14 @@ Phases (any failure raises and the script exits non-zero):
              graph of 32 launches, one a layer over its own cache, beside
              SDPA over the same bf16 K/V as a graph: the same kind of A/B,
              which a copy of this script in an older tree's checkout times
+ 21 hp_layer (only when named) the high-precision GEMM's 16-row tiles
+             alone, the four Llama-3-8B projections (nvfp4, f32 A) through
+             fused_mul with hp ids at their default splits: m = 8 at 16x64
+             and 16x128, the weight cache at m = 64 (16x64), L2-warm,
+             L2-flushed and as a CUDA graph of the four, beside f32
+             torch.matmul (TF32 off) warm and as a graph: the same kind of
+             A/B, also of copies of the tile body edited to find what
+             bounds it (it checks no bits)
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -242,9 +256,9 @@ PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
           "w4a8_layer", "hybrid_prefill_layer", "append_layer",
-          "fp4_wc_layer", "decode_attn_layer")
-# run when --phases is not given: all but the eight A/B phases
-DEFAULT_PHASES = PHASES[:-8]
+          "fp4_wc_layer", "decode_attn_layer", "hp_layer")
+# run when --phases is not given: all but the nine A/B phases
+DEFAULT_PHASES = PHASES[:-9]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
 LLAMA8B_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 # the seven unfused ones (fmt="hybrid" does not fuse): wq, wk, wv, wo,
@@ -343,6 +357,13 @@ KERNELS = {
         route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_gemm_hp.cu",
         replaces="petit_kernel_tpu/ops/kernels/fused.py:302",
         wrapper=fused.fused_mul_hp_wc),
+    # fused_mul_hp_wc's 16-row tiles, the stream body's f32 form at 2
+    # m-tiles a CTA: their own kernel, counted apart
+    # (fused_mul_hp_wc.stream_launches) and inside fp4_gemm_hp_wc's count
+    "fp4_gemm_hp_wc_16row": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_stream.cuh",
+        replaces="petit_kernel_tpu/ops/kernels/fused.py:302",
+        wrapper=fused.fused_mul_hp_wc, counter="stream_launches"),
     "fp4_dequant": dict(route="cuda",
                         source="petit_kernel_tpu_torch/csrc/fp4_dequant.cu",
                         replaces="petit_kernel_tpu/ops/kernels/fused.py:718",
@@ -378,7 +399,8 @@ PATHS = {
                                  "prefill_attention", "kv_append"),
     "train nvfp4 Llama": ("fp4_gemm", "fp4_gemm_prefill", "fp4_dequant"),
     "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_wc_16row",
-                        "fp4_gemm_hp", "fp4_gemm_hp_wc"),
+                        "fp4_gemm_hp", "fp4_gemm_hp_wc",
+                        "fp4_gemm_hp_wc_16row"),
 }
 FP8 = torch.float8_e4m3fn
 
@@ -497,6 +519,18 @@ def phase_build(rec):
         log(f"[build] FP4 16-row stream body {name}: {p.get('registers')} "
             f"registers, spill {p.get('spill_stores')}/{p.get('spill_loads')}"
             f" bytes")
+    # the high-precision 16-row tiles of fp4_gemm_hp.cu (the f32 form of
+    # csrc/fp4_stream.cuh), plain (G = 1) and weight cache (G = 2) at
+    # block_n 64 and 128
+    hp = {name: p for name, p in rec["ptxas"].items()
+          if name.startswith("fp4_hp_stream_kernel<")}
+    if info.log and len(hp) != 4:
+        raise AssertionError(f"build: ptxas compiled {sorted(hp)}, not "
+                             "the four fp4_hp_stream_kernel instances")
+    for name, p in sorted(hp.items()):
+        log(f"[build] high-precision 16-row stream body {name}: "
+            f"{p.get('registers')} registers, spill {p.get('spill_stores')}/"
+            f"{p.get('spill_loads')} bytes")
     # the split-KV decode body (csrc/decode_attention.cuh), <d, fp8, paged>:
     # flat bf16 at d 64 and 128, headed or paged bf16 and fp8 at both
     dec = {name: p for name, p in rec["ptxas"].items()
@@ -2388,6 +2422,59 @@ def phase_decode_attn_layer(rec):
     rec["decode_attn_layer"] = out
 
 
+def phase_hp_layer(rec):
+    """The high-precision GEMM's 16-row tiles alone, for an A/B of two trees
+    or of copies of csrc/fp4_stream.cuh's f32 form edited to find what
+    bounds it: the four Llama-3-8B projections (nvfp4, f32 A) through
+    fused_mul(..., sid=...) with hp ids at their default splits, m = 8 at
+    16x64 and 16x128 and the weight cache at m = 64 (16x64), L2-warm and
+    L2-flushed, summed over the four, and as one CUDA graph of the four
+    (each launch finds its weights cold), beside f32 torch.matmul (TF32
+    off) at m = 8 and 64 on the dequantized weights, warm and as a graph.
+    It calls only the quantizer, the layout, SolutionId, fused_mul and
+    benchlib.cuda_time, which older trees have too, so a copy of this
+    script placed in an older checkout times that tree's kernel. Times
+    only: the solutions phase checks the results."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    runs = (("m=8 tile=16x64", 8, 64, False), ("m=8 tile=16x128", 8, 128,
+                                                False),
+            ("m=64 tile=16x64 weight cache", 64, 64, True))
+    out, graphs = {}, {}
+    for k, n in LLAMA8B_KN:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw, sc, gs = qref.quantize_nvfp4(w)
+        del w
+        words = layout.repack_fp4_weights(qw, n, k)
+        st = layout.process_fp4_scales(sc, n, k, group_size=16)
+        gs = gs.reshape(1)
+        deq = layout.dequant_from_tpu_layout(words, st, n, k)
+        acts = {m: torch.randn((m, k), generator=gen, device="cuda")
+                for m in (8, 64)}
+        for key, m, bn, wc in runs:
+            sid = solution_mod.SolutionId(16, bn, ElementB.NVFP4,
+                                          high_precision=True,
+                                          weight_cache=wc)
+            call = (lambda a=acts[m], w=words, s=st, g=gs, sid=sid:
+                    fused.fused_mul(a, w, s, g, sid=sid))
+            out[key] = out.get(key, 0.0) + cuda_ms(call)
+            out[f"{key} flushed"] = (out.get(f"{key} flushed", 0.0)
+                                     + _flushed_ms(call))
+            graphs.setdefault(key, []).append(call)
+        for m in (8, 64):
+            key = f"m={m} matmul f32"
+            call = (lambda a=acts[m], d=deq: torch.matmul(a, d))
+            out[key] = out.get(key, 0.0) + cuda_ms(call)
+            graphs.setdefault(key, []).append(call)
+    for key, calls in graphs.items():
+        out[f"{key} graph"] = len(calls) * _cold_ms(calls)
+        log(f"[hp_layer] {key}: 4 projections {out[key]:.4f} ms warm, "
+            + (f"{out[f'{key} flushed']:.4f} ms flushed, "
+               if f"{key} flushed" in out else "")
+            + f"{out[f'{key} graph']:.4f} ms as a CUDA graph")
+    log(json.dumps({"hp_layer": out}))
+    rec["hp_layer"] = out
+
+
 def _quantized_weight(fmt, k, n, gen):
     """A random (n, k) weight quantized with `fmt` on the card: (words,
     scales, gs (1,), element_b, the f32 dequantized (k, n) without gs)."""
@@ -2419,56 +2506,79 @@ def _hp_rule(a, deq, gs, got, plain):
 
 def _hp_kernels(res, rows, gen):
     """(a) fp4_gemm_hp at the four Llama-3-8B projections, m = 8, nvfp4,
-    with f32 activations and with bf16 ones (their f32 values), and mxfp4
-    on wqkv; fp4_gemm_hp_wc at m = 2048 on the four, bit for bit
-    fp4_gemm_hp at the same tile. Each within _hp_rule of the f64 product;
-    the bf16 path's distance from it beside (fp4_gemm on bf16(A)). Times:
-    the kernel, its plain version and the library call torch.matmul on the
-    f32 operands (TF32 off), back to back (cuda_ms, L2-warm), and the
-    kernel and library again with L2 flushed (benchlib.cuda_time). Bound:
-    the larger of the bytes at 3.35 TB/s and 3 * 2mnk at the bf16 peak:
-    three bf16 passes are the least the card needs for an f32-accurate
-    product over bf16-exact weights. The JSON rows: nvfp4 f32 m = 8 and m =
+    tile 16x64 with f32 activations and with bf16 ones (their f32 values),
+    16x128 with f32 ones, and mxfp4 on wqkv; fp4_gemm_hp_wc's 16-row tiles
+    at m = 64 (16x64) and its 64-row ones at m = 2048 (the default tile),
+    each bit for bit fp4_gemm_hp at the same tile and split count. Every
+    16-row launch is counted as a launch of the stream kernel
+    (fp4_hp_stream_kernel: .stream_launches). Each within _hp_rule of the
+    f64 product; the bf16 path's distance from it beside (fp4_gemm on
+    bf16(A)). Times: the kernel, its plain version and the library call
+    torch.matmul on the f32 operands (TF32 off), back to back (cuda_ms,
+    L2-warm), the kernel and library again with L2 flushed
+    (benchlib.cuda_time), and, summed over the four projections at m = 8
+    and 64, as one CUDA graph of the four launches (each finds its weights
+    cold). Bound: the larger of the bytes at 3.35 TB/s and 3 * 2mnk at the
+    bf16 peak: three bf16 passes are the least the card needs for an
+    f32-accurate product over bf16-exact weights. The JSON rows: nvfp4 f32
+    m = 8 (16x64; the 16x128 times beside), m = 64 weight cache and m =
     2048, each summed over the four projections."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the f32 yardstick would "
                              "keep 10 mantissa bits")
-    sums = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
-                       flops=0, err=0.0) for name in ("fp4_gemm_hp",
-                                                      "fp4_gemm_hp_wc")}
-    cases = ([("nvfp4", kn, m) for m in (8, 2048) for kn in LLAMA8B_KN]
-             + [("mxfp4", LLAMA8B_KN[0], 8)])
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = {(8, 64): "fp4_gemm_hp", (8, 128): "fp4_gemm_hp 16x128",
+             (64, 64): "fp4_gemm_hp_wc_16row", (2048, None): "fp4_gemm_hp_wc"}
+    sums = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flushed_ms=0.0,
+                       library_flushed_ms=0.0, nbytes=0, flops=0, err=0.0,
+                       calls=[], library_calls=[], splits=[])
+            for name in names.values()}
+    # (fmt, (k, n), m, block_n: None for the default tile)
+    cases = ([("nvfp4", kn, m, bn) for m, bn in names for kn in LLAMA8B_KN]
+             + [("mxfp4", LLAMA8B_KN[0], 8, 64)])
     weights = {}
-    for fmt, (k, n), m in cases:
+    for fmt, (k, n), m, bn in cases:
         if (fmt, k, n) not in weights:
-            weights.clear()
             weights[(fmt, k, n)] = _quantized_weight(fmt, k, n, gen)
         words, st, gs, eb, deq = weights[(fmt, k, n)]
-        a32 = torch.randn((m, k), generator=gen, device="cuda")
-        wc = m > 64
-        hp_sid = solution_mod.choose_default_solution(m, n, k, eb,
-                                                      high_precision=True)
-        sid = dataclasses.replace(hp_sid, weight_cache=wc)
-        name = "fp4_gemm_hp_wc" if wc else "fp4_gemm_hp"
+        kp = words.shape[0] * 8
+        a32 = torch.randn((m, k), generator=gen, device=dev)
+        wc = m > 16
+        plain_sid = (solution_mod.choose_default_solution(
+            m, n, k, eb, high_precision=True) if bn is None else
+            solution_mod.SolutionId(16, bn, eb, high_precision=True))
+        sid = dataclasses.replace(plain_sid, weight_cache=wc)
+        splits = fused.hp_splits(m, n, kp, sid, sms)
+        name = names[(m, bn)]
         kernel = fused.fused_mul_hp_wc if wc else fused.fused_mul_hp
         inputs = [("f32", a32)]
-        if fmt == "nvfp4" and m == 8:
+        if fmt == "nvfp4" and (m, bn) == (8, 64):
             inputs.append(("bf16", a32.to(torch.bfloat16).float()))
         for a_kind, a in inputs:
+            stream = kernel.stream_launches
             got = kernel(a, words, st, gs, sid=sid)
+            if kernel.stream_launches != stream + (sid.block_m == 16):
+                raise AssertionError(f"{name} k={k} n={n}: the launch missed "
+                                     "the 16-row stream kernel")
             plain = fused.fused_mul_hp_reference(a, words, st, gs, sid=sid)
             bf16_path = fused.fused_mul(
                 a.to(torch.bfloat16), words, st, gs,
                 sid=solution_mod.choose_default_solution(m, n, k, eb))
             torch.cuda.synchronize()
-            what = f"hp {fmt} {a_kind} A m={m} k={k} n={n}"
+            what = (f"hp {fmt} {a_kind} A m={m} k={k} n={n} "
+                    f"tile={sid.block_m}x{sid.block_n} splits={splits}")
             e_hp, e_lib, lim = _hp_rule(a, deq, gs, got, plain)
             e_bf16 = _hp_rule(a, deq, gs, bf16_path, plain)[0]
             if not torch.isfinite(got).all() or not e_hp <= lim:
                 raise AssertionError(f"{what}: max|hp - f64| {e_hp:.3e} > "
                                      f"{lim:.3e} (f32 library {e_lib:.3e})")
+            again = kernel(a, words, st, gs, sid=sid)
+            if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+                raise AssertionError(f"{what}: a second launch differs")
             if wc:
-                one = fused.fused_mul_hp(a, words, st, gs, sid=hp_sid)
+                one = fused.fused_mul_hp(a, words, st, gs, sid=plain_sid,
+                                         splits=splits)
                 if not torch.equal(one.view(torch.int32),
                                    got.view(torch.int32)):
                     raise AssertionError(f"{what}: weight cache differs from "
@@ -2484,51 +2594,84 @@ def _hp_kernels(res, rows, gen):
                     raise AssertionError(f"{what}: the public entry is not "
                                          "bf16(fp4_gemm_hp)")
             e_twin = (got - plain).abs().max().item()
-            iters = 5 if wc else 20
-            t_k = cuda_ms(lambda: kernel(a, words, st, gs, sid=sid),
-                          iters=iters)
+            iters = 5 if m == 2048 else 20
+            call = (lambda a=a, w=words, s_=st, g=gs, sid=sid:
+                    kernel(a, w, s_, g, sid=sid))
+            lib = (lambda a=a, d=deq: torch.matmul(a, d))
+            t_k = cuda_ms(call, iters=iters)
             t_p = cuda_ms(lambda: fused.fused_mul_hp_reference(
                 a, words, st, gs, sid=sid), iters=iters)
-            t_l = cuda_ms(lambda: torch.matmul(a, deq), iters=iters)
-            t_kf = benchlib.cuda_time(
-                lambda: kernel(a, words, st, gs, sid=sid), iters=iters) * 1e3
-            t_lf = benchlib.cuda_time(lambda: torch.matmul(a, deq),
-                                      iters=iters) * 1e3
+            t_l = cuda_ms(lib, iters=iters)
+            t_kf = benchlib.cuda_time(call, iters=iters) * 1e3
+            t_lf = benchlib.cuda_time(lib, iters=iters) * 1e3
             nbytes = _nbytes(a, words, st, gs, got)
             flops = 2 * m * n * k
             row = dict(kernel=name, fmt=fmt, a=a_kind, m=m, k=k, n=n,
-                       tile=[sid.block_m, sid.block_n], err_vs_f64=e_hp,
+                       tile=[sid.block_m, sid.block_n], splits=splits,
+                       weight_cache=wc, err_vs_f64=e_hp,
                        f32_library_err_vs_f64=e_lib, bf16_path_err_vs_f64=
                        e_bf16, limit=lim, max_abs_err=e_twin, ms=t_k,
                        plain_ms=t_p, library_ms=t_l, flushed_ms=t_kf,
                        library_flushed_ms=t_lf,
                        **bound(nbytes, 3 * flops))
             rows.append(row)
-            log(f"[solutions] {what} tile={sid.block_m}x{sid.block_n}"
-                f"{' wc' if wc else ''}: |hp-f64| {e_hp:.3e}, |f32 matmul-"
-                f"f64| {e_lib:.3e}, |bf16 path-f64| {e_bf16:.3e} (limit "
-                f"{lim:.3e}); kernel={t_k:.4f} ms ({t_kf:.4f} flushed) "
-                f"plain={t_p:.4f} ms matmul f32={t_l:.4f} ms ({t_lf:.4f} "
-                f"flushed) bound={row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})")
+            log(f"[solutions] {what}{' wc' if wc else ''}: |hp-f64| "
+                f"{e_hp:.3e}, |f32 matmul-f64| {e_lib:.3e}, |bf16 path-f64| "
+                f"{e_bf16:.3e} (limit {lim:.3e}); kernel={t_k:.4f} ms "
+                f"({t_kf:.4f} flushed) plain={t_p:.4f} ms matmul "
+                f"f32={t_l:.4f} ms ({t_lf:.4f} flushed) "
+                f"bound={row['bound_ms']:.4f} ms ({row['bound_by']})")
             acc = sums[name]
             acc["err"] = max(acc["err"], e_twin)
             if fmt == "nvfp4" and a_kind == "f32":
                 for key, v in (("ms", t_k), ("plain_ms", t_p),
-                               ("library_ms", t_l), ("nbytes", nbytes),
-                               ("flops", 3 * flops)):
+                               ("library_ms", t_l), ("flushed_ms", t_kf),
+                               ("library_flushed_ms", t_lf),
+                               ("nbytes", nbytes), ("flops", 3 * flops)):
                     acc[key] += v
-            del got, plain, bf16_path
-    for name, m in (("fp4_gemm_hp", 8), ("fp4_gemm_hp_wc", 2048)):
+                acc["calls"].append(call)
+                acc["library_calls"].append(lib)
+                acc["splits"].append(splits)
+            del got, plain, bf16_path, again
+    for name, acc in sums.items():
+        if name != "fp4_gemm_hp_wc":   # 16-row tiles: the four as graphs
+            acc["graph_ms"] = len(acc["calls"]) * _cold_ms(acc["calls"])
+            acc["library_graph_ms"] = len(acc["library_calls"]) * _cold_ms(
+                acc["library_calls"])
+            log(f"[solutions] {name} (nvfp4 f32 A, 4 projections, splits "
+                f"{acc['splits']}): {acc['ms']:.4f} ms warm, "
+                f"{acc['flushed_ms']:.4f} flushed, {acc['graph_ms']:.4f} "
+                f"graph; matmul f32 {acc['library_ms']:.4f} warm, "
+                f"{acc['library_flushed_ms']:.4f} flushed, "
+                f"{acc['library_graph_ms']:.4f} graph; bound "
+                f"{bound(acc['nbytes'], acc['flops'])['bound_ms']:.4f} ms")
+        acc.pop("calls")
+        acc.pop("library_calls")
+    weights.clear()
+    wide = sums.pop("fp4_gemm_hp 16x128")
+    for name, m in (("fp4_gemm_hp", 8), ("fp4_gemm_hp_wc_16row", 64),
+                    ("fp4_gemm_hp_wc", 2048)):
         acc = sums[name]
+        extra = {k: acc[k] for k in ("flushed_ms", "library_flushed_ms",
+                                     "graph_ms", "library_graph_ms",
+                                     "splits") if k in acc}
+        if name == "fp4_gemm_hp":
+            extra.update({f"{k}_16x128": wide[k] for k in (
+                "ms", "flushed_ms", "graph_ms", "splits")})
+        tile = {"fp4_gemm_hp": "tile 16x64 (16x128: the _16x128 keys)",
+                "fp4_gemm_hp_wc_16row": "weight cache, tile 16x64, 2 "
+                "m-tiles a CTA, bit-equal to fp4_gemm_hp at the same splits",
+                "fp4_gemm_hp_wc": "weight cache, the default tile"}[name]
         res[name] = dict(
             max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
-            library_ms=acc["library_ms"], **bound(acc["nbytes"],
-                                                  acc["flops"]),
-            at=f"nvfp4 f32 A m={m}, sum of the 4 Llama-3-8B projections; "
-               "error against the plain version (f32 torch.matmul, TF32 "
-               "off); library: torch.matmul on the f32 dequantized weights; "
-               "bound at 3 bf16 passes")
+            library_ms=acc["library_ms"], **extra,
+            **bound(acc["nbytes"], acc["flops"]),
+            at=f"nvfp4 f32 A m={m}, sum of the 4 Llama-3-8B projections, "
+               f"{tile}, default splits; error against the plain version "
+               "(f32 torch.matmul, TF32 off); ms back to back, flushed_ms "
+               "L2 flushed, graph_ms a CUDA graph of the four; library: "
+               "torch.matmul on the f32 dequantized weights; bound at 3 "
+               "bf16 passes")
 
 
 _SWEEP_SHAPES = ((8, 4096, 4096), (100, 6144, 4096), (2048, 4096, 14336))
@@ -3758,7 +3901,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all but hybrid_layer, fp4_layer, "
                     "grouped_layer, w4a8_layer, hybrid_prefill_layer, "
-                    "append_layer, fp4_wc_layer and decode_attn_layer)")
+                    "append_layer, fp4_wc_layer, decode_attn_layer and "
+                    "hp_layer)")
     ap.add_argument("--record", help="write every measurement to this "
                     "JSON file")
     ap.add_argument("--parent-record", help="a --record file of another "

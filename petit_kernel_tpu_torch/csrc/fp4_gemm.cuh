@@ -39,6 +39,7 @@ constexpr int WROWS = KSTEP / 8;   // packed word rows per step
 constexpr int LDS = KSTEP + 8;     // smem row stride in bf16 (+16 bytes: no bank conflicts)
 constexpr int THREADS = 128;       // four warps: a stream CTA, an hp m-tile
 constexpr int WC_GROUP = 4;        // m-tiles a CTA of the weight-cache kernels
+constexpr int HP_WC_GROUP = 2;     // m-tiles a CTA of the high-precision weight cache
 
 // Decode the slot of quarter j held in a 16-bit half -> float value.
 template <int J>

@@ -10,7 +10,7 @@
 //
 // The decoded weight (value x scale) is exact in bf16 (fp4_gemm.cuh), so only
 // A needs more than bf16's 8 significant bits. At fragment load each f32 A
-// value splits into three bf16 parts:
+// value splits into three bf16 parts (split3, fp4_stream.cuh):
 //     hi = a truncated to bf16, mid = (a - hi) truncated to bf16,
 //     lo = bf16_rn(a - hi - mid).
 // Both subtractions are exact in f32 and lo keeps the last 8 bits, so the
@@ -18,31 +18,43 @@
 // rounds on bf16's subnormal grid: an error under 2^-133). Truncation, not
 // rounding, keeps hi finite for the largest f32 values. Each part times a
 // weight is exact in f32, and three mma.sync m16n8k16 bf16 MMAs per fragment
-// (lo, then mid, then hi, small parts first) add them into the f32
-// accumulators: an f32-accurate product for three times the tensor-core work
-// of the bf16 kernel, fewer than the six passes an f32 split of both
-// operands would take.
+// (lo, then mid, then hi, small parts first) add them into fresh f32
+// accumulators, added to the running sum with one rounding: an f32-accurate
+// product for three times the tensor-core work of the bf16 kernel, fewer
+// than the six passes an f32 split of both operands would take.
 //
-// The layout, decode and constants are fp4_gemm.cuh's (decode_slot,
-// mma_bf16, KSTEP, LDS). The main loop is the first FP4 tile body's, which
-// the bf16 kernels have since left for fp4_stream.cuh and fp4_wgmma.cuh:
-// each step stages A and the scales, decodes the words into a bf16 B tile
-// in shared memory and runs mma.sync on it. A is staged as f32, LDS floats
-// a row, and split as fragments load, so the budget is hp_smem_bytes below.
-// The weight-cache variant runs HP_WC_GROUP = 2 consecutive m-tiles per CTA
-// (4, as the bf16 cache kernel runs, would ask for 270,336 bytes at block_m
-// = 64, over the 232,448 a Hopper block may use); every output element
-// sees the plain kernel's MMA sequence, so the two agree bit for bit.
+// The 16-row tiles of both entries run fp4_hp_stream_kernel<BN, G> (G = 1
+// for pk_fp4_gemm_hp, HP_WC_GROUP = 2 m-tiles a CTA for pk_fp4_gemm_hp_wc)
+// on the f32 form of fp4_stream.cuh's split-k stream body: each output
+// tile's kp cut into `splits` CTAs of whole 256-deep steps (ops/kernels/
+// fused.py hp_splits: the most splits whose CTAs fit one wave of the CTAs
+// an SM its plan HpPlan allows), a cp.async ring, FP4 decoded straight
+// into the MMA's B fragments, each feeding 3G MMAs, and f32 split partials
+// summed in split order by the tile's last CTA, so every launch repeats its
+// bits. What bounds them is not the weight stream (0.625 bytes a weight:
+// 19% of the time at m = 8) but the instructions: the three MMAs a
+// fragment, then each warp's split of its A fragments and the decode
+// (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W: edited copies
+// without the MMAs take 0.59 of the time, without the split 0.74, without
+// the decode 0.77).
 //
-// What bounds it: the weight stream at decode, as for fp4_gemm.cu, and the
-// tensor cores, now three passes, at prefill. A first, simple version: no
-// cp.async pipeline, TMA or wgmma.
+// The 64-row tiles run fp4_gemm_hp_tile below, the first FP4 tile body's
+// loop: each step stages A and the scales, decodes the words into a bf16 B
+// tile in shared memory and runs mma.sync on it, with no cp.async pipeline,
+// TMA or wgmma. A is staged as f32, LDS floats a row, and split as fragments
+// load, so the budget is hp_smem_bytes below. Its weight cache runs
+// HP_WC_GROUP = 2 consecutive m-tiles per CTA (4, as the bf16 cache kernel
+// runs, would ask for 270,336 bytes at block_m = 64, over the 232,448 a
+// Hopper block may use). Both bodies give every output element the same MMA
+// sequence whatever the m-tiles a CTA, so each weight cache agrees with its
+// plain tile bit for bit (the 16-row tiles at the same split count). What
+// bounds the 64-row tiles: the tensor cores, three passes, and the serial
+// copies.
 
-#include "fp4_gemm.cuh"
+#include "fp4_stream.cuh"
 
 namespace {
 
-constexpr int HP_WC_GROUP = 2;   // m-tiles per CTA of pk_fp4_gemm_hp_wc
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a Hopper block may use
 
 template <int BM, int BN, int G>
@@ -50,34 +62,85 @@ constexpr int hp_smem_bytes() {
   return G * BM * LDS * 4 + BN * LDS * 2 + WROWS * BN * 4;
 }
 
-// Two f32 values -> their (hi, mid, lo) bf16 parts, packed as the MMA's A
-// fragment registers hold them: the first value in the low half.
-__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const uint32_t h0 = __float_as_uint(v.x) & 0xFFFF0000u;
-  const uint32_t h1 = __float_as_uint(v.y) & 0xFFFF0000u;
-  const float r0 = __fsub_rn(v.x, __uint_as_float(h0));
-  const float r1 = __fsub_rn(v.y, __uint_as_float(h1));
-  const uint32_t m0 = __float_as_uint(r0) & 0xFFFF0000u;
-  const uint32_t m1 = __float_as_uint(r1) & 0xFFFF0000u;
-  const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(r0, __uint_as_float(m0)),
-                                                 __fsub_rn(r1, __uint_as_float(m1)));
-  hi = (h0 >> 16) | h1;
-  mid = (m0 >> 16) | m1;
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+// ---- the 16-row tiles: the split-k stream ----------------------------------
+
+// grid (n_tiles * splits, ceil(M / 16G)), x tile-major, split-minor: G
+// m-tiles of 16 rows of one n-tile a CTA (fp4_stream_kernel's grid). ws:
+// [ceil(M/16G)][gridDim.x] blocks of 16G*BN floats (read only when splits >
+// 1); counters: one int per (m-group, n-tile), zero before and after the
+// launch.
+template <int BN, int G>
+__global__ void __launch_bounds__(THREADS, HpPlan<BN, G>::per_sm)
+fp4_hp_stream_kernel(const float* __restrict__ A, const uint32_t* __restrict__ W,
+                     const __nv_bfloat16* __restrict__ S, const float* __restrict__ gs,
+                     float* __restrict__ C, float* __restrict__ ws, int* __restrict__ counters,
+                     int M, int N, int K, int KP, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  constexpr int NT = BN / 32;
+  const int x = blockIdx.x, mg = blockIdx.y, m0 = mg * (SBM * G);
+  const int tile = x / splits, split = x % splits;
+  const int steps = KP / KSTEP;
+  const int n0 = tile * BN;
+
+  float acc[G][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < G; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  hp_stream<BN, G>(smem, A, W, S, M, N, K, KP, m0, n0, split * steps / splits,
+                   (split + 1) * steps / splits, acc);
+
+  const int g = (threadIdx.x & 31) >> 2;
+  bool row_ok[G][2];
+#pragma unroll
+  for (int mt = 0; mt < G; ++mt) {
+    row_ok[mt][0] = m0 + SBM * mt + g < M;
+    row_ok[mt][1] = m0 + SBM * mt + g + 8 < M;
+  }
+  float* ws_tile = ws + ((size_t)mg * gridDim.x + (x - split)) * (SBM * G * BN);
+  int* counter = counters + mg * (gridDim.x / splits) + tile;
+  if (!reduce_splits<NT, G>(acc, ws_tile, splits, split, counter, row_ok, last)) return;
+  hp_stream_store<BN, G>(acc, *gs, C, M, N, m0, n0);
 }
+
+template <int BN, int G>
+cudaError_t launch_stream(const void* a, const void* w, const void* s, const void* gs,
+                          void* out, void* ws, void* counters, int m, int n, int k, int kp,
+                          int splits, cudaStream_t stream) {
+  using P = HpPlan<BN, G>;
+  cudaError_t err = cudaFuncSetAttribute(fp4_hp_stream_kernel<BN, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fp4_hp_stream_kernel<BN, G>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + BN - 1) / BN * splits, (m + SBM * G - 1) / (SBM * G));
+  fp4_hp_stream_kernel<BN, G><<<grid, THREADS, P::bytes, stream>>>(
+      static_cast<const float*>(a), static_cast<const uint32_t*>(w),
+      static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(gs),
+      static_cast<float*>(out), static_cast<float*>(ws), static_cast<int*>(counters), m, n, k,
+      kp, splits);
+  return cudaGetLastError();
+}
+
+// ---- the 64-row tiles ----------------------------------------------------------
 
 // The G tiles (m0 + i*BM, n0), i < G, run by one CTA of THREADS*G threads
 // with hp_smem_bytes<BM, BN, G>() of dynamic shared memory at `smem`; warps
-// 4i..4i+3 own m-tile i: one warp a 16-row m-tile's column quarter, or a
-// 2 x 2 grid of warps over a 64-row one.
+// 4i..4i+3 own m-tile i, a 2 x 2 grid of warps over its 64 rows.
 template <int BM, int BN, int G>
 __device__ __forceinline__ void fp4_gemm_hp_tile(
     unsigned char* smem, const float* __restrict__ A, const uint32_t* __restrict__ W,
     const __nv_bfloat16* __restrict__ S, const float* __restrict__ gs,
     float* __restrict__ C, int M, int N, int K, int KP, int m0, int n0) {
+  static_assert(BM == 64, "the 16-row tiles run fp4_hp_stream_kernel");
   constexpr int NTH = THREADS * G;
-  constexpr int WM = (BM == 16) ? 1 : 2;   // warps along m
+  constexpr int WM = 2;                    // warps along m
   constexpr int WN = 4 / WM;               // warps along n
   constexpr int WTM = BM / WM, WTN = BN / WN;
   constexpr int MT = WTM / 16, NT = WTN / 8;
@@ -227,16 +290,20 @@ cudaError_t launch(const void* a, const void* w, const void* s, const void* gs, 
 // The tiles this file compiles (ops/solution.py TILE_SHAPES; a CPU test
 // holds the two lists equal).
 template <int G>
-int dispatch(const void* a, const void* w, const void* s, const void* gs, void* out, int m,
-             int n, int k, int kp, int block_m, int block_n, void* stream) {
+int dispatch(const void* a, const void* w, const void* s, const void* gs, void* out, void* ws,
+             void* counters, int m, int n, int k, int kp, int block_m, int block_n, int splits,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kp % KSTEP != 0 || k > kp || k % 128 != 0 || n % 16 != 0)
+  const int steps = kp / KSTEP;
+  if (kp % KSTEP != 0 || k > kp || k % 128 != 0 || n % 16 != 0 || splits < 1 ||
+      splits > steps || (splits != 1 && block_m != 16) ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (block_m == 16 && block_n == 64)
-    err = launch<16, 64, G>(a, w, s, gs, out, m, n, k, kp, st);
+    err = launch_stream<64, G>(a, w, s, gs, out, ws, counters, m, n, k, kp, splits, st);
   else if (block_m == 16 && block_n == 128)
-    err = launch<16, 128, G>(a, w, s, gs, out, m, n, k, kp, st);
+    err = launch_stream<128, G>(a, w, s, gs, out, ws, counters, m, n, k, kp, splits, st);
   else if (block_m == 64 && block_n == 64)
     err = launch<64, 64, G>(a, w, s, gs, out, m, n, k, kp, st);
   else if (block_m == 64 && block_n == 128)
@@ -248,14 +315,21 @@ int dispatch(const void* a, const void* w, const void* s, const void* gs, void* 
 
 }  // namespace
 
+// ws: (ceil(m / (16G)) * ceil(n / block_n) * splits * 16G * block_n) f32
+// and counters: (ceil(m / (16G)) * ceil(n / block_n)) int32 zeros, G = 1
+// (pk_fp4_gemm_hp) or HP_WC_GROUP (pk_fp4_gemm_hp_wc), both needed only
+// where splits > 1 (block_m = 16 only).
 extern "C" int pk_fp4_gemm_hp(const void* a, const void* w, const void* s, const void* gs,
-                              void* out, int m, int n, int k, int kp, int block_m,
-                              int block_n, void* stream) {
-  return dispatch<1>(a, w, s, gs, out, m, n, k, kp, block_m, block_n, stream);
+                              void* out, void* ws, void* counters, int m, int n, int k, int kp,
+                              int block_m, int block_n, int splits, void* stream) {
+  return dispatch<1>(a, w, s, gs, out, ws, counters, m, n, k, kp, block_m, block_n, splits,
+                     stream);
 }
 
 extern "C" int pk_fp4_gemm_hp_wc(const void* a, const void* w, const void* s,
-                                 const void* gs, void* out, int m, int n, int k, int kp,
-                                 int block_m, int block_n, void* stream) {
-  return dispatch<HP_WC_GROUP>(a, w, s, gs, out, m, n, k, kp, block_m, block_n, stream);
+                                 const void* gs, void* out, void* ws, void* counters, int m,
+                                 int n, int k, int kp, int block_m, int block_n, int splits,
+                                 void* stream) {
+  return dispatch<HP_WC_GROUP>(a, w, s, gs, out, ws, counters, m, n, k, kp, block_m, block_n,
+                               splits, stream);
 }

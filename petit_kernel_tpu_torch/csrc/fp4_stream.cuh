@@ -4,9 +4,11 @@
 // fixed order. Its users are the 16-row tiles of fp4_gemm.cu (the plain FP4
 // GEMM, fp4_stream_kernel<BN, 1>, and its weight cache, fp4_stream_kernel<BN,
 // WC_GROUP>), grouped_fp4_gemm.cu (the MoE expert GEMM,
-// grouped_stream_kernel) and hybrid_gemm.cu (its FP4 CTAs). One ring depth,
-// stream_stages, serves the three one-m-tile kernels; the weight cache has
-// its own plan (FsPlan).
+// grouped_stream_kernel), hybrid_gemm.cu (its FP4 CTAs) and, in the f32-A
+// form at the end of this file, fp4_gemm_hp.cu (the high-precision GEMM,
+// fp4_hp_stream_kernel<BN, G>, G = 1 or HP_WC_GROUP). One ring depth,
+// stream_stages, serves the three one-m-tile bf16 kernels; the weight cache
+// has its own plan (FsPlan), the high-precision kernels theirs (HpPlan).
 //
 // What bounds it: at decode (m <= 16) the weight stream, 0.625 bytes a
 // weight, so the card needs many bytes in flight (about 3.4 MB at 3.35
@@ -501,6 +503,283 @@ __device__ __forceinline__ void fp4_stream_store(const float (&acc)[BN / 32][4],
                                                  int m0, int n0) {
   fp4_stream_store<BN, 1>(reinterpret_cast<const float(&)[1][BN / 32][4]>(acc), gs, C, M, N,
                           m0, n0);
+}
+
+
+// ---- the high-precision stream: f32 A -------------------------------------
+// fp4_gemm_hp.cu's 16-row tiles (fp4_hp_stream_kernel<BN, G>, G = 1 for
+// pk_fp4_gemm_hp, HP_WC_GROUP = 2 for pk_fp4_gemm_hp_wc): the words, the
+// scales, the split-k ring and the B fragments are the FP4 stream's, A is
+// f32. A stage holds 16G A rows of LDS f32 (1,056 bytes) in the step's
+// local k order, copied as two 16-byte pieces a run of 8 natural k; the
+// row stride is 8 words past 256, so the float2 fragment loads of a
+// half-warp (rows g < 4, words 2tg) fall on 32 different banks. Each thread
+// loads its A fragment's four float2 of a chunk and splits them into three
+// bf16 parts (split3); each decoded B fragment feeds 3G MMAs, lo then mid
+// then hi into fresh zero accumulators, added to acc with one rounding (the
+// MMA's own accumulation truncates, and over k / 16 chunks that bias would
+// outgrow an f32 sum's error). Every m-tile sees this sequence chunk for
+// chunk, so the weight cache gives the plain tile's bits at the same split
+// count; at one split each output element gets the 64-row body's operands
+// in its order (fp4_gemm_hp_tile, chunks kk = 0 .. 15 of each step).
+// The plan (HpPlan, static_asserts below): a stage is 16,896G bytes of A
+// besides the words and scales, 29,184 bytes at (BN, G) = (64, 1), 41,472
+// at (128, 1), 46,080 at (64, 2), 58,368 at (128, 2); three stages at (64,
+// 1) and two elsewhere, two CTAs an SM but one at (128, 2). Splitting each
+// stage once into bf16 planes that ldmatrix reads instead was 9-12% faster
+// at G = 1 and 15% slower at G = 2, whose planes leave one CTA an SM
+// (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W).
+
+// Two f32 values -> their (hi, mid, lo) bf16 parts, packed as the MMA's A
+// fragment registers hold them: the first value in the low half.
+//     hi = a truncated to bf16, mid = (a - hi) truncated to bf16,
+//     lo = bf16_rn(a - hi - mid)
+__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const uint32_t h0 = __float_as_uint(v.x) & 0xFFFF0000u;
+  const uint32_t h1 = __float_as_uint(v.y) & 0xFFFF0000u;
+  const float r0 = __fsub_rn(v.x, __uint_as_float(h0));
+  const float r1 = __fsub_rn(v.y, __uint_as_float(h1));
+  const uint32_t m0 = __float_as_uint(r0) & 0xFFFF0000u;
+  const uint32_t m1 = __float_as_uint(r1) & 0xFFFF0000u;
+  const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(r0, __uint_as_float(m0)),
+                                                 __fsub_rn(r1, __uint_as_float(m1)));
+  hi = (h0 >> 16) | h1;
+  mid = (m0 >> 16) | m1;
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The word and scale copies and the B fragments below are fp4_stage_load's
+// and fp4_quarter's, which keep them inline: calling these helpers from the
+// bf16 forms changes those kernels' register allocation.
+
+// cp.async the words and scale rows of step `step` (columns n0 ..) into
+// the B part of a stage at `b`: the words [WROWS][BN] (16-byte chunks
+// swizzled), then the scale rows [WROWS][BN] bf16
+template <int BN>
+__device__ __forceinline__ void hp_stage_load_b(unsigned char* b,
+                                                 const uint32_t* __restrict__ W,
+                                                 const __nv_bfloat16* __restrict__ S, int N,
+                                                 int KP, int n0, int step) {
+  constexpr int WC = BN / 4, SC = BN / 8;   // 16-byte pieces of a word / scale row
+  static_assert((WROWS * WC) % THREADS == 0 && (WROWS * SC) % THREADS == 0,
+                "pieces per thread");
+  uint32_t* Ws = reinterpret_cast<uint32_t*>(b);
+  __nv_bfloat16* Ss = reinterpret_cast<__nv_bfloat16*>(Ws + WROWS * BN);
+  const int tid = threadIdx.x;
+  const int c = step >> 1, srq = KP / 64;
+  // words: WROWS rows x WC chunks of 4 columns (N % 16 == 0)
+#pragma unroll
+  for (int i = 0; i < WROWS * WC / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / WC, cc = e % WC;
+    const bool ok = n0 + cc * 4 < N;
+    cp_async16(Ws + r * BN + word_chunk(r, cc) * 4,
+               ok ? W + (size_t)(step * WROWS + r) * N + n0 + cc * 4 : W, ok);
+  }
+  // scales: stage row j*8 + a <- scale row j*srq + c*8 + a
+#pragma unroll
+  for (int i = 0; i < WROWS * SC / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / SC, cc = e % SC;
+    const bool ok = n0 + cc * 8 < N;
+    cp_async16(Ss + r * BN + cc * 8,
+               ok ? S + (size_t)((r >> 3) * srq + c * 8 + (r & 7)) * N + n0 + cc * 8 : S, ok);
+  }
+}
+
+// B fragment of slice jn in a chunk of quarter J: the slots of quarter J of
+// the word pair (lo: half 0, hi: half 1) times the scale of column jn, read
+// from the scale words s0, s1 of the chunk's two scale rows (columns jn & ~1
+// and jn | 1)
+template <int J>
+__device__ __forceinline__ void hp_b_frag(uint32_t (&b)[2], uint32_t lo, uint32_t hi,
+                                           uint32_t s0, uint32_t s1, int jn) {
+  const uint32_t sel = (jn & 1) ? 0x3232u : 0x1010u;   // broadcast column jn's scale
+  b[0] = mul_bf16x2(decode_pair<J>(lo), prmt(s0, 0u, sel));
+  b[1] = mul_bf16x2(decode_pair<J>(hi), prmt(s1, 0u, sel));
+}
+
+// The thread's word pairs of a stage's words Ws, at its NT B columns from
+// wcol: per q, lo = the half-0 and hi = the half-1 slots of word rows
+// 8tg + q and 8tg + q + 4 (one word pair feeds chunks q, 4 + q, 8 + q and
+// 12 + q)
+template <int BN, int NT>
+__device__ __forceinline__ void hp_word_pairs(const uint32_t* Ws, int wcol, int tg,
+                                               uint32_t (&lo)[4][NT], uint32_t (&hi)[4][NT]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r0 = 8 * tg + q, r1 = r0 + 4;
+    uint32_t w0[NT], w1[NT];
+    lds(w0, Ws + r0 * BN + word_chunk(r0, wcol >> 2) * 4 + (wcol & 3));
+    lds(w1, Ws + r1 * BN + word_chunk(r1, wcol >> 2) * 4 + (wcol & 3));
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      lo[q][jn] = prmt(w0[jn], w1[jn], 0x5410u);
+      hi[q][jn] = prmt(w0[jn], w1[jn], 0x7632u);
+    }
+  }
+}
+
+template <int BN, int G>
+struct HpPlan {
+  static constexpr int a_bytes = SBM * G * LDS * 4;
+  static constexpr int stage = a_bytes + WROWS * BN * 4 + WROWS * BN * 2;
+  static constexpr int stages = G == 1 && BN == 64 ? 3 : 2;
+  static constexpr int bytes = stages * stage;
+  static constexpr int per_sm = G == 1 || BN == 64 ? 2 : 1;
+  static_assert(G == 1 || G == HP_WC_GROUP, "G");
+  static_assert(stage % 128 == 0 && stages >= 2, "plan");
+  // per_sm CTAs an SM: per_sm * (bytes + 1 KB reserved) <= 228 KB
+  static_assert(bytes <= 232448 && per_sm * (bytes + 1024) <= 228 * 1024, "smem");
+};
+static_assert(HpPlan<64, 1>::stage == 29184 && HpPlan<64, 1>::stages == 3 &&
+                  HpPlan<64, 1>::per_sm == 2 && HpPlan<128, 1>::stage == 41472 &&
+                  HpPlan<128, 1>::stages == 2 && HpPlan<128, 1>::per_sm == 2 &&
+                  HpPlan<64, 2>::stage == 46080 && HpPlan<64, 2>::stages == 2 &&
+                  HpPlan<64, 2>::per_sm == 2 && HpPlan<128, 2>::stage == 58368 &&
+                  HpPlan<128, 2>::stages == 2 && HpPlan<128, 2>::per_sm == 1,
+              "the high-precision plan in the note above");
+
+// cp.async the operands of step `step` (f32 A rows m0 .. m0 + 16G - 1,
+// columns n0 ..) into `st`
+template <int BN, int G>
+__device__ __forceinline__ void hp_stage_load(unsigned char* st, const float* __restrict__ A,
+                                              const uint32_t* __restrict__ W,
+                                              const __nv_bfloat16* __restrict__ S, int M, int N,
+                                              int K, int KP, int m0, int n0, int step) {
+  static_assert((SBM * G * 64) % THREADS == 0, "pieces per thread");
+  float* As = reinterpret_cast<float*>(st);
+  const int tid = threadIdx.x;
+  const int c = step >> 1, hf = step & 1, kq = KP / 4;
+  // A: the rows below M x 32 runs (run = j*8 + a) of 8 contiguous natural
+  // k, two 16-byte pieces (p) each, the two in neighbouring lanes (the rows
+  // past M stay zero: zero_rows)
+#pragma unroll
+  for (int i = 0; i < SBM * G * 64 / THREADS; ++i) {
+    const int e = tid + i * THREADS, m = e >> 6, run = (e >> 1) & 31, p = e & 1;
+    const int kn = (run >> 3) * kq + c * 128 + (run & 7) * 16 + hf * 8 + p * 4;
+    const bool ok = kn < K;
+    if (m0 + m < M)
+      cp_async16(As + m * LDS + run * 8 + p * 4, ok ? A + (size_t)(m0 + m) * K + kn : A, ok);
+  }
+  hp_stage_load_b<BN>(st + HpPlan<BN, G>::a_bytes, W, S, N, KP, n0, step);
+}
+
+// the three bf16 parts of an m16n8k16 A fragment from the f32 stage: p is
+// the thread's first value (row g, local k 16kk + 2tg of the chunk)
+__device__ __forceinline__ void hp_a_frag(const float* p, uint32_t (&hi)[4], uint32_t (&mid)[4],
+                                          uint32_t (&lo)[4]) {
+  split3(*reinterpret_cast<const float2*>(p), hi[0], mid[0], lo[0]);
+  split3(*reinterpret_cast<const float2*>(p + 8 * LDS), hi[1], mid[1], lo[1]);
+  split3(*reinterpret_cast<const float2*>(p + 8), hi[2], mid[2], lo[2]);
+  split3(*reinterpret_cast<const float2*>(p + 8 * LDS + 8), hi[3], mid[3], lo[3]);
+}
+
+// fp4_quarter's chunks with f32 A: each B fragment feeds the three MMAs of
+// each of the G m-tiles, lo, mid, hi into a fresh part, then one rounded add
+template <int J, int BN, int NT, int G>
+__device__ __forceinline__ void hp_quarter(float (&acc)[G][NT][4], const uint32_t (&lo)[4][NT],
+                                           const uint32_t (&hi)[4][NT], const float* a_ptr,
+                                           const __nv_bfloat16* s_ptr) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t ahi[G][4], amid[G][4], alo[G][4], s0[(NT + 1) / 2], s1[(NT + 1) / 2];
+#pragma unroll
+    for (int mt = 0; mt < G; ++mt)
+      hp_a_frag(a_ptr + mt * SBM * LDS + (4 * J + q) * 16, ahi[mt], amid[mt], alo[mt]);
+    lds(s0, s_ptr + (8 * J + 2 * q) * BN);
+    lds(s1, s_ptr + (8 * J + 2 * q + 1) * BN);
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      uint32_t b[2];
+      hp_b_frag<J>(b, lo[q][jn], hi[q][jn], s0[jn >> 1], s1[jn >> 1], jn);
+#pragma unroll
+      for (int mt = 0; mt < G; ++mt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part, alo[mt], b);
+        mma_bf16(part, amid[mt], b);
+        mma_bf16(part, ahi[mt], b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][jn][e] = __fadd_rn(acc[mt][jn][e], part[e]);
+      }
+    }
+  }
+}
+
+// the 16 chunks of one staged step, kk = 0 .. 15, for each of the G m-tiles
+template <int BN, int G>
+__device__ __forceinline__ void hp_stage_mma(const unsigned char* st,
+                                             float (&acc)[G][BN / 32][4]) {
+  constexpr int NT = BN / 32;
+  static_assert(NT == 2 || NT == 4, "BN");
+  const float* As = reinterpret_cast<const float*>(st);
+  const uint32_t* Ws = reinterpret_cast<const uint32_t*>(st + HpPlan<BN, G>::a_bytes);
+  const __nv_bfloat16* Ss = reinterpret_cast<const __nv_bfloat16*>(Ws + WROWS * BN);
+  const int lane = threadIdx.x & 31, wn = threadIdx.x >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wcol = wn * (BN / 4) + g * NT;
+  uint32_t lo[4][NT], hi[4][NT];
+  hp_word_pairs<BN, NT>(Ws, wcol, tg, lo, hi);
+  const float* a_ptr = As + g * LDS + 2 * tg;
+  const __nv_bfloat16* s_ptr = Ss + wcol;
+  hp_quarter<0, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
+  hp_quarter<1, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
+  hp_quarter<2, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
+  hp_quarter<3, BN, NT, G>(acc, lo, hi, a_ptr, s_ptr);
+}
+
+// Steps [s_begin, s_end) of the G high-precision tiles (m0 + 16i, n0), i <
+// G, into acc, through HpPlan's ring at smem (fp4_stream's order)
+template <int BN, int G>
+__device__ __forceinline__ void hp_stream(unsigned char* smem, const float* __restrict__ A,
+                                          const uint32_t* __restrict__ W,
+                                          const __nv_bfloat16* __restrict__ S, int M, int N,
+                                          int K, int KP, int m0, int n0, int s_begin, int s_end,
+                                          float (&acc)[G][BN / 32][4]) {
+  using P = HpPlan<BN, G>;
+  const int n = s_end - s_begin;
+  zero_rows<SBM * G>(smem, P::stage, P::stages, M - m0, LDS * 4);
+#pragma unroll
+  for (int i = 0; i < P::stages - 1; ++i) {
+    if (i < n)
+      hp_stage_load<BN, G>(smem + i * P::stage, A, W, S, M, N, K, KP, m0, n0, s_begin + i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<P::stages - 2>();
+    __syncthreads();   // step i has landed; every thread is done with step i - 1's stage
+    const int nx = i + P::stages - 1;
+    if (nx < n)
+      hp_stage_load<BN, G>(smem + (nx % P::stages) * P::stage, A, W, S, M, N, K, KP, m0, n0,
+                           s_begin + nx);
+    cp_async_commit();
+    hp_stage_mma<BN, G>(smem + (i % P::stages) * P::stage, acc);
+  }
+}
+
+// f32(acc * gs) into C (M, N) f32: fp4_stream_store's columns and rows
+template <int BN, int G>
+__device__ __forceinline__ void hp_stream_store(const float (&acc)[G][BN / 32][4], float gs,
+                                                float* __restrict__ C, int M, int N, int m0,
+                                                int n0) {
+  constexpr int NT = BN / 32;
+  const int lane = threadIdx.x & 31, wn = threadIdx.x >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int col = n0 + wn * (BN / 4) + 2 * tg * NT;
+  if (col >= N) return;   // N % 16 == 0: the 2NT columns are all in or all out
+#pragma unroll
+  for (int mt = 0; mt < G; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + SBM * mt + g + 8 * h;
+      if (row >= M) continue;
+      float v[2 * NT];   // column p is acc[mt][p % NT][2h + p / NT]
+#pragma unroll
+      for (int p = 0; p < 2 * NT; ++p) v[p] = acc[mt][p % NT][2 * h + p / NT] * gs;
+      float4* dst = reinterpret_cast<float4*>(C + (size_t)row * N + col);
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i)
+        dst[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    }
 }
 
 }  // namespace

@@ -49,10 +49,11 @@ SIGNATURES = {
                     _P),
     "pk_fp4_gemm_wc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _P),
-    # a, words, scales, gs, out, m, n, k, kp, block_m, block_n, stream, with
-    # f32 a and out
-    "pk_fp4_gemm_hp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "pk_fp4_gemm_hp_wc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the same arguments as pk_fp4_gemm, with f32 a and out
+    "pk_fp4_gemm_hp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _P),
+    "pk_fp4_gemm_hp_wc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _P),
     # a_i8, arow, words, r_t, acol, gs, out, ws, counters, m, n, k, kp,
     # block_m, block_n, splits, stream
     "pk_fp4_gemm_w4a8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -15,8 +15,10 @@ launch count:
                      m-tiles a CTA: split-k 16-row tiles on the stream
                      body, 64-row tiles on csrc/fp4_wgmma.cuh)
   fused_mul_hp       csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp (f32 A, three bf16
-                     MMAs per fragment, f32 out)
-  fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache)
+                     MMAs per fragment, f32 out: split-k 16-row tiles on
+                     the stream body's f32 form, csrc/fp4_stream.cuh)
+  fused_mul_hp_wc    csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp_wc (weight cache,
+                     2 m-tiles a CTA, on the same two bodies)
   fused_mul_w4a8     csrc/fp4_gemm_w4a8.cu pk_fp4_gemm_w4a8 (64-row tiles:
                      int8 wgmma, csrc/w4a8_wgmma.cuh; 16-row tiles: the
                      split-k int8 stream body, csrc/w4a8_stream.cuh)
@@ -32,13 +34,13 @@ dequant_tpu_layout_reference are the same functions in plain PyTorch; a
 wrapper takes its twin only for tensors on the CPU, and for CUDA tensors
 it launches its kernel or raises.
 
-The 16-row tiles of fused_mul and fused_mul_wc, of hybrid_mul
-(kernels/hybrid.py), of grouped_mul (kernels/grouped.py) and of
-fused_mul_w4a8 cut each output tile's k range over several CTAs:
-stream_splits is the rule for all of them (fp4_wc_splits and w4a8_splits
-count the CTAs of m-groups and the CTAs an SM their plan allows), and one
-buffer of split counters per (device, stream) serves them all
-(_counters).
+The 16-row tiles of fused_mul, fused_mul_wc, fused_mul_hp and
+fused_mul_hp_wc, of hybrid_mul (kernels/hybrid.py), of grouped_mul
+(kernels/grouped.py) and of fused_mul_w4a8 cut each output tile's k range
+over several CTAs: stream_splits is the rule for all of them
+(fp4_wc_splits, hp_splits and w4a8_splits count the CTAs of m-groups and
+the CTAs an SM their plan allows), and one buffer of split counters per
+(device, stream) serves them all (_counters).
 """
 
 from __future__ import annotations
@@ -128,8 +130,7 @@ def _check_splits(where: str, splits, kp: int, splittable: bool) -> int:
                          f"(kp / {KSTEP}), got {splits!r}")
     if not splittable and splits != 1:
         raise ValueError(f"{where}: these tiles do not split k (only the "
-                         f"16-row bf16 and W4A8 tiles do, high precision "
-                         f"not), got splits {splits!r}")
+                         f"16-row tiles do), got splits {splits!r}")
     return splits
 
 
@@ -159,6 +160,26 @@ def fp4_wc_splits(m: int, n: int, kp: int, sid: SolutionId,
     take 1."""
     return _group_splits(m, n, kp, sid, num_sms, WC_GROUP,
                          FP4_WC_PER_SM[sid.block_n])
+
+
+# m-tiles a CTA of the high-precision weight cache (csrc/fp4_gemm.cuh
+# HP_WC_GROUP)
+HP_WC_GROUP = 2
+# CTAs an SM of the high-precision 16-row tiles by (block_n, m-tiles a
+# CTA): their rings of f32 A rows (csrc/fp4_stream.cuh HpPlan)
+HP_PER_SM = {(64, 1): 2, (128, 1): 2, (64, HP_WC_GROUP): 2,
+             (128, HP_WC_GROUP): 1}
+
+
+def hp_splits(m: int, n: int, kp: int, sid: SolutionId,
+              num_sms: int) -> int:
+    """k-splits of fused_mul_hp's and fused_mul_hp_wc's tiles: the 16-row
+    ones have ceil(m / 16) m-tiles, the weight cache's ceil(m / 32)
+    m-groups of HP_WC_GROUP tiles a CTA, HP_PER_SM CTAs an SM; the 64-row
+    ones take 1."""
+    group = HP_WC_GROUP if sid.weight_cache else 1
+    return _group_splits(m, n, kp, sid, num_sms, group,
+                         HP_PER_SM[sid.block_n, group])
 
 
 def w4a8_splits(m: int, n: int, kp: int, sid: SolutionId,
@@ -233,11 +254,10 @@ def _launch(entry: str, *args) -> None:
 
 
 def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid,
-                    dtype=torch.bfloat16, splits=None, group=1):
+                    dtype=torch.bfloat16, splits=1, group=1):
     """Launch `entry` on A of `dtype` (bf16, f32 for the high-precision
-    kernels) into an output of the same dtype; `splits` (pk_fp4_gemm and
-    pk_fp4_gemm_wc) adds the k-split count, its workspace and the split
-    counters, for CTAs of `group` m-tiles."""
+    kernels) into an output of the same dtype, with the k-split count, its
+    workspace and the split counters, for CTAs of `group` m-tiles."""
     if a.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {a.device}")
     if a.dtype != dtype:
@@ -251,20 +271,17 @@ def _fused_mul_cuda(entry: str, a, words, scales_t, global_scale, sid,
     if m == 0 or n == 0:
         return out, False
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    split_args = tail = ()
-    if splits is not None:
-        ws_ptr = cnt_ptr = None
-        if splits > 1:
-            rows = sid.block_m * group
-            tiles = -(-m // rows) * -(-n // sid.block_n)
-            ws = torch.empty(tiles * splits * rows * sid.block_n,
-                             dtype=torch.float32, device=a.device)
-            ws_ptr = ws.data_ptr()
-            cnt_ptr = _counters(a.device, stream, tiles).data_ptr()
-        split_args, tail = (ws_ptr, cnt_ptr), (splits,)
+    ws_ptr = cnt_ptr = None
+    if splits > 1:
+        rows = sid.block_m * group
+        tiles = -(-m // rows) * -(-n // sid.block_n)
+        ws = torch.empty(tiles * splits * rows * sid.block_n,
+                         dtype=torch.float32, device=a.device)
+        ws_ptr = ws.data_ptr()
+        cnt_ptr = _counters(a.device, stream, tiles).data_ptr()
     _launch(entry, a.data_ptr(), words.data_ptr(), scales_t.data_ptr(),
-            global_scale.data_ptr(), out.data_ptr(), *split_args, m, n, k, kp,
-            sid.block_m, sid.block_n, *tail, stream)
+            global_scale.data_ptr(), out.data_ptr(), ws_ptr, cnt_ptr, m, n, k,
+            kp, sid.block_m, sid.block_n, splits, stream)
     return out, True
 
 
@@ -282,14 +299,15 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
                goes to fused_mul_hp or fused_mul_hp_wc (then a is f32 and
                so is the result), a weight_cache sid to fused_mul_wc
     splits   : k-splits of each 16-row output tile, an int in [1, kp /
-               256]; only the block_m = 16 tiles split, plain and weight
-               cache (the 64-row and high-precision ids take 1). Default
+               256]; only the block_m = 16 tiles split, plain, weight cache
+               and high precision (the 64-row ids take 1). Default
                stream_splits' count on the card (fp4_wc_splits' for a
-               weight_cache id); checked but unused on the CPU. The f32
-               partials are summed in split order, so every launch repeats
-               its bits; the weight cache's 16-row tiles and the grouped
-               kernel's run the same tile body, so at the same split count
-               they give these bits.
+               weight_cache id, hp_splits' for a high_precision one);
+               checked but unused on the CPU. The f32 partials are summed
+               in split order, so every launch repeats its bits; the weight
+               cache's 16-row tiles and the grouped kernel's run the same
+               tile body, so at the same split count they give these bits
+               (the high-precision weight cache those of fused_mul_hp).
 
     Launches csrc/fp4_gemm.cu for CUDA tensors (counted in
     fused_mul.launches; the 64-row tiles, whose kernel is the wgmma body of
@@ -299,11 +317,10 @@ def fused_mul(a: torch.Tensor, words: torch.Tensor, scales_t: torch.Tensor,
     """
     kp = words.shape[0] * 8
     if splits is not None:
-        _check_splits("fused_mul", splits, kp,
-                      sid.block_m == STREAM_BLOCK_M and not sid.high_precision)
+        _check_splits("fused_mul", splits, kp, sid.block_m == STREAM_BLOCK_M)
     if sid.high_precision:
         hp = fused_mul_hp_wc if sid.weight_cache else fused_mul_hp
-        return hp(a, words, scales_t, global_scale, sid=sid)
+        return hp(a, words, scales_t, global_scale, sid=sid, splits=splits)
     if sid.weight_cache:
         return fused_mul_wc(a, words, scales_t, global_scale, sid=sid,
                             splits=splits)
@@ -364,7 +381,7 @@ fused_mul_wc.stream_launches = 0
 
 def split_bf16x3(a: torch.Tensor):
     """The high-precision kernel's split of f32 values into three bf16
-    parts (csrc/fp4_gemm_hp.cu split3): hi = a truncated to bf16, mid = (a -
+    parts (csrc/fp4_stream.cuh split3): hi = a truncated to bf16, mid = (a -
     hi) truncated, lo = bf16_rn(a - hi - mid). Both differences are exact in
     f32, so hi + mid + lo == a exactly for 2^-110 <= |a| <= FLT_MAX; below,
     lo rounds on bf16's subnormal grid (an error under 2^-133)."""
@@ -397,43 +414,69 @@ def fused_mul_hp_reference(a: torch.Tensor, words: torch.Tensor,
     return (a.float() @ b) * global_scale.float()
 
 
-def fused_mul_hp(a: torch.Tensor, words: torch.Tensor,
-                 scales_t: torch.Tensor, global_scale: torch.Tensor, *,
-                 sid: SolutionId) -> torch.Tensor:
-    """c[m, n] = f32((a[m, k] @ dequant(words, scales)[k, n]) * gs) for f32 a
-    (natural k order, k % 128 == 0), an f32-accurate product through three
-    bf16 MMAs a fragment, one per part of A (split_bf16x3). The other
-    operands are fused_mul's.
-    Launches csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp for CUDA tensors (counted in
-    fused_mul_hp.launches); runs fused_mul_hp_reference for CPU tensors."""
+def _fused_mul_hp(wrapper, entry: str, a, words, scales_t, global_scale,
+                  sid: SolutionId, splits):
+    """fused_mul_hp and fused_mul_hp_wc: check splits, run the twin on the
+    CPU, else launch `entry` (hp_splits' count by default) and count it."""
+    kp = words.shape[0] * 8
+    if splits is not None:
+        _check_splits(wrapper.__name__, splits, kp,
+                      sid.block_m == STREAM_BLOCK_M)
     if a.device.type == "cpu":
         return fused_mul_hp_reference(a, words, scales_t, global_scale,
                                       sid=sid)
-    out, launched = _fused_mul_cuda("pk_fp4_gemm_hp", a, words, scales_t,
-                                    global_scale, sid, dtype=torch.float32)
-    fused_mul_hp.launches += launched
+    wc = wrapper is fused_mul_hp_wc
+    if splits is None and a.device.type == "cuda":
+        splits = hp_splits(a.shape[0], words.shape[1], kp,
+                           dataclasses.replace(sid, weight_cache=wc),
+                           _num_sms(a.device.index))
+    out, launched = _fused_mul_cuda(entry, a, words, scales_t, global_scale,
+                                    sid, dtype=torch.float32, splits=splits,
+                                    group=HP_WC_GROUP if wc else 1)
+    wrapper.launches += launched
+    if launched and sid.block_m == STREAM_BLOCK_M:
+        wrapper.stream_launches += 1
     return out
+
+
+def fused_mul_hp(a: torch.Tensor, words: torch.Tensor,
+                 scales_t: torch.Tensor, global_scale: torch.Tensor, *,
+                 sid: SolutionId, splits: int | None = None) -> torch.Tensor:
+    """c[m, n] = f32((a[m, k] @ dequant(words, scales)[k, n]) * gs) for f32 a
+    (natural k order, k % 128 == 0), an f32-accurate product through three
+    bf16 MMAs a fragment, one per part of A (split_bf16x3). The other
+    operands are fused_mul's. splits: k-splits of each 16-row output tile,
+    an int in [1, kp / 256] (the 64-row tiles take 1); default hp_splits'
+    count on the card, checked but unused on the CPU. The f32 partials are
+    summed in split order, so every launch repeats its bits.
+    Launches csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp for CUDA tensors (counted in
+    fused_mul_hp.launches; the 16-row tiles, the split-k stream body of
+    csrc/fp4_stream.cuh on f32 A, also in fused_mul_hp.stream_launches);
+    runs fused_mul_hp_reference for CPU tensors."""
+    return _fused_mul_hp(fused_mul_hp, "pk_fp4_gemm_hp", a, words, scales_t,
+                         global_scale, sid, splits)
 
 
 def fused_mul_hp_wc(a: torch.Tensor, words: torch.Tensor,
                     scales_t: torch.Tensor, global_scale: torch.Tensor, *,
-                    sid: SolutionId) -> torch.Tensor:
+                    sid: SolutionId,
+                    splits: int | None = None) -> torch.Tensor:
     """fused_mul_hp through the weight-cache kernel (pk_fp4_gemm_hp_wc):
-    each CTA runs 2 m-tiles of sid's (block_m, block_n) and decodes each
-    weight block once for both. Bit for bit fused_mul_hp's result at the
-    same tile. Counted in fused_mul_hp_wc.launches; fused_mul_hp_reference
-    on the CPU."""
-    if a.device.type == "cpu":
-        return fused_mul_hp_reference(a, words, scales_t, global_scale,
-                                      sid=sid)
-    out, launched = _fused_mul_cuda("pk_fp4_gemm_hp_wc", a, words, scales_t,
-                                    global_scale, sid, dtype=torch.float32)
-    fused_mul_hp_wc.launches += launched
-    return out
+    each CTA runs HP_WC_GROUP = 2 m-tiles of sid's (block_m, block_n) and
+    decodes each weight block once for both (the 16-row tiles: each decoded
+    B fragment feeds both m-tiles' MMAs). splits as fused_mul_hp's; default
+    hp_splits' count for CTAs of 2 m-tiles. Bit for bit fused_mul_hp's
+    result at the same tile and split count. Counted in
+    fused_mul_hp_wc.launches, the 16-row tiles also in
+    fused_mul_hp_wc.stream_launches; fused_mul_hp_reference on the CPU."""
+    return _fused_mul_hp(fused_mul_hp_wc, "pk_fp4_gemm_hp_wc", a, words,
+                         scales_t, global_scale, sid, splits)
 
 
 fused_mul_hp.launches = 0
+fused_mul_hp.stream_launches = 0
 fused_mul_hp_wc.launches = 0
+fused_mul_hp_wc.stream_launches = 0
 
 
 # ---------------------------------------------------------------------------

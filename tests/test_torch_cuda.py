@@ -46,10 +46,15 @@ GEMM tolerance; the high-precision GEMMs against the f64 product of the
 same operands, within 4 times the f32 library product's distance from it
 plus 2^-24 * max(|A| @ |B|) * |gs| (the MMAs' f32 accumulation does not
 round like a serial f32 sum, so no fixed ulp count holds), the
-weight-cache one bit for bit the plain one; every listed solution id
+weight-cache one bit for bit the plain one at the same tile and split
+count, their 16-row tiles (the stream body's f32 form) at 1 to 4 splits
+and the defaults, two launches the same bits, counted as stream launches,
+the four Llama-3-8B projections replayed in a CUDA graph bit for bit, the
+split counters zero after; every listed solution id
 through the public entry; the L2-flushing timer.
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -1171,38 +1176,123 @@ def _hp_error_bound(a, words, st, gs, got):
     return err, 4 * lib_err + 2 ** -24 * scale
 
 
+def _hp_a(gen, m, k):
+    """f32 activations over a wide range of magnitudes: rows scaled by
+    2^-20 .. 2^19."""
+    return torch.randn((m, k), generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-20, 20, (m, 1), generator=gen, device="cuda"))
+
+
+def _hp_split_counts(m, n, words, bm, bn, eb):
+    """The split counts both hp entries take: 1 to 4 (as kp / 256 allows)
+    and the default of each, passed to both; 1 at block_m = 64."""
+    if bm == 64:
+        return [1]
+    kp = words.shape[0] * 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sid = sol.SolutionId(bm, bn, eb, high_precision=True)
+    return sorted({c for c in (1, 2, 3, 4) if c <= kp // fused.KSTEP}
+                  | {fused.hp_splits(m, n, kp, sid, sms),
+                     fused.hp_splits(m, n, kp, dataclasses.replace(
+                         sid, weight_cache=True), sms)})
+
+
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
 @pytest.mark.parametrize("bm,bn", sol.TILE_SHAPES)
 def test_hp_kernels_match_twin_and_f64(gen, fmt, bm, bn):
     """fp4_gemm_hp and fp4_gemm_hp_wc on f32 activations of a wide range
     of magnitudes (ragged m and n, k padded past itself): within the
-    high-precision rule of the f64 product, and the weight-cache kernel bit
-    for bit the plain one at the same tile."""
-    quant, group = _QUANT[fmt]
-    eb = sol.ElementB.NVFP4 if group == 16 else sol.ElementB.MXFP4
+    high-precision rule of the f64 product at their default splits, and
+    the weight-cache kernel bit for bit the plain one at the same tile and
+    an equal, explicit split count (each split count both take)."""
     for m, n, k in _W4A8_CASES:
-        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
-        qw, sc, gs = quant(w)
-        words = layout.repack_fp4_weights(qw, n, k,
-                                          pad_to=layout.pad_multiple(group))
-        st = layout.process_fp4_scales(sc, n, k, group_size=group)
-        a = torch.randn((m, k), generator=gen, device="cuda") * torch.exp2(
-            torch.randint(-20, 20, (m, 1), generator=gen, device="cuda"))
+        words, st, gs, eb = _fp4_operands(gen, fmt, n, k)
+        a = _hp_a(gen, m, k)
         sid = sol.SolutionId(bm, bn, eb, high_precision=True)
         before = fused.fused_mul_hp.launches
-        got = fused.fused_mul(a, words, st, gs.reshape(1), sid=sid)
+        got = fused.fused_mul(a, words, st, gs, sid=sid)
         assert fused.fused_mul_hp.launches == before + 1
         assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
-        err, bound = _hp_error_bound(a, words, st, gs.reshape(1), got)
+        err, bound = _hp_error_bound(a, words, st, gs, got)
         assert err <= bound, (m, n, k, err, bound)
         wc = sol.SolutionId(bm, bn, eb, high_precision=True,
                             weight_cache=True)
-        if sol.is_feasible(wc, m, n, k):
+        if not sol.is_feasible(wc, m, n, k):
+            continue
+        for splits in _hp_split_counts(m, n, words, bm, bn, eb):
+            plain = fused.fused_mul(a, words, st, gs, sid=sid, splits=splits)
             before = fused.fused_mul_hp_wc.launches
-            got_wc = fused.fused_mul(a, words, st, gs.reshape(1), sid=wc)
+            got_wc = fused.fused_mul(a, words, st, gs, sid=wc, splits=splits)
             assert fused.fused_mul_hp_wc.launches == before + 1
             assert torch.equal(got_wc.view(torch.int32),
-                               got.view(torch.int32))
+                               plain.view(torch.int32)), (m, n, k, splits)
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_hp_16_row_tiles_every_split_count(gen, fmt, bn):
+    """The high-precision 16-row tiles (the stream body's f32 form, 1 and
+    HP_WC_GROUP m-tiles a CTA) at m = 1 to 65, n = 336 (a ragged last
+    n-tile), k = 640 padded to 1024 (four steps): at 1 to 4 splits and
+    both defaults within the high-precision rule of the f64 product, a
+    second launch the same bits, the weight cache bit for bit the plain
+    tile at the same count; each launch counted as a stream launch; the
+    split counters zero afterwards."""
+    n, k = 336, 640
+    words, st, gs, eb = _fp4_operands(gen, fmt, n, k)
+    sid = sol.SolutionId(16, bn, eb, high_precision=True)
+    wc = dataclasses.replace(sid, weight_cache=True)
+    for m in (1, 8, 16, 17, 33, 64, 65):
+        a = _hp_a(gen, m, k)
+        for splits in _hp_split_counts(m, n, words, 16, bn, eb):
+            what = (m, bn, splits)
+            stream = fused.fused_mul_hp.stream_launches
+            got = fused.fused_mul(a, words, st, gs, sid=sid, splits=splits)
+            again = fused.fused_mul_hp(a, words, st, gs, sid=sid,
+                                       splits=splits)
+            assert fused.fused_mul_hp.stream_launches == stream + 2
+            err, bound = _hp_error_bound(a, words, st, gs, got)
+            assert err <= bound, (what, err, bound)
+            assert torch.equal(again.view(torch.int32),
+                               got.view(torch.int32)), what
+            if not sol.is_feasible(wc, m, n, k):
+                continue
+            stream = fused.fused_mul_hp_wc.stream_launches
+            got_wc = fused.fused_mul(a, words, st, gs, sid=wc, splits=splits)
+            assert fused.fused_mul_hp_wc.stream_launches == stream + 1
+            assert torch.equal(got_wc.view(torch.int32),
+                               got.view(torch.int32)), what
+    torch.cuda.synchronize()
+    _split_counts_zero()
+
+
+def test_hp_16_row_tiles_replay_in_a_cuda_graph(gen):
+    """The four Llama-3-8B projections through the high-precision 16-row
+    tiles captured in one CUDA graph: fused_mul_hp at m = 8 (16x64 and
+    16x128) and fused_mul_hp_wc at m = 64 (16x64), default splits. After
+    one eager call, three replays (outputs zeroed before each) give the
+    eager bits each time; the split counters read zero afterwards."""
+    calls = []
+    for k, n in _LLAMA8B_KN:
+        words, st, gs, eb = _fp4_operands(gen, "nvfp4", n, k)
+        for m, bn, wc in ((8, 64, False), (8, 128, False), (64, 64, True)):
+            sid = sol.SolutionId(16, bn, eb, high_precision=True,
+                                 weight_cache=wc)
+            calls.append((_hp_a(gen, m, k), words, st, gs, sid))
+    eager = [fused.fused_mul(a, w, s, g, sid=sid) for a, w, s, g, sid in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fused.fused_mul(a, w, s, g, sid=sid)
+                for a, w, s, g, sid in calls]
+    for _ in range(3):
+        for out in outs:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    _split_counts_zero()
 
 
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])

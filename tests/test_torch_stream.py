@@ -139,12 +139,15 @@ def test_fused_mul_cpu_rejects_bad_splits(bad):
 
 
 def test_fused_mul_cpu_splits_only_the_plain_16_row_tiles():
-    """Block_m = 64 and high-precision ids take one split; the 16-row
-    tiles split, plain and weight cache (the twin's bits either way)."""
+    """Block_m = 64 ids, high precision included, take one split; the
+    16-row tiles split, plain, weight cache and high precision (the twin's
+    bits either way, the hp twin's for an hp id)."""
     _, a, words, st, gs = _operands(m=70)
     for sid in (tsol.SolutionId(64, 128), tsol.SolutionId(64, 64),
                 tsol.SolutionId(64, 64, weight_cache=True),
-                tsol.SolutionId(16, 64, high_precision=True)):
+                tsol.SolutionId(64, 64, high_precision=True),
+                tsol.SolutionId(64, 128, high_precision=True,
+                                weight_cache=True)):
         a_ = a.float() if sid.high_precision else a
         assert fused.fused_mul(a_, words, st, gs, sid=sid,
                                splits=1).shape == (70, 128)
@@ -155,6 +158,15 @@ def test_fused_mul_cpu_splits_only_the_plain_16_row_tiles():
                 tsol.SolutionId(16, 64, weight_cache=True)):
         got = fused.fused_mul(a, words, st, gs, sid=sid, splits=2)
         np.testing.assert_array_equal(_bits(got), _bits(want))
+    want_hp = fused.fused_mul_hp_reference(a.float(), words, st, gs,
+                                           sid=None)
+    for sid in (tsol.SolutionId(16, 64, high_precision=True),
+                tsol.SolutionId(16, 64, high_precision=True,
+                                weight_cache=True)):
+        got = fused.fused_mul(a.float(), words, st, gs, sid=sid, splits=2)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                      want_hp.view(torch.int32).numpy())
 
 
 # ---- the split sum against the JAX package -----------------------------------
