@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits non-zero):
   2 build    compile csrc/*.cu through ops/_build.py, print the seconds;
              log and record each kernel's ptxas registers, spills and
              C7515 warnings (the six instances of the split-KV decode body
-             csrc/decode_attention.cuh among them)
+             csrc/decode_attention.cuh among them; the four instances of
+             the high-precision 64-row body csrc/fp4_hp_wgmma.cuh must
+             show no spill and no C7515)
   3 kernels  each kernel against its plain PyTorch twin on the card, at the
              Llama-3-8B serving shapes (headed kernels at page sizes 16
              and 256, bf16 and fp8 K/V; the W4A8 GEMM and both weight-cache
@@ -78,10 +80,13 @@ Phases (any failure raises and the script exits non-zero):
   4 solutions the GEMM API's solution layer: (a) the high-precision
              kernels, fp4_gemm_hp at the four Llama-3-8B projections, m =
              8, nvfp4 with f32 and with bf16 activations at 16x64, f32 at
-             16x128, and mxfp4 on wqkv, fp4_gemm_hp_wc at m = 64 (16x64,
-             its 16-row tiles) and 2048 (the default tile), each weight
-             cache bit for bit fp4_gemm_hp at the same tile and splits,
-             every 16-row launch counted as a launch of the stream kernel,
+             16x128, and mxfp4 on wqkv, and at m = 2048 (the default tile,
+             64x128: the register-A wgmma body csrc/fp4_hp_wgmma.cuh),
+             fp4_gemm_hp_wc at m = 64 (16x64, its 16-row tiles) and 2048
+             (the default tile), each weight cache bit for bit
+             fp4_gemm_hp at the same tile and splits, every 16-row launch
+             counted as a launch of the stream kernel, every 64-row one as
+             a launch of the wgmma body,
              two launches the same bits, the 16-row rows also L2-flushed
              and as a CUDA graph of the four projections beside f32
              torch.matmul, each
@@ -195,14 +200,15 @@ Phases (any failure raises and the script exits non-zero):
              graph of 32 launches, one a layer over its own cache, beside
              SDPA over the same bf16 K/V as a graph: the same kind of A/B,
              which a copy of this script in an older tree's checkout times
- 21 hp_layer (only when named) the high-precision GEMM's 16-row tiles
-             alone, the four Llama-3-8B projections (nvfp4, f32 A) through
+ 21 hp_layer (only when named) the high-precision GEMM's tiles alone,
+             the four Llama-3-8B projections (nvfp4, f32 A) through
              fused_mul with hp ids at their default splits: m = 8 at 16x64
-             and 16x128, the weight cache at m = 64 (16x64), L2-warm,
-             L2-flushed and as a CUDA graph of the four, beside f32
+             and 16x128, the weight cache at m = 64 (16x64), and the 64-row
+             tiles at m = 2048 (64x128 and 64x64, plain and weight cache),
+             L2-warm, L2-flushed and as a CUDA graph of the four, beside f32
              torch.matmul (TF32 off) warm and as a graph: the same kind of
-             A/B, also of copies of the tile body edited to find what
-             bounds it (it checks no bits)
+             A/B, also of copies of the tile bodies edited to find what
+             bounds them (it checks no bits)
 
 Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
@@ -364,6 +370,17 @@ KERNELS = {
         route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_stream.cuh",
         replaces="petit_kernel_tpu/ops/kernels/fused.py:302",
         wrapper=fused.fused_mul_hp_wc, counter="stream_launches"),
+    # both hp wrappers' 64-row tiles, the register-A wgmma body at 1 and 2
+    # m-tiles a CTA: their own kernel, counted apart (.wgmma_launches) and
+    # inside fp4_gemm_hp's and fp4_gemm_hp_wc's counts
+    "fp4_gemm_hp_prefill": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_hp_wgmma.cuh",
+        replaces="petit_kernel_tpu/ops/kernels/fused.py:230",
+        wrapper=fused.fused_mul_hp, counter="wgmma_launches"),
+    "fp4_gemm_hp_wc_prefill": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/fp4_hp_wgmma.cuh",
+        replaces="petit_kernel_tpu/ops/kernels/fused.py:302",
+        wrapper=fused.fused_mul_hp_wc, counter="wgmma_launches"),
     "fp4_dequant": dict(route="cuda",
                         source="petit_kernel_tpu_torch/csrc/fp4_dequant.cu",
                         replaces="petit_kernel_tpu/ops/kernels/fused.py:718",
@@ -400,7 +417,8 @@ PATHS = {
     "train nvfp4 Llama": ("fp4_gemm", "fp4_gemm_prefill", "fp4_dequant"),
     "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_wc_16row",
                         "fp4_gemm_hp", "fp4_gemm_hp_wc",
-                        "fp4_gemm_hp_wc_16row"),
+                        "fp4_gemm_hp_wc_16row", "fp4_gemm_hp_prefill",
+                        "fp4_gemm_hp_wc_prefill"),
 }
 FP8 = torch.float8_e4m3fn
 
@@ -480,10 +498,34 @@ def _ptxas_table(text: str) -> dict:
         elif name and re.search(r"Used \d+ registers", line):
             table[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line)[1])
-        if "C7515" in line:
+        if "C7515" in line or "wgmma.mma_async instructions are serialized" in line:
             for mangled in re.findall(r"'(_Z\w+)'", line):
                 table.setdefault(short(mangled), {})["c7515"] = True
     return table
+
+
+def _hgmma_waits(lib, stem: str) -> dict:
+    """{kernel<BN, G>: (HGMMAs, waits for no wgmma group in flight)} in the
+    SASS of the kernels of `lib` whose name holds `stem`. ptxas may
+    serialize a body's wgmmas without a message (it did for an in-flight
+    group carried across a loop's back-edge); then every HGMMA is followed
+    by such a wait."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            args = re.search(r"ILi(\d+)ELi(\d+)E", m[1])
+            name = (f"{stem}<{args[1]}, {args[2]}>"
+                    if stem in m[1] and args else None)
+            if name:
+                counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "WARPGROUP.DEPBAR.LE gsb0, 0x0" in line
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def phase_build(rec):
@@ -531,6 +573,33 @@ def phase_build(rec):
         log(f"[build] high-precision 16-row stream body {name}: "
             f"{p.get('registers')} registers, spill {p.get('spill_stores')}/"
             f"{p.get('spill_loads')} bytes")
+    # the high-precision 64-row tiles (csrc/fp4_hp_wgmma.cuh), plain (G = 1)
+    # and weight cache (G = 2) at block_n 64 and 128: a spill or a
+    # serialized wgmma fails the build
+    hpw = {name: p for name, p in rec["ptxas"].items()
+           if name.startswith("fp4_hp_wgmma_kernel<")}
+    if info.log and len(hpw) != 4:
+        raise AssertionError(f"build: ptxas compiled {sorted(hpw)}, not "
+                             "the four fp4_hp_wgmma_kernel instances")
+    for name, p in sorted(hpw.items()):
+        log(f"[build] high-precision 64-row wgmma body {name}: "
+            f"{p.get('registers')} registers, spill {p.get('spill_stores')}/"
+            f"{p.get('spill_loads')} bytes, C7515 "
+            f"{'yes' if p.get('c7515') else 'no'}")
+        if p.get("spill_stores") or p.get("spill_loads") or p.get("c7515"):
+            raise AssertionError(f"build: {name} spills or serializes its "
+                                 f"wgmmas: {p}")
+    waits = _hgmma_waits(info.path, "fp4_hp_wgmma_kernel")
+    rec["hp_wgmma_sass"] = waits
+    if len(waits) != 4:
+        raise AssertionError(f"build: SASS of {sorted(waits)}, not the four "
+                             "fp4_hp_wgmma_kernel instances")
+    for name, (hgmma, wait0) in sorted(waits.items()):
+        log(f"[build] {name} SASS: {hgmma} HGMMA, {wait0} waits for no "
+            "group in flight")
+        if wait0 >= hgmma:
+            raise AssertionError(f"build: ptxas serialized the wgmmas of "
+                                 f"{name}")
     # the split-KV decode body (csrc/decode_attention.cuh), <d, fp8, paged>:
     # flat bf16 at d 64 and 128, headed or paged bf16 and fp8 at both
     dec = {name: p for name, p in rec["ptxas"].items()
@@ -2423,22 +2492,28 @@ def phase_decode_attn_layer(rec):
 
 
 def phase_hp_layer(rec):
-    """The high-precision GEMM's 16-row tiles alone, for an A/B of two trees
-    or of copies of csrc/fp4_stream.cuh's f32 form edited to find what
-    bounds it: the four Llama-3-8B projections (nvfp4, f32 A) through
-    fused_mul(..., sid=...) with hp ids at their default splits, m = 8 at
-    16x64 and 16x128 and the weight cache at m = 64 (16x64), L2-warm and
-    L2-flushed, summed over the four, and as one CUDA graph of the four
-    (each launch finds its weights cold), beside f32 torch.matmul (TF32
-    off) at m = 8 and 64 on the dequantized weights, warm and as a graph.
-    It calls only the quantizer, the layout, SolutionId, fused_mul and
-    benchlib.cuda_time, which older trees have too, so a copy of this
-    script placed in an older checkout times that tree's kernel. Times
-    only: the solutions phase checks the results."""
+    """The high-precision GEMM's tiles alone, for an A/B of two trees or of
+    copies of csrc/fp4_stream.cuh's f32 form or csrc/fp4_hp_wgmma.cuh
+    edited to find what bounds them: the four Llama-3-8B projections
+    (nvfp4, f32 A) through fused_mul(..., sid=...) with hp ids at their
+    default splits, m = 8 at 16x64 and 16x128, the weight cache at m = 64
+    (16x64), and the 64-row tiles at m = 2048 (64x128 and 64x64, plain
+    and weight cache), L2-warm and L2-flushed, summed over the four, and as
+    one CUDA graph of the four (each launch finds its weights cold), beside
+    f32 torch.matmul (TF32 off) at m = 8, 64 and 2048 on the dequantized
+    weights, warm and as a graph. It calls only the quantizer, the layout,
+    SolutionId, fused_mul and benchlib.cuda_time, which older trees have
+    too, so a copy of this script placed in an older checkout times that
+    tree's kernel. Times only: the solutions phase checks the results."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    runs = (("m=8 tile=16x64", 8, 64, False), ("m=8 tile=16x128", 8, 128,
-                                                False),
-            ("m=64 tile=16x64 weight cache", 64, 64, True))
+    # (key, m, block_m, block_n, weight cache)
+    runs = (("m=8 tile=16x64", 8, 16, 64, False),
+            ("m=8 tile=16x128", 8, 16, 128, False),
+            ("m=64 tile=16x64 weight cache", 64, 16, 64, True),
+            ("m=2048 tile=64x128", 2048, 64, 128, False),
+            ("m=2048 tile=64x128 weight cache", 2048, 64, 128, True),
+            ("m=2048 tile=64x64", 2048, 64, 64, False),
+            ("m=2048 tile=64x64 weight cache", 2048, 64, 64, True))
     out, graphs = {}, {}
     for k, n in LLAMA8B_KN:
         w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
@@ -2449,9 +2524,9 @@ def phase_hp_layer(rec):
         gs = gs.reshape(1)
         deq = layout.dequant_from_tpu_layout(words, st, n, k)
         acts = {m: torch.randn((m, k), generator=gen, device="cuda")
-                for m in (8, 64)}
-        for key, m, bn, wc in runs:
-            sid = solution_mod.SolutionId(16, bn, ElementB.NVFP4,
+                for m in (8, 64, 2048)}
+        for key, m, bm, bn, wc in runs:
+            sid = solution_mod.SolutionId(bm, bn, ElementB.NVFP4,
                                           high_precision=True,
                                           weight_cache=wc)
             call = (lambda a=acts[m], w=words, s=st, g=gs, sid=sid:
@@ -2460,7 +2535,7 @@ def phase_hp_layer(rec):
             out[f"{key} flushed"] = (out.get(f"{key} flushed", 0.0)
                                      + _flushed_ms(call))
             graphs.setdefault(key, []).append(call)
-        for m in (8, 64):
+        for m in (8, 64, 2048):
             key = f"m={m} matmul f32"
             call = (lambda a=acts[m], d=deq: torch.matmul(a, d))
             out[key] = out.get(key, 0.0) + cuda_ms(call)
@@ -2507,11 +2582,13 @@ def _hp_rule(a, deq, gs, got, plain):
 def _hp_kernels(res, rows, gen):
     """(a) fp4_gemm_hp at the four Llama-3-8B projections, m = 8, nvfp4,
     tile 16x64 with f32 activations and with bf16 ones (their f32 values),
-    16x128 with f32 ones, and mxfp4 on wqkv; fp4_gemm_hp_wc's 16-row tiles
-    at m = 64 (16x64) and its 64-row ones at m = 2048 (the default tile),
-    each bit for bit fp4_gemm_hp at the same tile and split count. Every
-    16-row launch is counted as a launch of the stream kernel
-    (fp4_hp_stream_kernel: .stream_launches). Each within _hp_rule of the
+    16x128 with f32 ones, and mxfp4 on wqkv, and at m = 2048 (the default
+    tile, 64x128); fp4_gemm_hp_wc's 16-row tiles at m = 64 (16x64) and its
+    64-row ones at m = 2048 (the default tile), each bit for bit
+    fp4_gemm_hp at the same tile and split count. Every 16-row launch is
+    counted as a launch of the stream kernel (fp4_hp_stream_kernel:
+    .stream_launches), every 64-row one as a launch of the register-A
+    wgmma body (fp4_hp_wgmma_kernel: .wgmma_launches). Each within _hp_rule of the
     f64 product; the bf16 path's distance from it beside (fp4_gemm on
     bf16(A)). Times: the kernel, its plain version and the library call
     torch.matmul on the f32 operands (TF32 off), back to back (cuda_ms,
@@ -2521,46 +2598,53 @@ def _hp_kernels(res, rows, gen):
     cold). Bound: the larger of the bytes at 3.35 TB/s and 3 * 2mnk at the
     bf16 peak: three bf16 passes are the least the card needs for an
     f32-accurate product over bf16-exact weights. The JSON rows: nvfp4 f32
-    m = 8 (16x64; the 16x128 times beside), m = 64 weight cache and m =
-    2048, each summed over the four projections."""
+    m = 8 (16x64; the 16x128 times beside), m = 64 weight cache, m = 2048
+    plain (fp4_gemm_hp_prefill) and weight cache (fp4_gemm_hp_wc, and
+    fp4_gemm_hp_wc_prefill for its 64-row tiles), each summed over the four
+    projections."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on: the f32 yardstick would "
                              "keep 10 mantissa bits")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    names = {(8, 64): "fp4_gemm_hp", (8, 128): "fp4_gemm_hp 16x128",
-             (64, 64): "fp4_gemm_hp_wc_16row", (2048, None): "fp4_gemm_hp_wc"}
+    # (m, block_n: None for the default tile, weight cache) -> row
+    names = {(8, 64, False): "fp4_gemm_hp", (8, 128, False):
+             "fp4_gemm_hp 16x128", (64, 64, True): "fp4_gemm_hp_wc_16row",
+             (2048, None, False): "fp4_gemm_hp_prefill",
+             (2048, None, True): "fp4_gemm_hp_wc"}
     sums = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flushed_ms=0.0,
                        library_flushed_ms=0.0, nbytes=0, flops=0, err=0.0,
                        calls=[], library_calls=[], splits=[])
             for name in names.values()}
-    # (fmt, (k, n), m, block_n: None for the default tile)
-    cases = ([("nvfp4", kn, m, bn) for m, bn in names for kn in LLAMA8B_KN]
-             + [("mxfp4", LLAMA8B_KN[0], 8, 64)])
+    m_of = {name: m for (m, _, _), name in names.items()}
+    # (fmt, (k, n), m, block_n, weight cache)
+    cases = ([("nvfp4", kn, m, bn, wc) for m, bn, wc in names
+              for kn in LLAMA8B_KN]
+             + [("mxfp4", LLAMA8B_KN[0], 8, 64, False)])
     weights = {}
-    for fmt, (k, n), m, bn in cases:
+    for fmt, (k, n), m, bn, wc in cases:
         if (fmt, k, n) not in weights:
             weights[(fmt, k, n)] = _quantized_weight(fmt, k, n, gen)
         words, st, gs, eb, deq = weights[(fmt, k, n)]
         kp = words.shape[0] * 8
         a32 = torch.randn((m, k), generator=gen, device=dev)
-        wc = m > 16
         plain_sid = (solution_mod.choose_default_solution(
             m, n, k, eb, high_precision=True) if bn is None else
             solution_mod.SolutionId(16, bn, eb, high_precision=True))
         sid = dataclasses.replace(plain_sid, weight_cache=wc)
         splits = fused.hp_splits(m, n, kp, sid, sms)
-        name = names[(m, bn)]
+        name = names[(m, bn, wc)]
         kernel = fused.fused_mul_hp_wc if wc else fused.fused_mul_hp
         inputs = [("f32", a32)]
         if fmt == "nvfp4" and (m, bn) == (8, 64):
             inputs.append(("bf16", a32.to(torch.bfloat16).float()))
         for a_kind, a in inputs:
-            stream = kernel.stream_launches
+            stream, wgmma = kernel.stream_launches, kernel.wgmma_launches
             got = kernel(a, words, st, gs, sid=sid)
-            if kernel.stream_launches != stream + (sid.block_m == 16):
+            if (kernel.stream_launches, kernel.wgmma_launches) != (
+                    stream + (sid.block_m == 16), wgmma + (sid.block_m == 64)):
                 raise AssertionError(f"{name} k={k} n={n}: the launch missed "
-                                     "the 16-row stream kernel")
+                                     "its tile body (stream or wgmma)")
             plain = fused.fused_mul_hp_reference(a, words, st, gs, sid=sid)
             bf16_path = fused.fused_mul(
                 a.to(torch.bfloat16), words, st, gs,
@@ -2634,7 +2718,7 @@ def _hp_kernels(res, rows, gen):
                 acc["splits"].append(splits)
             del got, plain, bf16_path, again
     for name, acc in sums.items():
-        if name != "fp4_gemm_hp_wc":   # 16-row tiles: the four as graphs
+        if m_of[name] < 2048:   # 16-row tiles: the four as graphs
             acc["graph_ms"] = len(acc["calls"]) * _cold_ms(acc["calls"])
             acc["library_graph_ms"] = len(acc["library_calls"]) * _cold_ms(
                 acc["library_calls"])
@@ -2650,7 +2734,7 @@ def _hp_kernels(res, rows, gen):
     weights.clear()
     wide = sums.pop("fp4_gemm_hp 16x128")
     for name, m in (("fp4_gemm_hp", 8), ("fp4_gemm_hp_wc_16row", 64),
-                    ("fp4_gemm_hp_wc", 2048)):
+                    ("fp4_gemm_hp_prefill", 2048), ("fp4_gemm_hp_wc", 2048)):
         acc = sums[name]
         extra = {k: acc[k] for k in ("flushed_ms", "library_flushed_ms",
                                      "graph_ms", "library_graph_ms",
@@ -2661,7 +2745,10 @@ def _hp_kernels(res, rows, gen):
         tile = {"fp4_gemm_hp": "tile 16x64 (16x128: the _16x128 keys)",
                 "fp4_gemm_hp_wc_16row": "weight cache, tile 16x64, 2 "
                 "m-tiles a CTA, bit-equal to fp4_gemm_hp at the same splits",
-                "fp4_gemm_hp_wc": "weight cache, the default tile"}[name]
+                "fp4_gemm_hp_prefill": "the default tile, 64x128, the "
+                "register-A wgmma body",
+                "fp4_gemm_hp_wc": "weight cache, the default tile, 2 m-tiles "
+                "a CTA, bit-equal to fp4_gemm_hp_prefill"}[name]
         res[name] = dict(
             max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
             library_ms=acc["library_ms"], **extra,
@@ -2672,6 +2759,8 @@ def _hp_kernels(res, rows, gen):
                "L2 flushed, graph_ms a CUDA graph of the four; library: "
                "torch.matmul on the f32 dequantized weights; bound at 3 "
                "bf16 passes")
+    # the weight cache's 64-row tiles: fp4_gemm_hp_wc's row at m = 2048
+    res["fp4_gemm_hp_wc_prefill"] = dict(res["fp4_gemm_hp_wc"])
 
 
 _SWEEP_SHAPES = ((8, 4096, 4096), (100, 6144, 4096), (2048, 4096, 14336))

@@ -17,8 +17,9 @@
 // parts sum to a exactly for 2^-110 <= |a| <= FLT_MAX (below 2^-110, lo
 // rounds on bf16's subnormal grid: an error under 2^-133). Truncation, not
 // rounding, keeps hi finite for the largest f32 values. Each part times a
-// weight is exact in f32, and three mma.sync m16n8k16 bf16 MMAs per fragment
-// (lo, then mid, then hi, small parts first) add them into fresh f32
+// weight is exact in f32, and three bf16 MMAs per fragment (mma.sync
+// m16n8k16 in the 16-row tiles, register-A wgmma in the 64-row ones; lo,
+// then mid, then hi, small parts first) add them into fresh f32
 // accumulators, added to the running sum with one rounding: an f32-accurate
 // product for three times the tensor-core work of the bf16 kernel, fewer
 // than the six passes an f32 split of both operands would take.
@@ -38,29 +39,29 @@
 // without the MMAs take 0.59 of the time, without the split 0.74, without
 // the decode 0.77).
 //
-// The 64-row tiles run fp4_gemm_hp_tile below, the first FP4 tile body's
-// loop: each step stages A and the scales, decodes the words into a bf16 B
-// tile in shared memory and runs mma.sync on it, with no cp.async pipeline,
-// TMA or wgmma. A is staged as f32, LDS floats a row, and split as fragments
-// load, so the budget is hp_smem_bytes below. Its weight cache runs
-// HP_WC_GROUP = 2 consecutive m-tiles per CTA (4, as the bf16 cache kernel
-// runs, would ask for 270,336 bytes at block_m = 64, over the 232,448 a
-// Hopper block may use). Both bodies give every output element the same MMA
-// sequence whatever the m-tiles a CTA, so each weight cache agrees with its
-// plain tile bit for bit (the 16-row tiles at the same split count). What
-// bounds the 64-row tiles: the tensor cores, three passes, and the serial
-// copies.
+// The 64-row tiles of both entries run fp4_hp_wgmma_kernel<BN, G> on
+// fp4_hp_wgmma.cuh, the wgmma form of the same numerics (G = 1, or
+// HP_WC_GROUP = 2 m-tiles a CTA, one warpgroup each, sharing each decoded
+// B). Their bound is the tensor cores' (three bf16 passes over every
+// weight, 2.710 ms at 989 TFLOP/s for the four Llama-3-8B projections at
+// m = 2048); what holds them at 28-42% of it is each chunk's add of its
+// part between one group and the next, with one or two warpgroups an SM
+// (PERF.md section 6). The design reuses fp4_wgmma.cuh's ring and decode
+// (a cp.async ring, B decoded two values an operation into
+// 128-byte-swizzled shared memory one unit ahead), copies f32 A by
+// cp.async into padded rows, and issues register-A wgmmas: each warp
+// splits its A fragment into hi, mid and lo, three wgmmas (lo, mid, hi)
+// write a fresh part, and the part is added to acc with one rounding
+// while the next group runs. Both bodies
+// give every output element one MMA sequence whatever the m-tiles a CTA,
+// so each weight cache agrees with its plain tile bit for bit (the 16-row
+// tiles at the same split count). The two bodies sum k in other orders
+// (the 16-row tiles by step, the 64-row ones by unit), so their bits
+// differ; both meet the same high-precision rule.
 
-#include "fp4_stream.cuh"
+#include "fp4_hp_wgmma.cuh"
 
 namespace {
-
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory a Hopper block may use
-
-template <int BM, int BN, int G>
-constexpr int hp_smem_bytes() {
-  return G * BM * LDS * 4 + BN * LDS * 2 + WROWS * BN * 4;
-}
 
 // ---- the 16-row tiles: the split-k stream ----------------------------------
 
@@ -128,159 +129,28 @@ cudaError_t launch_stream(const void* a, const void* w, const void* s, const voi
   return cudaGetLastError();
 }
 
-// ---- the 64-row tiles ----------------------------------------------------------
+// ---- the 64-row tiles: the wgmma body ---------------------------------------
 
-// The G tiles (m0 + i*BM, n0), i < G, run by one CTA of THREADS*G threads
-// with hp_smem_bytes<BM, BN, G>() of dynamic shared memory at `smem`; warps
-// 4i..4i+3 own m-tile i, a 2 x 2 grid of warps over its 64 rows.
-template <int BM, int BN, int G>
-__device__ __forceinline__ void fp4_gemm_hp_tile(
-    unsigned char* smem, const float* __restrict__ A, const uint32_t* __restrict__ W,
-    const __nv_bfloat16* __restrict__ S, const float* __restrict__ gs,
-    float* __restrict__ C, int M, int N, int K, int KP, int m0, int n0) {
-  static_assert(BM == 64, "the 16-row tiles run fp4_hp_stream_kernel");
-  constexpr int NTH = THREADS * G;
-  constexpr int WM = 2;                    // warps along m
-  constexpr int WN = 4 / WM;               // warps along n
-  constexpr int WTM = BM / WM, WTN = BN / WN;
-  constexpr int MT = WTM / 16, NT = WTN / 8;
-  static_assert(MT >= 1 && NT >= 1 && WTM % 16 == 0 && WTN % 8 == 0, "tile");
-
-  float* As = reinterpret_cast<float*>(smem);                            // [G*BM][LDS] f32
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(As + G * BM * LDS);  // [BN][LDS]
-  float* Ss = reinterpret_cast<float*>(Bs + BN * LDS);                   // [32][BN]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = warp >> 2, wq = warp & 3;
-  const int wm = wq / WN, wn = wq % WN;
-  const int wrow = grp * BM + wm * WTM;         // first A row of this warp
-  const int g = lane >> 2, tg = lane & 3;
-  const int kq = KP / 4;        // natural k per quarter
-  const int srq = KP / 64;      // scale rows per quarter
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int step = 0; step < KP / KSTEP; ++step) {
-    const int c = step >> 1, hf = step & 1;
-    // A: G*BM rows x 32 runs (run = j*8 + a) of 8 contiguous natural k, each
-    // run two 16-byte words of f32
-    for (int e = tid; e < G * BM * 64; e += NTH) {
-      const int m = e >> 6, run = (e >> 1) & 31, q = e & 1;
-      const int kn = (run >> 3) * kq + c * 128 + (run & 7) * 16 + hf * 8 + q * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + m < M && kn < K)
-        v = *reinterpret_cast<const float4*>(A + (size_t)(m0 + m) * K + kn);
-      *reinterpret_cast<float4*>(As + m * LDS + run * 8 + q * 4) = v;
-    }
-    // scales: row j*srq + c*8 + a -> Ss[j*8 + a][n]
-    for (int e = tid; e < 32 * BN; e += NTH) {
-      const int r = e / BN, n = e % BN;
-      float v = 0.f;
-      if (n0 + n < N)
-        v = __bfloat162float(S[(size_t)((r >> 3) * srq + c * 8 + (r & 7)) * N + n0 + n]);
-      Ss[r * BN + n] = v;
-    }
-    __syncthreads();
-    // B: decode 32 word rows x BN columns into Bs[n][L] (local k order)
-    for (int e = tid; e < WROWS * BN; e += NTH) {
-      const int rr = e / BN, n = e % BN;
-      uint32_t w = 0u;
-      if (n0 + n < N) w = W[(size_t)(step * WROWS + rr) * N + n0 + n];
-      __nv_bfloat16* brow = Bs + n * LDS;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t half = (w >> (16 * h)) & 0xFFFFu;
-        const int ii = 2 * rr + h, a = ii & 7, x = ii >> 3;
-        const float v0 = decode_slot<0>(half), v1 = decode_slot<1>(half);
-        const float v2 = decode_slot<2>(half), v3 = decode_slot<3>(half);
-        brow[0 * 64 + a * 8 + x] = __float2bfloat16_rn(v0 * Ss[(0 * 8 + a) * BN + n]);
-        brow[1 * 64 + a * 8 + x] = __float2bfloat16_rn(v1 * Ss[(1 * 8 + a) * BN + n]);
-        brow[2 * 64 + a * 8 + x] = __float2bfloat16_rn(v2 * Ss[(2 * 8 + a) * BN + n]);
-        brow[3 * 64 + a * 8 + x] = __float2bfloat16_rn(v3 * Ss[(3 * 8 + a) * BN + n]);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KSTEP / 16; ++kk) {
-      uint32_t ahi[MT][4], amid[MT][4], alo[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float* p = As + (wrow + i * 16 + g) * LDS + kk * 16 + tg * 2;
-        split3(*reinterpret_cast<const float2*>(p), ahi[i][0], amid[i][0], alo[i][0]);
-        split3(*reinterpret_cast<const float2*>(p + 8 * LDS), ahi[i][1], amid[i][1],
-               alo[i][1]);
-        split3(*reinterpret_cast<const float2*>(p + 8), ahi[i][2], amid[i][2], alo[i][2]);
-        split3(*reinterpret_cast<const float2*>(p + 8 * LDS + 8), ahi[i][3], amid[i][3],
-               alo[i][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* p = Bs + (wn * WTN + j * 8 + g) * LDS + kk * 16 + tg * 2;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          // the 16-deep chunk in fresh accumulators, then one rounded add:
-          // the MMA's own accumulation truncates, and over k / 16 chunks
-          // that bias would outgrow an f32 sum's error
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(part, alo[i], bfr[j]);
-          mma_bf16(part, amid[i], bfr[j]);
-          mma_bf16(part, ahi[i], bfr[j]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[e]);
-        }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: f32(acc * gs), the TPU kernel's order (fused.py:254-256)
-  const float s = *gs;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int row = m0 + wrow + i * 16 + g;
-      const int col = n0 + wn * WTN + j * 8 + tg * 2;
-      if (col >= N) continue;
-      if (row < M)
-        *reinterpret_cast<float2*>(C + (size_t)row * N + col) =
-            make_float2(acc[i][j][0] * s, acc[i][j][1] * s);
-      if (row + 8 < M)
-        *reinterpret_cast<float2*>(C + (size_t)(row + 8) * N + col) =
-            make_float2(acc[i][j][2] * s, acc[i][j][3] * s);
-    }
-}
-
-template <int BM, int BN, int G>
-__global__ void __launch_bounds__(THREADS * G)
-fp4_gemm_hp_kernel(const float* __restrict__ A, const uint32_t* __restrict__ W,
-                   const __nv_bfloat16* __restrict__ S, const float* __restrict__ gs,
-                   float* __restrict__ C, int M, int N, int K, int KP) {
+// G m-tiles of 64 rows of one n-tile a CTA, one warpgroup each
+template <int BN, int G>
+__global__ void __launch_bounds__(THREADS * G, 1)
+fp4_hp_wgmma_kernel(const float* __restrict__ A, const uint32_t* __restrict__ W,
+                    const __nv_bfloat16* __restrict__ S, const float* __restrict__ gs,
+                    float* __restrict__ C, int M, int N, int K, int KP) {
   extern __shared__ __align__(16) unsigned char smem[];
-  fp4_gemm_hp_tile<BM, BN, G>(smem, A, W, S, gs, C, M, N, K, KP, blockIdx.y * (G * BM),
-                              blockIdx.x * BN);
+  fp4_hp_wgmma_tile<BN, G>(smem, A, W, S, gs, C, M, N, K, KP, blockIdx.y * (G * WG_BM),
+                           blockIdx.x * BN);
 }
 
-template <int BM, int BN, int G>
-cudaError_t launch(const void* a, const void* w, const void* s, const void* gs, void* out,
-                   int m, int n, int k, int kp, cudaStream_t stream) {
-  constexpr int bytes = hp_smem_bytes<BM, BN, G>();
-  static_assert(bytes <= MAX_SMEM, "tile exceeds the shared memory of a block");
-  cudaError_t err = cudaFuncSetAttribute(fp4_gemm_hp_kernel<BM, BN, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <int BN, int G>
+cudaError_t launch_wgmma(const void* a, const void* w, const void* s, const void* gs,
+                         void* out, int m, int n, int k, int kp, cudaStream_t stream) {
+  using P = HpWgPlan<BN, G>;
+  cudaError_t err = cudaFuncSetAttribute(fp4_hp_wgmma_kernel<BN, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + BN - 1) / BN, (m + G * BM - 1) / (G * BM));
-  fp4_gemm_hp_kernel<BM, BN, G><<<grid, THREADS * G, bytes, stream>>>(
+  dim3 grid((n + BN - 1) / BN, (m + G * WG_BM - 1) / (G * WG_BM));
+  fp4_hp_wgmma_kernel<BN, G><<<grid, P::threads, P::bytes, stream>>>(
       static_cast<const float*>(a), static_cast<const uint32_t*>(w),
       static_cast<const __nv_bfloat16*>(s), static_cast<const float*>(gs),
       static_cast<float*>(out), m, n, k, kp);
@@ -305,9 +175,9 @@ int dispatch(const void* a, const void* w, const void* s, const void* gs, void* 
   else if (block_m == 16 && block_n == 128)
     err = launch_stream<128, G>(a, w, s, gs, out, ws, counters, m, n, k, kp, splits, st);
   else if (block_m == 64 && block_n == 64)
-    err = launch<64, 64, G>(a, w, s, gs, out, m, n, k, kp, st);
+    err = launch_wgmma<64, G>(a, w, s, gs, out, m, n, k, kp, st);
   else if (block_m == 64 && block_n == 128)
-    err = launch<64, 128, G>(a, w, s, gs, out, m, n, k, kp, st);
+    err = launch_wgmma<128, G>(a, w, s, gs, out, m, n, k, kp, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -520,8 +520,8 @@ __device__ __forceinline__ void fp4_stream_store(const float (&acc)[BN / 32][4],
 // MMA's own accumulation truncates, and over k / 16 chunks that bias would
 // outgrow an f32 sum's error). Every m-tile sees this sequence chunk for
 // chunk, so the weight cache gives the plain tile's bits at the same split
-// count; at one split each output element gets the 64-row body's operands
-// in its order (fp4_gemm_hp_tile, chunks kk = 0 .. 15 of each step).
+// count. The 64-row tiles (fp4_hp_wgmma.cuh) sum k unit by unit, in
+// another order, so the two bodies' bits differ.
 // The plan (HpPlan, static_asserts below): a stage is 16,896G bytes of A
 // besides the words and scales, 29,184 bytes at (BN, G) = (64, 1), 41,472
 // at (128, 1), 46,080 at (64, 2), 58,368 at (128, 2); three stages at (64,

@@ -1,10 +1,11 @@
 // Hopper warpgroup MMA helpers (sm_90a), shared by the wgmma tile bodies:
-// the 64-row FP4 GEMM tile (fp4_wgmma.cuh), the 64-row W4A8 tile
-// (w4a8_wgmma.cuh), the hybrid GEMM's dense prefill tile (dense_wgmma.cuh)
-// and causal flash prefill (flash_prefill.cuh). Both operands come from
-// shared memory through descriptors with the 128-byte swizzle, K-major (B
-// also MN-major, through the transpose bit: sw128_mn_desc,
-// wgmma_bf16_tb); the accumulators are f32 (bf16 operands) or s32 (s8
+// the 64-row FP4 GEMM tile (fp4_wgmma.cuh), its high-precision form
+// (fp4_hp_wgmma.cuh), the 64-row W4A8 tile (w4a8_wgmma.cuh), the hybrid
+// GEMM's dense prefill tile (dense_wgmma.cuh) and causal flash prefill
+// (flash_prefill.cuh). B comes from shared memory through a descriptor
+// with the 128-byte swizzle, K-major (or MN-major, through the transpose
+// bit: sw128_mn_desc, wgmma_bf16_tb); A the same way, or from registers
+// (wgmma_bf16_rs); the accumulators are f32 (bf16 operands) or s32 (s8
 // operands) registers in the m64nN fragment layout: element 4i + e of
 // warp w, lane l is row 16w + l/4 (+ 8 for e >= 2), column 8i + 2(l % 4) +
 // (e & 1).
@@ -89,6 +90,53 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a, uint64_t 
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d = A (64 x 16, registers) @ B (16 x BN, desc b, K-major) + (scale_d ? d :
+// 0), f32 accumulators. A is the warpgroup's register fragment, warp w
+// holding rows 16w .. 16w + 15 as mma.sync m16n8k16 holds its A: lane l,
+// g = l / 4, tg = l % 4, register a[i] the bf16 pair at row g (+ 8 for i
+// odd), k 2tg (+ 8 for i >= 2), the lower k in the low half. With scale_d
+// = 0 the instruction writes A.B into d without reading it. Until a wait
+// retires it, neither d nor a may be touched.
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // MN-major operand with the 128-byte swizzle (CUTLASS's canonical

@@ -434,8 +434,11 @@ def _fused_mul_hp(wrapper, entry: str, a, words, scales_t, global_scale,
                                     sid, dtype=torch.float32, splits=splits,
                                     group=HP_WC_GROUP if wc else 1)
     wrapper.launches += launched
-    if launched and sid.block_m == STREAM_BLOCK_M:
-        wrapper.stream_launches += 1
+    if launched:
+        if sid.block_m == STREAM_BLOCK_M:
+            wrapper.stream_launches += 1
+        else:
+            wrapper.wgmma_launches += 1
     return out
 
 
@@ -451,8 +454,10 @@ def fused_mul_hp(a: torch.Tensor, words: torch.Tensor,
     summed in split order, so every launch repeats its bits.
     Launches csrc/fp4_gemm_hp.cu pk_fp4_gemm_hp for CUDA tensors (counted in
     fused_mul_hp.launches; the 16-row tiles, the split-k stream body of
-    csrc/fp4_stream.cuh on f32 A, also in fused_mul_hp.stream_launches);
-    runs fused_mul_hp_reference for CPU tensors."""
+    csrc/fp4_stream.cuh on f32 A, also in fused_mul_hp.stream_launches, the
+    64-row tiles, the register-A wgmma body of csrc/fp4_hp_wgmma.cuh, in
+    fused_mul_hp.wgmma_launches); runs fused_mul_hp_reference for CPU
+    tensors."""
     return _fused_mul_hp(fused_mul_hp, "pk_fp4_gemm_hp", a, words, scales_t,
                          global_scale, sid, splits)
 
@@ -468,15 +473,19 @@ def fused_mul_hp_wc(a: torch.Tensor, words: torch.Tensor,
     hp_splits' count for CTAs of 2 m-tiles. Bit for bit fused_mul_hp's
     result at the same tile and split count. Counted in
     fused_mul_hp_wc.launches, the 16-row tiles also in
-    fused_mul_hp_wc.stream_launches; fused_mul_hp_reference on the CPU."""
+    fused_mul_hp_wc.stream_launches, the 64-row tiles (one warpgroup an
+    m-tile) in fused_mul_hp_wc.wgmma_launches; fused_mul_hp_reference on
+    the CPU."""
     return _fused_mul_hp(fused_mul_hp_wc, "pk_fp4_gemm_hp_wc", a, words,
                          scales_t, global_scale, sid, splits)
 
 
 fused_mul_hp.launches = 0
 fused_mul_hp.stream_launches = 0
+fused_mul_hp.wgmma_launches = 0
 fused_mul_hp_wc.launches = 0
 fused_mul_hp_wc.stream_launches = 0
+fused_mul_hp_wc.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,12 @@ weight-cache one bit for bit the plain one at the same tile and split
 count, their 16-row tiles (the stream body's f32 form) at 1 to 4 splits
 and the defaults, two launches the same bits, counted as stream launches,
 the four Llama-3-8B projections replayed in a CUDA graph bit for bit, the
-split counters zero after; every listed solution id
-through the public entry; the L2-flushing timer.
+split counters zero after; their 64-row tiles (the register-A wgmma
+body) at full Llama-3-8B widths, m = 130 and, on w_down, 2048, two
+launches the same bits, the weight cache bit for bit the plain tile, each
+launch counted in wgmma_launches, a CUDA-graph replay bit for bit the
+eager calls; every listed solution id through the public entry; the
+L2-flushing timer.
 """
 
 import dataclasses
@@ -1293,6 +1297,76 @@ def test_hp_16_row_tiles_replay_in_a_cuda_graph(gen):
         for out, want in zip(outs, eager):
             assert torch.equal(out.view(torch.int32), want.view(torch.int32))
     _split_counts_zero()
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_hp_64_row_tiles_at_llama_widths(gen, bn):
+    """The high-precision 64-row tiles (the register-A wgmma body, 1 and
+    HP_WC_GROUP m-tiles a CTA) at the four Llama-3-8B projections, m = 130
+    (a ragged last m-tile), and on w_down (k = 14336) at m = 2048: within
+    the high-precision rule of the f64 product, a second launch the same
+    bits, the weight cache bit for bit the plain tile."""
+    cases = [(130, k, n) for k, n in _LLAMA8B_KN] + [(2048, 14336, 4096)]
+    for m, k, n in cases:
+        words, st, gs, eb = _fp4_operands(gen, "nvfp4", n, k)
+        a = _hp_a(gen, m, k)
+        sid = sol.SolutionId(64, bn, eb, high_precision=True)
+        got = fused.fused_mul(a, words, st, gs, sid=sid)
+        again = fused.fused_mul(a, words, st, gs, sid=sid)
+        got_wc = fused.fused_mul(a, words, st, gs,
+                                 sid=dataclasses.replace(sid, weight_cache=True))
+        err, bound = _hp_error_bound(a, words, st, gs, got)
+        assert err <= bound, (m, k, n, err, bound)
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+        assert torch.equal(got_wc.view(torch.int32), got.view(torch.int32))
+
+
+def test_hp_64_row_launches_count_as_wgmma_launches(gen):
+    """Each 64-row hp call, plain and weight cache, adds one to its
+    wrapper's wgmma_launches and none to stream_launches; a 16-row call
+    adds none to wgmma_launches."""
+    words, st, gs, eb = _fp4_operands(gen, "nvfp4", 256, 512)
+    a = _hp_a(gen, 130, 512)
+    for wrapper, wc in ((fused.fused_mul_hp, False),
+                        (fused.fused_mul_hp_wc, True)):
+        for bm, bn in sol.TILE_SHAPES:
+            sid = sol.SolutionId(bm, bn, eb, high_precision=True,
+                                 weight_cache=wc)
+            before = (wrapper.launches, wrapper.wgmma_launches,
+                      wrapper.stream_launches)
+            fused.fused_mul(a, words, st, gs, sid=sid)
+            wide = bm == 64
+            assert (wrapper.launches, wrapper.wgmma_launches,
+                    wrapper.stream_launches) == (
+                before[0] + 1, before[1] + wide, before[2] + (not wide)), sid
+
+
+def test_hp_64_row_tiles_replay_in_a_cuda_graph(gen):
+    """The four Llama-3-8B projections at m = 130 through the 64-row hp
+    tiles, plain and weight cache at 64x64 and 64x128, captured in one
+    CUDA graph: after one eager call, two replays (outputs zeroed before
+    each) give the eager bits each time."""
+    calls = []
+    for k, n in _LLAMA8B_KN:
+        words, st, gs, eb = _fp4_operands(gen, "nvfp4", n, k)
+        a = _hp_a(gen, 130, k)
+        for bn in (64, 128):
+            for wc in (False, True):
+                calls.append((a, words, st, gs, sol.SolutionId(
+                    64, bn, eb, high_precision=True, weight_cache=wc)))
+    eager = [fused.fused_mul(a, w, s, g, sid=sid) for a, w, s, g, sid in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fused.fused_mul(a, w, s, g, sid=sid)
+                for a, w, s, g, sid in calls]
+    for _ in range(2):
+        for out in outs:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])

@@ -38,8 +38,9 @@ mode, so these tests hold what it is built from against the JAX package:
   wrappers' `splits` on CPU tensors: checked as on the card, ignored by the
   twin, refused above 1 at the 64-row tiles;
 - the launcher: the 16-row ids of both entries on fp4_hp_stream_kernel, the
-  64-row ones on fp4_gemm_hp_kernel, the C entries' arguments as
-  ops/_build.py declares them.
+  64-row ones on fp4_hp_wgmma_kernel (csrc/fp4_hp_wgmma.cuh, held by
+  tests/test_torch_hp_wgmma.py), the C entries' arguments as ops/_build.py
+  declares them.
 
 The kernel itself runs on the card: tests/test_torch_cuda.py.
 """
@@ -523,17 +524,23 @@ def test_hp_cpu_64_row_tiles_take_one_split(bn, entry):
 
 def test_launcher_runs_the_16_row_tiles_on_the_stream_body():
     """Both entries' 16-row tiles launch fp4_hp_stream_kernel<BN, G>, the
-    weight cache at HP_WC_GROUP; the 64-row tiles fp4_gemm_hp_kernel, which
-    no longer has a 16-row instance; only the 16-row tiles split."""
+    weight cache at HP_WC_GROUP; the 64-row tiles fp4_hp_wgmma_kernel<BN,
+    G> (one warpgroup an m-tile) on fp4_hp_wgmma_tile; the first tile loop
+    (fp4_gemm_hp_tile, fp4_gemm_hp_kernel) is gone; only the 16-row tiles
+    split."""
     text = _source("fp4_gemm_hp.cu")
     for bn in (64, 128):
         assert re.search(rf"block_m == 16 && block_n == {bn}\)\s*err = "
                          rf"launch_stream<{bn}, G>", text)
         assert re.search(rf"block_m == 64 && block_n == {bn}\)\s*err = "
-                         rf"launch<64, {bn}, G>", text)
+                         rf"launch_wgmma<{bn}, G>", text)
     assert "fp4_hp_stream_kernel<BN, G><<<" in text
-    assert "fp4_gemm_hp_kernel<BM, BN, G><<<" in text
-    assert 'static_assert(BM == 64, "the 16-row tiles run' in text
+    assert "fp4_hp_wgmma_kernel<BN, G><<<grid, P::threads, P::bytes" in text
+    assert "__launch_bounds__(THREADS * G, 1)" in text
+    assert "fp4_hp_wgmma_tile<BN, G>(" in text
+    for gone in ("fp4_gemm_hp_tile", "fp4_gemm_hp_kernel", "hp_smem_bytes",
+                 "launch<"):
+        assert gone not in text, gone
     assert "hp_stream<BN, G>(" in text
     for entry, g in (("pk_fp4_gemm_hp", "1"),
                      ("pk_fp4_gemm_hp_wc", "HP_WC_GROUP")):

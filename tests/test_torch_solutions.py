@@ -439,15 +439,21 @@ def test_cli_and_bench_suites_match_jax():
 
 
 def test_hp_dispatch_and_feasible_set_agree():
-    """The tiles csrc/fp4_gemm_hp.cu dispatches are solution.py's (the .cu
-    file refuses at compile time a tile over the shared memory of a block);
-    the hp ids are the other ids with the hp bit; there is no hp INT8 id."""
-    with open(os.path.join(_PORT, "csrc", "fp4_gemm_hp.cu")) as f:
-        src = f.read()
+    """The tiles csrc/fp4_gemm_hp.cu dispatches are solution.py's (the
+    plans of its two tile bodies refuse at compile time a tile over the
+    shared memory of a block: HpPlan in fp4_stream.cuh, HpWgPlan in
+    fp4_hp_wgmma.cuh); the hp ids are the other ids with the hp bit; there
+    is no hp INT8 id."""
+    def source(name):
+        with open(os.path.join(_PORT, "csrc", name)) as f:
+            return f.read()
+    src = source("fp4_gemm_hp.cu")
     tiles = {(int(bm), int(bn)) for bm, bn in re.findall(
         r"block_m == (\d+) && block_n == (\d+)", src)}
     assert tiles == set(tsol.TILE_SHAPES)
-    assert "static_assert(bytes <= MAX_SMEM" in src
+    assert '#include "fp4_hp_wgmma.cuh"' in src
+    assert "bytes <= WG_SMEM_LIMIT" in source("fp4_hp_wgmma.cuh")
+    assert "static_assert(bytes <= 232448" in source("fp4_stream.cuh")
     for m, n, k in ((1, 4096, 4096), (20, 256, 512), (100, 6144, 4096),
                     (2048, 4096, 14336)):
         for eb in (tsol.ElementB.NVFP4, tsol.ElementB.MXFP4):
