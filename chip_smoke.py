@@ -60,7 +60,14 @@ Phases (any failure raises and the script exits non-zero):
              with the buckets that top-2 routing of 4 seeded tokens fills
              (rows past each bucket's count skipped through `rows`, bit for
              bit the launch without it), warm and as a CUDA graph of the
-             three; the three prefill attention
+             three; the KV append body (csrc/kv_append.cu): the flat, headed
+             (bf16, fp8) and paged (bf16, fp8, page size 16) writes bit for
+             bit their twins at one token (B = 8) and at a 256-token chunk
+             (B = 2, one row masked, K and V strided views of a fused qkv
+             tensor), its fp8 rounding of all 65,536 bf16 patterns against
+             torch's cast, each entry's CUDA graph replayed with new
+             positions against eager launches, the paged write beside the
+             torch glue it replaced (as a graph); the three prefill attention
              kernels (flat bf16,
              headed fp8, paged fp8 at page size 16) also at the serving
              shape, one 512-token chunk at pos0 = 0 (window 512) and at
@@ -149,12 +156,13 @@ Phases (any failure raises and the script exits non-zero):
              over the flat bf16 cache, serving the same 8 requests; prints
              the capacity drops of one 256-token chunk per layer
  12 profile  the decode step and one 256-token prefill tick under
-             torch.profiler, in Engine (Llama, bf16), PagedEngine (Llama,
-             fp8, page size 16), the hybrid Engine and the Mixtral Engine,
+             torch.profiler, in Engine (Llama, bf16; and over the headed
+             fp8 cache), PagedEngine (Llama, fp8, page size 16), the hybrid
+             Engine and the Mixtral Engine,
              one 512-token prefill tick of the Llama Engine with nvfp4 and
              with W4A8 prefill and of the hybrid Engine, and one training
-             step: kernels by device time and the device's idle share
-             (PERF.md section 5)
+             step: kernels by device time, device kernels a step and the
+             device's idle share (PERF.md section 5)
  13 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
@@ -182,8 +190,12 @@ Phases (any failure raises and the script exits non-zero):
              dense columns alone (a launch with no FP4 columns) beside
              torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
              the same kind of A/B
- 18 append_layer (only when named) the KV appends alone, flat bf16 and
-             headed bf16 and fp8, each as a CUDA graph of 20 launches: the
+ 18 append_layer (only when named) the KV writes alone, each as a CUDA
+             graph of 20 launches: kv_append flat bf16 and headed bf16 and
+             fp8, kv_append_paged fp8 (page size 16) and the torch glue it
+             replaced, each _write_kv as the Llama block calls it (flat
+             bf16, headed fp8, paged fp8; a decode step of 4 rows and a
+             256-token chunk), and an empty kernel, the launch floor: the
              same kind of A/B, which a copy of this script in an older
              tree's checkout times
  19 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
@@ -214,7 +226,8 @@ Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
 the training run of phase 10 and the sweep and table runs of phase 4) sets
 every kernel's launch count to 0 before it and fails if a kernel of its
 path did not launch; an engine run also counts the launches inside decode
-steps, per decode step. The line before the last is the card's
+steps, per decode step, and fails unless each decode step launched its
+layout's KV append once a layer. The line before the last is the card's
 `nvidia-smi` name and power limit, the one before it a JSON object with
 each kernel's launches (summed over those runs), max abs error, times,
 bound and library time (phases 3 and 4).
@@ -329,6 +342,12 @@ KERNELS = {
         route="cuda", source="petit_kernel_tpu_torch/csrc/kv_append.cu",
         replaces="petit_kernel_tpu/ops/kernels/attention.py:695",
         wrapper=attention.kv_append_headed),
+    # the paged pool's write: an XLA scatter in the JAX package, the append
+    # body of the two rows above in the port
+    "kv_append_paged": dict(
+        route="cuda", source="petit_kernel_tpu_torch/csrc/kv_append.cu",
+        replaces="petit_kernel_tpu/models/paged.py:106",
+        wrapper=attention.kv_append_paged),
     "grouped_fp4_gemm": dict(
         route="cuda", source="petit_kernel_tpu_torch/csrc/grouped_fp4_gemm.cu",
         replaces="petit_kernel_tpu/ops/kernels/grouped.py:26",
@@ -400,7 +419,7 @@ PATHS = {
                             "prefill_attention_headed", "kv_append_headed"),
     "serve_kv fp8 PagedEngine": ("fp4_gemm", "fp4_gemm_prefill",
                                  "paged_decode_attention",
-                                 "paged_prefill_attention"),
+                                 "paged_prefill_attention", "kv_append_paged"),
     "serve_moe Mixtral Engine": ("grouped_fp4_gemm", "fp4_gemm",
                                  "fp4_gemm_prefill", "decode_attention",
                                  "prefill_attention", "kv_append"),
@@ -409,7 +428,8 @@ PATHS = {
                                "kv_append"),
     "serve_w4a8 fp8 PagedEngine": ("fp4_gemm_w4a8", "fp4_gemm",
                                    "paged_decode_attention",
-                                   "paged_prefill_attention"),
+                                   "paged_prefill_attention",
+                                   "kv_append_paged"),
     "gemm_api weight-cache ids": ("fp4_gemm_wc", "fp4_gemm_wc_16row",
                                   "fp4_gemm_w4a8_wc"),
     "serve_hybrid bf16 Engine": ("hybrid_gemm", "decode_attention",
@@ -665,11 +685,11 @@ def _prefill_work(q, pos0, Hkv, kv_elt, page_size=None):
     return nbytes, 4 * H * d * pairs
 
 
-def _append_work(kn, mask, kv_elt):
-    """The rows with mask set: new K and V read, cache rows written."""
-    B, Hkv, d = kn.shape
-    r = int(mask.bool().sum())
-    return 2 * r * Hkv * d * (kn.element_size() + kv_elt) + 8 * B, 0
+def _append_work(rows, Hkv, d, kv_elt, index_bytes):
+    """A KV write of `rows` (b, t) tokens: their bf16 K and V read once and
+    their cache rows written once, and `index_bytes` of positions, mask
+    and block-table entries read once; no arithmetic worth counting."""
+    return 2 * rows * Hkv * d * (2 + kv_elt) + index_bytes, 0
 
 
 def _sdpa(q_bhtd, k_bhsd, v_bhsd, mask_bts):
@@ -988,7 +1008,7 @@ def phase_kernels(rec):
                            cv2.index_put_(idx, kv_rows[1])))
     res["kv_append"] = dict(
         max_abs_err=0.0, ms=t_k, graph_ms=t_g, plain_ms=t_p, library_ms=t_l,
-        **bound(*_append_work(kn, mask, 2)),
+        **bound(*_append_work(int(mask.bool().sum()), Hkv, d, 2, 8 * B)),
         at="B=8 S=2048 Hkv=8 d=128, mixed mask, bit-exact; graph_ms: a CUDA "
            "graph of 20 launches; library: index_put_ on K and V with the "
            "masked rows' indices")
@@ -996,6 +1016,7 @@ def phase_kernels(rec):
         f"ms plain={t_p:.4f} ms index_put_={t_l:.4f} ms")
     _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask)
     del ck, cv, ck1, cv1, ck2, cv2
+    _append_kernels(rec, res, rows, gen, pos, kn, vn, mask)
     _grouped_kernels(res, rows, gen)
     _grouped_routed(res)
     _w4a8_kernels(rec, res, rows, gen)
@@ -1154,11 +1175,202 @@ def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
                                           headed=True),
               lambda: attention.kv_append_headed_reference(
                   ck2, cv2, kn, vn, pos, mask),
-              dtype == FP8, _append_work(kn, mask, elt),
+              dtype == FP8,
+              _append_work(int(mask.bool().sum()), Hkv, d, elt, 8 * B),
               library=bf16 and (lambda: (ck2.index_put_(idx, kn[sel]),
                                          cv2.index_put_(idx, vn[sel]))),
               exact=True)
         del ck, cv, ck1, cv1, ck2, cv2
+
+
+def _paged_glue(pages_kv, bt_rows, new_k, new_v, pos, page_size,
+                write_mask=None):
+    """The paged KV write as torch ops, kept as the paged append's yardstick:
+    models/paged.py _write_kv before the append kernel (gather, two where,
+    the row arithmetic, two casts and two index_put_, about 16 launches)."""
+    k_pages, v_pages = pages_kv
+    B, T = pos.shape
+    nh = k_pages.shape[1]
+    p = pos.long()
+    page_idx = torch.gather(bt_rows.long(), 1, p // page_size)
+    if write_mask is not None:
+        keep = write_mask.bool()[:, None]
+        page_idx = torch.where(keep, page_idx, k_pages.shape[0] - 1)
+        p = torch.where(keep, p, 0)
+    row_idx = ((page_idx.reshape(-1, 1) * nh
+                + torch.arange(nh, device=p.device)) * page_size
+               + (p % page_size).reshape(-1, 1))
+    for pages, new in ((k_pages, new_k), (v_pages, new_v)):
+        P, h, ps, d = pages.shape
+        flat = attention._bits(pages).view(P * h * ps, d)
+        flat[row_idx] = attention._bits(attention.quantize_kv(
+            new.reshape(B * T, h, d), pages.dtype))
+
+
+def _fused_kv(gen, B, T, hkv=8, d=128, nq=32):
+    """New K and V (B, T, hkv, d) as the Llama block makes them: strided
+    views of one fused qkv tensor (returned too, to refill in place)."""
+    qkv = torch.randn((B, T, (nq + 2 * hkv) * d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    return (qkv, qkv[..., nq * d:(nq + hkv) * d].reshape(B, T, hkv, d),
+            qkv[..., (nq + hkv) * d:].reshape(B, T, hkv, d))
+
+
+def _append_layouts(gen, B, S=2048, ps=16, hkv=8, d=128):
+    """The append body's five served layouts as {name: (cache pair, write
+    (cache, k, v, pos, mask), its twin)}: flat bf16, headed bf16 and fp8,
+    paged bf16 and fp8 at page size 16 (each row's S / ps pages permuted
+    over a pool with a scratch page)."""
+    out = {}
+    for name, shape, dtype in (
+            ("flat bf16", (B, S, hkv, d), torch.bfloat16),
+            ("headed bf16", (B, hkv, S, d), torch.bfloat16),
+            ("headed fp8", (B, hkv, S, d), FP8),
+            ("paged bf16", (B * S // ps + 1, hkv, ps, d), torch.bfloat16),
+            ("paged fp8", (B * S // ps + 1, hkv, ps, d), FP8)):
+        cache = tuple(torch.randn(shape, generator=gen, device="cuda").to(
+            dtype) for _ in range(2))
+        if name.startswith("paged"):
+            bt = torch.randperm(shape[0] - 1, generator=gen, device="cuda")
+            bt = bt.reshape(B, S // ps).to(torch.int32)
+            out[name] = (
+                cache,
+                lambda c, k, v, p, m, bt=bt: attention.kv_append_paged(
+                    *c, bt, k, v, p, ps, m),
+                lambda c, k, v, p, m, bt=bt:
+                    attention.kv_append_paged_reference(*c, bt, k, v, p, ps,
+                                                        m),
+                bt)
+        else:
+            headed = name.startswith("headed")
+            twin = (attention.kv_append_headed_reference if headed
+                    else attention.kv_append_reference)
+            out[name] = (
+                cache,
+                lambda c, k, v, p, m, h=headed: attention.kv_append(
+                    *c, k, v, p, m, headed=h),
+                lambda c, k, v, p, m, t=twin: t(*c, k, v, p, m), None)
+    return out
+
+
+def _append_kernels(rec, res, rows, gen, pos, kn, vn, mask):
+    """The append body beyond the flat and headed decode rows: the paged
+    write at page size 16 (bf16 and fp8, B = 8, the kernels phase's
+    positions and mask) bit for bit its twin, timed warm, as a CUDA graph
+    of 24 launches, beside its twin and the torch glue it replaced (as a
+    graph); every layout's 256-token chunk (B = 2, one row masked, K and V
+    strided views of the fused qkv tensor) bit for bit its twin, timed as a
+    graph; the fp8 rounding of all 65,536 bf16 patterns against torch's
+    cast; and each entry captured in a CUDA graph, replayed three times
+    after new positions, values and mask, against eager launches."""
+    B, Hkv, d = kn.shape
+    ps = 16
+    lay = _append_layouts(gen, B)
+    new = (kn[:, None], vn[:, None], pos[:, None])
+    checks = {}
+    for tag in ("bf16", "fp8"):
+        cache, write, twin, bt = lay[f"paged {tag}"]
+        got, want = [c.clone() for c in cache], [c.clone() for c in cache]
+        write(got, *new, mask)
+        twin(want, *new, mask)
+        torch.cuda.synchronize()
+        # three masked rows land on the scratch page (the last) at offset
+        # 0, in no set order: it is left out
+        if not all(torch.equal(attention._bits(g[:-1]),
+                               attention._bits(w[:-1]))
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"kv_append_paged {tag}: pool bytes differ "
+                                 "from the twin")
+        t_k = cuda_ms(lambda: write(got, *new, mask))
+        t_g = _graph_ms(lambda: write(got, *new, mask), reps=24)
+        t_p = cuda_ms(lambda: twin(want, *new, mask), iters=5)
+        t_l = _graph_ms(lambda: _paged_glue(want, bt, *new, ps, mask),
+                        reps=24)
+        kept = int(mask.bool().sum())
+        elt = 1 if tag == "fp8" else 2
+        # every row writes one token (a masked one to the scratch page);
+        # the kept rows read their block-table entry
+        row = dict(kernel="kv_append_paged", variant=f"{tag} ps={ps} B={B}",
+                   max_abs_err=0.0, ms=t_k, graph_ms=t_g, plain_ms=t_p,
+                   library_ms=t_l,
+                   library="graph of the torch glue the kernel replaced "
+                           "(models/paged.py _write_kv before it: gather, "
+                           "where, row arithmetic, casts, index_put_)",
+                   **bound(*_append_work(B, Hkv, d, elt, 8 * B + 4 * kept)))
+        rows.append(row)
+        log(f"[kernels] kv_append_paged {row['variant']} bit-exact kernel="
+            f"{t_k:.4f} ms graph={t_g:.4f} ms plain={t_p:.4f} ms glue graph="
+            f"{t_l:.4f} ms bound={row['bound_ms']:.6f} ms")
+        if tag == "fp8":
+            res["kv_append_paged"] = dict(row, at=row["variant"] + ", mixed "
+                                          "mask, positions to 2047")
+    # 256-token chunks, every layout
+    qkv, k, v = _fused_kv(gen, 2, 256)
+    cpos = torch.tensor([0, 1536], device="cuda")[:, None] + torch.arange(
+        256, device="cuda")
+    cmask = torch.tensor([True, False], device="cuda")
+    lay2 = _append_layouts(gen, 2)
+    for name, (cache, write, twin, _) in lay2.items():
+        got, want = [c.clone() for c in cache], [c.clone() for c in cache]
+        write(got, k, v, cpos, cmask)
+        twin(want, k, v, cpos, cmask)
+        torch.cuda.synchronize()
+        if not all(torch.equal(attention._bits(g), attention._bits(w))
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"append {name} T=256: cache bytes differ "
+                                 "from the twin")
+        checks[f"{name} T=256"] = _graph_ms(
+            lambda: write(got, k, v, cpos, cmask))
+        log(f"[kernels] append {name} B=2 T=256 (K, V fused views, one row "
+            f"masked) bit-exact, graph {checks[f'{name} T=256']:.4f} ms")
+    # the fp8 rounding of every bf16 pattern
+    x = torch.arange(-2 ** 15, 2 ** 15, device="cuda").to(torch.int16).view(
+        torch.bfloat16).reshape(4, 16, 8, 128)
+    ck8, cv8 = (torch.zeros((4, 8, 16, 128), dtype=FP8, device="cuda")
+                for _ in range(2))
+    attention.kv_append(ck8, cv8, x, x.flip(0),
+                        torch.arange(16, device="cuda").expand(4, 16),
+                        headed=True)
+    for c, n in ((ck8, x), (cv8, x.flip(0))):
+        if not torch.equal(attention._bits(c), attention._bits(
+                n.to(FP8).transpose(1, 2))):
+            raise AssertionError("append: fp8 rounding differs from torch's "
+                                 "cast on the 65,536 bf16 patterns")
+    log("[kernels] append fp8 rounding: all 65,536 bf16 patterns equal "
+        f".to(float8_e4m3fn) (fp8_saturates={attention.fp8_saturates()})")
+    # CUDA graph replays against eager launches
+    qkv, k, v = _fused_kv(gen, 2, 7)
+    for name in ("flat bf16", "headed fp8", "paged fp8"):
+        cache, write, _, _ = lay2[name]
+        rpos = torch.tensor([3, 700], device="cuda")[:, None] + torch.arange(
+            7, device="cuda")
+        rmask = torch.tensor([True, True], device="cuda")
+        graphed, eager = [c.clone() for c in cache], [c.clone() for c in cache]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            write([c.clone() for c in cache], k, v, rpos, rmask)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            write(graphed, k, v, rpos, rmask)
+        for step in range(1, 4):
+            rpos.add_(97 * step)
+            qkv.copy_(torch.randn(qkv.shape, generator=gen,
+                                  device="cuda").to(torch.bfloat16))
+            rmask[0] = step != 2
+            graph.replay()
+            write(eager, k, v, rpos, rmask)
+            torch.cuda.synchronize()
+            if not all(torch.equal(attention._bits(g), attention._bits(e))
+                       for g, e in zip(graphed, eager)):
+                raise AssertionError(f"append {name}: graph replay {step} "
+                                     "differs from an eager launch")
+        del graph
+        log(f"[kernels] append {name} T=7: 3 CUDA graph replays with new "
+            "positions, values and mask equal eager launches")
+    rec["append_chunks_graph_ms"] = checks
 
 
 def _grouped_kernels(res, rows, gen):
@@ -2389,15 +2601,23 @@ def phase_grouped_layer(rec):
 
 
 def phase_append_layer(rec):
-    """The KV appends alone, for an A/B of two trees: kv_append into a flat
-    bf16 cache and into headed bf16 and fp8 caches (B = 8, S = 2048, Hkv =
-    8, d = 128, the kernels phase's mixed mask), each as a CUDA graph of 20
-    launches (their back-to-back launches wait on the host). It calls only
-    attention.kv_append and torch.cuda graphs, so a copy of this script
-    placed in an older checkout times that tree's kernels."""
+    """The KV writes alone, for an A/B of two trees, each as a CUDA graph of
+    20 launches (their back-to-back launches wait on the host), ms a
+    launch: kv_append into a flat bf16 cache and into headed bf16 and fp8
+    caches, and kv_append_paged (where the tree has it) into an fp8 pool
+    at page size 16 (B = 8, S = 2048, Hkv = 8, d = 128, the kernels phase's
+    positions and int32 mask, contiguous new rows); the torch glue of the
+    paged write (_paged_glue); each _write_kv as the Llama block calls it
+    (K and V strided views of the fused qkv tensor, int32 positions): a
+    decode step (B = 4, the engine's bool write mask) and a 256-token
+    prefill chunk (B = 1, no mask), flat bf16, headed fp8 and paged fp8;
+    and an empty kernel (torch.cuda._sleep(0)), the floor of one launch in
+    a graph. It calls only attention.kv_append, kv_append_paged where it
+    exists, llama._write_kv and paged._write_kv, so a copy of this script
+    placed in an older checkout times that tree's writes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, Hkv, d, S = 8, 8, 128, 2048
+    B, Hkv, d, S, ps = 8, 8, 128, 2048, 16
     pos = torch.tensor([0, 5, 127, 128, 700, 1023, 1500, 2047],
                        dtype=torch.int32, device=dev)
     mask = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.int32,
@@ -2405,16 +2625,50 @@ def phase_append_layer(rec):
     kn, vn = (torch.randn((B, Hkv, d), generator=gen, device=dev).to(
         torch.bfloat16) for _ in range(2))
     out = {}
+
+    def graph(name, fn):
+        out[name] = _graph_ms(fn)
+        log(f"[append_layer] {name}: {out[name] * 1e3:.3f} us a launch as a "
+            "CUDA graph")
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
     for name, shape, dtype, headed in (
             ("kv_append", (B, S, Hkv, d), torch.bfloat16, False),
             ("kv_append_headed bf16", (B, Hkv, S, d), torch.bfloat16, True),
             ("kv_append_headed fp8", (B, Hkv, S, d), FP8, True)):
-        ck = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        ck = rand(shape, dtype)
         cv = ck.clone()
-        out[name] = _graph_ms(lambda: attention.kv_append(
-            ck, cv, kn, vn, pos, mask, headed=headed))
-        log(f"[append_layer] {name}: {out[name] * 1e3:.3f} us a launch as a "
-            "CUDA graph")
+        graph(name, lambda: attention.kv_append(ck, cv, kn, vn, pos, mask,
+                                               headed=headed))
+    nb = S // ps
+    pool = tuple(rand((B * nb + 1, Hkv, ps, d), FP8) for _ in range(2))
+    bt = torch.randperm(B * nb, generator=gen, device=dev).reshape(
+        B, nb).to(torch.int32)
+    if hasattr(attention, "kv_append_paged"):
+        graph("kv_append_paged fp8", lambda: attention.kv_append_paged(
+            *pool, bt, kn, vn, pos, ps, mask))
+    graph("paged glue fp8", lambda: _paged_glue(
+        pool, bt, kn[:, None], vn[:, None], pos[:, None], ps, mask))
+    # _write_kv as the Llama block calls it
+    for T, rows, wmask in ((1, 4, torch.tensor([True, True, False, True],
+                                               device=dev)),
+                           (256, 1, None)):
+        _, k, v = _fused_kv(gen, rows, T)
+        wpos = (pos[:rows, None] + torch.arange(
+            T, device=dev, dtype=torch.int32)).clamp(max=S - 1)
+        ck = rand((rows, S, Hkv, d), torch.bfloat16)
+        cv = ck.clone()
+        graph(f"_write_kv flat bf16 T={T}", lambda: llama._write_kv(
+            ck, cv, k, v, wpos, wmask, False))
+        hk = rand((rows, Hkv, S, d), FP8)
+        hv = hk.clone()
+        graph(f"_write_kv headed fp8 T={T}", lambda: llama._write_kv(
+            hk, hv, k, v, wpos, wmask, True))
+        graph(f"_write_kv paged fp8 T={T}", lambda: paged._write_kv(
+            pool, bt[:rows], k, v, wpos, ps, wmask))
+    graph("empty kernel", lambda: torch.cuda._sleep(0))
     rec["append_layer"] = out
 
 
@@ -3375,6 +3629,12 @@ def _serve(rec, path, make_engine, reqs, cfg):
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing} "
                              f"({launches})")
+    for k in PATHS[path]:
+        if k.startswith("kv_append") \
+                and decode_launches[k] != cfg.num_layers * ticks[0]:
+            raise AssertionError(
+                f"{path}: {k} launched {decode_launches[k]} times in "
+                f"{ticks[0]} decode steps, not once a layer a step")
     for name, n in launches.items():
         rec["launches"][name] = rec["launches"].get(name, 0) + n
     n_tok = sum(len(v) for v in out.values())
@@ -3681,6 +3941,12 @@ def _weight_cache_api_run(rec, params, cfg):
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing} "
                              f"({launches})")
+    for k in PATHS[path]:
+        if k.startswith("kv_append") \
+                and decode_launches[k] != cfg.num_layers * ticks[0]:
+            raise AssertionError(
+                f"{path}: {k} launched {decode_launches[k]} times in "
+                f"{ticks[0]} decode steps, not once a layer a step")
     if (fused.fused_mul_w4a8_wc.wgmma_launches - wc_wgmma0
             != launches["fp4_gemm_w4a8_wc"]):
         raise AssertionError(f"{path}: a W4A8 weight-cache launch missed "
@@ -3799,6 +4065,12 @@ def phase_train(rec):
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing} "
                              f"({launches})")
+    for k in PATHS[path]:
+        if k.startswith("kv_append") \
+                and decode_launches[k] != cfg.num_layers * ticks[0]:
+            raise AssertionError(
+                f"{path}: {k} launched {decode_launches[k]} times in "
+                f"{ticks[0]} decode steps, not once a layer a step")
     if dequants != [4 * cfg.num_layers] * 3:
         raise AssertionError(f"{path}: fp4_dequant launches per step "
                              f"{dequants}, expected {4 * cfg.num_layers}")
@@ -3865,13 +4137,19 @@ def _profile_engine(name, eng, cfg, chunk=256, decode=True):
 
     def report(what, n_steps, prof):
         wall, kern, rows = prof
+        copies = sum(c for k, _, c in rows if k.startswith(("Memcpy",
+                                                             "Memset")))
+        kernels = sum(c for _, _, c in rows) - copies
         out[what] = dict(steps=n_steps, wall_ms=wall, kernel_ms=kern,
                          idle_share=1 - kern / wall,
+                         kernels_per_step=kernels / n_steps,
+                         copies_per_step=copies / n_steps,
                          top=[dict(kernel=k, ms=ms, calls=c)
                               for k, ms, c in rows[:15]])
         log(f"[profile] {name} {what}: {n_steps} step(s) {wall:.1f} ms "
             f"wall, kernels {kern:.1f} ms, idle "
-            f"{100 * (1 - kern / wall):.1f}%")
+            f"{100 * (1 - kern / wall):.1f}%; {kernels / n_steps:.1f} device "
+            f"kernels and {copies / n_steps:.1f} copies a step")
         for k, ms, c in rows[:15]:
             log(f"[profile]   {ms:9.2f} ms {c:6d}x  {k[:100]}")
 
@@ -3921,18 +4199,24 @@ def _profile_train_step(params, cfg):
 
 
 def phase_profile(rec):
-    """The serve phase's model in Engine (flat bf16 cache) and in
-    PagedEngine (fp8 pool, page size 16), its hybrid quantization in the
+    """The serve phase's model in Engine (flat bf16 cache), in Engine over
+    the headed fp8 cache and in PagedEngine (fp8 pool, page size 16), its
+    hybrid quantization in the
     hybrid Engine, and serve_moe's Mixtral in its Engine, 4 slots each
     (_profile_engine); one training step of phase train; then a 512-token
     prefill tick of the Llama Engine with nvfp4 and with W4A8 prefill
     GEMMs, and of the hybrid Engine. Device idle share = 1 - (summed
-    kernel time) / wall."""
+    kernel time) / wall; device kernels a step = the profiler's kernel
+    events (memory copies and sets apart) over the steps."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b()
     params, _ = _serve_model(cfg, dev)
     out = _profile_engine("bf16 Engine", serving.Engine(params, cfg,
                                                         max_batch=4), cfg)
+    gc.collect()
+    out["headed_fp8"] = _profile_engine(
+        "fp8 Engine", serving.Engine(params, cfg, max_batch=4,
+                                     cache_dtype=FP8), cfg)
     gc.collect()
     out["paged_fp8"] = _profile_engine(
         "fp8 PagedEngine", serving.PagedEngine(params, cfg, max_batch=4,

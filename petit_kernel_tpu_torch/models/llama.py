@@ -321,27 +321,10 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 def _write_kv(ck, cv, k, v, pos, write_mask, headed):
     """Write a T-token chunk's K/V (B, T, Hkv, d) at positions pos (B, T)
-    into a flat or headed cache, in place, cast once to the cache dtype.
-    Rows with write_mask[b] False keep their content. T == 1 goes through
-    the kv_append kernel; longer chunks are index writes (glue, as in the
-    JAX package) through an integer view of the cache."""
-    B, T = pos.shape
-    if T == 1:
-        attn_mod.kv_append(ck, cv, k[:, 0], v[:, 0],
-                           pos[:, 0].to(torch.int32), write_mask,
-                           headed=headed)
-        return
-    rows = torch.arange(B, device=ck.device)[:, None]
-    p = pos.long()
-    # (b, t) index pairs select (B, T, Hkv, d) in either layout
-    idx = (rows, slice(None), p) if headed else (rows, p)
-    for c, new in ((ck, k), (cv, v)):
-        bits = attn_mod._bits(c)
-        new = attn_mod._bits(attn_mod.quantize_kv(new, c.dtype))
-        if write_mask is not None:
-            keep = write_mask.bool()[:, None, None, None]
-            new = torch.where(keep, new, bits[idx])
-        bits[idx] = new
+    into a flat or headed cache, in place, cast once to the cache dtype:
+    one kv_append launch for every T on the card. Rows with write_mask[b]
+    False keep their content."""
+    attn_mod.kv_append(ck, cv, k, v, pos, write_mask, headed=headed)
 
 
 def _qkv(x, lp, pos, cfg: LlamaConfig, *, fmt: str, rope_cs=None):

@@ -115,28 +115,12 @@ def _write_kv(pages_kv, bt_rows, new_k, new_v, pos, page_size: int,
               write_mask=None) -> None:
     """Write one chunk's k/v (B, T, Hkv, d) into the pools at positions pos
     (B, T), through block-table rows bt_rows (B, max_pages), in place, cast
-    once to the pool dtype. Rows with write_mask[b] False write to the
-    scratch page at offset 0 instead (a slot swept along in a batched step
-    must not touch its own pages). One index write per pool, through an
-    integer view: each (token, head) pair is one row of the pool seen as
-    (P * Hkv * ps, d)."""
+    once to the pool dtype: one kv_append_paged launch on the card. Rows
+    with write_mask[b] False write to the scratch page at offset 0 instead
+    (a slot swept along in a batched step must not touch its own pages)."""
     k_pages, v_pages = pages_kv
-    B, T = pos.shape
-    nh = k_pages.shape[1]
-    p = pos.long()
-    page_idx = torch.gather(bt_rows.long(), 1, p // page_size)
-    if write_mask is not None:
-        keep = write_mask.bool()[:, None]
-        page_idx = torch.where(keep, page_idx, k_pages.shape[0] - 1)
-        p = torch.where(keep, p, 0)
-    row_idx = ((page_idx.reshape(-1, 1) * nh
-                + torch.arange(nh, device=p.device)) * page_size
-               + (p % page_size).reshape(-1, 1))             # (B * T, Hkv)
-    for pages, new in ((k_pages, new_k), (v_pages, new_v)):
-        P, h, ps, d = pages.shape
-        flat = attn_mod._bits(pages).view(P * h * ps, d)
-        flat[row_idx] = attn_mod._bits(attn_mod.quantize_kv(
-            new.reshape(B * T, h, d), pages.dtype))
+    attn_mod.kv_append_paged(k_pages, v_pages, bt_rows, new_k, new_v, pos,
+                             page_size, write_mask)
 
 
 def attention_paged(x, lp, pages_kv, bt_rows, pos, cfg: llama.LlamaConfig,

@@ -41,6 +41,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+# the KV appends' arguments (csrc/kv_append.cu)
+_KV_APPEND = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _L,
+              _L, _L, _L, _L, _L, _I, _I, _L, _P)
 # C entry points and their argument types (csrc/*.cu, extern "C")
 SIGNATURES = {
     # a, words, scales, gs, out, ws, counters, m, n, k, kp, block_m,
@@ -77,10 +80,15 @@ SIGNATURES = {
     # q, ck, cv, pos0, out, B, T, H, Hkv, S, d, window, sm_scale, stream
     "pk_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _F, _P),
-    # ck, cv, kn, vn, pos, mask, B, S, row_bytes, stream
-    "pk_kv_append": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # ck, cv, kn, vn, pos, mask, B, Hkv, S, row_bytes, stream
-    "pk_kv_append_headed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ck, cv, kn, vn, pos, mask, B, T, S, Hkv, d, elt, cast, k_sb, k_st,
+    # k_sh, v_sb, v_st, v_sh, pos_sb, pos_st, pos_bytes, mask_bytes,
+    # mask_sb, stream
+    "pk_kv_append": _KV_APPEND,
+    "pk_kv_append_headed": _KV_APPEND,
+    # kp, vp, table, kn, vn, pos, mask, B, T, P, ps, max_pages, table_sb,
+    # Hkv, d, elt, cast, then pk_kv_append's strides, flags and stream
+    "pk_kv_append_paged": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _L, *_KV_APPEND[9:]),
     # q, k, v, block_tables, pos, out, ws, counters, B, H, Hkv, d,
     # max_pages, ps, page_stride, head_stride, window, kv_fp8, splits, chunk,
     # sm_scale, stream

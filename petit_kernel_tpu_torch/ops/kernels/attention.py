@@ -1,4 +1,4 @@
-"""Decode attention, flash prefill and the in-place KV append: the CUDA
+"""Decode attention, flash prefill and the in-place KV write: the CUDA
 kernels' wrappers and their plain twins.
 
 Counterpart of petit_kernel_tpu/ops/kernels/attention.py. The flat
@@ -20,9 +20,14 @@ cache:
                                          (csrc/paged_prefill_attention.cu)
   kv_append(headed=True)              <- _kv_append_kernel_headed
                                          (csrc/kv_append.cu)
+  kv_append_paged                     <- the XLA scatter of
+                                         petit_kernel_tpu/models/paged.py
+                                         _write_kv (csrc/kv_append.cu)
 
 The three decode entries launch one split-KV body, csrc/decode_attention.cuh,
-split over positions by decode_split_plan. Each wrapper takes its
+split over positions by decode_split_plan. The three KV writes launch one
+append body, a (B, T) chunk of K and V a launch with the fp8 rounding in
+it. Each wrapper takes its
 `*_reference` twin only for tensors on the CPU; for CUDA tensors it
 launches its kernel or raises. JAX's immutable cache with
 buffer donation becomes an in-place update of the cache tensor here. fp8
@@ -246,80 +251,6 @@ def flash_prefill_attention(q: torch.Tensor, ck: torch.Tensor,
 
 
 flash_prefill_attention.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# in-place KV append
-# ---------------------------------------------------------------------------
-
-def quantize_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Cast new K/V values to the cache dtype: one rounding from x's own
-    dtype. (The JAX package needs an optimization barrier to pin this;
-    eager torch rounds exactly where it is told to.)"""
-    return x if x.dtype == dtype else x.to(dtype)
-
-
-def kv_append_reference(ck: torch.Tensor, cv: torch.Tensor,
-                        k_new: torch.Tensor, v_new: torch.Tensor,
-                        pos: torch.Tensor, mask: torch.Tensor):
-    """Plain twin of kv_append: index writes, in place."""
-    B = ck.shape[0]
-    rows = torch.arange(B, device=ck.device)
-    p = pos.long()
-    keep = mask.bool()[:, None, None]
-    for c, new in ((ck, k_new), (cv, v_new)):
-        c[rows, p] = torch.where(keep, quantize_kv(new, c.dtype), c[rows, p])
-    return ck, cv
-
-
-def kv_append(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
-              v_new: torch.Tensor, pos: torch.Tensor,
-              mask: torch.Tensor | None = None, *, headed: bool = False):
-    """Write one token's K/V per sequence into the cache, in place.
-
-    ck, cv : (B, S, Hkv, d) flat cache, updated in place; with headed=True
-             a (B, Hkv, S, d) cache (kv_append_headed)
-    k_new, v_new : (B, Hkv, d), cast to the cache dtype (quantize_kv)
-    pos    : (B,) int32 write position per sequence (< S)
-    mask   : optional (B,) bool/int; rows with mask[b] = 0 keep their cache
-             content bit for bit (the engine's write_mask contract)
-    returns (ck, cv), the same tensors.
-
-    Launches csrc/kv_append.cu (pk_kv_append) for flat CUDA tensors
-    (counted in kv_append.launches)."""
-    if headed:
-        return kv_append_headed(ck, cv, k_new, v_new, pos, mask)
-    B, S, Hkv, d = ck.shape
-    if tuple(k_new.shape) != (B, Hkv, d) or k_new.shape != v_new.shape \
-            or ck.shape != cv.shape or tuple(pos.shape) != (B,):
-        raise ValueError(f"kv_append: cache {tuple(ck.shape)}, new "
-                         f"{tuple(k_new.shape)}, pos {tuple(pos.shape)}")
-    if mask is None:
-        mask = torch.ones((B,), dtype=torch.int32, device=ck.device)
-    if ck.device.type == "cpu":
-        return kv_append_reference(ck, cv, k_new, v_new, pos, mask)
-    _on_one_cuda_device("kv_append", ck, cv, k_new, v_new, pos, mask)
-    if pos.dtype != torch.int32 or ck.dtype != cv.dtype \
-            or not (ck.is_contiguous() and cv.is_contiguous()):
-        raise ValueError("kv_append: int32 positions and contiguous caches "
-                         "of one dtype expected")
-    row_bytes = Hkv * d * ck.element_size()
-    if row_bytes % 16 or ck.data_ptr() % 16 or cv.data_ptr() % 16:
-        raise ValueError("kv_append: cache rows must be 16-byte aligned")
-    kn, vn = (_aligned(quantize_kv(x, ck.dtype)) for x in (k_new, v_new))
-    m = mask.to(torch.int32).contiguous()
-    pos = pos.contiguous()
-    lib = _build.library()
-    code = lib.pk_kv_append(ck.data_ptr(), cv.data_ptr(), kn.data_ptr(),
-                            vn.data_ptr(), pos.data_ptr(), m.data_ptr(), B, S,
-                            row_bytes,
-                            torch.cuda.current_stream(ck.device).cuda_stream)
-    _build.check("pk_kv_append", code)
-    kv_append.launches += 1
-    return ck, cv
-
-
-kv_append.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -604,58 +535,315 @@ def flash_prefill_headed(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 flash_prefill_headed.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# in-place KV write: the flat and headed caches and the paged pool, one
+# append body (csrc/kv_append.cu), a (B, T) chunk of K and V a launch
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cast new K/V values to the cache dtype: one rounding from x's own
+    dtype. (The JAX package needs an optimization barrier to pin this;
+    eager torch rounds exactly where it is told to.)"""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+@functools.cache
+def fp8_saturates() -> bool:
+    """Whether this torch's cast to float8_e4m3fn saturates finite overflow
+    (|x| past 464, and inf) to +-448, 0x7E with the sign, or makes it NaN,
+    0x7F with the sign, as torch's older releases and the JAX package do.
+    The append kernel rounds bf16 rows into an fp8 cache by the installed
+    torch's rule, so its bytes are quantize_kv's."""
+    big = torch.tensor([1000.0]).to(torch.float8_e4m3fn)
+    return int(big.view(torch.uint8)) == 0x7E
+
+
+def _chunk(where: str, k_new, v_new, pos, mask, B: int, Hkv: int, d: int):
+    """k_new, v_new as a (B, T, Hkv, d) chunk and pos as (B, T): one
+    token's (B, Hkv, d) rows at (B,) positions are a chunk of T = 1."""
+    if k_new.dim() == 3 and pos.dim() == 1:
+        k_new, v_new, pos = k_new[:, None], v_new[:, None], pos[:, None]
+    T = pos.shape[1] if pos.dim() == 2 else -1
+    if tuple(k_new.shape) != (B, T, Hkv, d) or v_new.shape != k_new.shape \
+            or tuple(pos.shape) != (B, T) \
+            or (mask is not None and tuple(mask.shape) != (B,)):
+        raise ValueError(
+            f"{where}: new rows {tuple(k_new.shape)} and "
+            f"{tuple(v_new.shape)}, positions {tuple(pos.shape)}, mask "
+            f"{None if mask is None else tuple(mask.shape)}, for {B} "
+            f"sequences of {Hkv} heads of {d}")
+    return k_new, v_new, pos
+
+
+def _kept(pos: torch.Tensor, mask, S: int):
+    """The (b, t) index pairs a flat or headed append writes: mask[b] set
+    and 0 <= pos[b, t] < S."""
+    keep = (pos >= 0) & (pos < S)
+    if mask is not None:
+        keep &= mask.bool()[:, None]
+    return keep.nonzero(as_tuple=True)
+
+
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """A (B, T, Hkv, d) chunk as the kernel reads it: the last dimension
+    contiguous and every (b, t, h) row at a 16-byte boundary. A view that
+    is so (the fused qkv projection's K and V) is read in place; any other
+    is copied (fused._aligned)."""
+    elt = x.element_size()
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+            s * elt % 16 == 0 for s, n in zip(x.stride()[:3], x.shape[:3])
+            if n > 1):
+        return x
+    return _aligned(x)
+
+
+def _strides(x: torch.Tensor, dims: int) -> list[int]:
+    """The first `dims` element strides, 0 for a dimension of size 1."""
+    return [s if n > 1 else 0 for s, n in zip(x.stride()[:dims],
+                                              x.shape[:dims])]
+
+
+def _launch_append(where: str, entry: str, ck, cv, lead: tuple, k, v, pos,
+                   mask, layout: tuple) -> bool:
+    """Launch a pk_kv_append* entry on the chunk k, v (B, T, Hkv, d) at pos
+    (B, T): `lead` the pointers before the new rows', `layout` the sizes
+    after the mask's. bf16 rows bound for an fp8 cache are rounded in the
+    kernel (fp8_saturates' rule); rows of any other dtype are cast once here
+    (quantize_kv) and copied. Returns whether it launched (an empty chunk
+    launches nothing)."""
+    if ck.dtype not in _KV_DTYPES or cv.dtype != ck.dtype \
+            or not (ck.is_contiguous() and cv.is_contiguous()):
+        raise ValueError(f"{where}: contiguous bf16 or fp8 e4m3 caches of "
+                         f"one dtype expected, got {ck.dtype}, {cv.dtype}")
+    elt, d = ck.element_size(), ck.shape[-1]
+    if (d * elt) % 16 or ck.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError(f"{where}: cache rows must be 16-byte aligned")
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{where}: positions must be int32 or int64, got "
+                         f"{pos.dtype}")
+    B, T = pos.shape
+    if B * T == 0:
+        return False
+    cast = 0
+    if ck.dtype == torch.float8_e4m3fn and k.dtype == torch.bfloat16 \
+            and v.dtype == torch.bfloat16:
+        cast = 2 if fp8_saturates() else 1
+    else:
+        k, v = quantize_kv(k, ck.dtype), quantize_kv(v, ck.dtype)
+    k, v = _rows16(k), _rows16(v)
+    if mask is not None and mask.dtype not in (torch.bool, torch.uint8,
+                                               torch.int32):
+        mask = mask.to(torch.int32)
+    code = getattr(_build.library(), entry)(
+        *lead, k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        None if mask is None else mask.data_ptr(), B, T, *layout, elt, cast,
+        *_strides(k, 3), *_strides(v, 3), *_strides(pos, 2),
+        pos.element_size(), 0 if mask is None else mask.element_size(),
+        0 if mask is None else mask.stride(0),
+        torch.cuda.current_stream(ck.device).cuda_stream)
+    _build.check(entry, code)
+    return True
+
+
+def _launch_cache(where: str, entry: str, ck, cv, k, v, pos, mask,
+                  S: int) -> bool:
+    """pk_kv_append or pk_kv_append_headed into a flat or headed cache of S
+    positions a sequence."""
+    return _launch_append(where, entry, ck, cv, (ck.data_ptr(), cv.data_ptr()),
+                          k, v, pos, mask, (S, k.shape[2], k.shape[3]))
+
+
+def _launch_pool(k_pages, v_pages, bt_rows, k, v, pos, mask) -> bool:
+    """pk_kv_append_paged into a (P, Hkv, ps, d) pool through int32
+    block-table rows."""
+    if bt_rows.dtype != torch.int32:
+        raise ValueError("paged kv_append: block tables must be int32")
+    if bt_rows.stride(1) != 1:
+        bt_rows = bt_rows.contiguous()
+    P, Hkv, ps, d = k_pages.shape
+    return _launch_append(
+        "paged kv_append", "pk_kv_append_paged", k_pages, v_pages,
+        (k_pages.data_ptr(), v_pages.data_ptr(), bt_rows.data_ptr()), k, v,
+        pos, mask, (P, ps, bt_rows.shape[1], bt_rows.stride(0), Hkv, d))
+
+
+def kv_append_reference(ck: torch.Tensor, cv: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        pos: torch.Tensor, mask: torch.Tensor | None = None):
+    """Plain twin of kv_append: index writes of the kept (b, t) rows
+    through an integer view, in place."""
+    B, S, Hkv, d = ck.shape
+    k_new, v_new, pos = _chunk("kv_append", k_new, v_new, pos, mask, B, Hkv,
+                               d)
+    b, t = _kept(pos, mask, S)
+    p = pos[b, t].long()
+    for c, new in ((ck, k_new), (cv, v_new)):
+        _bits(c)[b, p] = _bits(quantize_kv(new[b, t], c.dtype))
+    return ck, cv
+
+
+def kv_append(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
+              v_new: torch.Tensor, pos: torch.Tensor,
+              mask: torch.Tensor | None = None, *, headed: bool = False):
+    """Write new K/V into the cache, in place, cast once to the cache dtype.
+
+    ck, cv : (B, S, Hkv, d) flat cache, bf16 or fp8 e4m3, updated in place;
+             with headed=True a (B, Hkv, S, d) cache (kv_append_headed)
+    k_new, v_new : (B, Hkv, d), one token a sequence at pos (B,), as the
+             JAX package's signature has it; or a chunk (B, T, Hkv, d) at
+             pos (B, T). Any strides with the last dimension contiguous
+             (a view of the fused qkv projection is read in place).
+    pos    : int32 or int64 write positions; positions outside [0, S)
+             write nothing
+    mask   : optional (B,) bool, uint8 or int32; rows with mask[b] = 0 keep
+             their cache content bit for bit (the engine's write_mask)
+    returns (ck, cv), the same tensors.
+
+    Launches csrc/kv_append.cu (pk_kv_append), one launch a call, for CUDA
+    tensors (counted in kv_append.launches)."""
+    if headed:
+        return kv_append_headed(ck, cv, k_new, v_new, pos, mask)
+    B, S, Hkv, d = ck.shape
+    if cv.shape != ck.shape:
+        raise ValueError(f"kv_append: caches {tuple(ck.shape)} and "
+                         f"{tuple(cv.shape)}")
+    k_new, v_new, pos = _chunk("kv_append", k_new, v_new, pos, mask, B, Hkv,
+                               d)
+    if ck.device.type == "cpu":
+        return kv_append_reference(ck, cv, k_new, v_new, pos, mask)
+    _on_one_cuda_device("kv_append", ck, cv, k_new, v_new, pos,
+                        *(() if mask is None else (mask,)))
+    if _launch_cache("kv_append", "pk_kv_append", ck, cv, k_new, v_new, pos,
+                     mask, S):
+        kv_append.launches += 1
+    return ck, cv
+
+
+kv_append.launches = 0
+
+
 def kv_append_headed_reference(ck: torch.Tensor, cv: torch.Tensor,
                                k_new: torch.Tensor, v_new: torch.Tensor,
-                               pos: torch.Tensor, mask: torch.Tensor):
-    """Plain twin of kv_append_headed: index writes of the kept rows, in
-    place, through an integer view (bit for bit for fp8 too)."""
-    keep = mask.bool()
-    rows = torch.arange(ck.shape[0], device=ck.device)[keep]
-    p = pos.long()[keep]
+                               pos: torch.Tensor,
+                               mask: torch.Tensor | None = None):
+    """Plain twin of kv_append_headed: index writes of the kept (b, t) rows
+    through an integer view, in place (bit for bit for fp8 too)."""
+    B, Hkv, S, d = ck.shape
+    k_new, v_new, pos = _chunk("headed kv_append", k_new, v_new, pos, mask,
+                               B, Hkv, d)
+    b, t = _kept(pos, mask, S)
+    p = pos[b, t].long()
     for c, new in ((ck, k_new), (cv, v_new)):
-        _bits(c)[rows, :, p] = _bits(quantize_kv(new[keep], c.dtype))
+        _bits(c)[b, :, p] = _bits(quantize_kv(new[b, t], c.dtype))
     return ck, cv
 
 
 def kv_append_headed(ck: torch.Tensor, cv: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, pos: torch.Tensor,
                      mask: torch.Tensor | None = None):
-    """kv_append(headed=True): write k_new/v_new (B, Hkv, d), cast once to
-    the cache dtype (quantize_kv), at ck[b, :, pos[b]] of a (B, Hkv, S, d)
-    bf16 or fp8 cache, in place; rows with mask[b] = 0 keep their bytes.
-    returns (ck, cv), the same tensors.
+    """kv_append(headed=True): the same write into a (B, Hkv, S, d) bf16 or
+    fp8 cache, at ck[b, :, pos[b, t]]. bf16 rows bound for an fp8 cache are
+    rounded in the kernel, bit for bit quantize_kv.
 
-    Launches csrc/kv_append.cu (pk_kv_append_headed) for CUDA tensors
-    (counted in kv_append_headed.launches)."""
+    Launches csrc/kv_append.cu (pk_kv_append_headed), one launch a call, for
+    CUDA tensors (counted in kv_append_headed.launches)."""
     B, Hkv, S, d = ck.shape
-    if tuple(k_new.shape) != (B, Hkv, d) or k_new.shape != v_new.shape \
-            or ck.shape != cv.shape or tuple(pos.shape) != (B,):
-        raise ValueError(f"headed kv_append: cache {tuple(ck.shape)}, new "
-                         f"{tuple(k_new.shape)}, pos {tuple(pos.shape)}")
-    if mask is None:
-        mask = torch.ones((B,), dtype=torch.int32, device=ck.device)
+    if cv.shape != ck.shape:
+        raise ValueError(f"headed kv_append: caches {tuple(ck.shape)} and "
+                         f"{tuple(cv.shape)}")
+    k_new, v_new, pos = _chunk("headed kv_append", k_new, v_new, pos, mask,
+                               B, Hkv, d)
     if ck.device.type == "cpu":
         return kv_append_headed_reference(ck, cv, k_new, v_new, pos, mask)
-    _on_one_cuda_device("headed kv_append", ck, cv, k_new, v_new, pos, mask)
-    if pos.dtype != torch.int32 or ck.dtype != cv.dtype \
-            or not (ck.is_contiguous() and cv.is_contiguous()):
-        raise ValueError("headed kv_append: int32 positions and contiguous "
-                         "caches of one dtype expected")
-    row_bytes = d * ck.element_size()
-    if row_bytes % 16 or ck.data_ptr() % 16 or cv.data_ptr() % 16:
-        raise ValueError("headed kv_append: cache rows must be 16-byte "
-                         "aligned")
-    kn, vn = (_aligned(quantize_kv(x, ck.dtype)) for x in (k_new, v_new))
-    m = mask.to(torch.int32).contiguous()
-    pos = pos.contiguous()
-    lib = _build.library()
-    code = lib.pk_kv_append_headed(
-        ck.data_ptr(), cv.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-        pos.data_ptr(), m.data_ptr(), B, Hkv, S, row_bytes,
-        torch.cuda.current_stream(ck.device).cuda_stream)
-    _build.check("pk_kv_append_headed", code)
-    kv_append_headed.launches += 1
+    _on_one_cuda_device("headed kv_append", ck, cv, k_new, v_new, pos,
+                        *(() if mask is None else (mask,)))
+    if _launch_cache("headed kv_append", "pk_kv_append_headed", ck, cv, k_new,
+                     v_new, pos, mask, S):
+        kv_append_headed.launches += 1
     return ck, cv
 
 
 kv_append_headed.launches = 0
+
+
+def _check_paged_write(k_pages, v_pages, bt_rows, page_size: int) -> None:
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape \
+            or k_pages.shape[2] != page_size or bt_rows.dim() != 2:
+        raise ValueError(f"paged kv_append: pools {tuple(k_pages.shape)} "
+                         f"and {tuple(v_pages.shape)}, page_size "
+                         f"{page_size}, block tables {tuple(bt_rows.shape)}")
+
+
+def kv_append_paged_reference(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                              bt_rows: torch.Tensor, k_new: torch.Tensor,
+                              v_new: torch.Tensor, pos: torch.Tensor,
+                              page_size: int,
+                              mask: torch.Tensor | None = None):
+    """Plain twin of kv_append_paged, the torch glue of the JAX package's
+    scatter: each (token, head) pair is one row of the pool seen as
+    (P * Hkv * ps, d), written by one index write a pool through an
+    integer view. A masked row's last token goes to the scratch page at
+    offset 0; a position below 0 or past the table's width, or a table
+    entry outside the pool, writes nothing."""
+    _check_paged_write(k_pages, v_pages, bt_rows, page_size)
+    P, Hkv, ps, d = k_pages.shape
+    B, n = bt_rows.shape
+    k_new, v_new, pos = _chunk("paged kv_append", k_new, v_new, pos, mask, B,
+                               Hkv, d)
+    p = pos.long()
+    idx = p // ps
+    inside = (p >= 0) & (idx < n)
+    page = torch.gather(bt_rows.long(), 1, idx.clamp(0, n - 1))
+    if mask is not None:
+        keep = mask.bool()[:, None].expand_as(p)
+        last = torch.arange(p.shape[1], device=p.device) == p.shape[1] - 1
+        page = torch.where(keep, page, P - 1)
+        p = torch.where(keep, p, 0)
+        inside = torch.where(keep, inside, last)
+    inside &= (page >= 0) & (page < P)
+    rows = ((page[inside][:, None] * Hkv
+             + torch.arange(Hkv, device=p.device)) * ps
+            + (p[inside] % ps)[:, None])                      # (n, Hkv)
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        _bits(pages).view(P * Hkv * ps, d)[rows] = _bits(
+            quantize_kv(new[inside], pages.dtype))
+    return k_pages, v_pages
+
+
+def kv_append_paged(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                    bt_rows: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, pos: torch.Tensor, page_size: int,
+                    mask: torch.Tensor | None = None):
+    """Write new K/V into a paged pool through block-table rows, in place,
+    cast once to the pool dtype.
+
+    k_pages, v_pages : (P, Hkv, ps, d) bf16 or fp8 e4m3 pools, the last
+             page the scratch page
+    bt_rows : (B, max_pages) int32 page ids; position p of row b lies at
+             page bt_rows[b, p // ps], offset p % ps, pool row
+             (page * Hkv + h) * ps + p % ps of the (P * Hkv * ps, d) view
+    k_new, v_new, pos, mask : as kv_append's. A row with mask[b] = 0
+             writes its last token to the scratch page at offset 0 (a slot
+             swept along in a batched step must not touch its own pages);
+             a position below 0 or past the table's width writes nothing.
+    returns (k_pages, v_pages), the same tensors.
+
+    The JAX counterpart is no Pallas kernel: the XLA scatter of
+    petit_kernel_tpu/models/paged.py:_write_kv. Launches csrc/kv_append.cu
+    (pk_kv_append_paged), one launch a call, for CUDA tensors (counted in
+    kv_append_paged.launches)."""
+    _check_paged_write(k_pages, v_pages, bt_rows, page_size)
+    _, Hkv, _, d = k_pages.shape
+    k_new, v_new, pos = _chunk("paged kv_append", k_new, v_new, pos, mask,
+                               bt_rows.shape[0], Hkv, d)
+    if k_pages.device.type == "cpu":
+        return kv_append_paged_reference(k_pages, v_pages, bt_rows, k_new,
+                                         v_new, pos, page_size, mask)
+    _on_one_cuda_device("paged kv_append", k_pages, v_pages, bt_rows, k_new,
+                        v_new, pos, *(() if mask is None else (mask,)))
+    if _launch_pool(k_pages, v_pages, bt_rows, k_new, v_new, pos, mask):
+        kv_append_paged.launches += 1
+    return k_pages, v_pages
+
+
+kv_append_paged.launches = 0

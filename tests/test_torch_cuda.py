@@ -30,7 +30,10 @@ convert fp8 exactly), the decode entries (one split-KV body) at every
 split count from 1 to one a 64-position tile and at the serving shapes, a
 second launch bit for bit the first, and a CUDA-graph replay after pos
 and the cache change in place bit for bit an eager launch, the prefill
-wrappers also on views off a 16-byte boundary; the KV appends and the dequant kernel bit-exact; the
+wrappers also on views off a 16-byte boundary; the KV appends and the dequant kernel bit-exact (the
+append body in every layout, bf16 and fp8, at T = 1 and a chunk, against its
+twin, its fp8 rounding on every bf16 pattern against torch's cast, its CUDA
+graph replays against eager launches, and one device kernel a _write_kv); the
 hybrid GEMM's FP4 columns bit for bit against fused_mul at the same tile
 with one k-split (and at block_m = 64), at the GEMM tolerance with more
 (fused_mul at one split wherever another kernel is held to its bits);
@@ -608,6 +611,197 @@ def test_kv_append_headed_kernel_bit_exact(gen, dtype):
     for got, want in ((k1, k2), (v1, v2)):
         assert torch.equal(attention._bits(got), attention._bits(want))
     assert torch.equal(attention._bits(k1[1]), attention._bits(k[1]))
+
+
+# the append body's layouts: cache kind and dtype
+_APPEND_LAYOUTS = ("flat bf16", "flat fp8", "headed bf16", "headed fp8",
+                   "paged bf16", "paged fp8")
+
+
+def _append_setup(gen, layout, T, B=4, hkv=8, d=128, S=64, ps=16):
+    """A cache pair (or pool pair) of `layout`, new K and V (B, T, hkv, d) as
+    strided views of one fused qkv tensor (the Llama block's), and the
+    wrapper, its twin and its counter as functions of (cache, k, v, pos,
+    mask). A pool of B * S / ps pages and a scratch page, each row's pages
+    permuted."""
+    kind, tag = layout.split()
+    dtype = torch.bfloat16 if tag == "bf16" else torch.float8_e4m3fn
+    nq = 32
+    qkv = _bf16(gen, B, T, (nq + 2 * hkv) * d)
+    k = qkv[..., nq * d:(nq + hkv) * d].reshape(B, T, hkv, d)
+    v = qkv[..., (nq + hkv) * d:].reshape(B, T, hkv, d)
+    if kind == "paged":
+        P = B * S // ps + 1
+        shape = (P, hkv, ps, d)
+        bt = torch.randperm(P - 1, generator=gen, device="cuda").reshape(
+            B, S // ps).to(torch.int32)
+
+        def kernel(c, k_, v_, pos, mask):
+            attention.kv_append_paged(*c, bt, k_, v_, pos, ps, mask)
+
+        def twin(c, k_, v_, pos, mask):
+            attention.kv_append_paged_reference(*c, bt, k_, v_, pos, ps, mask)
+        wrapper = attention.kv_append_paged
+    else:
+        headed = kind == "headed"
+        shape = (B, hkv, S, d) if headed else (B, S, hkv, d)
+
+        def kernel(c, k_, v_, pos, mask):
+            attention.kv_append(*c, k_, v_, pos, mask, headed=headed)
+        ref = (attention.kv_append_headed_reference if headed
+               else attention.kv_append_reference)
+
+        def twin(c, k_, v_, pos, mask):
+            ref(*c, k_, v_, pos, mask)
+        wrapper = attention.kv_append_headed if headed else attention.kv_append
+    cache = tuple(_kv(gen, dtype, *shape) for _ in range(2))
+    return cache, qkv, k, v, kernel, twin, wrapper
+
+
+def _append_pos(T, S=64, B=4):
+    """(B, T) positions, int32 at T = 1 and int64 past it; with T > 1 one
+    position below 0 and one past S (and the block table): no write."""
+    pos = torch.tensor([0, 17, 40, S - T], device="cuda")[:, None] \
+        + torch.arange(T, device="cuda")
+    if T > 1:
+        pos[1, 1], pos[2, T - 2] = -1, S + 3
+    return pos.to(torch.int64 if T > 1 else torch.int32)
+
+
+_APPEND_MASKS = {"none": None, "bool": (True, False, True, True),
+                 "int32": (0, 1, 1, 0)}
+
+
+def _append_mask(kind):
+    m = _APPEND_MASKS[kind]
+    return None if m is None else torch.tensor(
+        m, dtype=torch.bool if kind == "bool" else torch.int32,
+        device="cuda")
+
+
+def _same_bits(got, want, pool=False):
+    """Cache bytes equal. With pool, the scratch page (the last) is left
+    out: masked rows all write it at offset 0, in no set order."""
+    cut = slice(0, -1) if pool else slice(None)
+    return all(torch.equal(attention._bits(g[cut]), attention._bits(w[cut]))
+               for g, w in zip(got, want))
+
+
+def test_kv_append_fp8_rounding_of_every_bf16_pattern(gen):
+    """All 65,536 bf16 bit patterns as the new K (and, reversed, V) of a
+    headed fp8 append: the cache bytes are .to(torch.float8_e4m3fn)'s bit
+    for bit, NaN signs, subnormals, -0 and the overflow rule included."""
+    B, hkv, S, d = 4, 8, 16, 128
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device="cuda")
+    x = bits.to(torch.int16).view(torch.bfloat16).reshape(B, S, hkv, d)
+    y = x.flip(0)
+    ck, cv = (torch.zeros((B, hkv, S, d), dtype=torch.float8_e4m3fn,
+                          device="cuda") for _ in range(2))
+    pos = torch.arange(S, device="cuda").expand(B, S)
+    attention.kv_append(ck, cv, x, y, pos, headed=True)
+    for c, new in ((ck, x), (cv, y)):
+        want = new.to(torch.float8_e4m3fn).transpose(1, 2)
+        assert torch.equal(attention._bits(c), attention._bits(want))
+
+
+@pytest.mark.parametrize("mask", sorted(_APPEND_MASKS))
+@pytest.mark.parametrize("T", [1, 7])
+@pytest.mark.parametrize("layout", _APPEND_LAYOUTS)
+def test_kv_append_body_bit_exact_twin(gen, layout, T, mask):
+    """Every layout and cache dtype, one token and a 7-token chunk, with and
+    without a mask (bool or int32), K and V strided views of the fused qkv
+    tensor: one launch, the cache bytes of the twin. At T = 1 the JAX
+    signature, (B, Hkv, d) rows at (B,) positions."""
+    cache, _, k, v, kernel, twin, wrapper = _append_setup(gen, layout, T)
+    pos, m = _append_pos(T), _append_mask(mask)
+    args = (k[:, 0], v[:, 0], pos[:, 0]) if T == 1 else (k, v, pos)
+    got, want = [c.clone() for c in cache], [c.clone() for c in cache]
+    before = wrapper.launches
+    kernel(got, *args, m)
+    assert wrapper.launches == before + 1
+    twin(want, *args, m)
+    torch.cuda.synchronize()
+    pool = layout.startswith("paged") and m is not None \
+        and int((m == 0).sum()) > 1
+    assert _same_bits(got, want, pool)
+    assert not _same_bits(got, cache)
+
+
+@pytest.mark.parametrize("T", [1, 7])
+@pytest.mark.parametrize("layout", ["flat bf16", "headed fp8", "paged fp8"])
+def test_kv_append_replays_in_a_cuda_graph(gen, layout, T):
+    """Each entry captured in a CUDA graph, then replayed three times after
+    new positions, new K/V values and a new mask are written into the same
+    tensors: each replay leaves the cache bytes of an eager launch on the
+    same inputs. The launch count moves at capture, not at replay."""
+    cache, qkv, k, v, kernel, _, wrapper = _append_setup(gen, layout, T)
+    pos, m = _append_pos(T), _append_mask("bool")
+    graphed, eager = [c.clone() for c in cache], [c.clone() for c in cache]
+    warm = [c.clone() for c in cache]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(warm, k, v, pos, m)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = wrapper.launches
+    with torch.cuda.graph(graph):
+        kernel(graphed, k, v, pos, m)
+    assert wrapper.launches == before + 1
+    for step in range(1, 4):
+        pos.add_(step * 3).remainder_(64)
+        qkv.copy_(_bf16(gen, *qkv.shape))
+        m.copy_(torch.tensor([step % 2 == 0, True, step != 2, False],
+                             device="cuda"))
+        graph.replay()
+        kernel(eager, k, v, pos, m)
+        torch.cuda.synchronize()
+        assert _same_bits(graphed, eager, layout.startswith("paged"))
+    assert wrapper.launches == before + 4
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("layout", ["flat bf16", "headed bf16", "headed fp8",
+                                    "paged fp8"])
+def test_write_kv_launches_one_kernel(gen, layout, T):
+    """models/llama.py and models/paged.py _write_kv as the Llama block
+    calls them (K and V views of the fused qkv tensor, int32 (B, T)
+    positions, a bool write mask) launch exactly one device kernel, the
+    append body, and nothing else: no cast, copy, gather or index write
+    (three calls under the profiler, three launches of one kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from petit_kernel_tpu_torch.models import paged as tpaged
+    cache, _, k, v, _, _, _ = _append_setup(gen, layout, T)
+    pos = _append_pos(T).clamp(0, 63).to(torch.int32)
+    m = _append_mask("bool")
+    if layout.startswith("paged"):
+        P = cache[0].shape[0]
+        bt = torch.randperm(P - 1, generator=gen, device="cuda").reshape(
+            4, -1).to(torch.int32)
+
+        def write():
+            tpaged._write_kv(cache, bt, k, v, pos, 16, m)
+    else:
+        headed = layout.startswith("headed")
+
+        def write():
+            tllama._write_kv(*cache, k, v, pos, m, headed)
+    write()
+    torch.cuda.synchronize()
+    # CUPTI now and then hands back no device event at all for so short a
+    # window; a window with none is profiled again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                write()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and kernels[0][1] == 3, kernels
+    assert "kv_append_kernel" in kernels[0][0], kernels
 
 
 @pytest.mark.parametrize("fmt", ["mxfp4", "nvfp4"])
