@@ -130,7 +130,25 @@ Phases (any failure raises and the script exits non-zero):
              PagedEngine(page_size=16, cache_dtype=float8_e4m3fn); every
              page returns to the pool; tokens/s, peak device memory and
              KV bytes of each cache beside serve's
-  8 serve_w4a8 serve's model and requests with W4A8 prefill:
+  8 serve_block the same model and requests through run(reqs,
+             decode_block=8) in Engine (flat bf16 cache) and Engine
+             (cache_dtype=float8_e4m3fn, headed fp8 cache): the burst
+             admission, step_block while requests wait, then the
+             pipelined drain, each decode step of a block a replay of the
+             captured CUDA graph of the step at its kv_window bucket;
+             tokens/s beside serve's and serve_kv's decode_block=1 runs
+             (a fresh engine, its captures counted in, then the same run
+             on the engine whose graphs exist, which must give the same
+             tokens), graphs captured and the seconds spent capturing,
+             peak memory, the share of tokens equal to the decode_block=1
+             runs (information: run schedules otherwise); fails unless
+             every kernel of the path launched, each captured step
+             launched its layout's KV append once a layer (counted at
+             capture: a replay moves no counter), and, after admitting 4
+             requests, 8 eager steps from a snapshot equal one block of 8
+             from the restored snapshot bit for bit (tokens and cache
+             bytes)
+  9 serve_w4a8 serve's model and requests with W4A8 prefill:
              Engine(max_batch=4, prefill_fmt="w4a8") over the flat bf16
              cache and PagedEngine(page_size=16, cache_dtype=fp8,
              prefill_fmt="w4a8"); W4A8 against exact prefill GEMM launches
@@ -139,43 +157,44 @@ Phases (any failure raises and the script exits non-zero):
              engine with nvfp4 prefill (serve, serve_kv); then the
              weight-cache GEMMs through the public mul_* entries with
              explicit solution ids (the autotuner's route) on one layer
-  9 serve_hybrid the same dense weights quantized "hybrid" on the card
+ 10 serve_hybrid the same dense weights quantized "hybrid" on the card
              (a quarter of each projection's columns, the most salient,
              kept bf16) through Engine(max_batch=4, fmt="hybrid") over the
              flat bf16 cache, serving the same 8 requests: tokens/s, peak
              memory and weight bytes beside serve's
- 10 train    the same nvfp4 model trained for 3 steps on 513 seeded tokens
+ 11 train    the same nvfp4 model trained for 3 steps on 513 seeded tokens
              (B = 1, T = 512): next-token cross-entropy, backward through
              mul_fp4_diff (the dequant kernel), SGD at 1e-3 on embed, the
              norms and lm_head (the global scales get their gradient but
              stay fixed; words and scales are frozen); loss per step, step
              time, peak memory
- 11 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
+ 12 serve_moe the full 32-layer Mixtral-8x7B (mxfp4 experts, nvfp4
              attention, random weights quantized on the card) through
              Engine(max_batch=4, forward_fn=moe.make_engine_forward(cfg))
              over the flat bf16 cache, serving the same 8 requests; prints
              the capacity drops of one 256-token chunk per layer
- 12 profile  the decode step and one 256-token prefill tick under
+ 13 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16; and over the headed
-             fp8 cache), PagedEngine (Llama, fp8, page size 16), the hybrid
-             Engine and the Mixtral Engine,
+             fp8 cache; both also a block of 10 decode steps through
+             step_block, each step a graph replay), PagedEngine (Llama,
+             fp8, page size 16), the hybrid Engine and the Mixtral Engine,
              one 512-token prefill tick of the Llama Engine with nvfp4 and
              with W4A8 prefill and of the hybrid Engine, and one training
              step: kernels by device time, device kernels a step and the
              device's idle share (PERF.md section 5)
- 13 hybrid_layer (only when named) the hybrid GEMM alone at the seven
+ 14 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
              copy of this script in that tree's checkout times
- 14 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
+ 15 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
              Llama-3-8B projections at m = 8, default tile and splits,
              L2-warm, L2-flushed and as a CUDA graph: the same kind of A/B
- 15 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
+ 16 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
              calls at cap 8 (mxfp4, E = 8) through grouped_mul's defaults,
              every bucket row filled, warm and as a CUDA graph of the three;
              where the tree's grouped_mul takes `rows`, also the routed
              buckets of phase 3 with their rows: the same kind of A/B
- 16 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
+ 17 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
              Llama-3-8B projections (nvfp4): the 64-row tiles at m = 512
              and 2048, the 16-row tiles at m = 16 (plain) and 64 (weight
              cache) at their default splits, at block_n 64 and 128, plain
@@ -184,13 +203,13 @@ Phases (any failure raises and the script exits non-zero):
              summed over the four, the 16-row ones also as a CUDA graph of
              the four: the same kind of A/B, also of copies of the tile
              bodies edited to find what bounds them (it checks no bits)
- 17 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
+ 18 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
              tiles alone, the seven unfused projections at m = 512, the
              heuristic's tile, L2-warm, summed over the layer, with the
              dense columns alone (a launch with no FP4 columns) beside
              torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
              the same kind of A/B
- 18 append_layer (only when named) the KV writes alone, each as a CUDA
+ 19 append_layer (only when named) the KV writes alone, each as a CUDA
              graph of 20 launches: kv_append flat bf16 and headed bf16 and
              fp8, kv_append_paged fp8 (page size 16) and the torch glue it
              replaced, each _write_kv as the Llama block calls it (flat
@@ -198,21 +217,21 @@ Phases (any failure raises and the script exits non-zero):
              256-token chunk), and an empty kernel, the launch floor: the
              same kind of A/B, which a copy of this script in an older
              tree's checkout times
- 19 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
+ 20 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
              alone: the four Llama-3-8B projections (nvfp4) at m = 64
              through fused_mul with weight-cache ids 16x64 and 16x128 at
              their default splits, beside the plain 16-row tile, L2-warm
              and as a CUDA graph of the four: the same kind of A/B, also of
              copies of csrc/fp4_stream.cuh with another plan (it checks no
              bits)
- 20 decode_attn_layer (only when named) decode attention alone, at the
+ 21 decode_attn_layer (only when named) decode attention alone, at the
              Engine's decode shape (B = 4, positions 274, 316, 177 and 108,
              window 512) and the kernels phase's (B = 8, S = 2048): flat
              bf16, headed fp8 and paged fp8 (page size 16), each as a CUDA
              graph of 32 launches, one a layer over its own cache, beside
              SDPA over the same bf16 K/V as a graph: the same kind of A/B,
              which a copy of this script in an older tree's checkout times
- 21 hp_layer (only when named) the high-precision GEMM's tiles alone,
+ 22 hp_layer (only when named) the high-precision GEMM's tiles alone,
              the four Llama-3-8B projections (nvfp4, f32 A) through
              fused_mul with hp ids at their default splits: m = 8 at 16x64
              and 16x128, the weight cache at m = 64 (16x64), and the 64-row
@@ -222,22 +241,20 @@ Phases (any failure raises and the script exits non-zero):
              A/B, also of copies of the tile bodies edited to find what
              bounds them (it checks no bits)
 
-Each engine run of phases 6-9 and 11 (and the weight-cache run of phase 8,
-the training run of phase 10 and the sweep and table runs of phase 4) sets
+Each engine run of phases 6-10 and 12 (and the weight-cache run of phase 9,
+the training run of phase 11 and the sweep and table runs of phase 4) sets
 every kernel's launch count to 0 before it and fails if a kernel of its
 path did not launch; an engine run also counts the launches inside decode
-steps, per decode step, and fails unless each decode step launched its
-layout's KV append once a layer. The line before the last is the card's
-`nvidia-smi` name and power limit, the one before it a JSON object with
-each kernel's launches (summed over those runs), max abs error, times,
-bound and library time (phases 3 and 4).
-The last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-With --record PATH, every measurement (per-shape GEMM rows included) is
-also written there as JSON; with --parent-record PATH (another tree's
-record, the parent commit's in an A/B call) each kernel row also keeps that
-run's time as parent_ms.
-"""
+steps, per decode step (in phase 8 per captured step), and fails unless
+each decode step launched its layout's KV append once a layer. The line
+before the last is the card's `nvidia-smi` name and power limit, the one
+before it a JSON object with each kernel's launches (summed over those
+runs), max abs error, times, bound and library time (phases 3 and 4). The
+last line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}. With --record PATH, every measurement (per-shape GEMM rows
+included) is also written there as JSON; with --parent-record PATH (another
+tree's record, the parent commit's in an A/B call) each kernel row also
+keeps that run's time as parent_ms. """
 
 from __future__ import annotations
 
@@ -272,7 +289,8 @@ from petit_kernel_tpu_torch.numerics import reference as qref
 from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
-          "serve_kv", "serve_w4a8", "serve_hybrid", "train", "serve_moe",
+          "serve_kv", "serve_block", "serve_w4a8", "serve_hybrid", "train",
+          "serve_moe",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
           "w4a8_layer", "hybrid_prefill_layer", "append_layer",
           "fp4_wc_layer", "decode_attn_layer", "hp_layer")
@@ -409,8 +427,8 @@ KERNELS = {
                         replaces="petit_kernel_tpu/ops/kernels/hybrid.py:34",
                         wrapper=hybrid.hybrid_mul),
 }
-# the kernels each engine run of phases 5-8 and 10 (and the weight-cache
-# run of phase 7 and the training run of phase 9) must launch
+# the kernels each engine run of phases 6-10 and 12 (and the weight-cache
+# run of phase 9 and the training run of phase 11) must launch
 PATHS = {
     "serve bf16 Engine": ("fp4_gemm", "fp4_gemm_prefill", "decode_attention",
                           "prefill_attention", "kv_append"),
@@ -432,6 +450,12 @@ PATHS = {
                                    "kv_append_paged"),
     "gemm_api weight-cache ids": ("fp4_gemm_wc", "fp4_gemm_wc_16row",
                                   "fp4_gemm_w4a8_wc"),
+    "serve_block bf16 Engine": ("fp4_gemm", "fp4_gemm_prefill",
+                                "decode_attention", "prefill_attention",
+                                "kv_append"),
+    "serve_block fp8 Engine": ("fp4_gemm", "fp4_gemm_prefill",
+                               "decode_attention_headed",
+                               "prefill_attention_headed", "kv_append_headed"),
     "serve_hybrid bf16 Engine": ("hybrid_gemm", "decode_attention",
                                  "prefill_attention", "kv_append"),
     "train nvfp4 Llama": ("fp4_gemm", "fp4_gemm_prefill", "fp4_dequant"),
@@ -3596,6 +3620,15 @@ def _kv_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for kv in tensors for t in kv)
 
 
+def _check_outputs(path, out, n_reqs, cfg):
+    """Every request finished with its 32 tokens, each a vocabulary id."""
+    if sorted(out) != list(range(n_reqs)) or any(
+            len(v) != 32 for v in out.values()):
+        raise AssertionError(f"{path}: bad outputs {out}")
+    if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
+        raise AssertionError(f"{path}: token id out of range")
+
+
 def _serve(rec, path, make_engine, reqs, cfg):
     """Build an engine with make_engine() on a freshly reset peak-memory
     counter, then serve `reqs` to completion through its add_request and
@@ -3620,11 +3653,7 @@ def _serve(rec, path, make_engine, reqs, cfg):
     wall = time.perf_counter() - t0
     launches = _launch_counts()
     out = eng.finished
-    if sorted(out) != list(range(len(reqs))) or any(
-            len(v) != 32 for v in out.values()):
-        raise AssertionError(f"{path}: bad outputs {out}")
-    if not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
-        raise AssertionError(f"{path}: token id out of range")
+    _check_outputs(path, out, len(reqs), cfg)
     missing = [k for k in PATHS[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing} "
@@ -3757,6 +3786,182 @@ def phase_serve_kv(rec):
         out[path] = run
         del eng
     rec["serve_kv"] = out
+
+
+def _count_captures(eng):
+    """Give eng its decode blocks' device half now and wrap the step it
+    captures (_DecodeBlocks._step, which runs only at capture on the
+    card), so that it counts the kernel launches of each captured step;
+    returns {kv_window: {kernel: launches}}. Replays move no counter."""
+    eng._blocks = serving._DecodeBlocks(eng)
+    captured = {}
+    inner = eng._blocks._step
+
+    def counted(window):
+        before = _launch_counts()
+        out = inner(window)
+        captured[window] = {k: n - before[k] for k, n in
+                            _launch_counts().items() if n > before[k]}
+        return out
+
+    eng._blocks._step = counted
+    return captured
+
+
+def _block_replay_check(eng, reqs, steps=8):
+    """After admitting the first max_batch requests: `steps` eager decode
+    steps (step()'s forward and sample_next) from a snapshot of the cache
+    and the host state, then one block of `steps` from the restored
+    snapshot through the step graphs; returns whether tokens and both
+    caches' bytes are equal, and the block's ms (wall, its one read
+    included)."""
+    eng.reset()
+    for r in reqs[:eng.B]:
+        eng.add_request(r)
+    while eng._pf:
+        eng._advance_prefill()
+    snap = [(k.clone(), v.clone()) for k, v in eng.cache]
+    pos, last = eng.pos.copy(), eng.last_tok.copy()
+    gstate = eng.generator.get_state()
+    want = []
+    for _ in range(steps):
+        want.append(eng._decode())
+        eng.pos[eng.active] += 1
+        eng.last_tok[eng.active] = want[-1][eng.active]
+    want_cache = [(k.clone(), v.clone()) for k, v in eng.cache]
+    for (k, v), (k0, v0) in zip(eng.cache, snap):
+        k.copy_(k0)
+        v.copy_(v0)
+    del snap
+    eng.pos[:], eng.last_tok[:] = pos, last
+    eng.generator.set_state(gstate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng._read_block(eng._dispatch_block(eng.last_tok, eng.pos, steps))
+    ms = (time.perf_counter() - t0) * 1e3
+    same_toks = bool((got == np.stack(want)).all())
+    same_cache = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                     for kv, kv0 in zip(eng.cache, want_cache)
+                     for x, y in zip(kv, kv0))
+    del want_cache
+    eng.reset()
+    return same_toks, same_cache, ms
+
+
+def _serve_block(rec, path, make_engine, reqs, cfg, single_tokens):
+    """Build an engine with make_engine() on a freshly reset peak-memory
+    counter and serve `reqs` through run(reqs, decode_block=8), with every
+    kernel's launch count set to 0 just before and read just after; check
+    the outputs, that every kernel of `path` launched and that each
+    captured step launched its layout's KV append once a layer. Then the
+    same run again on the engine whose graphs exist (same tokens), and
+    _block_replay_check. Returns the run's record."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make_engine()
+    captured = _count_captures(eng)
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = eng.run(reqs, decode_block=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    _check_outputs(path, out, len(reqs), cfg)
+    missing = [k for k in PATHS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing} "
+                             f"({launches})")
+    appends = [k for k in PATHS[path] if k.startswith("kv_append")]
+    for window, counts in captured.items():
+        for k in appends:
+            if counts.get(k, 0) != cfg.num_layers:
+                raise AssertionError(
+                    f"{path}: the step captured at window {window} launched "
+                    f"{k} {counts.get(k, 0)} times, not once a layer")
+    for name, n in launches.items():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n
+    blocks = eng._blocks
+    n_tok = sum(len(v) for v in out.values())
+    tokens = [out[i] for i in sorted(out)]
+    run = dict(wall_s=wall, new_tokens=n_tok, tok_per_s=n_tok / wall,
+               launches=launches, tokens=tokens,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               graphs=sorted(blocks.graphs), capture_s=blocks.capture_s,
+               launches_per_captured_step={str(w): c for w, c in
+                                           captured.items()})
+    # the same run on the engine whose graphs exist
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.run(reqs, decode_block=8)
+    torch.cuda.synchronize()
+    run["warm_wall_s"] = time.perf_counter() - t0
+    run["warm_tok_per_s"] = n_tok / run["warm_wall_s"]
+    if again != out:
+        raise AssertionError(f"{path}: a second run on the same engine gave "
+                             "other tokens")
+    if single_tokens:     # information: run schedules otherwise than step()
+        same = sum(a == b for x, y in zip(tokens, single_tokens)
+                   for a, b in zip(x, y))
+        run["tokens_equal_to_decode_block_1"] = same
+    same_toks, same_cache, block_ms = _block_replay_check(eng, reqs)
+    run.update(replay_check_tokens=same_toks, replay_check_cache=same_cache,
+               replay_check_block_ms=block_ms,
+               graphs_after_check=sorted(blocks.graphs),
+               capture_s_total=blocks.capture_s,
+               peak_gib_with_check=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[{path}] {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s "
+        f"(graphs captured in the run: {len(captured)}, windows "
+        f"{sorted(captured)}, {blocks.capture_s:.2f} s of capture); warm "
+        f"{run['warm_tok_per_s']:.1f} tok/s; peak device memory "
+        f"{run['peak_gib']:.2f} GiB")
+    log(f"[{path}] launches per captured step: "
+        f"{run['launches_per_captured_step']}")
+    if single_tokens:
+        log(f"[{path}] {run['tokens_equal_to_decode_block_1']} of {n_tok} "
+            "tokens equal to the decode_block=1 run's")
+    log(f"[{path}] snapshot check: 8 eager steps against one block of 8, "
+        f"tokens {'equal' if same_toks else 'DIFFER'}, cache bytes "
+        f"{'equal' if same_cache else 'DIFFER'}; the block {block_ms:.1f} "
+        "ms with its read")
+    if not (same_toks and same_cache):
+        raise AssertionError(f"{path}: a block of 8 is not bit for bit 8 "
+                             "eager steps")
+    del eng
+    return run
+
+
+def phase_serve_block(rec):
+    """serve's model and requests through run(reqs, decode_block=8): Engine
+    over the flat bf16 cache and over the headed fp8 cache, each decode
+    step of a block a replay of the captured step graph of its window
+    bucket (_serve_block)."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    rec.setdefault("launches", {})
+    single = {"serve_block bf16 Engine": rec.get("serve", {}),
+              "serve_block fp8 Engine": rec.get("serve_kv", {}).get(
+                  "serve_kv fp8 Engine", {})}
+    out = {}
+    for path, make in (
+            ("serve_block bf16 Engine",
+             lambda: serving.Engine(params, cfg, max_batch=4)),
+            ("serve_block fp8 Engine",
+             lambda: serving.Engine(params, cfg, max_batch=4,
+                                    cache_dtype=FP8))):
+        run = _serve_block(rec, path, make, reqs, cfg,
+                           single[path].get("tokens"))
+        if "tok_per_s" in single[path]:
+            run["decode_block_1_tok_per_s"] = single[path]["tok_per_s"]
+            base = single[path]["tok_per_s"]
+            log(f"[{path}] against decode_block=1 in this call: "
+                f"{run['tok_per_s'] / base:.2f}x (warm "
+                f"{run['warm_tok_per_s'] / base:.2f}x)")
+        out[path] = run
+    rec["serve_block"] = out
 
 
 _MOE_MODEL = {}
@@ -4117,11 +4322,14 @@ def _kernel_profile(steps):
     return wall, sum(r[1] for r in rows), rows
 
 
-def _profile_engine(name, eng, cfg, chunk=256, decode=True):
+def _profile_engine(name, eng, cfg, chunk=256, decode=True, block=False):
     """Three slots decoding after 200-token prompts, then one tick that
     prefills a `chunk`-token prompt beside them (one chunk, if the engine's
     prefill_chunk allows), then, with `decode`, decode steps of all 4: 20
-    on the wall clock, 10 under torch.profiler."""
+    on the wall clock, 10 under torch.profiler; then, with `block`, decode
+    blocks of all 4 (step_block(10, waiters=False), each step a replay of
+    the captured step graph): one block to capture, 2 on the wall clock, 1
+    under torch.profiler."""
     rng = np.random.default_rng(3)
 
     def request(uid, n):
@@ -4135,7 +4343,7 @@ def _profile_engine(name, eng, cfg, chunk=256, decode=True):
     eng.add_request(request(3, chunk))
     out = {}
 
-    def report(what, n_steps, prof):
+    def report(what, n_steps, prof, keep=15):
         wall, kern, rows = prof
         copies = sum(c for k, _, c in rows if k.startswith(("Memcpy",
                                                              "Memset")))
@@ -4145,7 +4353,7 @@ def _profile_engine(name, eng, cfg, chunk=256, decode=True):
                          kernels_per_step=kernels / n_steps,
                          copies_per_step=copies / n_steps,
                          top=[dict(kernel=k, ms=ms, calls=c)
-                              for k, ms, c in rows[:15]])
+                              for k, ms, c in rows[:keep]])
         log(f"[profile] {name} {what}: {n_steps} step(s) {wall:.1f} ms "
             f"wall, kernels {kern:.1f} ms, idle "
             f"{100 * (1 - kern / wall):.1f}%; {kernels / n_steps:.1f} device "
@@ -4175,8 +4383,44 @@ def _profile_engine(name, eng, cfg, chunk=256, decode=True):
         f"{out['launches_per_decode_step']}")
     log(f"[profile] {name} decode step, 4 active slots: "
         f"{out['decode_step_ms']:.2f} ms (wall, 20 steps)")
+    # with `block`, every kernel and copy of the eager step is kept, to
+    # set beside the block's
     report("decode", 10, _kernel_profile(
-        lambda: [eng.step() for _ in range(10)]))
+        lambda: [eng.step() for _ in range(10)]), keep=100 if block else 15)
+    if not block:
+        return out
+    captured = _count_captures(eng)
+    eng.step_block(10, waiters=False)                    # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        eng.step_block(10, waiters=False)
+    torch.cuda.synchronize()
+    out["block_step_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    out["launches_per_captured_step"] = {str(w): c
+                                         for w, c in captured.items()}
+    log(f"[profile] {name} launches per captured step (counted at capture: "
+        f"a replay moves no counter): {out['launches_per_captured_step']}")
+    log(f"[profile] {name} block decode step, 4 active slots: "
+        f"{out['block_step_ms']:.2f} ms (wall, 2 blocks of 10)")
+    # the host's share of a block: enqueueing it (uploads, 10 replays, the
+    # copies, the event), waiting for its tokens, absorbing them
+    t0 = time.perf_counter()
+    blk = eng._run_decode_block(eng.last_tok, eng.pos, 10)
+    t1 = time.perf_counter()
+    toks = eng._read_block(blk)
+    t2 = time.perf_counter()
+    eng._absorb_block(toks, 10)
+    t3 = time.perf_counter()
+    out["block_host_ms"] = dict(enqueue=(t1 - t0) * 1e3,
+                                wait=(t2 - t1) * 1e3, absorb=(t3 - t2) * 1e3)
+    log(f"[profile] {name} a block of 10 on the host: enqueue "
+        f"{(t1 - t0) * 1e3:.2f} ms, wait for its tokens "
+        f"{(t2 - t1) * 1e3:.2f} ms, absorb {(t3 - t2) * 1e3:.2f} ms")
+    report("block_decode", 10, _kernel_profile(
+        lambda: eng.step_block(10, waiters=False)), keep=100)
+    if eng.active.sum() != 4:
+        raise AssertionError(f"profile {name}: a slot finished in a block")
     return out
 
 
@@ -4203,7 +4447,8 @@ def phase_profile(rec):
     the headed fp8 cache and in PagedEngine (fp8 pool, page size 16), its
     hybrid quantization in the
     hybrid Engine, and serve_moe's Mixtral in its Engine, 4 slots each
-    (_profile_engine); one training step of phase train; then a 512-token
+    (_profile_engine; the two Engines also in decode blocks, each step a
+    graph replay); one training step of phase train; then a 512-token
     prefill tick of the Llama Engine with nvfp4 and with W4A8 prefill
     GEMMs, and of the hybrid Engine. Device idle share = 1 - (summed
     kernel time) / wall; device kernels a step = the profiler's kernel
@@ -4212,11 +4457,12 @@ def phase_profile(rec):
     cfg = llama.LlamaConfig.llama3_8b()
     params, _ = _serve_model(cfg, dev)
     out = _profile_engine("bf16 Engine", serving.Engine(params, cfg,
-                                                        max_batch=4), cfg)
+                                                        max_batch=4), cfg,
+                          block=True)
     gc.collect()
     out["headed_fp8"] = _profile_engine(
         "fp8 Engine", serving.Engine(params, cfg, max_batch=4,
-                                     cache_dtype=FP8), cfg)
+                                     cache_dtype=FP8), cfg, block=True)
     gc.collect()
     out["paged_fp8"] = _profile_engine(
         "fp8 PagedEngine", serving.PagedEngine(params, cfg, max_batch=4,
@@ -4301,8 +4547,8 @@ def main(argv=None) -> int:
         with open(args.record, "w") as f:
             json.dump(rec, f, indent=1)
     if all(p in rec for p in ("kernels", "solutions", "serve", "serve_kv",
-                              "serve_moe", "serve_w4a8", "serve_hybrid",
-                              "train")):
+                              "serve_block", "serve_moe", "serve_w4a8",
+                              "serve_hybrid", "train")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

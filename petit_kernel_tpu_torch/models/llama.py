@@ -465,3 +465,42 @@ def cache_is_headed(ck: torch.Tensor, cfg: LlamaConfig) -> bool:
     if ck.shape[1] == cfg.num_kv_heads and ck.shape[2] != cfg.num_kv_heads:
         return True
     return False
+
+
+def decode_window(n: int, max_seq_len: int) -> int:
+    """The kv_window bucket that covers n positions: the smallest
+    power-of-two multiple of 128 >= n, capped at max_seq_len (the serving
+    engines' rule, so attention traffic tracks the actual context)."""
+    w = 128
+    while w < n:
+        w *= 2
+    return min(w, max_seq_len)
+
+
+@torch.inference_mode()
+def greedy_decode(params, cfg: LlamaConfig, prompt_tokens, max_new: int, *,
+                  fmt: str = "nvfp4", cache_dtype=torch.bfloat16
+                  ) -> torch.Tensor:
+    """Greedy generation on the device of params: one cached forward over
+    the prompt (B, T0), then token by token with argmax, over a cache
+    from init_cache on that device. Every step attends through the window
+    that covers T0 + max_new positions (decode_window). Returns the
+    max_new tokens, int32 (B, max_new)."""
+    dev = params["embed"].device
+    toks = torch.as_tensor(prompt_tokens).to(dev)
+    B, T0 = toks.shape
+    window = decode_window(T0 + max_new, cfg.max_seq_len)
+    cache = init_cache(cfg, B, cache_dtype, device=dev)
+    pos = torch.arange(T0, dtype=torch.int32, device=dev).expand(
+        B, T0).contiguous()
+    logits, cache = forward(params, toks, cfg, cache, pos, fmt=fmt,
+                            kv_window=window)
+    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+    out = [tok]
+    for t in range(max_new - 1):
+        p = torch.full((B, 1), T0 + t, dtype=torch.int32, device=dev)
+        logits, cache = forward(params, tok[:, None], cfg, cache, p, fmt=fmt,
+                                kv_window=window)
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1)

@@ -1,12 +1,23 @@
 """Continuous-batching serving engine for FP4 models (torch).
 
 Counterpart of petit_kernel_tpu/models/serving.py (Request, the prefill
-buckets, sample_next, Engine with run(decode_block=1) over a bf16 or fp8
-cache, and PagedEngine). The JAX engine compiles its steps with jit and
-donates the cache; this one runs eagerly and updates the cache tensors in
-place. Scheduling state lives on the host, as numpy arrays: slots,
-per-slot positions, the chunked-prefill queue. Sampled tokens are read
-back to the host once per step.
+buckets, sample_next, Engine with run(decode_block=N), step_block and the
+pipelined block drain over a bf16 or fp8 cache, and PagedEngine). The JAX
+engine compiles its steps with jit and donates the cache; this one runs
+eagerly and updates the cache tensors in place. Scheduling state lives on
+the host, as numpy arrays: slots, per-slot positions, the chunked-prefill
+queue. step() reads the sampled tokens back to the host once a step.
+
+Decode blocks (step_block, run(decode_block > 1)) run K decode steps for
+one host read of their tokens. On the card each step of a block is a
+replay of one captured CUDA graph of the decode step (llama.forward at
+T = 1, sample_next, then the step's own advance of the device-resident
+tokens and positions), one graph a kv_window bucket; step t of a block
+takes the bucket that step() would take there, so a block is bit for bit
+K step() calls from the same state while no slot finishes inside it. On
+the CPU the same steps run eagerly over the same buffers. Only the
+contiguous Engine over llama.forward takes blocks so far: PagedEngine and
+an Engine with forward_fn raise NotImplementedError.
 
 Engine takes a custom forward_fn (models/moe.make_engine_forward serves
 Mixtral through it) and a cache built by the caller. prefill_fmt="w4a8"
@@ -16,13 +27,14 @@ than llama.W4A8_MIN_M rows to the exact kernel). fmt="hybrid" serves a
 model quantized with llama.quantize_params(params, "hybrid"): its split
 layers run the hybrid GEMM, layers too narrow to split nvfp4. Every
 forward of an engine runs under torch.inference_mode(). Not ported yet:
-step_block and the pipelined block drain, SpecEngine and score_forward.
+SpecEngine and score_forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import time
 from typing import Optional
 
 import numpy as np
@@ -114,6 +126,164 @@ def sample_next(logits: torch.Tensor, generator: torch.Generator,
     return torch.where(temps > 0, sampled, greedy)
 
 
+@dataclasses.dataclass
+class _Block:
+    """A dispatched decode block: its (steps, B) tokens in host memory and,
+    on the card, the event after which they are there."""
+    host: torch.Tensor
+    steps: int
+    done: Optional[torch.cuda.Event] = None
+
+
+class _DecodeBlocks:
+    """The device half of an Engine's decode blocks: four static buffers
+    the steps of a block read and advance in place (toks (B, 1) int32, pos
+    (B, 1) int32, active (B,) bool as the write mask, temps (B,) f32), two
+    (max_seq_len, B) int32 output buffers a block's tokens go to, and on
+    the card one CUDA graph of the decode step a kv_window bucket.
+
+    On the card: host state reaches the static buffers once a block, from
+    pinned memory with non_blocking copies in stream order; a block's
+    tokens come back once, a non_blocking copy into pinned memory followed
+    by an event. The output and staging buffers alternate between blocks,
+    so the pipelined drain can enqueue one block while the last is read.
+    Graphs are captured lazily at the first use of their bucket on a side
+    stream of their own, after one eager warm-up of the forward on that
+    stream (so the split counters, kept per stream, and the tables the
+    kernels cache at first use are made outside any graph), into one
+    memory pool: they replay one at a
+    time on the caller's stream, and each keeps its outputs alive. A graph
+    holds the engine's params and cache tensors; replacing them needs a
+    new engine. A failed capture raises: there is no eager path on the
+    card. On the CPU each step runs eagerly over the same buffers."""
+
+    def __init__(self, eng: "Engine"):
+        self.eng = eng
+        dev = eng.device
+        B, S = eng.B, eng.cfg.max_seq_len
+        self.cuda = dev.type == "cuda"
+        shapes = dict(toks=((B, 1), torch.int32), pos=((B, 1), torch.int32),
+                      active=((B,), torch.bool), temps=((B,), torch.float32))
+        with torch.inference_mode():
+            for name, (shape, dtype) in shapes.items():
+                setattr(self, name, torch.zeros(shape, dtype=dtype,
+                                                device=dev))
+            self.outs = [torch.zeros((S, B), dtype=torch.int32, device=dev)
+                         for _ in range(2)]
+        pin = self.cuda
+        self.host_outs = [torch.zeros((S, B), dtype=torch.int32,
+                                      pin_memory=pin) for _ in range(2)]
+        # per parity: host (pinned) copies of the four static buffers, and
+        # the event after their last upload
+        self.staging = [{name: torch.zeros(shape, dtype=dtype, pin_memory=pin)
+                         for name, (shape, dtype) in shapes.items()}
+                        for _ in range(2)]
+        self.uploaded: list[Optional[torch.cuda.Event]] = [None, None]
+        self.parity = 0
+        # kv_window -> (graph, logits, next tokens); the outputs are static
+        self.graphs: dict[int, tuple] = {}
+        self.capture_s = 0.0
+        self.stream = torch.cuda.Stream(dev) if self.cuda else None
+        self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
+
+    def _upload(self, toks, pos) -> None:
+        """Copy the engine's active mask and temperatures, and with toks
+        (host (B,) arrays toks and pos) the tokens and positions, into the
+        static buffers, in stream order."""
+        eng, p = self.eng, self.parity
+        st, ev = self.staging[p], self.uploaded[p]
+        if ev is not None and not ev.query():
+            ev.synchronize()           # the staging's last upload is read
+        names = ["active", "temps"]
+        st["active"].numpy()[:] = eng.active
+        st["temps"].numpy()[:] = eng.temps
+        if toks is not None:
+            st["toks"].numpy()[:, 0] = toks
+            st["pos"].numpy()[:, 0] = pos
+            names += ["toks", "pos"]
+        for name in names:
+            getattr(self, name).copy_(st[name], non_blocking=self.cuda)
+        if self.cuda:
+            self.uploaded[p] = torch.cuda.Event()
+            self.uploaded[p].record()
+
+    def _step(self, window: int):
+        """One decode step over the static buffers: the forward at the
+        window, sample_next, then the step's own advance (active rows take
+        the sampled token; pos += active, so an idle row never walks past
+        the cache). Returns (logits (B, 1, V), next tokens (B,))."""
+        eng = self.eng
+        logits, _ = eng._forward(self.toks, eng.cache, self.pos,
+                                 kv_window=window, write_mask=self.active)
+        nxt = sample_next(logits[:, -1], eng.generator, self.temps,
+                          eng.top_k)
+        torch.where(self.active[:, None], nxt[:, None], self.toks,
+                    out=self.toks)
+        self.pos.add_(self.active[:, None])
+        return logits, nxt
+
+    def _capture(self, window: int) -> tuple:
+        """Capture _step at `window` into a graph (registering the engine's
+        generator, so that each replay draws fresh noise) and keep it."""
+        eng = self.eng
+        t0 = time.perf_counter()
+        s = self.stream
+        s.wait_stream(torch.cuda.current_stream(eng.device))
+        if not self.graphs:
+            # the forward alone, every row masked: it writes no cache row
+            # and draws no noise
+            with torch.cuda.stream(s):
+                eng._forward(self.toks, eng.cache, self.pos,
+                             kv_window=window,
+                             write_mask=torch.zeros_like(self.active))
+            torch.cuda.current_stream(eng.device).wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(eng.generator)
+        with torch.inference_mode(), torch.cuda.graph(graph, pool=self.pool,
+                                                      stream=s):
+            logits, nxt = self._step(window)
+        self.graphs[window] = (graph, logits, nxt)
+        self.capture_s += time.perf_counter() - t0
+        return self.graphs[window]
+
+    def step(self, window: int):
+        """One decode step of a block: on the card a replay of the
+        window's graph (captured at its first use), on the CPU _step.
+        Returns (logits, next tokens), the graph's static outputs on the
+        card."""
+        if not self.cuda:
+            return self._step(window)
+        graph, logits, nxt = (self.graphs.get(window)
+                              or self._capture(window))
+        graph.replay()
+        return logits, nxt
+
+    @torch.inference_mode()
+    def dispatch(self, toks, pos: np.ndarray, steps: int) -> _Block:
+        """Enqueue `steps` decode steps of the engine's active slots and
+        the copy of their tokens to the host; nothing waits on the device
+        (unless a bucket's graph is captured). toks None: start from the
+        tokens and positions the last block left on the device, whose
+        positions the host projects as `pos`. Step t attends through
+        eng._kv_window(pos=pos + t * active)."""
+        eng = self.eng
+        self._upload(toks, None if toks is None else pos)
+        out = self.outs[self.parity]
+        proj = pos.copy()
+        for t in range(steps):
+            _, nxt = self.step(eng._kv_window(pos=proj))
+            out[t].copy_(nxt)
+            proj[eng.active] += 1
+        host = self.host_outs[self.parity][:steps]
+        host.copy_(out[:steps], non_blocking=self.cuda)
+        done = None
+        if self.cuda:
+            done = torch.cuda.Event()
+            done.record()
+        self.parity ^= 1
+        return _Block(host, steps, done)
+
+
 class Engine:
     """Slot-based continuous batching over a llama-family FP4 model."""
 
@@ -147,6 +317,10 @@ class Engine:
         self.prefill_fmt = prefill_fmt or fmt
         if prefill_chunk is None and self.prefill_fmt == "w4a8":
             prefill_chunk = W4A8_PREFILL_CHUNK
+        # decode blocks capture llama.forward's step; blocks over a custom
+        # forward_fn are not ported yet (ROADMAP.md, queue 1 item 1)
+        self._blocks_unported = (None if forward_fn is None
+                                 else "an Engine with forward_fn")
         if forward_fn is None:
             if self.prefill_fmt != fmt \
                     and not {fmt, self.prefill_fmt} <= {"nvfp4", "w4a8"}:
@@ -188,6 +362,7 @@ class Engine:
         self.generated: dict[int, list[int]] = {}
         self.finished: dict[int, list[int]] = {}
         self._pf: list[_PrefillJob] = []   # chunked-prefill queue
+        self._blocks: Optional[_DecodeBlocks] = None   # made at first use
 
     def _init_cache(self, cache_dtype) -> None:
         self.cache = llama.init_cache(self.cfg, self.B, cache_dtype,
@@ -257,10 +432,7 @@ class Engine:
         n = min(len(job.req.tokens) - job.offset, cap)
         lb = min(_bucket_len(n, self.prefill_chunk),
                  self.cfg.max_seq_len - job.offset)
-        w = 128
-        while w < job.offset + lb:
-            w *= 2
-        return lb, min(w, self.cfg.max_seq_len)
+        return lb, llama.decode_window(job.offset + lb, self.cfg.max_seq_len)
 
     def _advance_prefill(self) -> None:
         """Advance the prefill queue by one chunk: every queued prompt whose
@@ -371,16 +543,17 @@ class Engine:
 
     # ------------------------------------------------------------------------
 
-    def _kv_window(self) -> Optional[int]:
+    def _kv_window(self, pos: Optional[np.ndarray] = None) -> Optional[int]:
         """Bucketed max attended length over active slots: a power-of-two
-        multiple of 128, so attention traffic tracks the actual context."""
+        multiple of 128 (llama.decode_window), so attention traffic tracks
+        the actual context. `pos` overrides self.pos with projected
+        positions (the steps of a decode block, where host state lags the
+        device)."""
         if not self.active.any():
             return None
-        need = int(self.pos[self.active].max()) + 1
-        w = 128
-        while w < need:
-            w *= 2
-        return min(w, self.cfg.max_seq_len)
+        p = self.pos if pos is None else pos
+        return llama.decode_window(int(p[self.active].max()) + 1,
+                                   self.cfg.max_seq_len)
 
     def _decode(self) -> np.ndarray:
         """One batched decode step; returns next-token ids on the host."""
@@ -416,18 +589,173 @@ class Engine:
                     self._finish(slot)
         return int(self.active.sum()) + len(self._pf)
 
+    # -- decode blocks --------------------------------------------------------
+
+    def _require_blocks(self) -> None:
+        if self._blocks_unported:
+            raise NotImplementedError(
+                f"decode blocks for {self._blocks_unported} are not ported "
+                "yet: they come with the paged and forward_fn engines "
+                "(ROADMAP.md, queue 1 item 1); use decode_block=1")
+
+    def _block_budget(self, max_steps: int, waiters: bool = True) -> int:
+        """Largest decode-block size that never writes KV past max_seq_len
+        for any active slot and, with `waiters`, does not overshoot the
+        shortest remaining request (so finishing slots free promptly for
+        queued admissions). Without waiters the block is capped only by the
+        longest remaining request: slots that finish inside it have their
+        surplus tokens discarded."""
+        k = max_steps
+        longest = 1
+        for slot in np.flatnonzero(self.active):
+            req = self.slot_req[slot]
+            k = min(k, self.cfg.max_seq_len - int(self.pos[slot]) - 1)
+            remaining = req.max_new_tokens - len(self.generated[req.uid])
+            longest = max(longest, remaining)
+            if waiters:
+                k = min(k, remaining)
+        return max(1, min(k, longest))
+
+    def step_block(self, max_steps: int, waiters: bool = True) -> int:
+        """Like step(), but decodes up to max_steps tokens for each active
+        slot with one host read of their tokens (_run_decode_block). Slots that
+        hit eos or max_new_tokens inside the block have their surplus
+        tokens discarded; the surplus KV they wrote is overwritten position
+        by position before it is ever attended (the chunked-prefill
+        contract). A block of at most one step falls back to step();
+        prefill chunks still advance one a call. Returns #active+queued."""
+        self._require_blocks()
+        if self._pf:
+            self._advance_prefill()
+        if not self.active.any():
+            return len(self._pf)
+        steps = self._block_budget(max_steps, waiters or bool(self._pf))
+        if steps <= 1:
+            return self.step()
+        out = self._read_block(self._run_decode_block(
+            self.last_tok, self.pos, steps))
+        self._absorb_block(out, steps)
+        return int(self.active.sum()) + len(self._pf)
+
+    def _absorb_block(self, out: np.ndarray, steps: int) -> None:
+        """Host half of a decode block: append each active slot's tokens,
+        advance pos, finish slots at eos, max_new_tokens or max_seq_len
+        (the surplus tokens past a finish are discarded)."""
+        for slot in np.flatnonzero(self.active):
+            req = self.slot_req[slot]
+            done = False
+            for t in range(steps):
+                tok = int(out[t, slot])
+                self.generated[req.uid].append(tok)
+                self.pos[slot] += 1
+                self.last_tok[slot] = tok
+                done = (len(self.generated[req.uid]) >= req.max_new_tokens
+                        or tok == req.eos_id
+                        or self.pos[slot] + 1 >= self.cfg.max_seq_len)
+                if done:
+                    break
+            if done:
+                self._finish(slot)
+
+    def _grow_for_block(self, pos: np.ndarray, steps: int) -> None:
+        """Pre-dispatch capacity hook: the contiguous cache needs nothing
+        (the budget already keeps every write below max_seq_len)."""
+
+    def _dispatch_block(self, toks: Optional[np.ndarray], pos: np.ndarray,
+                        steps: int) -> _Block:
+        """Enqueue one block of `steps` decode steps over the active slots
+        and its tokens' copy to the host; no host read. toks None: start
+        from the tokens and positions the block before left on the device
+        (the pipelined drain), `pos` being the host's projection of them."""
+        if self._blocks is None:
+            self._blocks = _DecodeBlocks(self)
+        return self._blocks.dispatch(toks, pos, steps)
+
+    def _run_decode_block(self, toks: np.ndarray, pos: np.ndarray,
+                          steps: int) -> _Block:
+        """Device half of step_block: `steps` chained decode steps from the
+        host state."""
+        self._grow_for_block(self.pos, steps)
+        return self._dispatch_block(toks, pos, steps)
+
+    @staticmethod
+    def _read_block(blk: _Block) -> np.ndarray:
+        """The (steps, B) tokens of a dispatched block, once they are on
+        the host: the block's one host read."""
+        if blk.done is not None:
+            blk.done.synchronize()
+        return blk.host.numpy().copy()
+
+    def _drain_blocks_pipelined(self, max_steps: int) -> None:
+        """Decode all active slots with one block always in flight: block
+        N+1 is enqueued from the tokens and positions block N leaves on the
+        device, with the active mask the host has then (one block stale,
+        as in the JAX engine), before block N's tokens are read, so the
+        read and the absorb overlap device work. Token streams equal the
+        sequential path's: slots are independent, a slot that finished
+        inside block N has its surplus from block N+1 discarded, and the
+        projected budget keeps every write below max_seq_len. An unread
+        last block (every slot finished inside the one before) is
+        discarded. run() takes this path when no admission waits."""
+        def budget(extra: int) -> int:
+            k, longest = max_steps, 0
+            for slot in np.flatnonzero(self.active):
+                req = self.slot_req[slot]
+                k = min(k, self.cfg.max_seq_len
+                        - (int(self.pos[slot]) + extra) - 1)
+                longest = max(longest, req.max_new_tokens
+                              - len(self.generated[req.uid]) - extra)
+            return max(0, min(k, longest))
+
+        s1 = budget(0)
+        if s1 <= 0:
+            return
+        if s1 == 1:
+            self.step()
+            return
+        self._grow_for_block(self.pos, s1)
+        blk1 = self._dispatch_block(self.last_tok, self.pos, s1)
+        while True:
+            s2 = budget(s1)
+            blk2 = None
+            if s2 > 1:
+                pos_proj = self.pos.copy()
+                pos_proj[self.active] += s1
+                self._grow_for_block(pos_proj, s2)
+                blk2 = self._dispatch_block(None, pos_proj, s2)
+            self._absorb_block(self._read_block(blk1), s1)
+            if blk2 is None or not self.active.any():
+                return
+            blk1, s1 = blk2, s2
+
     def run(self, requests: list[Request],
             decode_block: int = 1) -> dict[int, list[int]]:
         """Serve requests to completion with continuous batching: new
-        requests join as slots free up, decode proceeds every tick. Only
-        decode_block=1 exists so far (decode blocks are not ported)."""
-        if decode_block != 1:
-            raise NotImplementedError("decode_block > 1 is not ported yet")
+        requests join as slots free up, decode proceeds every tick.
+        decode_block > 1 decodes up to that many steps a host read (blocks):
+        with no slot decoding, the prefill backlog is drained in one burst;
+        with no prefill pending, the pipelined drain runs when no request
+        waits, else step_block(decode_block, waiters=True). Greedy streams
+        equal decode_block=1's. Only the contiguous Engine over
+        llama.forward takes blocks (NotImplementedError otherwise)."""
+        if decode_block > 1:
+            self._require_blocks()
         pending = list(requests)
         while pending or self.active.any() or self._pf:
             while pending and self.has_capacity():
                 self.add_request(pending.pop(0))
-            self.step()
+            if decode_block > 1 and not self.active.any():
+                # nothing decodes: the chunk-a-tick pacing bounds decode
+                # latency, which is moot here, so admit the backlog at once
+                while self._pf:
+                    self._advance_prefill()
+            if decode_block > 1 and not self._pf:
+                if not pending:
+                    self._drain_blocks_pipelined(decode_block)
+                else:
+                    self.step_block(decode_block, waiters=True)
+            else:
+                self.step()
         return dict(self.finished)
 
 
@@ -455,6 +783,7 @@ class PagedEngine(Engine):
                          cache_dtype=cache_dtype, top_k=top_k, seed=seed,
                          prefill_fmt=prefill_fmt,
                          prefill_chunk=prefill_chunk)
+        self._blocks_unported = "PagedEngine"
 
     def _init_cache(self, cache_dtype) -> None:
         self.cache = None

@@ -58,17 +58,27 @@ body) at full Llama-3-8B widths, m = 130 and, on w_down, 2048, two
 launches the same bits, the weight cache bit for bit the plain tile, each
 launch counted in wgmma_launches, a CUDA-graph replay bit for bit the
 eager calls; every listed solution id through the public entry; the
-L2-flushing timer.
+L2-flushing timer; the Engine's decode blocks on a narrow 3-layer Llama
+(flat bf16 and headed fp8 caches): a block's steps, each a replay of the
+captured step graph of its window bucket, bit for bit the same number of
+eager step() decodes from a snapshot of the same state (tokens, logits at
+every step, both caches' bytes; one slot sampling at temperature 0.7),
+also across a bucket, the split counters zero after, the block's dispatch
+under torch.cuda.set_sync_debug_mode("error"), the pipelined drain equal
+to sequential step_block calls and to decode_block=1, and one graph a
+bucket after a run through three.
 """
 
 import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from petit_kernel_tpu_torch.models import llama as tllama
 from petit_kernel_tpu_torch.models import moe as tmoe
+from petit_kernel_tpu_torch.models import serving as tserving
 from petit_kernel_tpu_torch.numerics import reference as qref
 from petit_kernel_tpu_torch.ops import gemm as tgemm
 from petit_kernel_tpu_torch.ops import hybrid as thybrid
@@ -1621,3 +1631,205 @@ def test_cuda_time_returns_a_positive_median(gen):
     t_warm = benchlib.cuda_time(lambda: a @ a, iters=5, warmup=1,
                                 flush_l2=False)
     assert 0 < t_warm < 1.0
+
+
+# -- decode blocks: the Engine's step graphs --------------------------------
+
+_BLOCK_CFG = tllama.LlamaConfig.tiny(num_layers=3, max_seq_len=512)
+_BLOCK_DTYPES = {"flat bf16": torch.bfloat16,
+                 "headed fp8": torch.float8_e4m3fn}
+
+
+@pytest.fixture(scope="module")
+def block_params():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the step graphs have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return tllama.quantize_params(tllama.init_params(_BLOCK_CFG, g))
+
+
+def _block_engine(params, layout, prompt_lens=(123, 40),
+                  temps=(0.0, 0.7)):
+    """Engine(max_batch=2) with both slots decoding after one admission;
+    prompts of prompt_lens seeded tokens, 200 new tokens each."""
+    eng = tserving.Engine(params, _BLOCK_CFG, max_batch=2,
+                          cache_dtype=_BLOCK_DTYPES[layout], seed=7)
+    rng = torch.Generator().manual_seed(1)
+    for i, (n, t) in enumerate(zip(prompt_lens, temps)):
+        toks = torch.randint(0, _BLOCK_CFG.vocab_size, (n,), generator=rng)
+        eng.add_request(tserving.Request(uid=i, tokens=toks.numpy().astype(
+            "int32"), max_new_tokens=200, temperature=t))
+    while eng._pf:
+        eng._advance_prefill()
+    assert eng.active.all()
+    return eng
+
+
+def _block_snapshot(eng):
+    return ([(k.clone(), v.clone()) for k, v in eng.cache], eng.pos.copy(),
+            eng.last_tok.copy(), eng.generator.get_state())
+
+
+def _block_restore(eng, snap):
+    cache, pos, last, gstate = snap
+    for (k, v), (k0, v0) in zip(eng.cache, cache):
+        k.copy_(k0)
+        v.copy_(v0)
+    eng.pos[:], eng.last_tok[:] = pos, last
+    eng.generator.set_state(gstate)
+
+
+def _cache_equal(a, b):
+    return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for kv_a, kv_b in zip(a, b) for x, y in zip(kv_a, kv_b))
+
+
+def _eager_then_block(eng, steps):
+    """From one snapshot: `steps` eager decodes (step()'s forward and
+    sample_next), then, from the restored snapshot, one block of `steps`
+    through the engine's step graphs. Returns (eager tokens, eager logits,
+    eager cache, block tokens, block logits)."""
+    snap = _block_snapshot(eng)
+    want_logits, want_toks = [], []
+    inner = eng._decode_logits
+
+    def keep():
+        lg = inner()
+        want_logits.append(lg.clone())
+        return lg
+
+    eng._decode_logits = keep
+    for _ in range(steps):
+        want_toks.append(eng._decode())
+        eng.pos[eng.active] += 1
+        eng.last_tok[eng.active] = want_toks[-1][eng.active]
+    eng._decode_logits = inner
+    torch.cuda.synchronize()
+    want_cache = [(k.clone(), v.clone()) for k, v in eng.cache]
+    _block_restore(eng, snap)
+    if eng._blocks is None:
+        eng._blocks = tserving._DecodeBlocks(eng)
+    blocks = eng._blocks
+    got_logits = []
+    inner_step = blocks.step
+
+    def step(window):
+        lg, nxt = inner_step(window)
+        got_logits.append(lg.clone())
+        return lg, nxt
+
+    blocks.step = step
+    out = eng._read_block(eng._dispatch_block(eng.last_tok, eng.pos, steps))
+    del blocks.step
+    return (np.stack(want_toks), want_logits, want_cache, out, got_logits)
+
+
+@pytest.mark.parametrize("layout", sorted(_BLOCK_DTYPES))
+def test_block_step_graph_replays_bit_for_bit_eager_steps(block_params,
+                                                          layout):
+    """A block of 3 steps in one window bucket: the step graph captured at
+    its first use and replayed 3 times gives the eager steps' tokens, the
+    logits of each step and both caches' bytes bit for bit (slot 1 samples
+    at temperature 0.7 from the engine's generator). The capture counted
+    the layout's KV append once a layer."""
+    eng = _block_engine(block_params, layout, prompt_lens=(40, 30))
+    append = (attention.kv_append_headed if layout == "headed fp8"
+              else attention.kv_append)
+    eng._blocks = tserving._DecodeBlocks(eng)
+    captured = []
+    inner = eng._blocks._step
+
+    def counted(window):
+        before = append.launches
+        out = inner(window)
+        captured.append(append.launches - before)
+        return out
+
+    eng._blocks._step = counted
+    want, want_lg, want_cache, got, got_lg = _eager_then_block(eng, 3)
+    np.testing.assert_array_equal(got, want)
+    for g, w in zip(got_lg, want_lg):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert _cache_equal(eng.cache, want_cache)
+    assert list(eng._blocks.graphs) == [128]
+    # one capture of the step; the replays count nothing
+    assert captured == [_BLOCK_CFG.num_layers]
+
+
+@pytest.mark.parametrize("layout", sorted(_BLOCK_DTYPES))
+def test_block_across_a_window_bucket_bit_for_bit(block_params, layout):
+    """A block of 6 steps from position 123: its steps attend through
+    windows 128, 128, 128, 128, 256, 256 (two graphs), bit for bit 6 eager
+    steps from a snapshot of the same state; every split counter reads
+    zero after the block."""
+    eng = _block_engine(block_params, layout)
+    want, want_lg, want_cache, got, got_lg = _eager_then_block(eng, 6)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    for g, w in zip(got_lg, want_lg):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert _cache_equal(eng.cache, want_cache)
+    assert sorted(eng._blocks.graphs) == [128, 256]
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+def test_block_dispatch_never_syncs(block_params):
+    """With the bucket's graph captured, a block's dispatch (uploads, 4
+    replays, the tokens' copy to pinned memory, the event) runs under
+    torch.cuda.set_sync_debug_mode("error"); its read comes after."""
+    eng = _block_engine(block_params, "flat bf16", prompt_lens=(40, 30))
+    eng.step_block(2, waiters=False)            # captures window 128
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blk = eng._dispatch_block(eng.last_tok, eng.pos, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = eng._read_block(blk)
+    assert out.shape == (4, 2) and list(eng._blocks.graphs) == [128]
+
+
+def _block_requests(n_new=20):
+    rng = torch.Generator().manual_seed(2)
+    return [tserving.Request(
+        uid=i, tokens=torch.randint(0, _BLOCK_CFG.vocab_size, (n,),
+                                    generator=rng).numpy().astype("int32"),
+        max_new_tokens=n_new + 3 * i) for i, n in enumerate((50, 17))]
+
+
+def test_pipelined_drain_equals_sequential_step_block(block_params):
+    """Greedy, 2 requests of 20 and 23 new tokens: run(decode_block=4) (the
+    burst admission, then the pipelined drain) gives the tokens of
+    sequential step_block(4, waiters=False) calls after the same admission,
+    and those of decode_block=1."""
+    def make():
+        return tserving.Engine(block_params, _BLOCK_CFG, max_batch=2)
+
+    drained = make().run(_block_requests(), decode_block=4)
+    eng = make()
+    for r in _block_requests():
+        eng.add_request(r)
+    while eng._pf:
+        eng._advance_prefill()
+    while eng.active.any():
+        eng.step_block(4, waiters=False)
+    assert drained == eng.finished
+    assert drained == make().run(_block_requests())
+
+
+def test_one_step_graph_a_window_bucket(block_params):
+    """A request decoding from position 100 to 330 runs through the buckets
+    128, 256 and 512: the engine holds one graph for each, and the split
+    counters read zero after."""
+    eng = tserving.Engine(block_params, _BLOCK_CFG, max_batch=2)
+    rng = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, _BLOCK_CFG.vocab_size, (100,), generator=rng)
+    out = eng.run([tserving.Request(uid=0, tokens=toks.numpy().astype(
+        "int32"), max_new_tokens=230)], decode_block=8)
+    torch.cuda.synchronize()
+    assert len(out[0]) == 230
+    assert sorted(eng._blocks.graphs) == [128, 256, 512]
+    assert eng._blocks.capture_s > 0
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
