@@ -121,7 +121,16 @@ Phases (any failure raises and the script exits non-zero):
              that and W4A8's own distance from nvfp4 on the CPU; and the
              loss and gradients of a 1-layer nvfp4 Llama (64 tokens) on the
              card (dequant kernel) against the CPU, each gradient within
-             2^-5 * max|CPU gradient|
+             2^-5 * max|CPU gradient|; score_forward of the 2-layer Llama's
+             Engine (flat bf16) and fp8 PagedEngine (page size 16) and of
+             the 1-layer Mixtral's Engine on the card (flash prefill
+             kernels over a scratch cache) against the CPU prefill chunk,
+             the same computation, within 2^-5 * max|logits|; and the
+             Llama's score_forward at L = 2047 with max_batch 4 (flash
+             prefill at T = L over a 2048 window, the FP4 GEMM at m =
+             8188) in the flat bf16 Engine, the headed fp8 Engine and the
+             fp8 PagedEngine against the CPU's chunk of the same KV dtype,
+             within the same bound
   6 serve    the full 32-layer Llama-3-8B, random nvfp4 weights quantized
              on the card, Engine(max_batch=4) serving 8 greedy requests of
              32 new tokens over the flat bf16 cache
@@ -129,10 +138,15 @@ Phases (any failure raises and the script exits non-zero):
              Engine(cache_dtype=float8_e4m3fn) (headed fp8 cache) and
              PagedEngine(page_size=16, cache_dtype=float8_e4m3fn); every
              page returns to the pool; tokens/s, peak device memory and
-             KV bytes of each cache beside serve's
+             KV bytes of each cache beside serve's; then each scores 8
+             seeded (context, continuation) pairs through
+             eval.loglikelihood(engine=...) (score_forward), seconds and
+             scores as information, failing on a non-finite score
   8 serve_block the same model and requests through run(reqs,
-             decode_block=8) in Engine (flat bf16 cache) and Engine
-             (cache_dtype=float8_e4m3fn, headed fp8 cache): the burst
+             decode_block=8) in Engine (flat bf16 cache), Engine
+             (cache_dtype=float8_e4m3fn, headed fp8 cache) and PagedEngine
+             (fp8 pool, page size 16; each block's pages taken up front,
+             its steps reading a static copy of the block table): the burst
              admission, step_block while requests wait, then the
              pipelined drain, each decode step of a block a replay of the
              captured CUDA graph of the step at its kv_window bucket;
@@ -143,11 +157,14 @@ Phases (any failure raises and the script exits non-zero):
              peak memory, the share of tokens equal to the decode_block=1
              runs (information: run schedules otherwise); fails unless
              every kernel of the path launched, each captured step
-             launched its layout's KV append once a layer (counted at
-             capture: a replay moves no counter), and, after admitting 4
-             requests, 8 eager steps from a snapshot equal one block of 8
-             from the restored snapshot bit for bit (tokens and cache
-             bytes)
+             launched its layout's KV append once a layer (the paged step
+             also paged decode attention; counted at capture: a replay
+             moves no counter), every page is back in the pool, and,
+             after admitting 4 requests, 8 eager steps from a snapshot
+             (the allocator included) equal one block of 8 from the
+             restored snapshot bit for bit (tokens and cache bytes; for
+             the paged pool each slot's K and V gathered through its own
+             table, since a block's pages differ from eager steps')
   9 serve_w4a8 serve's model and requests with W4A8 prefill:
              Engine(max_batch=4, prefill_fmt="w4a8") over the flat bf16
              cache and PagedEngine(page_size=16, cache_dtype=fp8,
@@ -172,16 +189,24 @@ Phases (any failure raises and the script exits non-zero):
              attention, random weights quantized on the card) through
              Engine(max_batch=4, forward_fn=moe.make_engine_forward(cfg))
              over the flat bf16 cache, serving the same 8 requests; prints
-             the capacity drops of one 256-token chunk per layer
+             the capacity drops of one 256-token chunk per layer; then the
+             same model and requests through run(reqs, decode_block=8) as
+             serve_block runs them (each captured step: grouped_mul three
+             times a layer and the flat KV append once; tokens/s beside the
+             decode_block=1 run, graphs, capture seconds, peak memory
+             beside the eager run's, the 8-step snapshot check)
  13 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16; and over the headed
-             fp8 cache; both also a block of 10 decode steps through
-             step_block, each step a graph replay), PagedEngine (Llama,
-             fp8, page size 16), the hybrid Engine and the Mixtral Engine,
+             fp8 cache), PagedEngine (Llama, fp8, page size 16), the
+             hybrid Engine and the Mixtral Engine, all but the hybrid
+             Engine also in a block of 10 decode steps through
+             step_block, each step a graph replay,
              one 512-token prefill tick of the Llama Engine with nvfp4 and
              with W4A8 prefill and of the hybrid Engine, and one training
              step: kernels by device time, device kernels a step and the
-             device's idle share (PERF.md section 5)
+             device's idle share (PERF.md section 5); a trace of ten decode
+             steps that holds fewer than ten appends a layer lost records:
+             it is taken again, up to three times, then the phase fails
  14 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
@@ -245,8 +270,9 @@ Each engine run of phases 6-10 and 12 (and the weight-cache run of phase 9,
 the training run of phase 11 and the sweep and table runs of phase 4) sets
 every kernel's launch count to 0 before it and fails if a kernel of its
 path did not launch; an engine run also counts the launches inside decode
-steps, per decode step (in phase 8 per captured step), and fails unless
-each decode step launched its layout's KV append once a layer. The line
+steps, per decode step (in the block runs of phases 8 and 12 per
+captured step), and fails unless each decode step launched its layout's
+KV append once a layer. The line
 before the last is the card's `nvidia-smi` name and power limit, the one
 before it a JSON object with each kernel's launches (summed over those
 runs), max abs error, times, bound and library time (phases 3 and 4). The
@@ -278,6 +304,7 @@ import torch
 
 from petit_kernel_tpu_torch import _cli as port_cli
 from petit_kernel_tpu_torch import bench as port_bench
+from petit_kernel_tpu_torch.models import eval as port_eval
 from petit_kernel_tpu_torch.models import llama, moe, paged, serving
 from petit_kernel_tpu_torch.ops import _build, autotune, gemm
 from petit_kernel_tpu_torch.ops import layout
@@ -456,6 +483,13 @@ PATHS = {
     "serve_block fp8 Engine": ("fp4_gemm", "fp4_gemm_prefill",
                                "decode_attention_headed",
                                "prefill_attention_headed", "kv_append_headed"),
+    "serve_block fp8 PagedEngine": ("fp4_gemm", "fp4_gemm_prefill",
+                                    "paged_decode_attention",
+                                    "paged_prefill_attention",
+                                    "kv_append_paged"),
+    "serve_moe Mixtral Engine decode_block=8": (
+        "grouped_fp4_gemm", "fp4_gemm", "fp4_gemm_prefill",
+        "decode_attention", "prefill_attention", "kv_append"),
     "serve_hybrid bf16 Engine": ("hybrid_gemm", "decode_attention",
                                  "prefill_attention", "kv_append"),
     "train nvfp4 Llama": ("fp4_gemm", "fp4_gemm_prefill", "fp4_dequant"),
@@ -463,6 +497,12 @@ PATHS = {
                         "fp4_gemm_hp", "fp4_gemm_hp_wc",
                         "fp4_gemm_hp_wc_16row", "fp4_gemm_hp_prefill",
                         "fp4_gemm_hp_wc_prefill"),
+}
+# the launches a layer each captured decode step of a serve_block or
+# serve_moe block run must count, beyond its path's KV append (once)
+CAPTURED_PER_LAYER = {
+    "serve_block fp8 PagedEngine": {"paged_decode_attention": 1},
+    "serve_moe Mixtral Engine decode_block=8": {"grouped_fp4_gemm": 3},
 }
 FP8 = torch.float8_e4m3fn
 
@@ -3251,9 +3291,27 @@ def _random_quantized(cfg, gen):
     return llama.quantize_params(llama.init_params(cfg, gen), "nvfp4")
 
 
+def _check_score(name, got, want, out):
+    """An engine's score_forward on the card (its flash prefill kernel)
+    against the CPU's prefill logits of the same chunk: within 2^-5 *
+    max|logits| (row by row, so a long chunk's f32 copies stay small)."""
+    bound_ = 2 ** -5 * max(w.float().abs().max().item() for w in want)
+    err = max((g.float().cpu() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    log(f"[parity] {name} score_forward logits max abs err {err:.4e} "
+        f"(bound {bound_:.4e})")
+    if not math.isfinite(err) or err > bound_:
+        raise AssertionError(f"parity {name} score_forward: {err} > "
+                             f"{bound_}")
+    out[f"{name} score_forward"] = err
+
+
 def phase_parity(rec):
     """2 layers at full Llama-3-8B width: card (kernels) vs CPU (twins),
-    over the flat bf16 cache and over an fp8 page pool of page size 16."""
+    over the flat bf16 cache and over an fp8 page pool of page size 16;
+    then the score_forward of an Engine and of an fp8 PagedEngine on the
+    card against the CPU prefill chunk (at T = 64 the same computation: a
+    zeroed cache, positions arange(64), window 128)."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b(num_layers=2)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -3282,11 +3340,18 @@ def phase_parity(rec):
         return (run(toks, torch.arange(T, device=d)[None]),
                 run(nxt, torch.full((1, 1), T, device=d)))
 
+    engines = {"flat bf16": lambda: serving.Engine(params, cfg, max_batch=1),
+               "paged fp8 ps=16": lambda: serving.PagedEngine(
+                   params, cfg, max_batch=1, page_size=16, cache_dtype=FP8)}
     out = {}
     for cache_name, fn in (("flat bf16", flat), ("paged fp8 ps=16", paged_fp8)):
         got, want = (tuple(x.float().cpu() for x in fn(p, d))
                      for p, d in ((params, dev),
                                   (cpu_params, torch.device("cpu"))))
+        eng = engines[cache_name]()
+        _check_score(f"{cache_name} {type(eng).__name__}",
+                     eng.score_forward(toks), want[0], out)
+        del eng
         for step, g, w in zip(("prefill", "decode"), got, want):
             bound = 2 ** -5 * w.abs().max().item()
             err = (g - w).abs().max().item()
@@ -3296,12 +3361,48 @@ def phase_parity(rec):
                 raise AssertionError(f"parity {cache_name} {step}: {err} > "
                                      f"{bound}")
             out[f"{cache_name} {step}"] = err
+    out.update(_long_score_parity(cfg, params, cpu_params))
     out.update(_w4a8_parity(cfg, params, cpu_params, rng))
     del params, cpu_params
     out.update(_hybrid_parity(cfg))
     out.update(_grad_parity())
     out.update(_moe_parity())
     rec["parity"] = out
+
+
+def _long_score_parity(cfg, params, cpu_params, L=2047, B=4):
+    """score_forward at the length eval gives it near max_seq_len: L =
+    2047 (no multiple of 16; window 2048) with max_batch 4, so flash
+    prefill runs at T = L over the whole window and the 64-row FP4 GEMM at
+    m = B * L = 8188. The flat bf16 Engine, the headed fp8 Engine and the
+    fp8 PagedEngine (page size 16) on the card against the CPU's chunk of
+    the same KV dtype, within 2^-5 * max|logits|: the flat bf16 Engine's
+    for bf16, the headed fp8 Engine's for both fp8 engines (a page pool
+    holds the same fp8 K and V; a CPU chunk of this size takes about 80 s
+    on 8 host cores, most of it the bf16 lm_head)."""
+    engines = {
+        "flat bf16 Engine": ("bf16", lambda p: serving.Engine(
+            p, cfg, max_batch=B)),
+        "headed fp8 Engine": ("fp8", lambda p: serving.Engine(
+            p, cfg, max_batch=B, cache_dtype=FP8)),
+        "paged fp8 ps=16 PagedEngine": ("fp8", lambda p: serving.PagedEngine(
+            p, cfg, max_batch=B, page_size=16, cache_dtype=FP8))}
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(B, L)).astype(np.int64)
+    want, out = {}, {}
+    for name, (dtype, make) in engines.items():
+        got = make(params).score_forward(toks)
+        if got.shape != (B, L, cfg.vocab_size):
+            raise AssertionError(f"parity {name} L={L}: logits "
+                                 f"{tuple(got.shape)}")
+        if dtype not in want:
+            t0 = time.perf_counter()
+            want[dtype] = make(cpu_params).score_forward(toks)
+            log(f"[parity] {name} L={L} B={B}: the CPU's chunk took "
+                f"{time.perf_counter() - t0:.1f} s")
+        _check_score(f"{name} L={L} B={B}", got, want[dtype], out)
+        del got
+    return out
 
 
 def _w4a8_parity(cfg, params, cpu_params, rng):
@@ -3541,7 +3642,8 @@ def _moe_parity():
     """1 layer at full Mixtral-8x7B width over the flat bf16 cache: a
     64-token prefill chunk and one decode step on the card (grouped and
     fused GEMM, attention kernels) and on the CPU (plain twins, one expert
-    dequantized at a time); logits within 2^-5 * max|logits|."""
+    dequantized at a time); logits within 2^-5 * max|logits|; and the
+    Mixtral Engine's score_forward on the card against the CPU chunk."""
     dev = torch.device("cuda")
     cfg = moe.MixtralConfig.mixtral_8x7b(num_layers=1)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -3571,6 +3673,10 @@ def _moe_parity():
         if not math.isfinite(err) or err > bound_:
             raise AssertionError(f"parity Mixtral {step}: {err} > {bound_}")
         out[f"Mixtral flat bf16 {step}"] = err
+    eng = serving.Engine(params, cfg, max_batch=1,
+                         forward_fn=moe.make_engine_forward(cfg))
+    _check_score("Mixtral flat bf16 Engine", eng.score_forward(toks),
+                 want[0], out)
     return out
 
 
@@ -3616,7 +3722,7 @@ def _serve_requests(cfg):
         for i, n in enumerate(lens)]
 
 
-def _kv_bytes(tensors) -> int:
+def _kv_size(tensors) -> int:
     return sum(t.numel() * t.element_size() for kv in tensors for t in kv)
 
 
@@ -3732,7 +3838,7 @@ def phase_serve(rec):
     run, eng = _serve(rec, "serve bf16 Engine",
                       lambda: serving.Engine(params, cfg, max_batch=4),
                       reqs, cfg)
-    run.update(prompt_lens=lens, init_s=t_init, kv_bytes=_kv_bytes(eng.cache))
+    run.update(prompt_lens=lens, init_s=t_init, kv_bytes=_kv_size(eng.cache))
     rec["serve"] = run
     log(f"[serve] includes prefill of {sum(lens)} prompt tokens; flat bf16 "
         f"KV cache {run['kv_bytes'] / 2**20:.1f} MiB")
@@ -3761,11 +3867,8 @@ def phase_serve_kv(rec):
         run, eng = _serve(rec, path, make, reqs, cfg)
         if isinstance(eng, serving.PagedEngine):
             pc = eng.pc
-            if eng.pages_in_use() != 0 or sorted(pc.free) != list(
-                    range(pc.num_pages)):
-                raise AssertionError(f"{path}: {eng.pages_in_use()} pages "
-                                     "still in use after the run")
-            run["kv_bytes"] = _kv_bytes(pc.pages)
+            _pages_back(path, eng)
+            run["kv_bytes"] = _kv_size(pc.pages)
             page_bytes = run["kv_bytes"] // (pc.num_pages + 1)
             run["peak_kv_bytes_in_use"] = run["peak_pages_in_use"] * page_bytes
             log(f"[{path}] pool {run['kv_bytes'] / 2**20:.1f} MiB "
@@ -3774,7 +3877,7 @@ def phase_serve_kv(rec):
                 f"{run['peak_kv_bytes_in_use'] / 2**20:.1f} MiB in use; "
                 f"all pages back in the pool")
         else:
-            run["kv_bytes"] = _kv_bytes(eng.cache)
+            run["kv_bytes"] = _kv_size(eng.cache)
         log(f"[{path}] KV {run['kv_bytes'] / 2**20:.1f} MiB against "
             f"{flat_bytes / 2**20:.1f} MiB for serve's flat bf16 cache")
         if bf16_tokens:       # information: fp8 KV against bf16 KV streams
@@ -3783,9 +3886,32 @@ def phase_serve_kv(rec):
             run["tokens_equal_to_bf16"] = same
             log(f"[{path}] {same} of {run['new_tokens']} tokens equal to "
                 "the bf16 Engine's")
+        run.update(_score_pairs(path, eng, cfg))
         out[path] = run
         del eng
     rec["serve_kv"] = out
+
+
+def _score_pairs(path, eng, cfg, n=8):
+    """eval.loglikelihood of n seeded (context, continuation) pairs
+    (contexts of 20 to 200 tokens, continuations of 1 to 8) through the
+    engine's score_forward: seconds and scores as information; fails on a
+    non-finite score."""
+    rng = np.random.default_rng(8)
+    pairs = [([int(t) for t in rng.integers(0, cfg.vocab_size,
+                                            rng.integers(20, 201))],
+              [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                            rng.integers(1, 9))])
+             for _ in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = port_eval.loglikelihood(None, None, pairs, engine=eng)
+    sec = time.perf_counter() - t0
+    log(f"[{path}] eval.loglikelihood of {n} pairs through score_forward: "
+        f"{sec:.2f} s; scores {np.round(scores, 3).tolist()}")
+    if not np.isfinite(scores).all():
+        raise AssertionError(f"{path}: a non-finite score {scores}")
+    return {"score_s": sec, "scores": scores.tolist()}
 
 
 def _count_captures(eng):
@@ -3808,54 +3934,88 @@ def _count_captures(eng):
     return captured
 
 
+def _kv_tensors(eng):
+    return eng.cache if eng.cache is not None else eng.pc.pages
+
+
+def _kv_bytes(eng, end):
+    """The KV a block must reproduce, as byte tensors: every byte of a
+    contiguous cache; of a page pool, each active slot's K and V of every
+    layer gathered through its own block-table row over positions <
+    end[slot] (a block takes a slot's pages for the whole block up front,
+    eager steps one at a time, so their physical pages differ)."""
+    if eng.cache is not None:
+        return [t.view(torch.uint8).clone() for kv in eng.cache for t in kv]
+    return [t.view(torch.uint8) for slot in np.flatnonzero(eng.active)
+            for t in paged.gather_slot_kv(eng.pc, slot, int(end[slot]))]
+
+
 def _block_replay_check(eng, reqs, steps=8):
     """After admitting the first max_batch requests: `steps` eager decode
-    steps (step()'s forward and sample_next) from a snapshot of the cache
-    and the host state, then one block of `steps` from the restored
-    snapshot through the step graphs; returns whether tokens and both
-    caches' bytes are equal, and the block's ms (wall, its one read
-    included)."""
+    steps (step()'s forward and sample_next) from a snapshot of the KV
+    (cache or page pools), the host state and a PagedEngine's allocator,
+    then one block of `steps` from the restored snapshot through the step
+    graphs (_run_decode_block: a PagedEngine's pages for the block first);
+    returns whether tokens and the KV (_kv_bytes) are equal, and the
+    block's ms (wall, its one read included)."""
     eng.reset()
     for r in reqs[:eng.B]:
         eng.add_request(r)
     while eng._pf:
         eng._advance_prefill()
-    snap = [(k.clone(), v.clone()) for k, v in eng.cache]
+    snap = [(k.clone(), v.clone()) for k, v in _kv_tensors(eng)]
     pos, last = eng.pos.copy(), eng.last_tok.copy()
     gstate = eng.generator.get_state()
+    pc = getattr(eng, "pc", None)
+    alloc = pc.allocator_state() if pc is not None else None
     want = []
     for _ in range(steps):
         want.append(eng._decode())
         eng.pos[eng.active] += 1
         eng.last_tok[eng.active] = want[-1][eng.active]
-    want_cache = [(k.clone(), v.clone()) for k, v in eng.cache]
-    for (k, v), (k0, v0) in zip(eng.cache, snap):
+    end = eng.pos.copy()
+    want_kv = _kv_bytes(eng, end)
+    for (k, v), (k0, v0) in zip(_kv_tensors(eng), snap):
         k.copy_(k0)
         v.copy_(v0)
     del snap
     eng.pos[:], eng.last_tok[:] = pos, last
     eng.generator.set_state(gstate)
+    if pc is not None:
+        pc.restore_allocator(alloc)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = eng._read_block(eng._dispatch_block(eng.last_tok, eng.pos, steps))
+    got = eng._read_block(eng._run_decode_block(eng.last_tok, eng.pos, steps))
     ms = (time.perf_counter() - t0) * 1e3
     same_toks = bool((got == np.stack(want)).all())
-    same_cache = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-                     for kv, kv0 in zip(eng.cache, want_cache)
-                     for x, y in zip(kv, kv0))
-    del want_cache
+    got_kv = _kv_bytes(eng, end)
+    same_cache = len(got_kv) == len(want_kv) and all(
+        torch.equal(x, y) for x, y in zip(got_kv, want_kv))
+    del want_kv, got_kv
     eng.reset()
     return same_toks, same_cache, ms
+
+
+def _pages_back(path, eng):
+    """Fails unless every page of a PagedEngine is back in its pool."""
+    if isinstance(eng, serving.PagedEngine):
+        pc = eng.pc
+        if eng.pages_in_use() != 0 or sorted(pc.free) != list(
+                range(pc.num_pages)):
+            raise AssertionError(f"{path}: {eng.pages_in_use()} pages still "
+                                 "in use after the run")
 
 
 def _serve_block(rec, path, make_engine, reqs, cfg, single_tokens):
     """Build an engine with make_engine() on a freshly reset peak-memory
     counter and serve `reqs` through run(reqs, decode_block=8), with every
     kernel's launch count set to 0 just before and read just after; check
-    the outputs, that every kernel of `path` launched and that each
-    captured step launched its layout's KV append once a layer. Then the
-    same run again on the engine whose graphs exist (same tokens), and
-    _block_replay_check. Returns the run's record."""
+    the outputs, that every kernel of `path` launched, that each captured
+    step launched its layout's KV append once a layer (and the launches of
+    CAPTURED_PER_LAYER[path]) and, for a PagedEngine, that every page is
+    back in the pool. Then the same run again on the engine whose graphs
+    exist (same tokens), and _block_replay_check. Returns the run's
+    record."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3872,13 +4032,15 @@ def _serve_block(rec, path, make_engine, reqs, cfg, single_tokens):
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing} "
                              f"({launches})")
-    appends = [k for k in PATHS[path] if k.startswith("kv_append")]
+    per_layer = {k: 1 for k in PATHS[path] if k.startswith("kv_append")}
+    per_layer.update(CAPTURED_PER_LAYER.get(path, {}))
     for window, counts in captured.items():
-        for k in appends:
-            if counts.get(k, 0) != cfg.num_layers:
+        for k, n in per_layer.items():
+            if counts.get(k, 0) != n * cfg.num_layers:
                 raise AssertionError(
                     f"{path}: the step captured at window {window} launched "
-                    f"{k} {counts.get(k, 0)} times, not once a layer")
+                    f"{k} {counts.get(k, 0)} times, not {n} a layer")
+    _pages_back(path, eng)
     for name, n in launches.items():
         rec["launches"][name] = rec["launches"].get(name, 0) + n
     blocks = eng._blocks
@@ -3901,6 +4063,7 @@ def _serve_block(rec, path, make_engine, reqs, cfg, single_tokens):
     if again != out:
         raise AssertionError(f"{path}: a second run on the same engine gave "
                              "other tokens")
+    _pages_back(path, eng)
     if single_tokens:     # information: run schedules otherwise than step()
         same = sum(a == b for x, y in zip(tokens, single_tokens)
                    for a, b in zip(x, y))
@@ -3922,9 +4085,11 @@ def _serve_block(rec, path, make_engine, reqs, cfg, single_tokens):
         log(f"[{path}] {run['tokens_equal_to_decode_block_1']} of {n_tok} "
             "tokens equal to the decode_block=1 run's")
     log(f"[{path}] snapshot check: 8 eager steps against one block of 8, "
-        f"tokens {'equal' if same_toks else 'DIFFER'}, cache bytes "
+        f"tokens {'equal' if same_toks else 'DIFFER'}, "
+        f"{'per-slot KV' if eng.cache is None else 'cache'} bytes "
         f"{'equal' if same_cache else 'DIFFER'}; the block {block_ms:.1f} "
         "ms with its read")
+    _pages_back(path, eng)
     if not (same_toks and same_cache):
         raise AssertionError(f"{path}: a block of 8 is not bit for bit 8 "
                              "eager steps")
@@ -3934,9 +4099,10 @@ def _serve_block(rec, path, make_engine, reqs, cfg, single_tokens):
 
 def phase_serve_block(rec):
     """serve's model and requests through run(reqs, decode_block=8): Engine
-    over the flat bf16 cache and over the headed fp8 cache, each decode
-    step of a block a replay of the captured step graph of its window
-    bucket (_serve_block)."""
+    over the flat bf16 cache and over the headed fp8 cache, and
+    PagedEngine over an fp8 pool of page size 16, each decode step of a
+    block a replay of the captured step graph of its window bucket
+    (_serve_block)."""
     dev = torch.device("cuda")
     cfg = llama.LlamaConfig.llama3_8b()
     params, _ = _serve_model(cfg, dev)
@@ -3944,14 +4110,19 @@ def phase_serve_block(rec):
     rec.setdefault("launches", {})
     single = {"serve_block bf16 Engine": rec.get("serve", {}),
               "serve_block fp8 Engine": rec.get("serve_kv", {}).get(
-                  "serve_kv fp8 Engine", {})}
+                  "serve_kv fp8 Engine", {}),
+              "serve_block fp8 PagedEngine": rec.get("serve_kv", {}).get(
+                  "serve_kv fp8 PagedEngine", {})}
     out = {}
     for path, make in (
             ("serve_block bf16 Engine",
              lambda: serving.Engine(params, cfg, max_batch=4)),
             ("serve_block fp8 Engine",
              lambda: serving.Engine(params, cfg, max_batch=4,
-                                    cache_dtype=FP8))):
+                                    cache_dtype=FP8)),
+            ("serve_block fp8 PagedEngine",
+             lambda: serving.PagedEngine(params, cfg, max_batch=4,
+                                         page_size=16, cache_dtype=FP8))):
         run = _serve_block(rec, path, make, reqs, cfg,
                            single[path].get("tokens"))
         if "tok_per_s" in single[path]:
@@ -4037,8 +4208,21 @@ def phase_serve_moe(rec):
                           forward_fn=moe.make_engine_forward(cfg)),
                       reqs, cfg)
     run.update(init_s=t_init, weight_bytes=wbytes,
-               kv_bytes=_kv_bytes(eng.cache), chunk_drops=drops)
+               kv_bytes=_kv_size(eng.cache), chunk_drops=drops)
     log(f"[serve_moe] flat bf16 KV cache {run['kv_bytes'] / 2**20:.1f} MiB")
+    del eng
+    # the same model and requests in decode blocks
+    path = "serve_moe Mixtral Engine decode_block=8"
+    block = _serve_block(rec, path, lambda: serving.Engine(
+        params, cfg, max_batch=4, forward_fn=moe.make_engine_forward(cfg)),
+        reqs, cfg, run["tokens"])
+    block["decode_block_1_tok_per_s"] = run["tok_per_s"]
+    log(f"[{path}] against decode_block=1 in this call: "
+        f"{block['tok_per_s'] / run['tok_per_s']:.2f}x (warm "
+        f"{block['warm_tok_per_s'] / run['tok_per_s']:.2f}x); peak device "
+        f"memory {block['peak_gib']:.2f} GiB against "
+        f"{run['peak_gib']:.2f} eager")
+    run["decode_block_8"] = block
     rec["serve_moe"] = run
 
 
@@ -4219,7 +4403,7 @@ def phase_serve_hybrid(rec):
                              f"expected {7 * cfg.num_layers} hybrid_gemm and "
                              "no fp4_gemm")
     run.update(init_s=t_init, weight_bytes=wbytes,
-               nvfp4_weight_bytes=nvfp4_bytes, kv_bytes=_kv_bytes(eng.cache))
+               nvfp4_weight_bytes=nvfp4_bytes, kv_bytes=_kv_size(eng.cache))
     nvfp4_tokens = rec.get("serve", {}).get("tokens")
     if nvfp4_tokens:          # information: the same weights, nvfp4
         same = sum(x == y for x, y in zip(run["tokens"], nvfp4_tokens))
@@ -4322,6 +4506,24 @@ def _kernel_profile(steps):
     return wall, sum(r[1] for r in rows), rows
 
 
+def _whole_trace(name, what, cfg, ten_steps, tries=3):
+    """_kernel_profile of ten decode steps, checked against the profiler
+    losing records: each step appends once a layer, so the trace must hold
+    10 * num_layers kv_append_kernel records (a lossy trace once held 80%
+    of every kernel's records, so its kernels a step read 80% of the
+    launch counters'). Profiles up to `tries` times, then fails."""
+    want = 10 * cfg.num_layers
+    for _ in range(tries):
+        prof = _kernel_profile(ten_steps)
+        got = sum(c for k, _, c in prof[2] if "kv_append_kernel" in k)
+        if got == want:
+            return prof
+        log(f"[profile] {name} {what}: the trace holds {got} of the "
+            f"{want} appends; profiling again")
+    raise AssertionError(f"profile {name} {what}: the trace lost records "
+                         f"({got} of {want} appends)")
+
+
 def _profile_engine(name, eng, cfg, chunk=256, decode=True, block=False):
     """Three slots decoding after 200-token prompts, then one tick that
     prefills a `chunk`-token prompt beside them (one chunk, if the engine's
@@ -4385,8 +4587,9 @@ def _profile_engine(name, eng, cfg, chunk=256, decode=True, block=False):
         f"{out['decode_step_ms']:.2f} ms (wall, 20 steps)")
     # with `block`, every kernel and copy of the eager step is kept, to
     # set beside the block's
-    report("decode", 10, _kernel_profile(
-        lambda: [eng.step() for _ in range(10)]), keep=100 if block else 15)
+    report("decode", 10, _whole_trace(
+        name, "decode", cfg, lambda: [eng.step() for _ in range(10)]),
+        keep=100 if block else 15)
     if not block:
         return out
     captured = _count_captures(eng)
@@ -4417,7 +4620,8 @@ def _profile_engine(name, eng, cfg, chunk=256, decode=True, block=False):
     log(f"[profile] {name} a block of 10 on the host: enqueue "
         f"{(t1 - t0) * 1e3:.2f} ms, wait for its tokens "
         f"{(t2 - t1) * 1e3:.2f} ms, absorb {(t3 - t2) * 1e3:.2f} ms")
-    report("block_decode", 10, _kernel_profile(
+    report("block_decode", 10, _whole_trace(
+        name, "block_decode", cfg,
         lambda: eng.step_block(10, waiters=False)), keep=100)
     if eng.active.sum() != 4:
         raise AssertionError(f"profile {name}: a slot finished in a block")
@@ -4447,8 +4651,9 @@ def phase_profile(rec):
     the headed fp8 cache and in PagedEngine (fp8 pool, page size 16), its
     hybrid quantization in the
     hybrid Engine, and serve_moe's Mixtral in its Engine, 4 slots each
-    (_profile_engine; the two Engines also in decode blocks, each step a
-    graph replay); one training step of phase train; then a 512-token
+    (_profile_engine; all but the hybrid Engine also in decode blocks,
+    each step a graph replay); one training step of phase train; then a
+    512-token
     prefill tick of the Llama Engine with nvfp4 and with W4A8 prefill
     GEMMs, and of the hybrid Engine. Device idle share = 1 - (summed
     kernel time) / wall; device kernels a step = the profiler's kernel
@@ -4467,7 +4672,8 @@ def phase_profile(rec):
     out["paged_fp8"] = _profile_engine(
         "fp8 PagedEngine", serving.PagedEngine(params, cfg, max_batch=4,
                                                page_size=16,
-                                               cache_dtype=FP8), cfg)
+                                               cache_dtype=FP8), cfg,
+        block=True)
     gc.collect()
     hparams, _ = _hybrid_model(cfg, dev)
     out["hybrid"] = _profile_engine(
@@ -4481,7 +4687,7 @@ def phase_profile(rec):
     out["mixtral"] = _profile_engine(
         "Mixtral Engine", serving.Engine(
             mparams, mcfg, max_batch=4,
-            forward_fn=moe.make_engine_forward(mcfg)), mcfg)
+            forward_fn=moe.make_engine_forward(mcfg)), mcfg, block=True)
     gc.collect()
     # one 512-token prefill tick, exact nvfp4 GEMMs against W4A8 ones, and
     # the hybrid Engine's (its 64-row tiles: both CTA kinds of the hybrid

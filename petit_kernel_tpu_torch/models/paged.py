@@ -63,6 +63,19 @@ class PagedKVCache:
         self.tables[slot, i] = page
         self._device_tables = None
 
+    def allocator_state(self):
+        """A copy of the allocator (block table, free list, per-slot page
+        lists), for restore_allocator; the pools are not part of it."""
+        return self.tables.copy(), list(self.free), [list(u) for u in
+                                                     self.used]
+
+    def restore_allocator(self, state) -> None:
+        """Put back an allocator_state(); the device table follows."""
+        tables, free, used = state
+        self.tables[:] = tables
+        self.free, self.used = list(free), [list(u) for u in used]
+        self._device_tables = None
+
 
 def init_paged_cache(cfg: llama.LlamaConfig, batch: int, *,
                      page_size: int = 256, num_pages: Optional[int] = None,
@@ -109,6 +122,22 @@ def release_slot(cache: PagedKVCache, slot: int) -> None:
     cache.free.extend(reversed(cache.used[slot]))
     cache.used[slot] = []
     cache._set(slot, slice(None), cache.scratch_page)
+
+
+def gather_slot_kv(cache: PagedKVCache, slot: int, n: int) -> list:
+    """Slot's K and V of every layer over positions < n, gathered through
+    its block-table row: [k0, v0, k1, v1, ...], each (n, Hkv, d) in the
+    pool's dtype. Two runs that wrote the same positions through other
+    physical pages give the same tensors."""
+    ids = torch.as_tensor(cache.tables[slot, :-(-n // cache.page_size)],
+                          dtype=torch.long, device=cache.pages[0][0].device)
+
+    def rows(t):
+        # gathered as bytes: fp8 indexing is not implemented everywhere
+        b = t.view(torch.uint8)[ids].transpose(1, 2)
+        return b.reshape(-1, t.shape[1], b.shape[-1])[:n].view(t.dtype)
+
+    return [rows(t) for kv in cache.pages for t in kv]
 
 
 def _write_kv(pages_kv, bt_rows, new_k, new_v, pos, page_size: int,

@@ -1,23 +1,26 @@
 """Continuous-batching serving engine for FP4 models (torch).
 
 Counterpart of petit_kernel_tpu/models/serving.py (Request, the prefill
-buckets, sample_next, Engine with run(decode_block=N), step_block and the
-pipelined block drain over a bf16 or fp8 cache, and PagedEngine). The JAX
-engine compiles its steps with jit and donates the cache; this one runs
-eagerly and updates the cache tensors in place. Scheduling state lives on
-the host, as numpy arrays: slots, per-slot positions, the chunked-prefill
-queue. step() reads the sampled tokens back to the host once a step.
+buckets, sample_next, Engine with run(decode_block=N), step_block, the
+pipelined block drain and score_forward over a bf16 or fp8 cache, and
+PagedEngine). The JAX engine compiles its steps with jit and donates the
+cache; this one runs eagerly and updates the cache tensors in place.
+Scheduling state lives on the host, as numpy arrays: slots, per-slot
+positions, the chunked-prefill queue. step() reads the sampled tokens back
+to the host once a step.
 
 Decode blocks (step_block, run(decode_block > 1)) run K decode steps for
-one host read of their tokens. On the card each step of a block is a
-replay of one captured CUDA graph of the decode step (llama.forward at
-T = 1, sample_next, then the step's own advance of the device-resident
-tokens and positions), one graph a kv_window bucket; step t of a block
-takes the bucket that step() would take there, so a block is bit for bit
-K step() calls from the same state while no slot finishes inside it. On
-the CPU the same steps run eagerly over the same buffers. Only the
-contiguous Engine over llama.forward takes blocks so far: PagedEngine and
-an Engine with forward_fn raise NotImplementedError.
+one host read of their tokens, in every engine: the contiguous Engine, an
+Engine with forward_fn (Mixtral) and PagedEngine. On the card each step of
+a block is a replay of one captured CUDA graph of the decode step (the
+engine's step forward, _block_forward, at T = 1, sample_next, then the
+step's own advance of the device-resident tokens and positions), one graph
+a kv_window bucket; step t of a block takes the bucket that step() would
+take there, so a block is bit for bit K step() calls from the same state
+while no slot finishes inside it. A PagedEngine's steps read a static copy
+of its block table, uploaded once a block after _grow_for_block has given
+every active slot the pages of the whole block. On the CPU the same steps
+run eagerly over the same buffers.
 
 Engine takes a custom forward_fn (models/moe.make_engine_forward serves
 Mixtral through it) and a cache built by the caller. prefill_fmt="w4a8"
@@ -25,9 +28,11 @@ runs prefill chunks and batched admissions through the W4A8 GEMM over the
 nvfp4 weights while decode keeps fmt (llama.linear routes chunks of fewer
 than llama.W4A8_MIN_M rows to the exact kernel). fmt="hybrid" serves a
 model quantized with llama.quantize_params(params, "hybrid"): its split
-layers run the hybrid GEMM, layers too narrow to split nvfp4. Every
-forward of an engine runs under torch.inference_mode(). Not ported yet:
-SpecEngine and score_forward.
+layers run the hybrid GEMM, layers too narrow to split nvfp4.
+score_forward gives full-sequence logits through the engine's own prefill
+forward over a zeroed scratch cache (models/eval.py scores through it).
+Every forward of an engine runs under torch.inference_mode(). Not ported
+yet: SpecEngine.
 """
 
 from __future__ import annotations
@@ -138,7 +143,9 @@ class _Block:
 class _DecodeBlocks:
     """The device half of an Engine's decode blocks: four static buffers
     the steps of a block read and advance in place (toks (B, 1) int32, pos
-    (B, 1) int32, active (B,) bool as the write mask, temps (B,) f32), two
+    (B, 1) int32, active (B,) bool as the write mask, temps (B,) f32), one
+    more for each of the engine's own step inputs (Engine._block_inputs: a
+    PagedEngine's block table `tables`, (B, max_pages) int32), two
     (max_seq_len, B) int32 output buffers a block's tokens go to, and on
     the card one CUDA graph of the decode step a kv_window bucket.
 
@@ -148,14 +155,15 @@ class _DecodeBlocks:
     by an event. The output and staging buffers alternate between blocks,
     so the pipelined drain can enqueue one block while the last is read.
     Graphs are captured lazily at the first use of their bucket on a side
-    stream of their own, after one eager warm-up of the forward on that
-    stream (so the split counters, kept per stream, and the tables the
-    kernels cache at first use are made outside any graph), into one
-    memory pool: they replay one at a
-    time on the caller's stream, and each keeps its outputs alive. A graph
-    holds the engine's params and cache tensors; replacing them needs a
-    new engine. A failed capture raises: there is no eager path on the
-    card. On the CPU each step runs eagerly over the same buffers."""
+    stream of their own, after one eager warm-up of the engine's step
+    forward on that stream (so the split counters, kept per stream,
+    cuBLAS's per-stream workspace and the tables the kernels cache at
+    first use are made outside any graph), into one memory pool: they
+    replay one at a time on the caller's stream, and each keeps its
+    outputs alive. A graph holds the engine's params and cache tensors (a
+    PagedEngine's pools); replacing them needs a new engine. A failed
+    capture raises: there is no eager path on the card. On the CPU each
+    step runs eagerly over the same buffers."""
 
     def __init__(self, eng: "Engine"):
         self.eng = eng
@@ -164,6 +172,10 @@ class _DecodeBlocks:
         self.cuda = dev.type == "cuda"
         shapes = dict(toks=((B, 1), torch.int32), pos=((B, 1), torch.int32),
                       active=((B,), torch.bool), temps=((B,), torch.float32))
+        inputs = eng._block_inputs()
+        self.inputs = list(inputs)
+        for name, a in inputs.items():
+            shapes[name] = (a.shape, torch.from_numpy(a).dtype)
         with torch.inference_mode():
             for name, (shape, dtype) in shapes.items():
                 setattr(self, name, torch.zeros(shape, dtype=dtype,
@@ -173,8 +185,8 @@ class _DecodeBlocks:
         pin = self.cuda
         self.host_outs = [torch.zeros((S, B), dtype=torch.int32,
                                       pin_memory=pin) for _ in range(2)]
-        # per parity: host (pinned) copies of the four static buffers, and
-        # the event after their last upload
+        # per parity: host (pinned) copies of the static buffers, and the
+        # event after their last upload
         self.staging = [{name: torch.zeros(shape, dtype=dtype, pin_memory=pin)
                          for name, (shape, dtype) in shapes.items()}
                         for _ in range(2)]
@@ -187,16 +199,18 @@ class _DecodeBlocks:
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
 
     def _upload(self, toks, pos) -> None:
-        """Copy the engine's active mask and temperatures, and with toks
-        (host (B,) arrays toks and pos) the tokens and positions, into the
-        static buffers, in stream order."""
+        """Copy the engine's active mask, temperatures and block inputs,
+        and with toks (host (B,) arrays toks and pos) the tokens and
+        positions, into the static buffers, in stream order."""
         eng, p = self.eng, self.parity
         st, ev = self.staging[p], self.uploaded[p]
         if ev is not None and not ev.query():
             ev.synchronize()           # the staging's last upload is read
-        names = ["active", "temps"]
+        names = ["active", "temps", *self.inputs]
         st["active"].numpy()[:] = eng.active
         st["temps"].numpy()[:] = eng.temps
+        for name, a in eng._block_inputs().items():
+            st[name].numpy()[:] = a
         if toks is not None:
             st["toks"].numpy()[:, 0] = toks
             st["pos"].numpy()[:, 0] = pos
@@ -213,8 +227,7 @@ class _DecodeBlocks:
         the sampled token; pos += active, so an idle row never walks past
         the cache). Returns (logits (B, 1, V), next tokens (B,))."""
         eng = self.eng
-        logits, _ = eng._forward(self.toks, eng.cache, self.pos,
-                                 kv_window=window, write_mask=self.active)
+        logits = eng._block_forward(self, window, self.active)
         nxt = sample_next(logits[:, -1], eng.generator, self.temps,
                           eng.top_k)
         torch.where(self.active[:, None], nxt[:, None], self.toks,
@@ -231,11 +244,11 @@ class _DecodeBlocks:
         s.wait_stream(torch.cuda.current_stream(eng.device))
         if not self.graphs:
             # the forward alone, every row masked: it writes no cache row
-            # and draws no noise
+            # (a paged pool's masked rows write its scratch page) and draws
+            # no noise
             with torch.cuda.stream(s):
-                eng._forward(self.toks, eng.cache, self.pos,
-                             kv_window=window,
-                             write_mask=torch.zeros_like(self.active))
+                eng._block_forward(self, window,
+                                   torch.zeros_like(self.active))
             torch.cuda.current_stream(eng.device).wait_stream(s)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(eng.generator)
@@ -317,10 +330,6 @@ class Engine:
         self.prefill_fmt = prefill_fmt or fmt
         if prefill_chunk is None and self.prefill_fmt == "w4a8":
             prefill_chunk = W4A8_PREFILL_CHUNK
-        # decode blocks capture llama.forward's step; blocks over a custom
-        # forward_fn are not ported yet (ROADMAP.md, queue 1 item 1)
-        self._blocks_unported = (None if forward_fn is None
-                                 else "an Engine with forward_fn")
         if forward_fn is None:
             if self.prefill_fmt != fmt \
                     and not {fmt, self.prefill_fmt} <= {"nvfp4", "w4a8"}:
@@ -538,8 +547,46 @@ class Engine:
         """Free a slot's cache resources: nothing for the contiguous cache,
         whose next occupant overwrites the rows."""
 
-    def score_forward(self, toks):
-        raise NotImplementedError("score_forward is not ported yet")
+    def _block_inputs(self) -> dict:
+        """Host arrays a decode block's steps read besides the tokens,
+        positions, active mask and temperatures, by name: _DecodeBlocks
+        keeps a static device copy of each and uploads it once a block.
+        Empty for the contiguous cache."""
+        return {}
+
+    def _block_forward(self, blocks: _DecodeBlocks, window: int,
+                       write_mask: torch.Tensor) -> torch.Tensor:
+        """Logits (B, 1, V) of one decode step of a block over the block's
+        static buffers (blocks.toks, blocks.pos) and the engine's cache,
+        the forward that the card captures into a step graph."""
+        logits, _ = self._forward(blocks.toks, self.cache, blocks.pos,
+                                  kv_window=window, write_mask=write_mask)
+        return logits
+
+    def score_forward(self, toks) -> torch.Tensor:
+        """Full-sequence logits (B, L, V) of toks (B, L) through the
+        engine's prefill forward, in one chunk at positions arange(L) with
+        kv_window = llama.decode_window(L) (the smallest power-of-two
+        multiple of 128 >= L, capped at max_seq_len), over a zeroed scratch
+        cache of the engine's layout and dtype: models/eval.py scores what
+        the engine serves. B must be max_batch (eval pads its batches to
+        it); engine state is untouched."""
+        toks = self._dev(toks)
+        B, L = toks.shape
+        if B != self.B or L > self.cfg.max_seq_len:
+            raise ValueError(f"score_forward: tokens {tuple(toks.shape)} "
+                             f"need B = max_batch {self.B} and L <= "
+                             f"max_seq_len {self.cfg.max_seq_len}")
+        pos = torch.arange(L, dtype=torch.int32, device=self.device).expand(
+            B, L).contiguous()
+        return self._score_logits(
+            toks, pos, llama.decode_window(L, self.cfg.max_seq_len))
+
+    def _score_logits(self, toks, pos, kv_window: int) -> torch.Tensor:
+        cache = [tuple(torch.zeros_like(t) for t in kv) for kv in self.cache]
+        logits, _ = self._prefill_forward(toks, cache, pos,
+                                          kv_window=kv_window)
+        return logits
 
     # ------------------------------------------------------------------------
 
@@ -591,13 +638,6 @@ class Engine:
 
     # -- decode blocks --------------------------------------------------------
 
-    def _require_blocks(self) -> None:
-        if self._blocks_unported:
-            raise NotImplementedError(
-                f"decode blocks for {self._blocks_unported} are not ported "
-                "yet: they come with the paged and forward_fn engines "
-                "(ROADMAP.md, queue 1 item 1); use decode_block=1")
-
     def _block_budget(self, max_steps: int, waiters: bool = True) -> int:
         """Largest decode-block size that never writes KV past max_seq_len
         for any active slot and, with `waiters`, does not overshoot the
@@ -624,7 +664,6 @@ class Engine:
         by position before it is ever attended (the chunked-prefill
         contract). A block of at most one step falls back to step();
         prefill chunks still advance one a call. Returns #active+queued."""
-        self._require_blocks()
         if self._pf:
             self._advance_prefill()
         if not self.active.any():
@@ -658,8 +697,10 @@ class Engine:
                 self._finish(slot)
 
     def _grow_for_block(self, pos: np.ndarray, steps: int) -> None:
-        """Pre-dispatch capacity hook: the contiguous cache needs nothing
-        (the budget already keeps every write below max_seq_len)."""
+        """Pre-dispatch capacity hook, before a block of `steps` from
+        positions `pos` (the host's, or the drain's projection): the
+        contiguous cache needs nothing (the budget already keeps every
+        write below max_seq_len)."""
 
     def _dispatch_block(self, toks: Optional[np.ndarray], pos: np.ndarray,
                         steps: int) -> _Block:
@@ -736,10 +777,7 @@ class Engine:
         with no slot decoding, the prefill backlog is drained in one burst;
         with no prefill pending, the pipelined drain runs when no request
         waits, else step_block(decode_block, waiters=True). Greedy streams
-        equal decode_block=1's. Only the contiguous Engine over
-        llama.forward takes blocks (NotImplementedError otherwise)."""
-        if decode_block > 1:
-            self._require_blocks()
+        equal decode_block=1's."""
         pending = list(requests)
         while pending or self.active.any() or self._pf:
             while pending and self.has_capacity():
@@ -783,7 +821,6 @@ class PagedEngine(Engine):
                          cache_dtype=cache_dtype, top_k=top_k, seed=seed,
                          prefill_fmt=prefill_fmt,
                          prefill_chunk=prefill_chunk)
-        self._blocks_unported = "PagedEngine"
 
     def _init_cache(self, cache_dtype) -> None:
         self.cache = None
@@ -823,6 +860,39 @@ class PagedEngine(Engine):
                                    self.pc.block_tables, self.pos[:, None],
                                    self._kv_window(), self.active,
                                    fmt=self.fmt)
+
+    def _block_inputs(self) -> dict:
+        # a captured step keeps the address of the table it read, so the
+        # steps read a static copy, uploaded once a block after
+        # _grow_for_block; the eager step() keeps pc.block_tables
+        return {"tables": self.pc.tables}
+
+    def _block_forward(self, blocks, window, write_mask):
+        return self._paged_forward(blocks.toks, blocks.tables, blocks.pos,
+                                   window, write_mask, fmt=self.fmt)
+
+    def _grow_for_block(self, pos, steps):
+        # every active slot gets the pages of the whole block up front;
+        # `pos` may be the drain's projection, and the budget keeps
+        # pos + steps <= max_seq_len - 1, so ensure_capacity never passes
+        # max_pages (it raises ValueError if asked to)
+        for slot in np.flatnonzero(self.active):
+            paged.ensure_capacity(self.pc, slot, int(pos[slot]) + steps)
+
+    def _score_logits(self, toks, pos, kv_window):
+        # a scratch pool of B * ceil(L / ps) pages in the engine's dtype,
+        # each row's pages allocated up to L, the chunk in prefill_fmt
+        B, L = toks.shape
+        ps = self.pc.page_size
+        pc = paged.init_paged_cache(
+            self.cfg, B, page_size=ps, num_pages=B * -(-L // ps),
+            dtype=self.pc.pages[0][0].dtype, device=self.device)
+        for b in range(B):
+            paged.ensure_capacity(pc, b, L)
+        logits, _ = paged.forward_paged(
+            self.params, toks, self.cfg, pc.pages, pc.block_tables, pos,
+            page_size=ps, fmt=self.prefill_fmt, kv_window=kv_window)
+        return logits
 
     def _release(self, slot: int) -> None:
         paged.release_slot(self.pc, slot)

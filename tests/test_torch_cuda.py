@@ -66,7 +66,13 @@ every step, both caches' bytes; one slot sampling at temperature 0.7),
 also across a bucket, the split counters zero after, the block's dispatch
 under torch.cuda.set_sync_debug_mode("error"), the pipelined drain equal
 to sequential step_block calls and to decode_block=1, and one graph a
-bucket after a run through three.
+bucket after a run through three; the same for an fp8 PagedEngine (its
+KV compared per slot, gathered through each slot's own table, since a
+block takes its pages up front; the snapshot holds the allocator) and a
+narrow Mixtral Engine (flat bf16, headed fp8), their step forwards run
+under the sync debug mode too; score_forward of Engine (bf16, fp8),
+PagedEngine and the Mixtral Engine on the card against the same engine
+on the CPU at L = 37 and 300, logits within 2^-5 * max|logits|.
 """
 
 import dataclasses
@@ -78,6 +84,7 @@ import torch
 
 from petit_kernel_tpu_torch.models import llama as tllama
 from petit_kernel_tpu_torch.models import moe as tmoe
+from petit_kernel_tpu_torch.models import paged as tpaged
 from petit_kernel_tpu_torch.models import serving as tserving
 from petit_kernel_tpu_torch.numerics import reference as qref
 from petit_kernel_tpu_torch.ops import gemm as tgemm
@@ -781,7 +788,6 @@ def test_write_kv_launches_one_kernel(gen, layout, T):
     append body, and nothing else: no cast, copy, gather or index write
     (three calls under the profiler, three launches of one kernel)."""
     from torch.profiler import ProfilerActivity, profile
-    from petit_kernel_tpu_torch.models import paged as tpaged
     cache, _, k, v, _, _, _ = _append_setup(gen, layout, T)
     pos = _append_pos(T).clamp(0, 63).to(torch.int32)
     m = _append_mask("bool")
@@ -1649,14 +1655,16 @@ def block_params():
 
 
 def _block_engine(params, layout, prompt_lens=(123, 40),
-                  temps=(0.0, 0.7)):
-    """Engine(max_batch=2) with both slots decoding after one admission;
-    prompts of prompt_lens seeded tokens, 200 new tokens each."""
-    eng = tserving.Engine(params, _BLOCK_CFG, max_batch=2,
-                          cache_dtype=_BLOCK_DTYPES[layout], seed=7)
+                  temps=(0.0, 0.7), eng=None):
+    """Engine(max_batch=2) (or `eng`) with both slots decoding after one
+    admission; prompts of prompt_lens seeded tokens, 200 new tokens
+    each."""
+    if eng is None:
+        eng = tserving.Engine(params, _BLOCK_CFG, max_batch=2,
+                              cache_dtype=_BLOCK_DTYPES[layout], seed=7)
     rng = torch.Generator().manual_seed(1)
     for i, (n, t) in enumerate(zip(prompt_lens, temps)):
-        toks = torch.randint(0, _BLOCK_CFG.vocab_size, (n,), generator=rng)
+        toks = torch.randint(0, eng.cfg.vocab_size, (n,), generator=rng)
         eng.add_request(tserving.Request(uid=i, tokens=toks.numpy().astype(
             "int32"), max_new_tokens=200, temperature=t))
     while eng._pf:
@@ -1665,30 +1673,55 @@ def _block_engine(params, layout, prompt_lens=(123, 40),
     return eng
 
 
+def _kv_tensors(eng):
+    return eng.cache if eng.cache is not None else eng.pc.pages
+
+
 def _block_snapshot(eng):
-    return ([(k.clone(), v.clone()) for k, v in eng.cache], eng.pos.copy(),
-            eng.last_tok.copy(), eng.generator.get_state())
+    """The KV tensors (cache or page pools), host positions and tokens,
+    the generator and, for a PagedEngine, the allocator."""
+    snap = dict(kv=[(k.clone(), v.clone()) for k, v in _kv_tensors(eng)],
+                pos=eng.pos.copy(), last=eng.last_tok.copy(),
+                gstate=eng.generator.get_state())
+    if isinstance(eng, tserving.PagedEngine):
+        snap["alloc"] = eng.pc.allocator_state()
+    return snap
 
 
 def _block_restore(eng, snap):
-    cache, pos, last, gstate = snap
-    for (k, v), (k0, v0) in zip(eng.cache, cache):
+    for (k, v), (k0, v0) in zip(_kv_tensors(eng), snap["kv"]):
         k.copy_(k0)
         v.copy_(v0)
-    eng.pos[:], eng.last_tok[:] = pos, last
-    eng.generator.set_state(gstate)
+    eng.pos[:], eng.last_tok[:] = snap["pos"], snap["last"]
+    eng.generator.set_state(snap["gstate"])
+    if "alloc" in snap:
+        eng.pc.restore_allocator(snap["alloc"])
 
 
-def _cache_equal(a, b):
-    return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-               for kv_a, kv_b in zip(a, b) for x, y in zip(kv_a, kv_b))
+def _kv_bytes(eng, end):
+    """The KV a block must reproduce, as byte tensors: every byte of a
+    contiguous cache; of a paged pool, each active slot's K and V of every
+    layer gathered through its own block-table row over positions <
+    end[slot] (a block takes a slot's pages up front, eager steps one at a
+    time, so their physical pages differ)."""
+    if eng.cache is not None:
+        return [t.view(torch.uint8).clone() for kv in eng.cache for t in kv]
+    return [t.view(torch.uint8) for slot in np.flatnonzero(eng.active)
+            for t in tpaged.gather_slot_kv(eng.pc, slot, int(end[slot]))]
+
+
+def _bytes_equal(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _eager_then_block(eng, steps):
     """From one snapshot: `steps` eager decodes (step()'s forward and
-    sample_next), then, from the restored snapshot, one block of `steps`
-    through the engine's step graphs. Returns (eager tokens, eager logits,
-    eager cache, block tokens, block logits)."""
+    sample_next, a PagedEngine taking its pages a position at a time),
+    then, from the restored snapshot, one block of `steps` through the
+    engine's step graphs (_run_decode_block: a PagedEngine's pages for the
+    whole block first). Returns (eager tokens, eager logits, eager KV
+    bytes, block tokens, block logits, block KV bytes), the KV bytes by
+    _kv_bytes at the positions the eager steps reached."""
     snap = _block_snapshot(eng)
     want_logits, want_toks = [], []
     inner = eng._decode_logits
@@ -1705,7 +1738,8 @@ def _eager_then_block(eng, steps):
         eng.last_tok[eng.active] = want_toks[-1][eng.active]
     eng._decode_logits = inner
     torch.cuda.synchronize()
-    want_cache = [(k.clone(), v.clone()) for k, v in eng.cache]
+    end = eng.pos.copy()
+    want_kv = _kv_bytes(eng, end)
     _block_restore(eng, snap)
     if eng._blocks is None:
         eng._blocks = tserving._DecodeBlocks(eng)
@@ -1719,9 +1753,11 @@ def _eager_then_block(eng, steps):
         return lg, nxt
 
     blocks.step = step
-    out = eng._read_block(eng._dispatch_block(eng.last_tok, eng.pos, steps))
+    out = eng._read_block(eng._run_decode_block(eng.last_tok, eng.pos,
+                                                steps))
     del blocks.step
-    return (np.stack(want_toks), want_logits, want_cache, out, got_logits)
+    return (np.stack(want_toks), want_logits, want_kv, out, got_logits,
+            _kv_bytes(eng, end))
 
 
 @pytest.mark.parametrize("layout", sorted(_BLOCK_DTYPES))
@@ -1746,11 +1782,11 @@ def test_block_step_graph_replays_bit_for_bit_eager_steps(block_params,
         return out
 
     eng._blocks._step = counted
-    want, want_lg, want_cache, got, got_lg = _eager_then_block(eng, 3)
+    want, want_lg, want_kv, got, got_lg, got_kv = _eager_then_block(eng, 3)
     np.testing.assert_array_equal(got, want)
     for g, w in zip(got_lg, want_lg):
         assert torch.equal(g.view(torch.int16), w.view(torch.int16))
-    assert _cache_equal(eng.cache, want_cache)
+    assert _bytes_equal(got_kv, want_kv)
     assert list(eng._blocks.graphs) == [128]
     # one capture of the step; the replays count nothing
     assert captured == [_BLOCK_CFG.num_layers]
@@ -1763,12 +1799,12 @@ def test_block_across_a_window_bucket_bit_for_bit(block_params, layout):
     steps from a snapshot of the same state; every split counter reads
     zero after the block."""
     eng = _block_engine(block_params, layout)
-    want, want_lg, want_cache, got, got_lg = _eager_then_block(eng, 6)
+    want, want_lg, want_kv, got, got_lg, got_kv = _eager_then_block(eng, 6)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got, want)
     for g, w in zip(got_lg, want_lg):
         assert torch.equal(g.view(torch.int16), w.view(torch.int16))
-    assert _cache_equal(eng.cache, want_cache)
+    assert _bytes_equal(got_kv, want_kv)
     assert sorted(eng._blocks.graphs) == [128, 256]
     for buf in fused._COUNTERS.values():
         assert not buf.any()
@@ -1833,3 +1869,232 @@ def test_one_step_graph_a_window_bucket(block_params):
     assert eng._blocks.capture_s > 0
     for buf in fused._COUNTERS.values():
         assert not buf.any()
+
+
+# -- decode blocks: PagedEngine and the Mixtral Engine ------------------------
+
+FP8 = torch.float8_e4m3fn
+# a narrow Mixtral whose widths the card's kernels take (head_dim 64)
+_MOE_BLOCK_CFG = tmoe.MixtralConfig.tiny(
+    vocab_size=512, hidden_size=256, intermediate_size=512, head_dim=64,
+    max_seq_len=512)
+
+
+@pytest.fixture(scope="module")
+def moe_block_params():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the step graphs have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return tmoe.quantize_params(tmoe.init_params(_MOE_BLOCK_CFG, g),
+                                _MOE_BLOCK_CFG)
+
+
+def _paged_block_engine(params, **kw):
+    """PagedEngine(max_batch=2, fp8 pool, page size 16) of the 3-layer
+    Llama, admitted as _block_engine's (seeded prompts, slot 1 at 0.7)."""
+    return _block_engine(params, None, eng=tserving.PagedEngine(
+        params, _BLOCK_CFG, max_batch=2, page_size=16, cache_dtype=FP8,
+        seed=7), **kw)
+
+
+def _moe_block_engine(params, layout="flat bf16", **kw):
+    """The narrow Mixtral's Engine(forward_fn=...) over a flat bf16 or
+    headed fp8 cache, admitted as _block_engine's."""
+    return _block_engine(params, None, eng=tserving.Engine(
+        params, _MOE_BLOCK_CFG, max_batch=2, seed=7,
+        forward_fn=tmoe.make_engine_forward(_MOE_BLOCK_CFG),
+        cache_dtype=_BLOCK_DTYPES[layout]), **kw)
+
+
+def _count_at_capture(eng, wrappers):
+    """Give eng its decode blocks now and count each wrapper's launches in
+    every captured step (a replay moves no counter)."""
+    eng._blocks = tserving._DecodeBlocks(eng)
+    counts, inner = [], eng._blocks._step
+
+    def counted(window):
+        before = [w.launches for w in wrappers]
+        out = inner(window)
+        counts.append([w.launches - b for w, b in zip(wrappers, before)])
+        return out
+
+    eng._blocks._step = counted
+    return counts
+
+
+def test_paged_block_across_a_window_bucket_bit_for_bit(block_params):
+    """An fp8 PagedEngine (page size 16): a block of 6 steps from position
+    123 (windows 128, 128, 128, 128, 256, 256; two graphs), its steps
+    reading the block's static table, bit for bit 6 eager steps from a
+    snapshot of the same state (allocator included): tokens, logits at
+    every step, and each slot's K and V gathered through its own table.
+    Each capture launched kv_append_paged and paged_decode_attention once
+    a layer; every split counter reads zero after the block."""
+    eng = _paged_block_engine(block_params)
+    counts = _count_at_capture(eng, (attention.kv_append_paged,
+                                     attention.paged_decode_attention))
+    want, want_lg, want_kv, got, got_lg, got_kv = _eager_then_block(eng, 6)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    for g, w in zip(got_lg, want_lg):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert _bytes_equal(got_kv, want_kv)
+    assert sorted(eng._blocks.graphs) == [128, 256]
+    np.testing.assert_array_equal(eng._blocks.tables.cpu().numpy(),
+                                  eng.pc.tables)
+    assert counts == [[_BLOCK_CFG.num_layers] * 2] * 2
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+@pytest.mark.parametrize("layout", sorted(_BLOCK_DTYPES))
+def test_mixtral_block_across_a_window_bucket_bit_for_bit(moe_block_params,
+                                                          layout):
+    """The Mixtral Engine (flat bf16, headed fp8): a block of 6 steps
+    across the 128-position bucket bit for bit 6 eager steps (tokens,
+    logits, cache bytes; the routing glue and the atomic index_add_ of
+    top-2 in the graphs). Each capture launched grouped_mul three times a
+    layer and the layout's KV append once; split counters zero after."""
+    eng = _moe_block_engine(moe_block_params, layout)
+    append = (attention.kv_append_headed if layout == "headed fp8"
+              else attention.kv_append)
+    counts = _count_at_capture(eng, (grouped.grouped_mul, append))
+    want, want_lg, want_kv, got, got_lg, got_kv = _eager_then_block(eng, 6)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+    for g, w in zip(got_lg, want_lg):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert _bytes_equal(got_kv, want_kv)
+    assert sorted(eng._blocks.graphs) == [128, 256]
+    n = _MOE_BLOCK_CFG.num_layers
+    assert counts == [[3 * n, n]] * 2
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+@pytest.mark.parametrize("kind", ["paged", "mixtral"])
+def test_paged_and_mixtral_block_dispatch_never_syncs(
+        block_params, moe_block_params, kind):
+    """The step's forward (_block_forward over the static buffers: the
+    paged forward, or the Mixtral forward with its routing glue) run
+    eagerly, and, with the bucket's graph captured, a block's dispatch
+    (uploads with the block table, 4 replays, the tokens' copy, the
+    event), each under torch.cuda.set_sync_debug_mode("error")."""
+    eng = (_paged_block_engine(block_params, prompt_lens=(40, 30))
+           if kind == "paged"
+           else _moe_block_engine(moe_block_params, prompt_lens=(40, 30)))
+    eng.step_block(2, waiters=False)            # captures window 128
+    torch.cuda.synchronize()
+    blocks = eng._blocks
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            eng._block_forward(blocks, 128, torch.zeros_like(blocks.active))
+        blk = eng._run_decode_block(eng.last_tok, eng.pos, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = eng._read_block(blk)
+    assert out.shape == (4, 2) and list(blocks.graphs) == [128]
+
+
+def test_paged_drain_equals_sequential_step_block(block_params):
+    """An fp8 PagedEngine (page size 16), greedy, 2 requests of 20 and 23
+    new tokens: run(decode_block=4) (the burst admission, then the
+    pipelined drain) gives the tokens of sequential step_block(4,
+    waiters=False) calls after the same admission, and those of
+    decode_block=1; every page is back in the pool after each."""
+    def make():
+        return tserving.PagedEngine(block_params, _BLOCK_CFG, max_batch=2,
+                                    page_size=16, cache_dtype=FP8)
+
+    eng_d = make()
+    drained = eng_d.run(_block_requests(), decode_block=4)
+    eng = make()
+    for r in _block_requests():
+        eng.add_request(r)
+    while eng._pf:
+        eng._advance_prefill()
+    while eng.active.any():
+        eng.step_block(4, waiters=False)
+    assert drained == eng.finished
+    eng_1 = make()
+    assert drained == eng_1.run(_block_requests())
+    for e in (eng_d, eng, eng_1):
+        assert e.pages_in_use() == 0
+        assert sorted(e.pc.free) == list(range(e.pc.num_pages))
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.parametrize("kind", ["Engine bf16", "Engine fp8",
+                                  "PagedEngine fp8", "Mixtral Engine"])
+@pytest.mark.parametrize("L", [37, 300, 1000, 2047])
+def test_score_forward_on_the_card_matches_the_cpu(block_params,
+                                                   moe_block_params, kind, L,
+                                                   monkeypatch):
+    """score_forward of a 2-row batch of L seeded tokens (L not a multiple
+    of 16; 300 attends a 512 window, 1000 and 2047 windows of 1024 and
+    2048 at max_seq_len 2048) on the card (flash prefill kernels, flat,
+    headed and paged, on the scratch cache) against the same engine on the
+    CPU (their twins): logits within 2^-5 * max|logits|.
+
+    The Mixtral Engine's routing is a discrete choice. The two devices'
+    hidden states differ by their kernels' rounding, and at long L some
+    token's 2nd and 3rd router logits lie closer than that: it takes
+    another expert there, and its logits move by their own size. So the
+    card runs each layer on the CPU's routing, which holds the kernels to
+    the bound at the CPU's expert buckets, and the card's own routing
+    must be the CPU's at every token whose 2nd and 3rd router logits are
+    at least 2^-5 * max|router logits| apart."""
+    mixtral = kind == "Mixtral Engine"
+    params = moe_block_params if mixtral else block_params
+    cfg = dataclasses.replace(_MOE_BLOCK_CFG if mixtral else _BLOCK_CFG,
+                              max_seq_len=2048)
+
+    def make(p, device):
+        if kind == "PagedEngine fp8":
+            eng = tserving.PagedEngine(p, cfg, max_batch=2, page_size=16,
+                                       cache_dtype=FP8)
+        elif mixtral:
+            eng = tserving.Engine(
+                p, cfg, max_batch=2,
+                forward_fn=tmoe.make_engine_forward(cfg),
+                cache=tllama.init_cache(cfg, 2, device=device))
+        else:
+            eng = tserving.Engine(p, cfg, max_batch=2, cache_dtype=(
+                FP8 if kind == "Engine fp8" else torch.bfloat16))
+        return eng
+
+    cpu_routes, card_routes = [], []
+    route = tmoe.route
+
+    def shared_route(x, router_w, top_k):
+        gate_w, gate_idx = route(x, router_w, top_k)
+        if x.device.type == "cpu":
+            cpu_routes.append((gate_w, gate_idx, x.float() @ router_w.float()))
+            return gate_w, gate_idx
+        card_routes.append(gate_idx.cpu())
+        gate_w, gate_idx, _ = cpu_routes[len(card_routes) - 1]
+        return gate_w.to(x.device), gate_idx.to(x.device)
+
+    monkeypatch.setattr(tmoe, "route", shared_route)
+    toks = torch.randint(0, cfg.vocab_size, (2, L),
+                         generator=torch.Generator().manual_seed(4))
+    want = make(_to_cpu(params), "cpu").score_forward(toks).float()
+    got = make(params, "cuda").score_forward(toks).float().cpu()
+    assert got.shape == want.shape == (2, L, cfg.vocab_size)
+    err = (got - want).abs().max().item()
+    assert math.isfinite(err) and err <= 2 ** -5 * want.abs().max().item()
+    assert len(card_routes) == len(cpu_routes) == (
+        cfg.num_layers if mixtral else 0)
+    for (_, cpu_idx, logits), card_idx in zip(cpu_routes, card_routes):
+        top = logits.sort(-1, descending=True).values
+        apart = top[:, 1] - top[:, 2] >= 2 ** -5 * top.abs().amax(-1)
+        same = (card_idx.sort(-1).values == cpu_idx.sort(-1).values).all(-1)
+        assert same[apart].all()

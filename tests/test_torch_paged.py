@@ -285,9 +285,47 @@ def test_allocator_reuse_exhaustion_and_table_limit(models):
     assert len(jbig.used[0]) == 9 and jbig.block_tables.shape == (1, 8)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gather_slot_kv_and_allocator_state(models, dtype):
+    """gather_slot_kv reads a slot's positions < n through its block table
+    (pages taken interleaved with another slot's, so out of order), each
+    position from page tables[slot, p // ps], row p % ps, in every layer's
+    K and V; restore_allocator puts back what allocator_state copied, and
+    the device table follows."""
+    _, tcfg, _, _ = models
+    pc = tpaged.init_paged_cache(tcfg, batch=2, page_size=16, num_pages=8,
+                                 dtype=DTYPES[dtype][1], device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for kv in pc.pages:
+        for t in kv:
+            t.view(torch.uint8).copy_(torch.randint(
+                0, 120, t.view(torch.uint8).shape, dtype=torch.uint8,
+                generator=gen))
+    for slot, upto in ((1, 16), (0, 16), (1, 40), (0, 37)):
+        tpaged.ensure_capacity(pc, slot, upto)
+    state = pc.allocator_state()
+    got = tpaged.gather_slot_kv(pc, 0, 37)
+    assert len(got) == 2 * tcfg.num_layers
+    for g, t in zip(got, [t for kv in pc.pages for t in kv]):
+        assert g.dtype == t.dtype and tuple(g.shape) == (
+            37, tcfg.num_kv_heads, tcfg.head_dim)
+        want = torch.stack([t[pc.tables[0, p // 16], :, p % 16]
+                            for p in range(37)])
+        assert torch.equal(g.view(torch.uint8), want.view(torch.uint8))
+    tpaged.release_slot(pc, 0)
+    tpaged.ensure_capacity(pc, 1, 90)
+    assert pc.block_tables[0, 0].item() == pc.scratch_page
+    pc.restore_allocator(state)
+    np.testing.assert_array_equal(pc.tables, state[0])
+    assert (pc.free, pc.used) == (state[1], state[2])
+    assert pc.free is not state[1] and pc.used[0] is not state[2][0]
+    np.testing.assert_array_equal(pc.block_tables.numpy(), state[0])
+
+
 def test_paged_engine_returns_every_page(models):
     """Longer prompts than pages, a pool smaller than max_batch *
-    max_seq_len, and reset() after a partial run: the pool ends full."""
+    max_seq_len, and reset() after a partial run: the pool ends full, and
+    score_forward (over a scratch pool) leaves it full."""
     _, tcfg, _, tparams = models
     eng = tserving.PagedEngine(tparams, tcfg, max_batch=2, page_size=16,
                                num_pages=6)
@@ -303,8 +341,10 @@ def test_paged_engine_returns_every_page(models):
     assert eng.pages_in_use() == 2
     eng.reset()
     assert eng.pages_in_use() == 0 and len(eng.pc.free) == 6
-    with pytest.raises(NotImplementedError):
-        eng.score_forward(None)
+    # score_forward runs over a scratch pool: the engine's stays full
+    lg = eng.score_forward(np.zeros((2, 20), np.int32))
+    assert tuple(lg.shape) == (2, 20, tcfg.vocab_size)
+    assert eng.pages_in_use() == 0 and len(eng.pc.free) == 6
     # W4A8 prefill serves the same requests and returns every page too
     w8 = tserving.PagedEngine(tparams, tcfg, max_batch=2, page_size=16,
                               num_pages=6, prefill_fmt="w4a8")
