@@ -83,7 +83,13 @@ Phases (any failure raises and the script exits non-zero):
              one, and each call's bound (bytes over 3.35 TB/s or operations
              over the peak of their type, 989 TFLOP/s bf16 or 1,979 TOP/s
              int8, whichever is larger); the grouped cap-128 and hybrid
-             m = 512 layer sums with their bound and library time
+             m = 512 layer sums with their bound and library time; the
+             speculative tick's verify shapes: the KV append of a (4, T)
+             chunk with one row masked (bit for bit its twin), then flash
+             prefill over it against its twin, flat bf16 and headed fp8,
+             T = 4, 6, 8 and 12, mixed pos0, and fp4_gemm at m = 16, 24,
+             32 and 48 over the four Llama-3-8B projections, two launches
+             bit for bit, against its twin
   4 solutions the GEMM API's solution layer: (a) the high-precision
              kernels, fp4_gemm_hp at the four Llama-3-8B projections, m =
              8, nvfp4 with f32 and with bf16 activations at 16x64, f32 at
@@ -195,7 +201,33 @@ Phases (any failure raises and the script exits non-zero):
              times a layer and the flat KV append once; tokens/s beside the
              decode_block=1 run, graphs, capture seconds, peak memory
              beside the eager run's, the 8-step snapshot check)
- 13 profile  the decode step and one 256-token prefill tick under
+ 13 load     models/loader.load_llama on the card: a 2-layer checkpoint at
+             Llama-3-8B's widths (vocab 128256, tied embeddings), written
+             by the script's own safetensors writer into a temporary
+             directory in two flavours, dense bf16 and ModelOpt NVFP4
+             (scales F8_E4M3), each loaded in nvfp4: every leaf bit for bit
+             the same params built in memory (quantize_linear of the same
+             weights on the card; the repack of the same bytes), again
+             through the repack cache; Engine(max_batch=2) serving 2 prompts
+             of 8 tokens over each loaded model gives the in-memory params'
+             tokens; both load times
+ 14 serve_spec SpecEngine over serve's 32-layer Llama-3-8B (nvfp4) and
+             the first 4 of its requests (32 new tokens, max_batch 4,
+             gamma 11, adaptive): draft (a) 2 layers at the same widths
+             over bf16 and over fp8 caches, draft (b) the target itself
+             over bf16 caches, and draft (a) with force_accept = 1.0 (n_acc
+             = g - 1 in every tick); each tick a replay of the CUDA graph
+             of its (g, window), the launches of each captured tick
+             counted (its layout's KV append once a layer a draft step and
+             once a layer for the verify), every emitted token the target's
+             score_forward argmax or within 2^-5 * max|logits| of it, a
+             second run on the same engine the same tokens, one tick's
+             replay bit for bit the eager tick from the same state (output
+             and both caches' bytes), draft (b) accepting at least half of
+             the cap ((g - 1) a slot a tick); tokens/s fresh and warm, ms a
+             tick, accepted a tick, graphs and capture seconds beside
+             Engine.run(decode_block=8) on the same requests (bf16, fp8)
+ 15 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16; and over the headed
              fp8 cache), PagedEngine (Llama, fp8, page size 16), the
              hybrid Engine and the Mixtral Engine, all but the hybrid
@@ -207,19 +239,19 @@ Phases (any failure raises and the script exits non-zero):
              device's idle share (PERF.md section 5); a trace of ten decode
              steps that holds fewer than ten appends a layer lost records:
              it is taken again, up to three times, then the phase fails
- 14 hybrid_layer (only when named) the hybrid GEMM alone at the seven
+ 16 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
              copy of this script in that tree's checkout times
- 15 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
+ 17 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
              Llama-3-8B projections at m = 8, default tile and splits,
              L2-warm, L2-flushed and as a CUDA graph: the same kind of A/B
- 16 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
+ 18 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
              calls at cap 8 (mxfp4, E = 8) through grouped_mul's defaults,
              every bucket row filled, warm and as a CUDA graph of the three;
              where the tree's grouped_mul takes `rows`, also the routed
              buckets of phase 3 with their rows: the same kind of A/B
- 17 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
+ 19 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
              Llama-3-8B projections (nvfp4): the 64-row tiles at m = 512
              and 2048, the 16-row tiles at m = 16 (plain) and 64 (weight
              cache) at their default splits, at block_n 64 and 128, plain
@@ -228,13 +260,13 @@ Phases (any failure raises and the script exits non-zero):
              summed over the four, the 16-row ones also as a CUDA graph of
              the four: the same kind of A/B, also of copies of the tile
              bodies edited to find what bounds them (it checks no bits)
- 18 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
+ 20 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
              tiles alone, the seven unfused projections at m = 512, the
              heuristic's tile, L2-warm, summed over the layer, with the
              dense columns alone (a launch with no FP4 columns) beside
              torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
              the same kind of A/B
- 19 append_layer (only when named) the KV writes alone, each as a CUDA
+ 21 append_layer (only when named) the KV writes alone, each as a CUDA
              graph of 20 launches: kv_append flat bf16 and headed bf16 and
              fp8, kv_append_paged fp8 (page size 16) and the torch glue it
              replaced, each _write_kv as the Llama block calls it (flat
@@ -242,21 +274,21 @@ Phases (any failure raises and the script exits non-zero):
              256-token chunk), and an empty kernel, the launch floor: the
              same kind of A/B, which a copy of this script in an older
              tree's checkout times
- 20 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
+ 22 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
              alone: the four Llama-3-8B projections (nvfp4) at m = 64
              through fused_mul with weight-cache ids 16x64 and 16x128 at
              their default splits, beside the plain 16-row tile, L2-warm
              and as a CUDA graph of the four: the same kind of A/B, also of
              copies of csrc/fp4_stream.cuh with another plan (it checks no
              bits)
- 21 decode_attn_layer (only when named) decode attention alone, at the
+ 23 decode_attn_layer (only when named) decode attention alone, at the
              Engine's decode shape (B = 4, positions 274, 316, 177 and 108,
              window 512) and the kernels phase's (B = 8, S = 2048): flat
              bf16, headed fp8 and paged fp8 (page size 16), each as a CUDA
              graph of 32 launches, one a layer over its own cache, beside
              SDPA over the same bf16 K/V as a graph: the same kind of A/B,
              which a copy of this script in an older tree's checkout times
- 22 hp_layer (only when named) the high-precision GEMM's tiles alone,
+ 24 hp_layer (only when named) the high-precision GEMM's tiles alone,
              the four Llama-3-8B projections (nvfp4, f32 A) through
              fused_mul with hp ids at their default splits: m = 8 at 16x64
              and 16x128, the weight cache at m = 64 (16x64), and the 64-row
@@ -266,8 +298,9 @@ Phases (any failure raises and the script exits non-zero):
              A/B, also of copies of the tile bodies edited to find what
              bounds them (it checks no bits)
 
-Each engine run of phases 6-10 and 12 (and the weight-cache run of phase 9,
-the training run of phase 11 and the sweep and table runs of phase 4) sets
+Each engine run of phases 6-10, 12, 13 and 14 (and the weight-cache run of
+phase 9, the training run of phase 11 and the sweep and table runs of
+phase 4) sets
 every kernel's launch count to 0 before it and fails if a kernel of its
 path did not launch; an engine run also counts the launches inside decode
 steps, per decode step (in the block runs of phases 8 and 12 per
@@ -297,6 +330,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -305,7 +339,7 @@ import torch
 from petit_kernel_tpu_torch import _cli as port_cli
 from petit_kernel_tpu_torch import bench as port_bench
 from petit_kernel_tpu_torch.models import eval as port_eval
-from petit_kernel_tpu_torch.models import llama, moe, paged, serving
+from petit_kernel_tpu_torch.models import llama, loader, moe, paged, serving
 from petit_kernel_tpu_torch.ops import _build, autotune, gemm
 from petit_kernel_tpu_torch.ops import layout
 from petit_kernel_tpu_torch.ops.kernels import attention, fused, grouped
@@ -317,7 +351,7 @@ from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_block", "serve_w4a8", "serve_hybrid", "train",
-          "serve_moe",
+          "serve_moe", "load", "serve_spec",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
           "w4a8_layer", "hybrid_prefill_layer", "append_layer",
           "fp4_wc_layer", "decode_attn_layer", "hp_layer")
@@ -493,6 +527,30 @@ PATHS = {
     "serve_hybrid bf16 Engine": ("hybrid_gemm", "decode_attention",
                                  "prefill_attention", "kv_append"),
     "train nvfp4 Llama": ("fp4_gemm", "fp4_gemm_prefill", "fp4_dequant"),
+    "load dense bf16 checkpoint nvfp4 Engine": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "load ModelOpt NVFP4 checkpoint nvfp4 Engine": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "serve_spec bf16 SpecEngine draft 2-layer": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "serve_spec fp8 SpecEngine draft 2-layer": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention_headed",
+        "prefill_attention_headed", "kv_append_headed"),
+    "serve_spec bf16 SpecEngine draft = target": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "serve_spec bf16 SpecEngine draft 2-layer force_accept=1": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "serve_spec bf16 Engine decode_block=8": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "serve_spec fp8 Engine decode_block=8": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention_headed",
+        "prefill_attention_headed", "kv_append_headed"),
     "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_wc_16row",
                         "fp4_gemm_hp", "fp4_gemm_hp_wc",
                         "fp4_gemm_hp_wc_16row", "fp4_gemm_hp_prefill",
@@ -1086,8 +1144,179 @@ def phase_kernels(rec):
     _w4a8_kernels(rec, res, rows, gen)
     _dequant_kernels(res, rows, gen)
     _hybrid_kernels(res, rows, gen)
+    _spec_verify_kernels(res, rows, gen)
+    _spec_gemm_rows(res, rows, gen)
     rec["kernel_rows"] = rows
     rec["kernels"] = res
+
+
+# the speculative tick's verify: B = 4 rows at mixed positions (those of
+# phase decode_attn_layer's engine shape), the last row masked (an idle
+# slot), chunks of T = g + 1 for the draft depths 3, 5, 7 and 11 over a
+# 512 window
+SPEC_POS0 = (274, 316, 177, 108)
+SPEC_TS = (4, 6, 8, 12)
+
+
+def _spec_verify_kernels(res, rows, gen):
+    """The verify's KV write and flash prefill at SPEC_TS, flat bf16 and
+    headed fp8 (B = 4, H = 32, Hkv = 8, d = 128, S = 2048, window 512,
+    pos0 SPEC_POS0, row 3 masked): the chunk's K/V appended with the mask
+    (kv_append / kv_append_headed, bit for bit the twin's cache bytes),
+    then flash prefill over the written cache against its twin at 2^-7.
+    Each is timed beside its twin (and, for bf16 prefill, one SDPA call
+    over the window) with its bound; kept as rows and as each kernel's
+    "spec_verify" entry."""
+    dev = gen.device
+    B, H, Hkv, d, S, W = 4, 32, 8, 128, 2048, 512
+    pos0 = torch.tensor(SPEC_POS0, dtype=torch.int32, device=dev)
+    mask = torch.tensor([1, 1, 1, 0], dtype=torch.bool, device=dev)
+    ns = W // 128
+    for tag, dtype, headed in (("bf16 flat", torch.bfloat16, False),
+                               ("fp8 headed", FP8, True)):
+        shape = (B, Hkv, S, d) if headed else (B, S, Hkv, d)
+        ck = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cv = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        elt = ck.element_size()
+        append = attention.kv_append_headed if headed else attention.kv_append
+        append_twin = (attention.kv_append_headed_reference if headed
+                       else attention.kv_append_reference)
+        pre = (attention.flash_prefill_headed if headed
+               else attention.flash_prefill_attention)
+        pre_twin = (attention.flash_prefill_headed_reference if headed
+                    else attention.flash_prefill_reference)
+        for T in SPEC_TS:
+            q = torch.randn((B, T, H, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            kn = torch.randn((B, T, Hkv, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            vn = torch.randn((B, T, Hkv, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            tpos = pos0[:, None] + torch.arange(T, dtype=torch.int32,
+                                                device=dev)[None]
+            c1 = (ck.clone(), cv.clone())
+            c2 = (ck.clone(), cv.clone())
+            append(*c1, kn, vn, tpos, mask)
+            append_twin(*c2, kn, vn, tpos, mask)
+            torch.cuda.synchronize()
+            at = (f"{tag} spec verify B={B} T={T} pos0={SPEC_POS0} row 3 "
+                  f"masked window={W}")
+            if not all(torch.equal(attention._bits(a), attention._bits(b))
+                       for a, b in zip(c1, c2)):
+                raise AssertionError(f"{append.__name__} {at}: cache bytes "
+                                     "differ from the twin")
+            got = pre(q, *c1, pos0, ns=ns)
+            want = pre_twin(q, *c1, pos0, ns=ns)
+            torch.cuda.synchronize()
+            pname = ("prefill_attention_headed" if headed
+                     else "prefill_attention")
+            e = _close(f"{pname} {at}", got, want, 2 ** -7, 2 ** -7)
+            res[pname]["max_abs_err"] = max(res[pname]["max_abs_err"], e)
+            lib = None
+            if not headed:
+                pm = _prefill_mask(pos0, T, W)
+                lib = cuda_ms(lambda: _sdpa(
+                    q.transpose(1, 2), c1[0][:, :W].transpose(1, 2),
+                    c1[1][:, :W].transpose(1, 2), pm))
+            prow = dict(kernel=pname, variant=at, max_abs_err=e,
+                        ms=cuda_ms(lambda: pre(q, *c1, pos0, ns=ns)),
+                        graph_ms=_cold_ms([lambda: pre(q, *c1, pos0,
+                                                       ns=ns)]),
+                        plain_ms=cuda_ms(lambda: pre_twin(q, *c1, pos0,
+                                                          ns=ns), iters=5),
+                        library_ms=lib,
+                        **bound(*_prefill_work(q, pos0, Hkv, elt)))
+            aname = "kv_append_headed" if headed else "kv_append"
+            arow = dict(kernel=aname, variant=at, max_abs_err=0.0,
+                        ms=cuda_ms(lambda: append(*c1, kn, vn, tpos, mask)),
+                        graph_ms=_cold_ms([lambda: append(*c1, kn, vn, tpos,
+                                                          mask)]),
+                        plain_ms=cuda_ms(lambda: append_twin(
+                            *c2, kn, vn, tpos, mask), iters=5),
+                        library_ms=None,
+                        **bound(*_append_work(3 * T, Hkv, d, elt,
+                                              _nbytes(tpos, mask))))
+            for row in (prow, arow):
+                rows.append(row)
+                res[row["kernel"]].setdefault("spec_verify", {})[
+                    f"{tag} T={T}"] = {k: row[k] for k in (
+                        "ms", "graph_ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by")}
+            log(f"[kernels] spec verify {at}: {aname} bit-exact "
+                f"{arow['ms']:.4f} ms (graph {arow['graph_ms']:.4f}, plain "
+                f"{arow['plain_ms']:.4f}, bound {arow['bound_ms']:.4f}); "
+                f"{pname} err={e:.2e} {prow['ms']:.4f} ms (graph "
+                f"{prow['graph_ms']:.4f}, plain {prow['plain_ms']:.4f}, "
+                f"sdpa {lib}, bound {prow['bound_ms']:.4f})")
+            del c1, c2
+        del ck, cv
+
+
+def _spec_gemm_rows(res, rows, gen):
+    """fp4_gemm at the verify's m = B * (g + 1) = 16, 24, 32 and 48 (B = 4,
+    g = 3, 5, 7, 11) over the four Llama-3-8B projections, nvfp4, default
+    tile and splits (48 is the first of them on the 64-row wgmma tiles):
+    two launches bit for bit, against the twin at the GEMM tolerance,
+    timed L2-warm beside the twin and torch.matmul on the dequantized
+    weights, with the bound; kept as rows and, summed over the four, as
+    fp4_gemm's "spec_m" entry."""
+    dev = gen.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for k, n in LLAMA8B_KN:
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        qw, sc, gs = qref.quantize_nvfp4(w)
+        words = layout.repack_fp4_weights(qw, n, k)
+        st = layout.process_fp4_scales(sc, n, k, group_size=16)
+        gs = gs.reshape(1)
+        deq = (layout.dequant_from_tpu_layout(words, st, n, k)
+               * gs).to(torch.bfloat16)
+        del w, qw, sc
+        for m in (16, 24, 32, 48):
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sid = solution_mod.choose_default_solution(m, n, k,
+                                                       ElementB.NVFP4)
+            splits = fused.stream_splits(m, n, 0, words.shape[0] * 8,
+                                         sid.block_m, sid.block_n, sms)[0]
+            got = fused.fused_mul(a, words, st, gs, sid=sid)
+            again = fused.fused_mul(a, words, st, gs, sid=sid)
+            want = fused.fused_mul_reference(a, words, st, gs, sid=sid)
+            torch.cuda.synchronize()
+            what = f"gemm spec verify m={m} k={k} n={n}"
+            if not torch.equal(got.view(torch.int16),
+                               again.view(torch.int16)):
+                raise AssertionError(f"{what}: two launches differ")
+            e = _close(what, got, want, 2 ** -7,
+                       2 ** -8 * want.float().abs().max())
+            res["fp4_gemm"]["max_abs_err"] = max(
+                res["fp4_gemm"]["max_abs_err"], e)
+            row = dict(kernel="fp4_gemm", fmt="nvfp4", m=m, k=k, n=n,
+                       tile=[sid.block_m, sid.block_n], splits=splits,
+                       max_abs_err=e,
+                       ms=cuda_ms(lambda: fused.fused_mul(a, words, st, gs,
+                                                          sid=sid)),
+                       plain_ms=cuda_ms(lambda: fused.fused_mul_reference(
+                           a, words, st, gs, sid=sid), iters=5),
+                       library_ms=cuda_ms(lambda: torch.matmul(a, deq)),
+                       variant="spec verify",
+                       **bound(_nbytes(words, st, gs, a, got), 2 * m * n * k))
+            rows.append(row)
+            acc = out.setdefault(f"m={m}", dict(ms=0.0, plain_ms=0.0,
+                                                library_ms=0.0, bound_ms=0.0,
+                                                tiles=[]))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                acc[key] += row[key]
+            acc["tiles"].append(f"{sid.block_m}x{sid.block_n}/{splits}")
+            log(f"[kernels] {what} tile={sid.block_m}x{sid.block_n} "
+                f"splits={splits} err={e:.2e}, repeatable; kernel="
+                f"{row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms matmul="
+                f"{row['library_ms']:.4f} ms bound={row['bound_ms']:.4f} ms")
+        del deq
+    res["fp4_gemm"]["spec_m"] = out
+    log("[kernels] gemm spec verify layers (4 projections): " + ", ".join(
+        f"{m} {v['ms']:.4f} ms (matmul {v['library_ms']:.4f}, bound "
+        f"{v['bound_ms']:.4f})" for m, v in out.items()))
 
 
 def _headed_kernels(rec, res, rows, gen, q, qp, pos, pos0, kn, vn, mask):
@@ -4483,6 +4712,504 @@ def phase_train(rec):
     torch.cuda.empty_cache()
 
 
+# -- load: the HF checkpoint loader ------------------------------------------
+
+_ST_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32",
+             torch.uint8: "U8", FP8: "F8_E4M3"}
+
+
+def _write_safetensors(file, tensors: dict) -> None:
+    """A small writer of the safetensors format (the card's host has no
+    safetensors package): an 8-byte little-endian header length, the JSON
+    header (dtype, shape, data_offsets of each tensor, padded with spaces
+    to 8 bytes), then each tensor's bytes in order."""
+    header, off, blobs = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + size]}
+        blobs.append(t.reshape(-1).view(torch.uint8).numpy())
+        off += size
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(file, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+_HF_PROJ = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+            "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+            "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+            "w_down": "mlp.down_proj"}
+
+
+def _load_checkpoint(cfg, dev):
+    """A 2-layer checkpoint at Llama-3-8B's widths, seeded on the card: the
+    HF tensors, bf16 (projections (n, k), norms near 1, tied embeddings),
+    by HF name."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = cfg.hidden_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    f = cfg.intermediate_size
+    shapes = {"wq": (q, h), "wk": (kv, h), "wv": (kv, h), "wo": (h, q),
+              "w_gate": (f, h), "w_up": (f, h), "w_down": (h, f)}
+
+    def norm():
+        return (1 + llama.normal(gen, (h,), 0.1).float()).to(torch.bfloat16)
+
+    hf = {"model.embed_tokens.weight": llama.normal(
+              gen, (cfg.vocab_size, h), 0.02),
+          "model.norm.weight": norm()}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        hf[pre + "input_layernorm.weight"] = norm()
+        hf[pre + "post_attention_layernorm.weight"] = norm()
+        for ours, (n, k) in shapes.items():
+            hf[pre + _HF_PROJ[ours] + ".weight"] = llama.normal(
+                gen, (n, k), 1 / math.sqrt(k))
+    return hf
+
+
+def _same_bits(a, b) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def _check_loaded(what, got, want):
+    """Every leaf of two params trees bit for bit (shapes and dtypes
+    too)."""
+    bad = []
+
+    def walk(x, y, path):
+        if isinstance(y, dict):
+            if set(x) != set(y):
+                bad.append(path)
+                return
+            for k in y:
+                walk(x[k], y[k], f"{path}.{k}")
+        elif isinstance(y, list):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}[{i}]")
+        elif not _same_bits(x, y):
+            bad.append(path)
+
+    walk(got, want, "params")
+    if bad:
+        raise AssertionError(f"load {what}: leaves differ from the same "
+                             f"params built in memory: {bad[:8]}")
+
+
+def _run_path(rec, path, run):
+    """run() with every kernel's launch count set to 0 just before and
+    read just after; fails unless every kernel of PATHS[path] launched.
+    Returns (run's result, the launches)."""
+    _reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    missing = [k for k in PATHS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing} "
+                             f"({launches})")
+    for name, n in launches.items():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n
+    return out, launches
+
+
+def phase_load(rec):
+    """models/loader.load_llama on the card: a 2-layer checkpoint at
+    Llama-3-8B's widths (vocab 128256, tied embeddings) written by
+    _write_safetensors into a temporary directory in two flavours, dense
+    bf16 and ModelOpt NVFP4 (each projection quantize_nvfp4'd on the card,
+    its scales stored F8_E4M3), each loaded in nvfp4 on the card: every
+    leaf bit for bit the same params built in memory (quantize_linear of
+    the same weights, or the repack of the same bytes), then loaded again
+    through the repack cache, the same bits; then Engine serves 2 prompts
+    of 8 tokens over each loaded model and over the in-memory params:
+    the same tokens. Both load times printed."""
+    rec.setdefault("launches", {})
+    _load_flavours(rec, llama.LlamaConfig.llama3_8b(num_layers=2),
+                   torch.device("cuda"))
+
+
+def _load_flavours(rec, cfg, dev):
+    """phase_load's work for the model `cfg` on `dev`."""
+    hf = _load_checkpoint(cfg, dev)
+    embed = hf["model.embed_tokens.weight"]
+    base = {"embed": embed, "final_norm": hf["model.norm.weight"],
+            "lm_head": {"w": embed.T}}
+    config = dict(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+                  intermediate_size=cfg.intermediate_size,
+                  num_hidden_layers=cfg.num_layers,
+                  num_attention_heads=cfg.num_heads,
+                  num_key_value_heads=cfg.num_kv_heads,
+                  head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                  rms_norm_eps=cfg.rms_eps, tie_word_embeddings=True,
+                  architectures=["LlamaForCausalLM"])
+    rng = np.random.default_rng(5)
+    reqs = [serving.Request(uid=i, tokens=rng.integers(
+        0, cfg.vocab_size, size=n).astype(np.int32), max_new_tokens=8)
+        for i, n in enumerate((40, 70))]
+    out = {}
+    for flavour in ("dense bf16", "ModelOpt NVFP4"):
+        layers, tensors = [], dict(hf)
+        for i in range(cfg.num_layers):
+            pre = f"model.layers.{i}."
+            lp = {"attn_norm": hf[pre + "input_layernorm.weight"],
+                  "mlp_norm": hf[pre + "post_attention_layernorm.weight"]}
+            for ours, name in _HF_PROJ.items():
+                key = pre + name
+                w = hf[key + ".weight"]
+                n, k = w.shape
+                if flavour == "dense bf16":
+                    lp[ours] = llama.quantize_linear(w.float().T, "nvfp4")
+                    continue
+                qw, sc, gs = qref.quantize_nvfp4(w.float())
+                tensors[key + ".weight"] = qw
+                tensors[key + ".weight_scale"] = sc.view(FP8)
+                tensors[key + ".weight_scale_2"] = gs.reshape(())
+                lp[ours] = {
+                    "words": layout.repack_fp4_weights(qw, n, k),
+                    "scales": layout.process_fp4_scales(sc, n, k,
+                                                        group_size=16),
+                    "gs": gs.reshape(()).float()}
+            layers.append(lp)
+        want = dict(base, layers=layers)
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            _write_safetensors(os.path.join(d, "model.safetensors"), tensors)
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump(config, f)
+            write_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(os.path.join(d, "model.safetensors"))
+            del tensors
+            times = []
+            for attempt in ("first", "from the repack cache"):
+                gc.collect()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lcfg, got = loader.load_llama(d, "nvfp4", device=dev)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if lcfg != cfg:
+                    raise AssertionError(f"load {flavour}: config {lcfg}")
+                if attempt == "first" and not os.path.exists(
+                        loader._cache_file(d, "nvfp4")):
+                    raise AssertionError(f"load {flavour}: no repack cache")
+                _check_loaded(f"{flavour} ({attempt})", got, want)
+                if attempt == "first":
+                    del got
+            free = shutil.disk_usage(d).free
+        path = f"load {flavour} checkpoint nvfp4 Engine"
+        toks = {}
+        for src, params in (("loaded", got), ("in memory", want)):
+            eng = serving.Engine(params, cfg, max_batch=2)
+            if src == "loaded":
+                toks[src], _ = _run_path(rec, path, lambda: eng.run(reqs))
+            else:
+                toks[src] = eng.run(reqs)
+            del eng
+        if toks["loaded"] != toks["in memory"]:
+            raise AssertionError(f"{path}: tokens {toks['loaded']} differ "
+                                 f"from the in-memory params' "
+                                 f"{toks['in memory']}")
+        out[flavour] = dict(checkpoint_bytes=nbytes, write_s=write_s,
+                            load_s=times[0], cached_load_s=times[1],
+                            disk_free_bytes=free, tokens=toks["loaded"])
+        log(f"[load] {flavour}: {nbytes / 2**30:.2f} GiB checkpoint written "
+            f"in {write_s:.2f} s; load_llama(nvfp4) {times[0]:.2f} s, "
+            f"again from the repack cache {times[1]:.2f} s, every leaf bit "
+            f"for bit the in-memory params both times; Engine tokens equal "
+            f"the in-memory params' ({sum(len(v) for v in toks['loaded'].values())} "
+            f"tokens)")
+        del got, want, layers
+    rec["load"] = out
+
+
+# -- serve_spec: SpecEngine, each tick one replayed CUDA graph ---------------
+
+_DRAFT_MODEL = {}
+
+
+def _draft_model(dev):
+    """Draft (a) of serve_spec: Llama-3-8B's widths at 2 layers, random
+    nvfp4 weights from seed 1 (its own embedding and head)."""
+    if "params" not in _DRAFT_MODEL:
+        dcfg = llama.LlamaConfig.llama3_8b(num_layers=2)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        _DRAFT_MODEL.update(params=_random_quantized(dcfg, gen), cfg=dcfg)
+    return _DRAFT_MODEL["params"], _DRAFT_MODEL["cfg"]
+
+
+def _count_spec_captures(eng):
+    """Give eng its tick buffers now and wrap the tick it captures, so that
+    the captured tick of each (g, window) counts its kernel launches (the
+    masked warm-up before it is not counted; replays move no counter).
+    Returns ({(g, window): {kernel: launches}}, [(g, active slots, their
+    n_acc, the tick's wall ms: upload, replay and read) of each
+    tick])."""
+    eng._ticks = ticks = serving._SpecTicks(eng)
+    captured, seen = {}, []
+    inner_tick, inner_run = ticks._tick, ticks.run
+
+    def tick(g, window, mask, draw=True):
+        before = _launch_counts()
+        out = inner_tick(g, window, mask, draw)
+        if torch.cuda.is_current_stream_capturing():
+            captured[(g, window)] = {k: n - before[k] for k, n in
+                                     _launch_counts().items()
+                                     if n > before[k]}
+        return out
+
+    def run(g, window):
+        t0 = time.perf_counter()
+        out = inner_run(g, window)
+        ms = (time.perf_counter() - t0) * 1e3
+        seen.append((g, int(eng.active.sum()), out[eng.active, g + 1], ms))
+        return out
+
+    ticks._tick, ticks.run = tick, run
+    return captured, seen
+
+
+def _tie_check(path, eng, reqs, out):
+    """Every emitted token against the target's own score_forward logits
+    over its prompt and the tokens before it: the token is the argmax, or
+    its logit lies within 2^-5 * max|logits| of the top (a near-tie the
+    verify's and the scorer's summation orders may break apart). Returns
+    (tokens that are the argmax, tokens within the tie band)."""
+    seqs = [np.concatenate([r.tokens, np.asarray(out[r.uid], np.int32)])
+            for r in reqs]
+    L = max(len(s) for s in seqs)
+    toks = np.zeros((eng.B, L), np.int32)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = s
+    logits = eng.score_forward(toks)
+    exact = tied = 0
+    for i, r in enumerate(reqs):
+        p, emitted = len(r.tokens), out[r.uid]
+        lg = logits[i, p - 1:p - 1 + len(emitted)].float()
+        tok = torch.as_tensor(emitted, device=lg.device).long()
+        gap = lg.max(-1).values - lg.gather(1, tok[:, None])[:, 0]
+        band = 2 ** -5 * lg.abs().max(-1).values
+        if bool((gap > band).any()):
+            j = int((gap > band).nonzero()[0, 0])
+            raise AssertionError(
+                f"{path}: request {r.uid} token {j} ({emitted[j]}) is "
+                f"{gap[j].item():.4f} below the target's top logit (band "
+                f"{band[j].item():.4f})")
+        exact += int((gap == 0).sum())
+        tied += int(((gap > 0) & (gap <= band)).sum())
+    del logits
+    return exact, tied
+
+
+def _spec_replay_check(eng, reqs):
+    """After admitting the first max_batch requests: one tick at the depth
+    _pick_gamma gives and its window, eagerly (the tick function outside a
+    graph, on the current stream) from a snapshot of both caches and the
+    generator, then the same tick from the restored snapshot as a replay
+    of its (g, window) graph (captured now if new). Returns (outputs
+    equal, both caches' bytes equal, g, window, the replay's device
+    ms)."""
+    eng.reset()
+    for r in reqs[:eng.B]:
+        eng.add_request(r)
+    while eng._pf:
+        eng._advance_prefill()
+    ticks = eng._ticks
+    g = eng._pick_gamma()
+    window = eng._tick_window(g)
+    kv = [t for pair in eng.cache + eng.dcache for t in pair]
+    snap = [t.clone() for t in kv]
+    gstate = eng.generator.get_state()
+    with torch.inference_mode():
+        ticks._upload()
+        want = ticks._tick(g, window, ticks.active).cpu().numpy()
+    want_kv = [t.view(torch.uint8).clone() for t in kv]
+    for t, t0 in zip(kv, snap):
+        t.copy_(t0)
+    del snap
+    eng.generator.set_state(gstate)
+    got = ticks.run(g, window)
+    same_out = bool((got == want).all())
+    same_kv = all(torch.equal(t.view(torch.uint8), w)
+                  for t, w in zip(kv, want_kv))
+    del want_kv
+    graph = ticks.graphs[(g, window)][0]
+    ms = cuda_ms(graph.replay, iters=5, warmup=1)
+    eng.reset()
+    return same_out, same_kv, g, window, ms
+
+
+def _serve_spec_run(rec, path, make, reqs, cfg, draft_layers, tie=True):
+    """A fresh SpecEngine from make() serving `reqs` (its launch counts
+    from 0, captures included; PATHS[path] must launch), then the same run
+    on the engine whose graphs exist (the same tokens); each captured tick
+    must launch its layout's KV append once a layer a draft step and once
+    a layer for the verify; with `tie`, every token meets _tie_check;
+    then _spec_replay_check. Returns the run's record."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make()
+    captured, seen = _count_spec_captures(eng)
+    t0 = time.perf_counter()
+    out, launches = _run_path(rec, path, lambda: eng.run(reqs))
+    wall = time.perf_counter() - t0
+    _check_outputs(path, out, len(reqs), cfg)
+    append = ("kv_append_headed" if eng.cache[0][0].dtype == FP8
+              else "kv_append")
+    for (g, window), counts in captured.items():
+        want = g * draft_layers + cfg.num_layers
+        if counts.get(append, 0) != want:
+            raise AssertionError(f"{path}: the tick captured at g={g} window"
+                                 f"={window} launched {append} "
+                                 f"{counts.get(append, 0)} times, not {want}")
+    ticks = eng._ticks
+    stats = dict(eng.spec_stats)
+    n_tok = sum(len(v) for v in out.values())
+    cap = sum((g - 1) * n for g, n, _, _ in seen)
+    slot_ticks = sum(n for _, n, _, _ in seen)
+    run = dict(wall_s=wall, new_tokens=n_tok, tok_per_s=n_tok / wall,
+               launches=launches, tokens=[out[i] for i in sorted(out)],
+               spec_stats=stats, accept_cap=cap, slot_ticks=slot_ticks,
+               accepted_per_slot_tick=stats["accepted"] / max(slot_ticks, 1),
+               tokens_per_tick=n_tok / max(stats["ticks"], 1),
+               gammas=[g for g, _, _, _ in seen],
+               graphs=[list(k) for k in sorted(ticks.graphs)],
+               capture_s=ticks.capture_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches_per_captured_tick={f"g={g} window={w}": c for
+                                           (g, w), c in captured.items()})
+    eng.reset()
+    seen.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.run(reqs)
+    torch.cuda.synchronize()
+    run["warm_wall_s"] = time.perf_counter() - t0
+    run["warm_tok_per_s"] = n_tok / run["warm_wall_s"]
+    ticks_ms = {}
+    for g, _, _, ms in seen:
+        ticks_ms.setdefault(g, []).append(ms)
+    run["warm_tick_ms"] = {str(g): float(np.median(v))
+                           for g, v in sorted(ticks_ms.items())}
+    run["warm_ticks"] = {str(g): len(v) for g, v in sorted(ticks_ms.items())}
+    run["forced_n_acc"] = all(bool((acc == g - 1).all())
+                              for g, _, acc, _ in seen)
+    if again != out:
+        raise AssertionError(f"{path}: a second run on the same engine gave "
+                             "other tokens")
+    if tie:
+        run["tie_exact"], run["tie_band"] = _tie_check(path, eng, reqs, out)
+    same_out, same_kv, g, window, ms = _spec_replay_check(eng, reqs)
+    run.update(replay_check_out=same_out, replay_check_caches=same_kv,
+               replay_check_key=[g, window], replay_device_ms=ms,
+               graphs_after_check=[list(k) for k in sorted(ticks.graphs)],
+               capture_s_total=ticks.capture_s)
+    log(f"[{path}] {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s "
+        f"({len(captured)} tick graphs captured in the run, "
+        f"{ticks.capture_s:.2f} s of capture); warm "
+        f"{run['warm_tok_per_s']:.1f} tok/s, a tick (upload, replay, read; "
+        f"median by g) {run['warm_tick_ms']} ms over "
+        f"{run['warm_ticks']} ticks; {stats['ticks']} ticks, "
+        f"{stats['accepted']} of {stats['proposed']} drafts accepted (cap "
+        f"{cap}, {run['accepted_per_slot_tick']:.2f} a slot a tick), "
+        f"{run['tokens_per_tick']:.2f} tokens a tick; depths "
+        f"{run['gammas']}; peak device memory {run['peak_gib']:.2f} GiB")
+    log(f"[{path}] launches per captured tick: "
+        f"{run['launches_per_captured_tick']}")
+    if tie:
+        log(f"[{path}] every token meets the tie rule against the target's "
+            f"score_forward: {run['tie_exact']} the argmax, "
+            f"{run['tie_band']} within the band")
+    log(f"[{path}] replay check at g={g} window={window}: output "
+        f"{'equal' if same_out else 'DIFFERS'}, both caches' bytes "
+        f"{'equal' if same_kv else 'DIFFER'}; one replay {ms:.3f} ms")
+    if not (same_out and same_kv):
+        raise AssertionError(f"{path}: the tick graph's replay is not bit "
+                             "for bit the eager tick")
+    del eng
+    return run
+
+
+def phase_serve_spec(rec):
+    """SpecEngine over serve's 32-layer Llama-3-8B (nvfp4) and the first 4
+    of its requests (32 new tokens each, max_batch 4): draft (a) 2 layers
+    at the same widths (_draft_model) over bf16 and over fp8 caches, draft
+    (b) the target itself over bf16 caches, gamma 11, adaptive; then draft
+    (a) with force_accept = 1.0 (n_acc = g - 1 in every tick); beside the
+    same requests through Engine.run(decode_block=8) over each cache
+    dtype, fresh and warm. Each spec run as _serve_spec_run checks it;
+    draft (b) must accept at least half of the cap, (g - 1) a slot a
+    tick."""
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    dparams, dcfg = _draft_model(dev)
+    reqs = _serve_requests(cfg)[:4]
+    rec.setdefault("launches", {})
+    out = {}
+    for path, dp, dc, dtype, force in (
+            ("serve_spec bf16 SpecEngine draft 2-layer", dparams, dcfg,
+             torch.bfloat16, 0.0),
+            ("serve_spec fp8 SpecEngine draft 2-layer", dparams, dcfg, FP8,
+             0.0),
+            ("serve_spec bf16 SpecEngine draft = target", params, cfg,
+             torch.bfloat16, 0.0),
+            ("serve_spec bf16 SpecEngine draft 2-layer force_accept=1",
+             dparams, dcfg, torch.bfloat16, 1.0)):
+        def make(dp=dp, dc=dc, dtype=dtype, force=force):
+            eng = serving.SpecEngine(params, cfg, dp, dc, gamma=11,
+                                     max_batch=4, draft_fmt="nvfp4",
+                                     cache_dtype=dtype)
+            eng.force_accept = force
+            return eng
+
+        run = _serve_spec_run(rec, path, make, reqs, cfg, dc.num_layers,
+                              tie=force == 0.0)
+        if force and not run["forced_n_acc"]:
+            raise AssertionError(f"{path}: a tick accepted fewer than g - 1")
+        if dp is params and run["spec_stats"]["accepted"] < \
+                run["accept_cap"] / 2:
+            raise AssertionError(f"{path}: accepted {run['spec_stats']} "
+                                 f"below half of the cap {run['accept_cap']}")
+        out[path] = run
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp8", FP8)):
+        path = f"serve_spec {tag} Engine decode_block=8"
+        eng = serving.Engine(params, cfg, max_batch=4, cache_dtype=dtype)
+        t0 = time.perf_counter()
+        got, launches = _run_path(rec, path,
+                                  lambda: eng.run(reqs, decode_block=8))
+        wall = time.perf_counter() - t0
+        _check_outputs(path, got, len(reqs), cfg)
+        eng.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs, decode_block=8)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        n_tok = sum(len(v) for v in got.values())
+        out[path] = dict(wall_s=wall, tok_per_s=n_tok / wall,
+                         warm_tok_per_s=n_tok / warm, launches=launches)
+        log(f"[{path}] the same requests: {n_tok / wall:.1f} tok/s fresh, "
+            f"{n_tok / warm:.1f} warm")
+        del eng
+    for path, run in out.items():
+        if "SpecEngine" in path:
+            tag = "fp8" if " fp8 " in path else "bf16"
+            base = out[f"serve_spec {tag} Engine decode_block=8"]
+            log(f"[{path}] warm {run['warm_tok_per_s']:.1f} tok/s beside "
+                f"Engine.run(decode_block=8) warm "
+                f"{base['warm_tok_per_s']:.1f} tok/s on the same requests")
+    rec["serve_spec"] = out
+
+
 def _kernel_profile(steps):
     """Run steps() under torch.profiler; returns (wall ms, summed device ms
     of every kernel, [(kernel name, device ms, calls)] by time)."""
@@ -4754,7 +5481,8 @@ def main(argv=None) -> int:
             json.dump(rec, f, indent=1)
     if all(p in rec for p in ("kernels", "solutions", "serve", "serve_kv",
                               "serve_block", "serve_moe", "serve_w4a8",
-                              "serve_hybrid", "train")):
+                              "serve_hybrid", "train", "load",
+                              "serve_spec")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

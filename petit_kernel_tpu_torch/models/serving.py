@@ -31,13 +31,23 @@ model quantized with llama.quantize_params(params, "hybrid"): its split
 layers run the hybrid GEMM, layers too narrow to split nvfp4.
 score_forward gives full-sequence logits through the engine's own prefill
 forward over a zeroed scratch cache (models/eval.py scores through it).
-Every forward of an engine runs under torch.inference_mode(). Not ported
-yet: SpecEngine.
+Every forward of an engine runs under torch.inference_mode().
+
+SpecEngine (greedy draft-verify speculative decoding) fills a draft cache
+alongside the target's at admission and runs each tick, g draft forwards,
+the target's verify at T = g + 1 and the accept count, as one function
+over static buffers: on the card one replay of its (g, window) CUDA graph
+and one host read, on the CPU eagerly. Engine admits same-key prompts
+together only where no subclass re-routes the per-slot chunk
+(_admission_batchable; PagedEngine batches through its own hook), and
+pipelines its block drain only where _pipeline_blocks holds (not in
+SpecEngine).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import inspect
 import time
 from typing import Optional
@@ -129,6 +139,39 @@ def sample_next(logits: torch.Tensor, generator: torch.Generator,
     g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     sampled = (lg / safe_t + g).argmax(dim=-1).to(torch.int32)
     return torch.where(temps > 0, sampled, greedy)
+
+
+def _capture_graph(eng: "Engine", stream, pool, warm_up, body):
+    """Capture body() into a new CUDA graph on `stream`, into the memory
+    pool `pool`, with the engine's generator registered (each replay draws
+    fresh noise). warm_up(), when given, runs first on the same stream,
+    outside the graph, so that what the kernels make at first use (the
+    split counters, kept per stream, cuBLAS's per-stream workspace, tables
+    cached at first use) exists before the capture. Python's garbage
+    collector runs just before the capture and not during it: an engine
+    dropped earlier sits in a reference cycle with its graphs (eng._ticks
+    or eng._blocks refers back to eng), and a collection inside the
+    capture would destroy those graphs there, which invalidates the
+    capture. A failed capture raises. Returns (graph, body's outputs)."""
+    cur = torch.cuda.current_stream(eng.device)
+    stream.wait_stream(cur)
+    if warm_up is not None:
+        with torch.cuda.stream(stream):
+            warm_up()
+        cur.wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(eng.generator)
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.inference_mode(), torch.cuda.graph(graph, pool=pool,
+                                                      stream=stream):
+            out = body()
+    finally:
+        if enabled:
+            gc.enable()
+    return graph, out
 
 
 @dataclasses.dataclass
@@ -240,21 +283,13 @@ class _DecodeBlocks:
         generator, so that each replay draws fresh noise) and keep it."""
         eng = self.eng
         t0 = time.perf_counter()
-        s = self.stream
-        s.wait_stream(torch.cuda.current_stream(eng.device))
-        if not self.graphs:
-            # the forward alone, every row masked: it writes no cache row
-            # (a paged pool's masked rows write its scratch page) and draws
-            # no noise
-            with torch.cuda.stream(s):
-                eng._block_forward(self, window,
-                                   torch.zeros_like(self.active))
-            torch.cuda.current_stream(eng.device).wait_stream(s)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(eng.generator)
-        with torch.inference_mode(), torch.cuda.graph(graph, pool=self.pool,
-                                                      stream=s):
-            logits, nxt = self._step(window)
+        # before the first graph, the forward alone with every row masked:
+        # it writes no cache row (a paged pool's masked rows write its
+        # scratch page) and draws no noise
+        warm = None if self.graphs else (lambda: eng._block_forward(
+            self, window, torch.zeros_like(self.active)))
+        graph, (logits, nxt) = _capture_graph(
+            eng, self.stream, self.pool, warm, lambda: self._step(window))
         self.graphs[window] = (graph, logits, nxt)
         self.capture_s += time.perf_counter() - t0
         return self.graphs[window]
@@ -299,6 +334,11 @@ class _DecodeBlocks:
 
 class Engine:
     """Slot-based continuous batching over a llama-family FP4 model."""
+
+    # run() keeps one decode block in flight while the last is read
+    # (_drain_blocks_pipelined); SpecEngine opts out: its step_block is a
+    # speculative tick with its own scheduling
+    _pipeline_blocks = True
 
     def __init__(self, params, cfg: llama.LlamaConfig, *, max_batch: int = 8,
                  fmt: str = "nvfp4", cache_dtype=torch.bfloat16,
@@ -452,7 +492,9 @@ class Engine:
         job = self._pf[0]
         cap = self.prefill_chunk or PREFILL_CHUNK
         lb, kv_window = self._chunk_key(job)
-        group = [j for j in self._pf if self._chunk_key(j) == (lb, kv_window)]
+        group = ([j for j in self._pf
+                  if self._chunk_key(j) == (lb, kv_window)]
+                 if self._admission_batchable() else [job])
         if len(group) >= 2:
             self._admit_batched(group, lb, kv_window, cap)
             return
@@ -470,6 +512,14 @@ class Engine:
         if job.offset == len(toks):
             self._pf.pop(0)
             self._start_decoding(job, int(first[0]))
+
+    def _admission_batchable(self) -> bool:
+        """Whether _advance_prefill may admit same-key jobs together through
+        _run_batched_admission: not when a subclass re-routes the per-slot
+        chunk (_prefill_chunk), as SpecEngine does to fill its draft cache,
+        which the batched forward would leave empty. PagedEngine batches
+        through its own _run_batched_admission."""
+        return type(self)._prefill_chunk is Engine._prefill_chunk
 
     def _start_decoding(self, job: _PrefillJob, first: int) -> None:
         slot = job.slot
@@ -776,8 +826,9 @@ class Engine:
         decode_block > 1 decodes up to that many steps a host read (blocks):
         with no slot decoding, the prefill backlog is drained in one burst;
         with no prefill pending, the pipelined drain runs when no request
-        waits, else step_block(decode_block, waiters=True). Greedy streams
-        equal decode_block=1's."""
+        waits (in an engine that pipelines blocks, _pipeline_blocks), else
+        step_block(decode_block, waiters=True). Greedy streams equal
+        decode_block=1's."""
         pending = list(requests)
         while pending or self.active.any() or self._pf:
             while pending and self.has_capacity():
@@ -788,13 +839,317 @@ class Engine:
                 while self._pf:
                     self._advance_prefill()
             if decode_block > 1 and not self._pf:
-                if not pending:
+                if not pending and self._pipeline_blocks:
                     self._drain_blocks_pipelined(decode_block)
                 else:
                     self.step_block(decode_block, waiters=True)
             else:
                 self.step()
         return dict(self.finished)
+
+
+class _SpecTicks:
+    """The device half of a SpecEngine's ticks: static buffers last_tok
+    (B,) int32, pos (B,) int32, active (B,) bool (the write mask) and f_acc
+    (1,) f32 (force_accept) that the tick reads, and on the card one CUDA
+    graph of the whole tick for each (g, window), whose output is one
+    (B, g + 2) int32 tensor: the target's argmax tokens (B, g + 1), then
+    n_acc.
+
+    On the card the host state reaches the static buffers once a tick, from
+    pinned memory with non_blocking copies in stream order, and the output
+    comes back once, a non_blocking copy into pinned memory followed by an
+    event the host waits on. A graph is captured at the first tick of its
+    key on a side stream, into one memory pool shared by every key, after
+    an eager warm-up of that key's tick with every row masked and no
+    force_accept draw (each g runs its GEMMs at new m = B and B * (g + 1),
+    so every key needs its own first use outside the graph; a masked row
+    writes no cache row, and the generator does not move). The
+    engine's generator is registered with each graph, so every replay
+    draws fresh force_accept noise. A graph holds the params and caches of
+    both models; replacing them needs a new engine. A failed capture
+    raises: there is no eager tick on the card. On the CPU each tick runs
+    eagerly over the same buffers."""
+
+    def __init__(self, eng: "SpecEngine"):
+        self.eng = eng
+        dev = eng.device
+        B = eng.B
+        self.cuda = dev.type == "cuda"
+        shapes = dict(last_tok=((B,), torch.int32), pos=((B,), torch.int32),
+                      active=((B,), torch.bool), f_acc=((1,), torch.float32))
+        with torch.inference_mode():
+            for name, (shape, dtype) in shapes.items():
+                setattr(self, name, torch.zeros(shape, dtype=dtype,
+                                                device=dev))
+        self.staging = {name: torch.zeros(shape, dtype=dtype,
+                                          pin_memory=self.cuda)
+                        for name, (shape, dtype) in shapes.items()}
+        self.host: dict[int, torch.Tensor] = {}    # g -> pinned (B, g + 2)
+        # (g, window) -> (graph, its (B, g + 2) output)
+        self.graphs: dict[tuple, tuple] = {}
+        self.capture_s = 0.0
+        self.stream = torch.cuda.Stream(dev) if self.cuda else None
+        self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
+
+    def _upload(self) -> None:
+        """Copy the engine's last tokens, positions, active mask and
+        force_accept into the static buffers, in stream order. The staging
+        is free: the last tick's output was read after its upload ran."""
+        eng, st = self.eng, self.staging
+        st["last_tok"].numpy()[:] = eng.last_tok
+        st["pos"].numpy()[:] = eng.pos
+        st["active"].numpy()[:] = eng.active
+        st["f_acc"].numpy()[:] = eng.force_accept
+        for name, t in st.items():
+            getattr(self, name).copy_(t, non_blocking=self.cuda)
+
+    def _tick(self, g: int, window: int, mask: torch.Tensor,
+              draw: bool = True) -> torch.Tensor:
+        """One speculative tick over the static buffers: g draft forwards at
+        T = 1 over the draft cache, each taking the argmax; the target's
+        verify forward over [last_tok, drafts] (T = g + 1) at positions
+        pos + arange(g + 1); then n_acc, the count of leading agreements
+        over the first g - 1 drafts, each position also accepted where a
+        uniform draw is below force_accept (draw False: no draw, none
+        forced). Rows with mask False write no cache row. Returns (B, g + 2)
+        int32: the target's tokens, then n_acc."""
+        eng = self.eng
+        cur, drafts = self.last_tok, []
+        for t in range(g):
+            lg, _ = eng._draft_forward(cur[:, None], eng.dcache,
+                                       (self.pos + t)[:, None],
+                                       kv_window=window, write_mask=mask)
+            cur = lg[:, -1].argmax(dim=-1).to(torch.int32)
+            drafts.append(cur)
+        drafts = torch.stack(drafts, dim=1)                      # (B, g)
+        seq = torch.cat([self.last_tok[:, None], drafts], dim=1)
+        tpos = self.pos[:, None] + torch.arange(
+            g + 1, dtype=torch.int32, device=self.pos.device)[None]
+        logits, _ = eng._forward(seq, eng.cache, tpos, kv_window=window,
+                                 write_mask=mask)
+        tgt = logits.argmax(dim=-1).to(torch.int32)              # (B, g+1)
+        agree = tgt[:, :g - 1] == drafts[:, :g - 1]
+        force = (torch.rand(agree.shape, generator=eng.generator,
+                            device=agree.device) < self.f_acc if draw
+                 else torch.zeros_like(agree))
+        n_acc = (agree | force).to(torch.int32).cumprod(dim=1).sum(dim=1)
+        return torch.cat([tgt, n_acc[:, None].to(torch.int32)], dim=1)
+
+    def _capture(self, g: int, window: int) -> tuple:
+        """Capture _tick at (g, window) after its masked warm-up, keep
+        it."""
+        t0 = time.perf_counter()
+        graph, out = _capture_graph(
+            self.eng, self.stream, self.pool,
+            lambda: self._tick(g, window, torch.zeros_like(self.active),
+                               draw=False),
+            lambda: self._tick(g, window, self.active))
+        self.graphs[(g, window)] = (graph, out)
+        self.capture_s += time.perf_counter() - t0
+        return self.graphs[(g, window)]
+
+    @torch.inference_mode()
+    def run(self, g: int, window: int) -> np.ndarray:
+        """One tick from the engine's host state: on the card a replay of
+        the (g, window) graph (captured at its first use), on the CPU
+        _tick. Returns the (B, g + 2) output on the host, after the tick's
+        one read."""
+        self._upload()
+        if not self.cuda:
+            return self._tick(g, window, self.active).numpy()
+        graph, out = (self.graphs.get((g, window))
+                      or self._capture(g, window))
+        graph.replay()
+        host = self.host.get(g)
+        if host is None:
+            host = self.host[g] = torch.zeros(out.shape, dtype=torch.int32,
+                                              pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return host.numpy().copy()
+
+
+class SpecEngine(Engine):
+    """Draft-verify speculative decoding over the contiguous-cache engine,
+    greedy-exact: the emitted tokens are the target's greedy tokens; only
+    the number of target forwards changes.
+
+    A tick: the draft model proposes g tokens autoregressively (g forwards
+    at T = 1 over its own cache, dcache), the target verifies them in one
+    cached forward at T = g + 1 (flash prefill), and each slot accepts the
+    longest agreeing prefix plus the target's own next token. Acceptance
+    is capped at g - 1, so the draft cache holds KV for every accepted
+    position (the g-th proposal is never written there); KV of a rejected
+    tail in either cache is hidden by the causal mask and overwritten
+    later, the chunked-prefill contract. On the card each tick is one
+    replay of the captured CUDA graph of its (g, window) (_SpecTicks).
+
+    Greedy only (sampling would need rejection sampling): a request with a
+    temperature > 0 raises ValueError at its first tick. The draft shares
+    the target's vocabulary and a max_seq_len at least the target's, and
+    lies on the target's device. run(decode_block=K) runs ticks:
+    step_block is step()."""
+
+    # spec ticks have their own scheduling: no pipelined block drain
+    _pipeline_blocks = False
+
+    #: admissible draft depths when gamma_adaptive: each value is one
+    #: verify shape (B, g + 1), so the set is small and fixed
+    GAMMA_BUCKETS = (3, 5, 7, 11)
+
+    def __init__(self, params, cfg: llama.LlamaConfig, draft_params,
+                 draft_cfg: Optional[llama.LlamaConfig] = None, *,
+                 gamma: int = 7, gamma_adaptive: bool = True,
+                 max_batch: int = 8, fmt: str = "nvfp4",
+                 draft_fmt: str = "bf16", cache_dtype=torch.bfloat16,
+                 seed: int = 0):
+        """gamma: the draft depth (with gamma_adaptive, the start of the
+        bucket walk and, with 3, its ceiling). draft_fmt: the draft's GEMM
+        format (dense draft layers ignore it, as the target's do fmt).
+        cache_dtype: both caches', bf16 flat or fp8 headed. The draft's
+        cache, dcache, has max_batch slots of the draft's max_seq_len."""
+        super().__init__(params, cfg, max_batch=max_batch, fmt=fmt,
+                         cache_dtype=cache_dtype, seed=seed)
+        self.draft_cfg = draft_cfg or cfg
+        if self.draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(f"draft vocabulary {self.draft_cfg.vocab_size} "
+                             f"!= target vocabulary {cfg.vocab_size}")
+        if self.draft_cfg.max_seq_len < cfg.max_seq_len:
+            raise ValueError(f"draft max_seq_len {self.draft_cfg.max_seq_len}"
+                             f" < target max_seq_len {cfg.max_seq_len}")
+        if draft_params["embed"].device != self.device:
+            raise ValueError(f"draft params on {draft_params['embed'].device}"
+                             f", target params on {self.device}")
+        self.gamma0 = gamma
+        self.gamma = gamma
+        self.gamma_adaptive = gamma_adaptive
+        self._gamma_max = max(gamma, 3)
+        # acceptance EMA (the fraction of the g - 1 cap used): high walks
+        # the buckets up, low walks them down
+        self._acc_ema = 0.5
+        self.draft_params = draft_params
+        self._draft_fn = _llama_forward(self.draft_cfg, draft_fmt)
+        self.dcache = llama.init_cache(self.draft_cfg, max_batch,
+                                       cache_dtype, device=self.device)
+        self.spec_stats = {"proposed": 0, "accepted": 0, "ticks": 0}
+        #: synthetic acceptance floor in [0, 1]: each draft position is
+        #: force-accepted with this probability whatever the agreement.
+        #: 0.0 is the exact greedy path; above it the emitted tokens mean
+        #: nothing (the target cache keeps draft-token KV inside a forced
+        #: prefix) while the device work is the same: a knob to measure
+        #: tokens/s against acceptance on random weights.
+        self.force_accept = 0.0
+        self._ticks: Optional[_SpecTicks] = None        # made at first use
+
+    @torch.inference_mode()
+    def _draft_forward(self, toks, cache, pos, kv_window=None,
+                       write_mask=None):
+        return self._draft_fn(self.draft_params, toks, cache, pos,
+                              kv_window=kv_window, write_mask=write_mask)
+
+    def reset(self) -> None:
+        """Engine.reset, and the draft depth, acceptance EMA and spec_stats
+        back to their start; both caches' storage stays."""
+        super().reset()
+        self.gamma = self.gamma0
+        self._acc_ema = 0.5
+        self.spec_stats = {"proposed": 0, "accepted": 0, "ticks": 0}
+
+    def step_block(self, max_steps: int, waiters: bool = True) -> int:
+        """A tick already emits several tokens a host read; a plain decode
+        block would bypass the draft and leave its cache behind, so
+        run(decode_block=K) runs ticks."""
+        return self.step()
+
+    def _prefill_chunk(self, slot, toks, pos, kv_window):
+        # the draft's cache rows take the chunk first (its logits unused:
+        # the first proposal is made at tick time), then the target's
+        rows = [(k[slot:slot + 1], v[slot:slot + 1]) for (k, v) in
+                self.dcache]
+        self._draft_forward(self._dev(toks), rows, self._dev(pos),
+                            kv_window=kv_window)
+        return super()._prefill_chunk(slot, toks, pos, kv_window)
+
+    def _pick_gamma(self) -> int:
+        """Draft depth for this tick: the acceptance-adaptive walk over
+        GAMMA_BUCKETS (up to the constructor's gamma), capped by the largest
+        remaining budget among active slots plus one (n_acc <= g - 1, plus
+        the bonus token); at least 2. gamma_adaptive=False keeps gamma."""
+        remaining = max(
+            (self.slot_req[s].max_new_tokens
+             - len(self.generated[self.slot_req[s].uid])
+             for s in np.flatnonzero(self.active)), default=1)
+        cap = max(2, remaining + 1)
+        if not self.gamma_adaptive:
+            return max(2, min(self.gamma, cap))
+        bs = [b for b in self.GAMMA_BUCKETS if b <= self._gamma_max]
+        i = min(range(len(bs)), key=lambda j: abs(bs[j] - self.gamma))
+        if self._acc_ema > 0.7 and i + 1 < len(bs):
+            self.gamma = bs[i + 1]
+        elif self._acc_ema < 0.35 and i > 0:
+            self.gamma = bs[i - 1]
+        return max(2, min(self.gamma, cap))
+
+    def _tick_window(self, g: int) -> int:
+        """The kv_window of a tick at depth g: the active slots' bucket,
+        widened to cover the verify's writes at pos .. pos + g, capped at
+        max_seq_len."""
+        return min(self.cfg.max_seq_len,
+                   max(self._kv_window(), _next_pow2_128(
+                       int(self.pos[self.active].max()) + g + 1)))
+
+    def step(self) -> int:
+        """One tick: advance at most one prefill chunk, then one
+        speculative tick over all active slots (one graph replay and one
+        host read on the card). Each slot emits its accepted drafts and the
+        target's next token, stopping at eos, max_new_tokens or pos + g + 1
+        >= max_seq_len. Returns #active+queued."""
+        if self._pf:
+            self._advance_prefill()
+        if not self.active.any():
+            return len(self._pf)
+        if np.any(self.temps[self.active] > 0):
+            raise ValueError("SpecEngine is greedy-only: a request has "
+                             "temperature > 0")
+        g = self._pick_gamma()
+        if self._ticks is None:
+            self._ticks = _SpecTicks(self)
+        out = self._ticks.run(g, self._tick_window(g))
+        accs = []
+        for slot in np.flatnonzero(self.active):
+            req = self.slot_req[slot]
+            n_acc = int(out[slot, g + 1])
+            accs.append(n_acc)
+            self.spec_stats["proposed"] += g
+            self.spec_stats["accepted"] += n_acc
+            done = False
+            for tok in out[slot, :n_acc + 1].tolist():
+                self.generated[req.uid].append(tok)
+                self.pos[slot] += 1
+                self.last_tok[slot] = tok
+                done = (len(self.generated[req.uid]) >= req.max_new_tokens
+                        or tok == req.eos_id
+                        or self.pos[slot] + g + 1 >= self.cfg.max_seq_len)
+                if done:
+                    break
+            if done:
+                self._finish(slot)
+        if accs:
+            self._acc_ema = (0.8 * self._acc_ema
+                             + 0.2 * (sum(accs) / len(accs)) / max(g - 1, 1))
+        self.spec_stats["ticks"] += 1
+        return int(self.active.sum()) + len(self._pf)
+
+
+def _next_pow2_128(n: int) -> int:
+    """The smallest power-of-two multiple of 128 >= n (uncapped)."""
+    w = 128
+    while w < n:
+        w *= 2
+    return w
 
 
 class PagedEngine(Engine):
@@ -843,6 +1198,9 @@ class PagedEngine(Engine):
         paged.ensure_capacity(self.pc, slot, int(pos[0, -1]) + 1)
         return self._paged_forward(toks, self.pc.block_tables[slot:slot + 1],
                                    pos, kv_window, fmt=self.prefill_fmt)
+
+    def _admission_batchable(self) -> bool:
+        return True
 
     def _run_batched_admission(self, group, toks_b, pos_b, mask_b,
                                kv_window):

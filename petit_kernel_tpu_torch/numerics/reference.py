@@ -119,6 +119,17 @@ def quantize_nvfp4_pow2z(w: torch.Tensor, global_scale=None):
     return quantize_nvfp4_pow2(w, global_scale, zero_free=True)
 
 
+def requantize_nvfp4_pow2(qweights: torch.Tensor, scales: torch.Tensor,
+                          global_scale, zero_free: bool = False):
+    """An NVFP4 tensor with E4M3 scales -> the pow2-scale variant: dequantize
+    with the global scale, then quantize_nvfp4_pow2 (zero_free=True for
+    "nvfp4p2z"). The loader serves a pre-quantized checkpoint in nvfp4p2
+    through it."""
+    deq = dequant_nvfp4(qweights, scales) * torch.as_tensor(
+        global_scale, dtype=torch.float32, device=qweights.device)
+    return quantize_nvfp4_pow2(deq, zero_free=zero_free)
+
+
 def quantize_mxfp4(w: torch.Tensor, zero_free: bool = False):
     """Dense (n, k) -> (qweights u8 (n, k/2), scales u8 (n, k/32), gs = 1).
     Scale = the power of two that maps the group amax into [-6, 6];

@@ -72,7 +72,14 @@ block takes its pages up front; the snapshot holds the allocator) and a
 narrow Mixtral Engine (flat bf16, headed fp8), their step forwards run
 under the sync debug mode too; score_forward of Engine (bf16, fp8),
 PagedEngine and the Mixtral Engine on the card against the same engine
-on the CPU at L = 37 and 300, logits within 2^-5 * max|logits|.
+on the CPU at L = 37 and 300, logits within 2^-5 * max|logits|;
+SpecEngine's ticks on the narrow Llama (a 1-layer draft and the target
+itself, flat bf16 and headed fp8): the (g, window) tick graph's replay bit
+for bit the eager tick from the same state (tokens, n_acc at
+force_accept 0.5 with the generator restored, both caches' bytes) at g =
+4 and 11, the KV append counted at capture, streams against the plain
+Engine under the near-tie rule on the target's own score_forward logits,
+and force_accept = 1.0 accepting g - 1 every tick.
 """
 
 import dataclasses
@@ -2098,3 +2105,166 @@ def test_score_forward_on_the_card_matches_the_cpu(block_params,
         apart = top[:, 1] - top[:, 2] >= 2 ** -5 * top.abs().amax(-1)
         same = (card_idx.sort(-1).values == cpu_idx.sort(-1).values).all(-1)
         assert same[apart].all()
+
+
+# -- SpecEngine: each speculative tick one replayed CUDA graph ----------------
+
+def _spec_engine(params, layout, draft_layers=3, gamma=4, prompt_lens=(40,
+                                                                        30)):
+    """SpecEngine(max_batch=2) on the narrow 3-layer Llama, its draft the
+    first `draft_layers` layers of the same params (3: the target itself),
+    both slots decoding after admission (prompts of seeded tokens)."""
+    dcfg = dataclasses.replace(_BLOCK_CFG, num_layers=draft_layers)
+    draft = dict(params, layers=params["layers"][:draft_layers])
+    eng = tserving.SpecEngine(params, _BLOCK_CFG, draft, dcfg, gamma=gamma,
+                              gamma_adaptive=False, max_batch=2,
+                              draft_fmt="nvfp4",
+                              cache_dtype=_BLOCK_DTYPES[layout], seed=7)
+    rng = torch.Generator().manual_seed(5)
+    for i, n in enumerate(prompt_lens):
+        toks = torch.randint(0, _BLOCK_CFG.vocab_size, (n,), generator=rng)
+        eng.add_request(tserving.Request(uid=i, tokens=toks.numpy().astype(
+            "int32"), max_new_tokens=60))
+    while eng._pf:
+        eng._advance_prefill()
+    assert eng.active.all()
+    return eng
+
+
+def _both_caches(eng):
+    return [t for kv in eng.cache + eng.dcache for t in kv]
+
+
+@pytest.mark.parametrize("layout", sorted(_BLOCK_DTYPES))
+@pytest.mark.parametrize("draft_layers", [1, 3])
+def test_spec_tick_graph_replays_bit_for_bit_the_eager_tick(
+        block_params, layout, draft_layers):
+    """One tick at g = 4 (a verify at T = 5, m = 10) and at g = 11 (T =
+    12, m = 24): the (g, window) graph, captured at its first use and
+    replayed, gives the eager tick's tokens and n_acc from the same state,
+    and both caches' bytes, bit for bit (force_accept 0.5, the generator
+    restored). The capture counted the layout's KV append once a layer a
+    draft step and once a layer for the verify."""
+    append = (attention.kv_append_headed if layout == "headed fp8"
+              else attention.kv_append)
+    eng = _spec_engine(block_params, layout, draft_layers)
+    eng.force_accept = 0.5
+    eng._ticks = ticks = tserving._SpecTicks(eng)
+    captured = []
+    inner = ticks._tick
+
+    def counted(g, window, mask, draw=True):
+        before = append.launches
+        out = inner(g, window, mask, draw)
+        if torch.cuda.is_current_stream_capturing():
+            captured.append(append.launches - before)
+        return out
+
+    ticks._tick = counted
+    for g in (4, 11):
+        window = 128
+        snap = [t.clone() for t in _both_caches(eng)]
+        gstate = eng.generator.get_state()
+        with torch.inference_mode():
+            ticks._upload()
+            want = ticks._tick(g, window, ticks.active).cpu().numpy()
+        want_kv = [t.view(torch.uint8).clone() for t in _both_caches(eng)]
+        for t, t0 in zip(_both_caches(eng), snap):
+            t.copy_(t0)
+        eng.generator.set_state(gstate)
+        got = ticks.run(g, window)
+        np.testing.assert_array_equal(got, want)
+        assert _bytes_equal([t.view(torch.uint8) for t in _both_caches(eng)],
+                            want_kv)
+        assert (got[:, g + 1] <= g - 1).all()
+    assert sorted(ticks.graphs) == [(4, 128), (11, 128)]
+    assert captured == [(g * draft_layers + _BLOCK_CFG.num_layers)
+                        for g in (4, 11)]
+    for buf in fused._COUNTERS.values():
+        assert not buf.any()
+
+
+def test_spec_streams_meet_the_tie_rule_on_the_card(block_params):
+    """SpecEngine (adaptive, the target as its own draft and a 1-layer
+    draft) against the plain Engine on the card, 2 requests of 60 tokens:
+    the streams are equal or diverge first where the target's own
+    score_forward logits (over prompt and tokens) have a top-2 gap below
+    2^-5 * max|logits|. The target as its own draft accepts at least a
+    quarter of what it proposes."""
+    rng = torch.Generator().manual_seed(5)
+    reqs = [tserving.Request(uid=i, tokens=torch.randint(
+        0, _BLOCK_CFG.vocab_size, (n,), generator=rng).numpy().astype(
+            "int32"), max_new_tokens=60) for i, n in enumerate((40, 30))]
+    want = tserving.Engine(block_params, _BLOCK_CFG, max_batch=2).run(reqs)
+    scorer = tserving.Engine(block_params, _BLOCK_CFG, max_batch=2)
+    for draft_layers in (3, 1):
+        dcfg = dataclasses.replace(_BLOCK_CFG, num_layers=draft_layers)
+        eng = tserving.SpecEngine(
+            block_params, _BLOCK_CFG,
+            dict(block_params, layers=block_params["layers"][:draft_layers]),
+            dcfg, gamma=7, max_batch=2, draft_fmt="nvfp4")
+        got = eng.run(reqs)
+        for r in reqs:
+            a, b = got[r.uid], want[r.uid]
+            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            if not diff:
+                assert a == b
+                continue
+            i = diff[0]
+            toks = np.concatenate([r.tokens, np.asarray(b[:i], np.int32)])
+            lg = scorer.score_forward(np.stack([toks, toks]))[0, -1].float()
+            top2 = lg.sort().values[-2:]
+            assert (top2[1] - top2[0]).item() < \
+                2 ** -5 * lg.abs().max().item(), (r.uid, i)
+        assert eng.spec_stats["ticks"] > 0 and eng._ticks.graphs
+        if draft_layers == 3:
+            assert eng.spec_stats["accepted"] >= eng.spec_stats["proposed"] / 4
+
+
+def test_spec_force_accept_one_on_the_card(block_params):
+    """force_accept = 1.0: n_acc = g - 1 in every tick of every active
+    slot, each tick a replay."""
+    eng = _spec_engine(block_params, "headed fp8", draft_layers=1, gamma=5)
+    eng.force_accept = 1.0
+    eng._ticks = ticks = tserving._SpecTicks(eng)
+    seen, inner = [], ticks.run
+
+    def run(g, window):
+        out = inner(g, window)
+        seen.append((g, eng.active.copy(), out))
+        return out
+
+    ticks.run = run
+    while eng.active.any():
+        eng.step()
+    assert seen
+    for g, active, out in seen:
+        assert (out[active, g + 1] == g - 1).all()
+
+
+def test_capture_survives_dropped_engines(block_params):
+    """An engine dropped with its graphs sits in a reference cycle (its
+    _ticks / _blocks refer back to it). A later capture, with Python's
+    collector set to run at every allocation, still succeeds: the capture
+    helper collects first and keeps the collector off while capturing
+    (a collection inside a capture destroyed the old graphs there and
+    invalidated it)."""
+    import gc
+
+    old = gc.get_threshold()
+    try:
+        for _ in range(2):
+            eng = _spec_engine(block_params, "flat bf16", draft_layers=1)
+            eng.step()
+            blk = _block_engine(block_params, "flat bf16",
+                                prompt_lens=(40, 30), temps=(0.0, 0.0))
+            blk.step_block(2, waiters=False)
+            assert eng._ticks.graphs and blk._blocks.graphs
+            del eng, blk
+            gc.set_threshold(1, 1, 1)
+        eng = _spec_engine(block_params, "headed fp8", draft_layers=3)
+        while eng.active.any():
+            eng.step()
+        assert eng._ticks.graphs
+    finally:
+        gc.set_threshold(*old)
