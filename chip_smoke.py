@@ -227,7 +227,33 @@ Phases (any failure raises and the script exits non-zero):
              the cap ((g - 1) a slot a tick); tokens/s fresh and warm, ms a
              tick, accepted a tick, graphs and capture seconds beside
              Engine.run(decode_block=8) on the same requests (bf16, fp8)
- 15 profile  the decode step and one 256-token prefill tick under
+ 15 serve_parallel tensor and expert parallelism (parallel/tp.py,
+             parallel/ep.py) on a one-rank NCCL process group (file store,
+             device_id, so the communicator exists before any capture):
+             the 32-layer Llama-3-8B through quantize_params_tp at tp = 1
+             (random weights from seed 0, one dense layer at a time),
+             the plain Engine and the TP Engine (make_tp_step,
+             init_cache_tp) over that one unfused tree, serve's 8 requests
+             over flat bf16 caches and the first 4 over headed fp8 caches,
+             eager and run(decode_block=8): the TP Engine's tokens the
+             plain Engine's bit for bit in both modes, its blocks checked
+             as serve_block's (launches at capture, a second run, the
+             8-step snapshot check); 8 eager steps of each engine timed and
+             one block under torch.profiler (idle share, NCCL kernels and
+             copies a step); the host time of one eager collective;
+             make_tp_forward_sp on a (1, 512) prompt bit for bit
+             make_tp_forward, mul_fp4_tp_rs over w_down at m = 8 and 512
+             bit for bit mul_nvfp4_a16; the shard shapes a tp = 2 or 4
+             rank launches (the seven Llama-3-8B projections through
+             quantize_linear_tp and local_linear_tp, m = 8 and 512), each
+             twice the same bits and within the GEMM tolerance of its twin,
+             their columns or k-sum within it of the unsharded product,
+             timed beside it; the EP Engine (make_ep_step,
+             place_experts_ep at ep = 1) over serve_moe's Mixtral through
+             run(decode_block=8), checked as serve_block's, its tokens the
+             Mixtral Engine's bit for bit (serve_moe's run, or one here);
+             the seconds of each part
+ 16 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16; and over the headed
              fp8 cache), PagedEngine (Llama, fp8, page size 16), the
              hybrid Engine and the Mixtral Engine, all but the hybrid
@@ -239,19 +265,19 @@ Phases (any failure raises and the script exits non-zero):
              device's idle share (PERF.md section 5); a trace of ten decode
              steps that holds fewer than ten appends a layer lost records:
              it is taken again, up to three times, then the phase fails
- 16 hybrid_layer (only when named) the hybrid GEMM alone at the seven
+ 17 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
              copy of this script in that tree's checkout times
- 17 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
+ 18 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
              Llama-3-8B projections at m = 8, default tile and splits,
              L2-warm, L2-flushed and as a CUDA graph: the same kind of A/B
- 18 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
+ 19 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
              calls at cap 8 (mxfp4, E = 8) through grouped_mul's defaults,
              every bucket row filled, warm and as a CUDA graph of the three;
              where the tree's grouped_mul takes `rows`, also the routed
              buckets of phase 3 with their rows: the same kind of A/B
- 19 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
+ 20 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
              Llama-3-8B projections (nvfp4): the 64-row tiles at m = 512
              and 2048, the 16-row tiles at m = 16 (plain) and 64 (weight
              cache) at their default splits, at block_n 64 and 128, plain
@@ -260,13 +286,13 @@ Phases (any failure raises and the script exits non-zero):
              summed over the four, the 16-row ones also as a CUDA graph of
              the four: the same kind of A/B, also of copies of the tile
              bodies edited to find what bounds them (it checks no bits)
- 20 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
+ 21 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
              tiles alone, the seven unfused projections at m = 512, the
              heuristic's tile, L2-warm, summed over the layer, with the
              dense columns alone (a launch with no FP4 columns) beside
              torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
              the same kind of A/B
- 21 append_layer (only when named) the KV writes alone, each as a CUDA
+ 22 append_layer (only when named) the KV writes alone, each as a CUDA
              graph of 20 launches: kv_append flat bf16 and headed bf16 and
              fp8, kv_append_paged fp8 (page size 16) and the torch glue it
              replaced, each _write_kv as the Llama block calls it (flat
@@ -274,21 +300,21 @@ Phases (any failure raises and the script exits non-zero):
              256-token chunk), and an empty kernel, the launch floor: the
              same kind of A/B, which a copy of this script in an older
              tree's checkout times
- 22 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
+ 23 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
              alone: the four Llama-3-8B projections (nvfp4) at m = 64
              through fused_mul with weight-cache ids 16x64 and 16x128 at
              their default splits, beside the plain 16-row tile, L2-warm
              and as a CUDA graph of the four: the same kind of A/B, also of
              copies of csrc/fp4_stream.cuh with another plan (it checks no
              bits)
- 23 decode_attn_layer (only when named) decode attention alone, at the
+ 24 decode_attn_layer (only when named) decode attention alone, at the
              Engine's decode shape (B = 4, positions 274, 316, 177 and 108,
              window 512) and the kernels phase's (B = 8, S = 2048): flat
              bf16, headed fp8 and paged fp8 (page size 16), each as a CUDA
              graph of 32 launches, one a layer over its own cache, beside
              SDPA over the same bf16 K/V as a graph: the same kind of A/B,
              which a copy of this script in an older tree's checkout times
- 24 hp_layer (only when named) the high-precision GEMM's tiles alone,
+ 25 hp_layer (only when named) the high-precision GEMM's tiles alone,
              the four Llama-3-8B projections (nvfp4, f32 A) through
              fused_mul with hp ids at their default splits: m = 8 at 16x64
              and 16x128, the weight cache at m = 64 (16x64), and the 64-row
@@ -298,7 +324,7 @@ Phases (any failure raises and the script exits non-zero):
              A/B, also of copies of the tile bodies edited to find what
              bounds them (it checks no bits)
 
-Each engine run of phases 6-10, 12, 13 and 14 (and the weight-cache run of
+Each engine run of phases 6-10 and 12-15 (and the weight-cache run of
 phase 9, the training run of phase 11 and the sweep and table runs of
 phase 4) sets
 every kernel's launch count to 0 before it and fails if a kernel of its
@@ -335,6 +361,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from petit_kernel_tpu_torch import _cli as port_cli
 from petit_kernel_tpu_torch import bench as port_bench
@@ -347,11 +375,13 @@ from petit_kernel_tpu_torch.ops.kernels import hybrid
 from petit_kernel_tpu_torch.ops.solution import ElementB
 from petit_kernel_tpu_torch.ops import solution as solution_mod
 from petit_kernel_tpu_torch.numerics import reference as qref
+from petit_kernel_tpu_torch.parallel import ep as ep_mod
+from petit_kernel_tpu_torch.parallel import tp as tp_mod
 from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_block", "serve_w4a8", "serve_hybrid", "train",
-          "serve_moe", "load", "serve_spec",
+          "serve_moe", "load", "serve_spec", "serve_parallel",
           "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
           "w4a8_layer", "hybrid_prefill_layer", "append_layer",
           "fp4_wc_layer", "decode_attn_layer", "hp_layer")
@@ -488,8 +518,8 @@ KERNELS = {
                         replaces="petit_kernel_tpu/ops/kernels/hybrid.py:34",
                         wrapper=hybrid.hybrid_mul),
 }
-# the kernels each engine run of phases 6-10 and 12 (and the weight-cache
-# run of phase 9 and the training run of phase 11) must launch
+# the kernels each engine run of phases 6-10 and 12-15 (and the
+# weight-cache run of phase 9 and the training run of phase 11) must launch
 PATHS = {
     "serve bf16 Engine": ("fp4_gemm", "fp4_gemm_prefill", "decode_attention",
                           "prefill_attention", "kv_append"),
@@ -551,6 +581,38 @@ PATHS = {
     "serve_spec fp8 Engine decode_block=8": (
         "fp4_gemm", "fp4_gemm_prefill", "decode_attention_headed",
         "prefill_attention_headed", "kv_append_headed"),
+    "serve_parallel bf16 Engine": ("fp4_gemm", "fp4_gemm_prefill",
+                                   "decode_attention", "prefill_attention",
+                                   "kv_append"),
+    "serve_parallel bf16 TP Engine": ("fp4_gemm", "fp4_gemm_prefill",
+                                      "decode_attention", "prefill_attention",
+                                      "kv_append"),
+    "serve_parallel bf16 TP Engine decode_block=8": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "serve_parallel bf16 Engine decode_block=8": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
+    "serve_parallel fp8 Engine": ("fp4_gemm", "fp4_gemm_prefill",
+                                  "decode_attention_headed",
+                                  "prefill_attention_headed",
+                                  "kv_append_headed"),
+    "serve_parallel fp8 TP Engine": ("fp4_gemm", "fp4_gemm_prefill",
+                                     "decode_attention_headed",
+                                     "prefill_attention_headed",
+                                     "kv_append_headed"),
+    "serve_parallel fp8 TP Engine decode_block=8": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention_headed",
+        "prefill_attention_headed", "kv_append_headed"),
+    "serve_parallel fp8 Engine decode_block=8": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention_headed",
+        "prefill_attention_headed", "kv_append_headed"),
+    "serve_parallel EP Engine decode_block=8": (
+        "grouped_fp4_gemm", "fp4_gemm", "fp4_gemm_prefill",
+        "decode_attention", "prefill_attention", "kv_append"),
+    "serve_parallel Mixtral Engine decode_block=8": (
+        "grouped_fp4_gemm", "fp4_gemm", "fp4_gemm_prefill",
+        "decode_attention", "prefill_attention", "kv_append"),
     "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_wc_16row",
                         "fp4_gemm_hp", "fp4_gemm_hp_wc",
                         "fp4_gemm_hp_wc_16row", "fp4_gemm_hp_prefill",
@@ -561,6 +623,7 @@ PATHS = {
 CAPTURED_PER_LAYER = {
     "serve_block fp8 PagedEngine": {"paged_decode_attention": 1},
     "serve_moe Mixtral Engine decode_block=8": {"grouped_fp4_gemm": 3},
+    "serve_parallel EP Engine decode_block=8": {"grouped_fp4_gemm": 3},
 }
 FP8 = torch.float8_e4m3fn
 
@@ -5210,6 +5273,429 @@ def phase_serve_spec(rec):
     rec["serve_spec"] = out
 
 
+# ---------------------------------------------------------------------------
+# serve_parallel: tensor and expert parallelism on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _one_rank_group():
+    """A one-rank NCCL process group on cuda:0 over a file store, its
+    communicator made at once (device_id), so that it exists before the
+    first decode graph is captured; destroyed on exit with the store."""
+    store = tempfile.mkdtemp(prefix="pk_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(store, "store"),
+        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _tp_model(cfg, mesh, dev):
+    """The 32-layer Llama-3-8B through parallel.tp.quantize_params_tp on
+    the mesh: random dense weights from seed 0 made on the card one layer
+    at a time (a generator of layers), unfused nvfp4. At tp = 1 the rank's
+    tree is the whole unfused model, which the plain Engine also serves."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    dense = llama.init_params(dataclasses.replace(cfg, num_layers=0), gen)
+    dense["layers"] = (llama.init_layer(cfg, gen)
+                       for _ in range(cfg.num_layers))
+    params = tp_mod.quantize_params_tp(dense, cfg, mesh)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _block_profile(name, eng, reqs, cfg):
+    """The first 4 requests admitted with 256 new tokens each (room for
+    _whole_trace's retries), 2 eager steps to warm up and 8 on the wall
+    clock, one block of 10 to capture its graph, then one block of 10
+    under torch.profiler (_whole_trace): eager and block wall ms a step,
+    kernel ms, idle share, and the NCCL kernels' share of the kernel
+    time."""
+    eng.reset()
+    for r in reqs[:4]:
+        eng.add_request(dataclasses.replace(r, max_new_tokens=256))
+    while eng._pf:
+        eng._advance_prefill()
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        eng.step()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / 8
+    eng.step_block(10, waiters=False)
+    wall, kern, rows = _whole_trace(name, "block_decode", cfg,
+                                    lambda: eng.step_block(10,
+                                                           waiters=False))
+    nccl = [(k, ms, c) for k, ms, c in rows if "nccl" in k.lower()]
+    nccl_ms = sum(ms for _, ms, _ in nccl)
+    copies = [(k, ms, c) for k, ms, c in rows
+              if k.startswith(("Memcpy", "Memset"))]
+    eng.reset()
+    out = dict(eager_step_ms=eager_ms, step_ms=wall / 10,
+               kernel_ms_per_step=kern / 10,
+               idle_share=1 - kern / wall,
+               nccl_ms_per_step=nccl_ms / 10, nccl_share=nccl_ms / kern,
+               nccl_kernels_per_step=sum(c for _, _, c in nccl) / 10,
+               nccl_kernels=sorted({k for k, _, _ in nccl}),
+               records_per_step=sum(c for _, _, c in rows) / 10,
+               copies_per_step={k: (c / 10, ms / 10) for k, ms, c in copies})
+    log(f"[{name}] eager step {eager_ms:.2f} ms (wall, 8 steps); a block "
+        f"of 10 under the profiler: "
+        f"{out['step_ms']:.2f} ms a step (wall), kernels and copies "
+        f"{out['kernel_ms_per_step']:.3f} ms in "
+        f"{out['records_per_step']:.1f} records, idle "
+        f"{100 * out['idle_share']:.1f}%; NCCL "
+        f"{out['nccl_kernels_per_step']:.0f} kernels "
+        f"{out['nccl_ms_per_step']:.3f} ms a step = "
+        f"{100 * out['nccl_share']:.1f}% of the kernel time "
+        f"({out['nccl_kernels']}); copies a step (count, ms) "
+        f"{out['copies_per_step']}")
+    return out
+
+
+def _collective_host_us(mesh, dev, calls=200):
+    """Host microseconds a call of each collective helper of
+    parallel/tp.py takes at this world size, eager, on a decode step's
+    (4, 1, 4096) bf16 activations and (4, 1, 128256) logits: the wall
+    clock over `calls` calls, then a synchronize."""
+    x = torch.zeros((4, 1, 4096), dtype=torch.bfloat16, device=dev)
+    lg = torch.zeros((4, 1, 128256), dtype=torch.bfloat16, device=dev)
+    tp = tp_mod.mesh_axis(mesh, "tp")
+    out = {}
+    for what, fn in (
+            ("all_reduce", lambda: tp_mod.all_reduce(x, tp)),
+            ("all_gather logits", lambda: tp_mod.all_gather(lg, tp, 2)),
+            ("reduce_scatter", lambda: tp_mod.reduce_scatter(x, tp, 1))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[what] = (time.perf_counter() - t0) * 1e6 / calls
+    log(f"[serve_parallel] host us a call, eager, world of one: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def _warm_block_run(rec, path, eng, reqs, cfg):
+    """eng.run(reqs, decode_block=8) twice (the second with the graphs
+    made), counted by _run_path; returns (tokens by uid, fresh and warm
+    tokens/s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = _run_path(rec, path, lambda: eng.run(reqs, decode_block=8))
+    fresh = time.perf_counter() - t0
+    _check_outputs(path, out, len(reqs), cfg)
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.run(reqs, decode_block=8)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    if again != out:
+        raise AssertionError(f"{path}: a second run gave other tokens")
+    n_tok = sum(len(v) for v in out.values())
+    return [out[i] for i in sorted(out)], n_tok / fresh, n_tok / warm
+
+
+def _parallel_tp_engines(rec, cfg, mesh, params, reqs):
+    """Part 1 of serve_parallel: for the flat bf16 cache (serve's 8
+    requests) and the headed fp8 cache (the first 4), the plain Engine
+    over the unfused params and the TP Engine
+    (make_tp_step, init_cache_tp) over the same tree, eager (_serve) and
+    in decode blocks of 8 (_serve_block for the TP Engine, its snapshot
+    check included; _warm_block_run and _block_replay_check for the plain
+    one); the TP Engine's tokens must be the plain Engine's bit for bit
+    in both modes. Then one profiled block of each over bf16."""
+    step = tp_mod.make_tp_step(cfg, mesh)
+    out = {}
+    # the fp8 repeat serves the first 4 requests, to keep the phase short
+    for tag, dtype, reqs in (("bf16", torch.bfloat16, reqs),
+                             ("fp8", FP8, reqs[:4])):
+        def plain(dtype=dtype):
+            return serving.Engine(params, cfg, max_batch=4,
+                                  cache_dtype=dtype)
+
+        def tp(dtype=dtype):
+            return serving.Engine(
+                params, cfg, max_batch=4, forward_fn=step,
+                cache=tp_mod.init_cache_tp(cfg, 4, mesh, dtype=dtype))
+
+        run_p, eng = _serve(rec, f"serve_parallel {tag} Engine", plain,
+                            reqs, cfg)
+        del eng
+        run_t, eng = _serve(rec, f"serve_parallel {tag} TP Engine", tp,
+                            reqs, cfg)
+        del eng
+        if run_t["tokens"] != run_p["tokens"]:
+            raise AssertionError(f"serve_parallel {tag}: the TP Engine's "
+                                 "tokens are not the plain Engine's")
+        path = f"serve_parallel {tag} TP Engine decode_block=8"
+        blk_t = _serve_block(rec, path, tp, reqs, cfg, run_t["tokens"])
+        eng = plain()
+        toks, fresh, warm = _warm_block_run(
+            rec, f"serve_parallel {tag} Engine decode_block=8", eng, reqs,
+            cfg)
+        same_toks, same_cache, block_ms = _block_replay_check(eng, reqs)
+        if not (same_toks and same_cache):
+            raise AssertionError(f"serve_parallel {tag} Engine: a block of "
+                                 "8 is not bit for bit 8 eager steps")
+        if blk_t["tokens"] != toks:
+            raise AssertionError(f"{path}: tokens are not the plain "
+                                 "Engine's run(decode_block=8) tokens")
+        blk_p = dict(tokens=toks, tok_per_s=fresh, warm_tok_per_s=warm,
+                     replay_check_block_ms=block_ms)
+        log(f"[serve_parallel] {tag}: TP Engine tokens equal the plain "
+            f"Engine's, eager and in blocks of 8; eager "
+            f"{run_t['tok_per_s']:.1f} against {run_p['tok_per_s']:.1f} "
+            f"tok/s; blocks fresh {blk_t['tok_per_s']:.1f} against "
+            f"{fresh:.1f}, warm {blk_t['warm_tok_per_s']:.1f} against "
+            f"{warm:.1f} tok/s; a block step (8 replays, one read) "
+            f"{blk_t['replay_check_block_ms'] / 8:.3f} against "
+            f"{block_ms / 8:.3f} ms")
+        if tag == "bf16":
+            blk_t["profile"] = _block_profile(
+                "serve_parallel bf16 TP Engine", tp(), reqs, cfg)
+            blk_p["profile"] = _block_profile(
+                "serve_parallel bf16 Engine", eng, reqs, cfg)
+        del eng
+        out[tag] = {"Engine": run_p, "TP Engine": run_t,
+                    "TP Engine decode_block=8": blk_t,
+                    "Engine decode_block=8": blk_p}
+    return out
+
+
+def _parallel_sp_rs(cfg, mesh, params, dev):
+    """Part 2: make_tp_forward_sp against make_tp_forward on one 512-token
+    prompt (equal bits at tp = 1), and mul_fp4_tp_rs over layer 0's
+    w_down at m = 8 and 512 against mul_nvfp4_a16 on the same bytes (equal
+    bits: the reduce-scatter of one rank is a copy); ms of each."""
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(1, 512)), device=dev)
+    fwd = tp_mod.make_tp_forward(cfg, mesh)
+    fwd_sp = tp_mod.make_tp_forward_sp(cfg, mesh)
+    want, got = fwd(params, toks), fwd_sp(params, toks)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().max().item()
+    out = dict(sp_max_abs_diff=diff,
+               sp_equal=bool(torch.equal(got.view(torch.int16),
+                                         want.view(torch.int16))),
+               tp_forward_ms=cuda_ms(lambda: fwd(params, toks), iters=3,
+                                     warmup=1),
+               sp_forward_ms=cuda_ms(lambda: fwd_sp(params, toks), iters=3,
+                                     warmup=1))
+    log(f"[serve_parallel] make_tp_forward_sp against make_tp_forward, "
+        f"(1, 512) prompt, 32 layers: max abs diff {diff:.3e}, bits "
+        f"{'equal' if out['sp_equal'] else 'DIFFER'}; "
+        f"{out['sp_forward_ms']:.2f} against {out['tp_forward_ms']:.2f} ms")
+    if not out["sp_equal"] or not math.isfinite(diff):
+        raise AssertionError("serve_parallel: the SP forward differs from "
+                             "the TP forward at tp = 1")
+    del want, got
+    layer = params["layers"][0]["w_down"]
+    k, n = 14336, layer["words"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out["rs"] = []
+    for m in (8, 512):
+        a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        y = tp_mod.mul_fp4_tp_rs(a, layer, mesh, k)
+        ref = gemm.mul_nvfp4_a16(a, layer["words"], layer["scales"],
+                                 layer["gs"], m, n, k, -1)
+        torch.cuda.synchronize()
+        if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"serve_parallel: mul_fp4_tp_rs at m = {m} "
+                                 "is not mul_nvfp4_a16's bits at tp = 1")
+        row = dict(m=m, k=k, n=n,
+                   rs_ms=cuda_ms(lambda: tp_mod.mul_fp4_tp_rs(a, layer,
+                                                              mesh, k)),
+                   gemm_ms=cuda_ms(lambda: gemm.mul_nvfp4_a16(
+                       a, layer["words"], layer["scales"], layer["gs"], m,
+                       n, k, -1)))
+        out["rs"].append(row)
+        log(f"[serve_parallel] mul_fp4_tp_rs w_down m={m}: bit for bit "
+            f"mul_nvfp4_a16; {row['rs_ms']:.4f} ms against "
+            f"{row['gemm_ms']:.4f} ms")
+    return out
+
+
+_UNFUSED_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _parallel_shard_shapes(dev):
+    """Part 3: the shapes a tp = 2 or 4 rank's projections launch, in this
+    one process: each Llama-3-8B projection (random, nvfp4) through
+    quantize_linear_tp (wo and w_down k-sharded with a per-shard repack),
+    each rank's local_linear_tp shard through mul_nvfp4_a16 at m = 8 and
+    512: twice the same bits, within the GEMM tolerance of its plain twin
+    (fused_mul_reference); the shards' columns side by side, or the sum of
+    the k-shards' products, within the same tolerance of the unsharded
+    product of the same codes."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    any_sid = solution_mod.SolutionId(16, 64)
+    rows, err_max = [], 0.0
+    for name, (k, n) in zip(_UNFUSED_NAMES, LLAMA8B_UNFUSED_KN):
+        shard = "k" if name in ("wo", "w_down") else "n"
+        w = llama.normal(gen, (k, n), 1.0 / math.sqrt(k))
+        full = llama.quantize_linear(w, "nvfp4")
+        acts = {m: torch.randn((m, k), generator=gen, device=dev).to(
+            torch.bfloat16) for m in (8, 512)}
+        def unsharded(a):
+            return gemm.mul_nvfp4_a16(a, full["words"], full["scales"],
+                                      full["gs"], a.shape[0], n, k, -1)
+
+        whole = {m: unsharded(a) for m, a in acts.items()}
+        whole_ms = {m: cuda_ms(lambda a=a: unsharded(a))
+                    for m, a in acts.items()}
+        for tp in (2, 4):
+            g = tp_mod.quantize_linear_tp(w, tp, shard)
+            for m, a in acts.items():
+                parts = []
+                for t in range(tp):
+                    loc = tp_mod.local_linear_tp(g, tp, shard, t)
+                    kl = k // tp if shard == "k" else k
+                    nl = loc["words"].shape[1]
+                    a_l = (a[:, t * kl:(t + 1) * kl].contiguous()
+                           if shard == "k" else a)
+
+                    def call(a_l=a_l, loc=loc, kl=kl, nl=nl):
+                        return gemm.mul_nvfp4_a16(
+                            a_l, loc["words"], loc["scales"], loc["gs"], m,
+                            nl, kl, -1)
+
+                    y, again = call(), call()
+                    twin = fused.fused_mul_reference(
+                        a_l, loc["words"], loc["scales"],
+                        loc["gs"].reshape(1), sid=any_sid)
+                    what = (f"shard {name} tp={tp} rank={t} m={m} "
+                            f"(k, n)=({kl}, {nl})")
+                    if not torch.equal(y.view(torch.int16),
+                                       again.view(torch.int16)):
+                        raise AssertionError(f"{what}: two launches differ")
+                    e = _close(what, y, twin, 2 ** -7,
+                               2 ** -8 * twin.float().abs().max())
+                    sid = gemm.resolve_solution(
+                        m, nl, kl, ElementB.NVFP4,
+                        hints=solution_mod.default_hints())
+                    rows.append(dict(name=name, tp=tp, rank=t, m=m, k=kl,
+                                     n=nl, tile=[sid.block_m, sid.block_n],
+                                     max_abs_err=e, ms=cuda_ms(call)))
+                    err_max = max(err_max, e)
+                    parts.append(y)
+                total = (torch.cat(parts, dim=1) if shard == "n"
+                         else sum(p.float() for p in parts))
+                want = whole[m]
+                e = _close(f"shards {name} tp={tp} m={m} against the "
+                           "unsharded product", total, want, 2 ** -7,
+                           2 ** -8 * want.float().abs().max())
+                shard_ms = sum(r["ms"] for r in rows[-tp:]) / tp
+                for r in rows[-tp:]:
+                    r["unsharded_ms"] = whole_ms[m]
+                joined = "sum" if shard == "k" else "columns"
+                log(f"[serve_parallel] {name} tp={tp} m={m}: {tp} shards "
+                    f"(k, n) = ({rows[-1]['k']}, {rows[-1]['n']}) tile "
+                    f"{rows[-1]['tile']}, twice the same bits, within "
+                    f"tolerance of the twin; their {joined} against the "
+                    f"unsharded product err {e:.2e}; {shard_ms:.4f} ms a "
+                    f"shard against {whole_ms[m]:.4f} unsharded "
+                    f"({shard_ms / whole_ms[m]:.2f}x)")
+        del w, full, g
+    return dict(rows=rows, max_abs_err=err_max)
+
+
+def _parallel_ep_engine(rec, dev):
+    """Part 4: the 32-layer Mixtral-8x7B of serve_moe (its model, built
+    here if serve_moe did not run) on a one-rank ("dp", "ep") mesh:
+    place_experts_ep keeps every layer's whole stack at ep = 1, and
+    Engine(forward_fn=make_ep_step) serves serve's 8 requests through
+    run(decode_block=8) (_serve_block, its snapshot check included); its
+    tokens must be the Mixtral Engine's (make_engine_forward) in the same
+    mode bit for bit: serve_moe's record when it ran, else a run here."""
+    cfg = MIXTRAL_8X7B
+    params, _ = _moe_model(cfg, dev)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "ep"))
+    layers = []
+    for lp in params["layers"]:
+        ex, router = ep_mod.place_experts_ep(lp["experts"], lp["router"],
+                                             mesh)
+        layers.append({**lp, "experts": ex, "router": router})
+    ep_params = {**params, "layers": layers}
+    reqs = _serve_requests(cfg)
+    step = ep_mod.make_ep_step(cfg, mesh)
+    path = "serve_parallel EP Engine decode_block=8"
+    run = _serve_block(rec, path, lambda: serving.Engine(
+        ep_params, cfg, max_batch=4, forward_fn=step), reqs, cfg, None)
+    want = rec.get("serve_moe", {}).get("decode_block_8", {}).get("tokens")
+    source = "serve_moe's run"
+    if want is None:
+        eng = serving.Engine(params, cfg, max_batch=4,
+                             forward_fn=moe.make_engine_forward(cfg))
+        want, _, _ = _warm_block_run(
+            rec, "serve_parallel Mixtral Engine decode_block=8", eng, reqs,
+            cfg)
+        source = "a run here"
+        del eng
+    if run["tokens"] != want:
+        raise AssertionError(f"{path}: tokens are not the Mixtral Engine's "
+                             f"({source})")
+    log(f"[{path}] tokens equal the Mixtral Engine's run(decode_block=8) "
+        f"({source}); fresh {run['tok_per_s']:.1f}, warm "
+        f"{run['warm_tok_per_s']:.1f} tok/s")
+    run["compared_with"] = source
+    return run
+
+
+def phase_serve_parallel(rec):
+    """Tensor and expert parallelism (parallel/tp.py, parallel/ep.py) on
+    a one-rank NCCL group: every collective runs through NCCL, inside the
+    captured decode graphs too. Part 1 the TP Engine against the plain
+    Engine (bf16 and fp8 caches), 2 the SP forward and the reduce-scatter
+    GEMM, 3 the per-shard GEMM shapes of tp = 2 and 4, 4 the EP Engine
+    against the Mixtral Engine."""
+    dev = torch.device("cuda")
+    rec.setdefault("launches", {})
+    out = {}
+    seconds = {}
+    with _one_rank_group():
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "tp"))
+        cfg = llama.LlamaConfig.llama3_8b()
+        t0 = time.perf_counter()
+        params, init_s = _tp_model(cfg, mesh, dev)
+        log(f"[serve_parallel] quantize_params_tp (tp = 1) of the 32-layer "
+            f"Llama-3-8B in {init_s:.1f} s; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+        out.update(init_s=init_s, smi=smi_line(),
+                   collective_host_us=_collective_host_us(mesh, dev))
+        out["tp"] = _parallel_tp_engines(rec, cfg, mesh, params,
+                                         _serve_requests(cfg))
+        seconds["tp engines"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["sp_rs"] = _parallel_sp_rs(cfg, mesh, params, dev)
+        del params
+        gc.collect()
+        seconds["sp and rs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["shards"] = _parallel_shard_shapes(dev)
+        seconds["shards"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ep"] = _parallel_ep_engine(rec, dev)
+        seconds["ep engine"] = time.perf_counter() - t0
+        del mesh
+    out["seconds"] = seconds
+    log("[serve_parallel] seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    rec["serve_parallel"] = out
+
+
 def _kernel_profile(steps):
     """Run steps() under torch.profiler; returns (wall ms, summed device ms
     of every kernel, [(kernel name, device ms, calls)] by time)."""
@@ -5482,7 +5968,7 @@ def main(argv=None) -> int:
     if all(p in rec for p in ("kernels", "solutions", "serve", "serve_kv",
                               "serve_block", "serve_moe", "serve_w4a8",
                               "serve_hybrid", "train", "load",
-                              "serve_spec")):
+                              "serve_spec", "serve_parallel")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

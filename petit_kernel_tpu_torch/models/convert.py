@@ -25,6 +25,12 @@ stored by the JAX package in its kernel's pi-permuted k order
 (ops/hybrid.py permute_k_for_a), goes back to natural k order, the order
 in which the port's kernels read A. The permuted copy is not carried.
 
+`params_tp_from_jax` and `params_ep_from_jax` take the JAX package's
+quantize_params_tp and quantize_params_ep output, every global array
+gathered to numpy, and return one rank's local tree (parallel/tp.py,
+parallel/ep.py): a rank's column, packed-row or expert block of each
+sharded leaf, the replicated leaves whole.
+
 This module imports neither JAX nor ml_dtypes: bfloat16 and float8 arrays
 are read through integer views of their bytes.
 """
@@ -94,3 +100,25 @@ def kv_from_jax(pairs, device=None) -> list:
     device = resolve_device(device)
     return [(tensor_from_numpy(k, device), tensor_from_numpy(v, device))
             for k, v in pairs]
+
+
+def params_tp_from_jax(tree, tp: int, rank: int, device=None) -> dict:
+    """The JAX package's quantize_params_tp tree (numpy leaves, each array
+    gathered whole) -> rank `rank`'s local tree of a tp-way mesh on
+    `device` (default the CUDA card), as the port's quantize_params_tp
+    gives it: columns of the column-parallel projections and lm_head,
+    packed-row blocks of wo and w_down (parallel.tp.local_params_tp)."""
+    from ..parallel import tp as tp_mod
+    return tp_mod.local_params_tp(params_from_jax(tree, device), tp, rank)
+
+
+def params_ep_from_jax(tree, ep: int, rank: int, device=None) -> dict:
+    """The JAX package's quantize_params_ep tree (numpy leaves, each
+    expert stack gathered whole) -> rank `rank`'s local tree of an ep-way
+    mesh on `device` (default the CUDA card): experts [rank E/ep,
+    (rank+1) E/ep) of each layer's stacks, the rest whole."""
+    from ..parallel import ep as ep_mod
+    out = params_from_jax(tree, device)
+    for lp in out["layers"]:
+        lp["experts"] = ep_mod.local_experts_ep(lp["experts"], ep, rank)
+    return out

@@ -99,7 +99,7 @@ def moe_mlp_partial(x: torch.Tensor, router_w: torch.Tensor, experts: dict,
     """Contributions of experts [expert_base, expert_base + num_local) to
     the SwiGLU MoE block, (T, H) f32. Routing runs over all experts;
     `experts` holds only the local stack, indexed 0..num_local-1 (the
-    building block of expert parallelism, which the port has not yet)."""
+    building block of expert parallelism, parallel/ep.py)."""
     T, H = x.shape
     E, topk = moe_cfg.num_experts, moe_cfg.top_k
     if num_local is None:
@@ -255,11 +255,13 @@ def quantize_params(params: dict, cfg: MixtralConfig,
 def forward(params, tokens, cfg: MixtralConfig, cache=None, pos=None, *,
             attn_fmt: str = "nvfp4", moe_fmt: str = "mxfp4",
             kv_window: Optional[int] = None,
-            write_mask: Optional[torch.Tensor] = None):
+            write_mask: Optional[torch.Tensor] = None, moe_block_fn=None):
     """Mixtral forward with llama.forward's serving contract: tokens (B, T)
     -> (logits (B, T, V), cache); the cache (flat or headed, updated in
     place) needs kv_window, and write_mask (B,) bool keeps rows' KV
-    bit-exact. Quantized experts run moe_mlp; dense ones the oracle."""
+    bit-exact. Quantized experts run moe_mlp; dense ones the oracle.
+    moe_block_fn(x2d (B*T, H), router_w, experts) -> (B*T, H), when given,
+    replaces both (parallel/ep.py's expert-parallel block)."""
     moe_cfg = MoEConfig(cfg.num_experts, cfg.top_k)
     B, T = tokens.shape
     x = params["embed"][tokens.long()]
@@ -273,7 +275,9 @@ def forward(params, tokens, cfg: MixtralConfig, cache=None, pos=None, *,
                                 write_mask=write_mask, rope_cs=rope_cs)
         h = llama.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         ex = lp["experts"]
-        if "words" in ex["w_gate"]:
+        if moe_block_fn is not None:
+            y = moe_block_fn(h.reshape(B * T, -1), lp["router"], ex)
+        elif "words" in ex["w_gate"]:
             y = moe_mlp(h.reshape(B * T, -1), lp["router"], ex, moe_cfg,
                         fmt=moe_fmt)
         else:

@@ -23,7 +23,10 @@ every active slot the pages of the whole block. On the CPU the same steps
 run eagerly over the same buffers.
 
 Engine takes a custom forward_fn (models/moe.make_engine_forward serves
-Mixtral through it) and a cache built by the caller. prefill_fmt="w4a8"
+Mixtral through it; parallel/tp.make_tp_step and parallel/ep.make_ep_step
+serve tensor- and expert-parallel models, an Engine on every rank, their
+collectives captured into the decode graphs) and a cache built by the
+caller. prefill_fmt="w4a8"
 runs prefill chunks and batched admissions through the W4A8 GEMM over the
 nvfp4 weights while decode keeps fmt (llama.linear routes chunks of fewer
 than llama.W4A8_MIN_M rows to the exact kernel). fmt="hybrid" serves a
@@ -352,9 +355,11 @@ class Engine:
         cache_dtype=torch.float8_e4m3fn. forward_fn(params, tokens (B, T),
         cache, pos (B, T), kv_window=, write_mask=) -> (logits, cache)
         replaces llama.forward for prefill, batched admission and decode
-        (moe.make_engine_forward); one without kv_window and write_mask
-        raises NotImplementedError (the JAX engine's fallback for them
-        serves tensor-parallel steps, which are not ported). Sampling:
+        (moe.make_engine_forward, and on every rank of a mesh
+        parallel.tp.make_tp_step with cache=parallel.tp.init_cache_tp or
+        parallel.ep.make_ep_step); one without kv_window and write_mask
+        raises NotImplementedError (the JAX engine falls back to full-cache
+        steps without them; that fallback is not ported). Sampling:
         per-request temperature (Request.temperature, 0 = greedy) with an
         engine-wide top_k; the noise comes from a torch.Generator on the
         engine's device seeded with `seed`.
@@ -384,8 +389,8 @@ class Engine:
             if not {"kv_window", "write_mask"} <= set(params_):
                 raise NotImplementedError(
                     "forward_fn must take kv_window= and write_mask=: the "
-                    "fallback without them serves tensor-parallel steps, "
-                    "which are not ported")
+                    "JAX engine's fallback for a forward_fn without them "
+                    "is not ported")
             prefill_fn = forward_fn
         self._forward_fn = forward_fn
         self._prefill_fn = prefill_fn

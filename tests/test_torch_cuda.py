@@ -2268,3 +2268,202 @@ def test_capture_survives_dropped_engines(block_params):
         assert eng._ticks.graphs
     finally:
         gc.set_threshold(*old)
+
+
+# -- tensor and expert parallelism on a one-rank NCCL group -----------------
+
+_LLAMA8B_UNFUSED = (("wq", 4096, 4096), ("wk", 4096, 1024),
+                    ("wv", 4096, 1024), ("wo", 4096, 4096),
+                    ("w_gate", 4096, 14336), ("w_up", 4096, 14336),
+                    ("w_down", 14336, 4096))
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL process group on the card (its communicator made
+    at once) and its ("dp", "tp") and ("dp", "ep") meshes of shape (1, 1):
+    every collective of parallel/ runs through NCCL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL has no CPU mode")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield {"tp": init_device_mesh("cuda", (1, 1),
+                                      mesh_dim_names=("dp", "tp")),
+               "ep": init_device_mesh("cuda", (1, 1),
+                                      mesh_dim_names=("dp", "ep"))}
+    finally:
+        import gc
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def tp_block_params(nccl_mesh):
+    """The narrow 3-layer Llama through quantize_params_tp at tp = 1: the
+    unfused tree both the plain and the TP Engine serve."""
+    from petit_kernel_tpu_torch.parallel import tp as ttp
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return ttp.quantize_params_tp(tllama.init_params(_BLOCK_CFG, g),
+                                  _BLOCK_CFG, nccl_mesh["tp"])
+
+
+def _tp_engine(params, mesh, layout):
+    from petit_kernel_tpu_torch.parallel import tp as ttp
+
+    return tserving.Engine(
+        params, _BLOCK_CFG, max_batch=2, seed=7,
+        forward_fn=ttp.make_tp_step(_BLOCK_CFG, mesh),
+        cache=ttp.init_cache_tp(_BLOCK_CFG, 2, mesh,
+                                dtype=_BLOCK_DTYPES[layout]))
+
+
+@pytest.mark.parametrize("layout", sorted(_BLOCK_DTYPES))
+def test_tp_engine_tokens_equal_the_plain_engine(nccl_mesh, tp_block_params,
+                                                 layout):
+    """The TP Engine (make_tp_step, init_cache_tp) at tp = 1 over the
+    unfused params gives the plain Engine's tokens over the same params
+    bit for bit, eager and in decode blocks of 4: at one rank the
+    all_reduces and all-gathers copy."""
+    reqs = [tserving.Request(uid=i, tokens=(np.arange(7 + 30 * i) % 500
+                                            ).astype(np.int32),
+                             max_new_tokens=12) for i in range(3)]
+    for block in (1, 4):
+        plain = tserving.Engine(tp_block_params, _BLOCK_CFG, max_batch=2,
+                                cache_dtype=_BLOCK_DTYPES[layout])
+        want = plain.run(reqs, decode_block=block)
+        got = _tp_engine(tp_block_params, nccl_mesh["tp"], layout).run(
+            reqs, decode_block=block)
+        assert got == want, (layout, block)
+
+
+def _ep_block_params(mesh):
+    from petit_kernel_tpu_torch.parallel import ep as tep
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = tmoe.quantize_params(tmoe.init_params(_MOE_BLOCK_CFG, g),
+                             _MOE_BLOCK_CFG)
+    for lp in q["layers"]:
+        lp["experts"], lp["router"] = tep.place_experts_ep(
+            lp["experts"], lp["router"], mesh)
+    return q
+
+
+@pytest.mark.parametrize("which", ["tp flat bf16", "tp headed fp8",
+                                   "ep flat bf16"])
+def test_parallel_block_replays_bit_for_bit_eager_steps(nccl_mesh,
+                                                        tp_block_params,
+                                                        which):
+    """A TP Engine's (flat bf16, headed fp8) and an EP Engine's
+    (make_ep_step over the narrow Mixtral) block of 6 steps from position
+    123, each step a replay of its window's captured graph with the NCCL
+    collectives inside, bit for bit 6 eager steps from a snapshot of the
+    same state (tokens, logits, cache bytes); the EP step, like the plain
+    Mixtral step, gives the plain Mixtral Engine's tokens."""
+    from petit_kernel_tpu_torch.parallel import ep as tep
+
+    kind, layout = which.split(" ", 1)
+    if kind == "tp":
+        eng = _block_engine(None, None, eng=_tp_engine(
+            tp_block_params, nccl_mesh["tp"], layout))
+    else:
+        params = _ep_block_params(nccl_mesh["ep"])
+        eng = _block_engine(None, None, eng=tserving.Engine(
+            params, _MOE_BLOCK_CFG, max_batch=2, seed=7,
+            forward_fn=tep.make_ep_step(_MOE_BLOCK_CFG, nccl_mesh["ep"])))
+    want, want_lg, want_kv, got, got_lg, got_kv = _eager_then_block(eng, 6)
+    np.testing.assert_array_equal(got, want)
+    for g, w in zip(got_lg, want_lg):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert _bytes_equal(got_kv, want_kv)
+    assert sorted(eng._blocks.graphs) == [128, 256]
+    if kind == "ep":
+        reqs = _block_requests(n_new=8)
+        plain = tserving.Engine(
+            params, _MOE_BLOCK_CFG, max_batch=2,
+            forward_fn=tmoe.make_engine_forward(_MOE_BLOCK_CFG))
+        ep_eng = tserving.Engine(
+            params, _MOE_BLOCK_CFG, max_batch=2,
+            forward_fn=tep.make_ep_step(_MOE_BLOCK_CFG, nccl_mesh["ep"]))
+        assert ep_eng.run(reqs, decode_block=4) == plain.run(
+            reqs, decode_block=4)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name,k,n", _LLAMA8B_UNFUSED)
+def test_tp_shard_gemm_shapes_match_twin(gen, name, k, n, tp):
+    """The GEMM shapes a tp-way rank launches at Llama-3-8B widths, each
+    rank's shard in turn in this one process: quantize_linear_tp (wo and
+    w_down k-sharded with a per-shard repack), local_linear_tp, then
+    mul_nvfp4_a16 at m = 8 and 512 twice the same bits and within the
+    GEMM tolerance of fused_mul_reference; the shards' columns side by
+    side, or the sum of the k-shards' products, within the same tolerance
+    of the unsharded product of the same codes."""
+    from petit_kernel_tpu_torch.parallel import tp as ttp
+
+    shard = "k" if name in ("wo", "w_down") else "n"
+    w = tllama.normal(gen, (k, n), 1.0 / math.sqrt(k))
+    full = tllama.quantize_linear(w, "nvfp4")
+    g = ttp.quantize_linear_tp(w, tp, shard)
+    for m in (8, 512):
+        a = _bf16(gen, m, k)
+        want = tgemm.mul_nvfp4_a16(a, full["words"], full["scales"],
+                                   full["gs"], m, n, k, -1)
+        parts = []
+        for t in range(tp):
+            loc = ttp.local_linear_tp(g, tp, shard, t)
+            kl = k // tp if shard == "k" else k
+            nl = loc["words"].shape[1]
+            a_l = (a[:, t * kl:(t + 1) * kl].contiguous()
+                   if shard == "k" else a)
+            y = tgemm.mul_nvfp4_a16(a_l, loc["words"], loc["scales"],
+                                    loc["gs"], m, nl, kl, -1)
+            again = tgemm.mul_nvfp4_a16(a_l, loc["words"], loc["scales"],
+                                        loc["gs"], m, nl, kl, -1)
+            assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+            twin = fused.fused_mul_reference(
+                a_l, loc["words"], loc["scales"], loc["gs"].reshape(1),
+                sid=sol.SolutionId(16, 64))
+            torch.testing.assert_close(
+                y.float(), twin.float(), rtol=2 ** -7,
+                atol=2 ** -8 * twin.float().abs().max().item())
+            parts.append(y)
+        total = (torch.cat(parts, dim=1) if shard == "n"
+                 else sum(p.float() for p in parts))
+        torch.testing.assert_close(
+            total.float(), want.float(), rtol=2 ** -7,
+            atol=2 ** -8 * want.float().abs().max().item())
+
+
+def test_sp_forward_and_rs_gemm_equal_the_tp_path(nccl_mesh,
+                                                  tp_block_params):
+    """At tp = 1: make_tp_forward_sp on a (1, 64) prompt gives
+    make_tp_forward's logits bit for bit, and mul_fp4_tp_rs over w_down
+    at m = 8 and 96 gives mul_nvfp4_a16's bits (a one-rank reduce-scatter
+    copies)."""
+    from petit_kernel_tpu_torch.parallel import tp as ttp
+
+    mesh = nccl_mesh["tp"]
+    toks = torch.randint(0, _BLOCK_CFG.vocab_size, (1, 64), device="cuda",
+                         generator=torch.Generator(device="cuda"
+                                                   ).manual_seed(3))
+    want = ttp.make_tp_forward(_BLOCK_CFG, mesh)(tp_block_params, toks)
+    got = ttp.make_tp_forward_sp(_BLOCK_CFG, mesh)(tp_block_params, toks)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    layer = tp_block_params["layers"][0]["w_down"]
+    k, n = _BLOCK_CFG.intermediate_size, layer["words"].shape[1]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for m in (8, 96):
+        a = _bf16(g, m, k)
+        y = ttp.mul_fp4_tp_rs(a, layer, mesh, k)
+        ref = tgemm.mul_nvfp4_a16(a, layer["words"], layer["scales"],
+                                  layer["gs"], m, n, k, -1)
+        assert torch.equal(y.view(torch.int16), ref.view(torch.int16))
