@@ -252,8 +252,28 @@ Phases (any failure raises and the script exits non-zero):
              place_experts_ep at ep = 1) over serve_moe's Mixtral through
              run(decode_block=8), checked as serve_block's, its tokens the
              Mixtral Engine's bit for bit (serve_moe's run, or one here);
-             the seconds of each part
- 16 profile  the decode step and one 256-token prefill tick under
+             the dense TP and SP training steps (make_tp_forward and
+             make_tp_forward_sp over shard_dense_params at tp = 1) on a
+             dense bf16 model at Llama-3-8B's widths cut to 2 layers, B =
+             1, T = 512: loss and every gradient bit for bit the plain
+             dense step's, step ms and peak memory beside it; the seconds
+             of each part
+ 16 serve_pp pipeline parallelism (parallel/pp.py) on the one-rank NCCL
+             group at pp = 1: serve's 32-layer Llama-3-8B (nvfp4) through
+             place_params_pp; make_pp_step at n_micro 1, 2 and 4 on B = 4
+             over init_cache_pp, the first 32 tokens of serve's first 4
+             prompts teacher-forced then 32 greedy tokens, each token the
+             plain cacheless forward's argmax or within 2^-5 * max|logits|
+             of it (counted against greedy_decode's), the launches a step,
+             ms a step, one step under torch.profiler; make_pp_forward on
+             (4, 128) tokens within the GEMM tolerance of the cacheless
+             forward; then the Engine's fallback for a forward_fn without
+             kv_window and write_mask (llama.forward at kv_window =
+             max_seq_len) serving the first 4 requests eager and through
+             run(decode_block=8) (one graph, no window key; checked as
+             serve_block's), every token within the tie rule of the plain
+             Engine's score_forward
+ 17 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16; and over the headed
              fp8 cache), PagedEngine (Llama, fp8, page size 16), the
              hybrid Engine and the Mixtral Engine, all but the hybrid
@@ -265,19 +285,19 @@ Phases (any failure raises and the script exits non-zero):
              device's idle share (PERF.md section 5); a trace of ten decode
              steps that holds fewer than ten appends a layer lost records:
              it is taken again, up to three times, then the phase fails
- 17 hybrid_layer (only when named) the hybrid GEMM alone at the seven
+ 18 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
              copy of this script in that tree's checkout times
- 18 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
+ 19 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
              Llama-3-8B projections at m = 8, default tile and splits,
              L2-warm, L2-flushed and as a CUDA graph: the same kind of A/B
- 19 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
+ 20 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
              calls at cap 8 (mxfp4, E = 8) through grouped_mul's defaults,
              every bucket row filled, warm and as a CUDA graph of the three;
              where the tree's grouped_mul takes `rows`, also the routed
              buckets of phase 3 with their rows: the same kind of A/B
- 20 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
+ 21 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
              Llama-3-8B projections (nvfp4): the 64-row tiles at m = 512
              and 2048, the 16-row tiles at m = 16 (plain) and 64 (weight
              cache) at their default splits, at block_n 64 and 128, plain
@@ -286,13 +306,13 @@ Phases (any failure raises and the script exits non-zero):
              summed over the four, the 16-row ones also as a CUDA graph of
              the four: the same kind of A/B, also of copies of the tile
              bodies edited to find what bounds them (it checks no bits)
- 21 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
+ 22 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
              tiles alone, the seven unfused projections at m = 512, the
              heuristic's tile, L2-warm, summed over the layer, with the
              dense columns alone (a launch with no FP4 columns) beside
              torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
              the same kind of A/B
- 22 append_layer (only when named) the KV writes alone, each as a CUDA
+ 23 append_layer (only when named) the KV writes alone, each as a CUDA
              graph of 20 launches: kv_append flat bf16 and headed bf16 and
              fp8, kv_append_paged fp8 (page size 16) and the torch glue it
              replaced, each _write_kv as the Llama block calls it (flat
@@ -300,21 +320,21 @@ Phases (any failure raises and the script exits non-zero):
              256-token chunk), and an empty kernel, the launch floor: the
              same kind of A/B, which a copy of this script in an older
              tree's checkout times
- 23 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
+ 24 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
              alone: the four Llama-3-8B projections (nvfp4) at m = 64
              through fused_mul with weight-cache ids 16x64 and 16x128 at
              their default splits, beside the plain 16-row tile, L2-warm
              and as a CUDA graph of the four: the same kind of A/B, also of
              copies of csrc/fp4_stream.cuh with another plan (it checks no
              bits)
- 24 decode_attn_layer (only when named) decode attention alone, at the
+ 25 decode_attn_layer (only when named) decode attention alone, at the
              Engine's decode shape (B = 4, positions 274, 316, 177 and 108,
              window 512) and the kernels phase's (B = 8, S = 2048): flat
              bf16, headed fp8 and paged fp8 (page size 16), each as a CUDA
              graph of 32 launches, one a layer over its own cache, beside
              SDPA over the same bf16 K/V as a graph: the same kind of A/B,
              which a copy of this script in an older tree's checkout times
- 25 hp_layer (only when named) the high-precision GEMM's tiles alone,
+ 26 hp_layer (only when named) the high-precision GEMM's tiles alone,
              the four Llama-3-8B projections (nvfp4, f32 A) through
              fused_mul with hp ids at their default splits: m = 8 at 16x64
              and 16x128, the weight cache at m = 64 (16x64), and the 64-row
@@ -324,7 +344,7 @@ Phases (any failure raises and the script exits non-zero):
              A/B, also of copies of the tile bodies edited to find what
              bounds them (it checks no bits)
 
-Each engine run of phases 6-10 and 12-15 (and the weight-cache run of
+Each engine run of phases 6-10 and 12-16 (and the weight-cache run of
 phase 9, the training run of phase 11 and the sweep and table runs of
 phase 4) sets
 every kernel's launch count to 0 before it and fails if a kernel of its
@@ -376,13 +396,14 @@ from petit_kernel_tpu_torch.ops.solution import ElementB
 from petit_kernel_tpu_torch.ops import solution as solution_mod
 from petit_kernel_tpu_torch.numerics import reference as qref
 from petit_kernel_tpu_torch.parallel import ep as ep_mod
+from petit_kernel_tpu_torch.parallel import pp as pp_mod
 from petit_kernel_tpu_torch.parallel import tp as tp_mod
 from petit_kernel_tpu_torch.utils import benchlib
 
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_block", "serve_w4a8", "serve_hybrid", "train",
           "serve_moe", "load", "serve_spec", "serve_parallel",
-          "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
+          "serve_pp", "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
           "w4a8_layer", "hybrid_prefill_layer", "append_layer",
           "fp4_wc_layer", "decode_attn_layer", "hp_layer")
 # run when --phases is not given: all but the nine A/B phases
@@ -518,7 +539,9 @@ KERNELS = {
                         replaces="petit_kernel_tpu/ops/kernels/hybrid.py:34",
                         wrapper=hybrid.hybrid_mul),
 }
-# the kernels each engine run of phases 6-10 and 12-15 (and the
+# the microbatch counts of serve_pp's pipelined decode
+PP_MICRO = (1, 2, 4)
+# the kernels each engine run of phases 6-10 and 12-16 (and the
 # weight-cache run of phase 9 and the training run of phase 11) must launch
 PATHS = {
     "serve bf16 Engine": ("fp4_gemm", "fp4_gemm_prefill", "decode_attention",
@@ -613,6 +636,15 @@ PATHS = {
     "serve_parallel Mixtral Engine decode_block=8": (
         "grouped_fp4_gemm", "fp4_gemm", "fp4_gemm_prefill",
         "decode_attention", "prefill_attention", "kv_append"),
+    **{f"serve_pp PP decode n_micro={n}": ("fp4_gemm", "decode_attention",
+                                           "kv_append") for n in PP_MICRO},
+    "serve_pp PP forward": ("fp4_gemm", "fp4_gemm_prefill"),
+    "serve_pp fallback Engine": ("fp4_gemm", "fp4_gemm_prefill",
+                                 "decode_attention", "prefill_attention",
+                                 "kv_append"),
+    "serve_pp fallback Engine decode_block=8": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append"),
     "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_wc_16row",
                         "fp4_gemm_hp", "fp4_gemm_hp_wc",
                         "fp4_gemm_hp_wc_16row", "fp4_gemm_hp_prefill",
@@ -5277,23 +5309,31 @@ def phase_serve_spec(rec):
 # serve_parallel: tensor and expert parallelism on a one-rank mesh
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
+# what main() closes on exit: the one-rank process group, once made
+_AT_EXIT = contextlib.ExitStack()
+
+
 def _one_rank_group():
     """A one-rank NCCL process group on cuda:0 over a file store, its
     communicator made at once (device_id), so that it exists before the
-    first decode graph is captured; destroyed on exit with the store."""
+    first decode graph is captured. Made at the first call and kept for
+    the phases after it (a process starts one default group): main()
+    destroys it on exit with the store."""
+    if dist.is_initialized():
+        return
     store = tempfile.mkdtemp(prefix="pk_nccl_")
     torch.cuda.set_device(0)
     dist.init_process_group(
         "nccl", init_method="file://" + os.path.join(store, "store"),
         world_size=1, rank=0, device_id=torch.device("cuda", 0))
-    try:
-        yield
-    finally:
+
+    def destroy():
         gc.collect()
         torch.cuda.synchronize()
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
+
+    _AT_EXIT.callback(destroy)
 
 
 def _tp_model(cfg, mesh, dev):
@@ -5654,46 +5694,368 @@ def _parallel_ep_engine(rec, dev):
     return run
 
 
+def _dense_step(forward, copy, toks):
+    """forward(copy, toks[:, :-1]) -> logits, _train_loss's next-token
+    cross-entropy, loss.backward(); returns the loss."""
+    logits = forward(copy, toks[:, :-1])
+    logp = torch.log_softmax(logits.float(), -1)
+    loss = -logp.gather(-1, toks[:, 1:, None]).mean()
+    loss.backward()
+    return loss
+
+
+def _dense_train_run(forward, params, toks):
+    """One training step's forward and backward (_dense_step) over a
+    _train_copy of params. Returns (loss, {path: gradient}, wall ms, peak
+    GiB above what was resident before)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    copy = _train_copy(params)
+    t0 = time.perf_counter()
+    loss = _dense_step(forward, copy, toks)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    grads = {path: w.grad for path, w in _trainable(copy).items()}
+    return loss, grads, ms, peak
+
+
+def _parallel_train(mesh, dev):
+    """Part 5: the dense TP and SP training steps (make_tp_forward and
+    make_tp_forward_sp over shard_dense_params at tp = 1, their
+    collectives NCCL on one rank) against the plain dense step
+    (llama.forward, loss.backward()), on a dense bf16 model at Llama-3-8B's
+    widths cut to 2 layers (random weights from seed 0), B = 1, T = 512
+    (train's tokens): the loss and every gradient bit for bit; each
+    step's forward and backward ms (wall, the second of two runs) and peak
+    memory beside the plain step's; a third step under torch.profiler
+    (kernel ms, kernels, idle share, the kernels by device time)."""
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=2)
+    dense = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = _train_tokens(cfg)
+    shards = tp_mod.shard_dense_params(dense, mesh)
+    runs = {
+        "plain": (lambda p, t: llama.forward(p, t, cfg)[0], dense),
+        "TP": (tp_mod.make_tp_forward(cfg, mesh, fmt="bf16"), shards),
+        "SP": (tp_mod.make_tp_forward_sp(cfg, mesh, fmt="bf16"), shards),
+    }
+    out, want = {}, None
+    for name, (fwd, params) in runs.items():
+        _dense_train_run(fwd, params, toks)           # warm
+        loss, grads, ms, peak = _dense_train_run(fwd, params, toks)
+        if not torch.isfinite(loss) or any(
+                g is None or not torch.isfinite(g).all()
+                for g in grads.values()):
+            raise AssertionError(f"serve_parallel train {name}: the loss or "
+                                 "a gradient is missing or not finite")
+        copy = _train_copy(params)
+        wall, kern, rows = _kernel_profile(
+            lambda: _dense_step(fwd, copy, toks))
+        del copy
+        row = dict(loss=loss.item(), step_ms=ms, peak_gib=peak,
+                   profile=dict(wall_ms=wall, kernel_ms=kern,
+                                idle_share=1 - kern / wall,
+                                kernels=sum(c for _, _, c in rows),
+                                top=rows[:8]))
+        log(f"[serve_parallel] train {name}: profiled step {wall:.1f} ms, "
+            f"kernels {kern:.2f} ms in {row['profile']['kernels']}, idle "
+            f"{100 * (1 - kern / wall):.1f}%; top "
+            + "; ".join(f"{n[:60]} {t:.2f} ms x{c}" for n, t, c in rows[:6]))
+        if want is None:
+            want = (loss, grads)
+        else:
+            same = torch.equal(loss, want[0]) and all(
+                torch.equal(g, want[1][k]) for k, g in grads.items())
+            row["bit_for_bit_plain"] = same
+            if not same:
+                worst = max(((g.float() - want[1][k].float()).abs().max()
+                             / want[1][k].float().abs().max()).item()
+                            for k, g in grads.items())
+                raise AssertionError(
+                    f"serve_parallel train {name}: loss {loss.item()} "
+                    f"against {want[0].item()}, gradients off by up to "
+                    f"{worst:.3g} of their max: not the plain step's bits")
+        out[name] = row
+        del grads
+    log("[serve_parallel] dense training step, Llama-3-8B widths, 2 layers, "
+        "B=1 T=512: " + "; ".join(
+            f"{k} loss {v['loss']:.6f}, {v['step_ms']:.1f} ms, peak "
+            f"{v['peak_gib']:.2f} GiB" for k, v in out.items())
+        + "; TP and SP loss and every gradient bit for bit the plain step's")
+    del dense, shards, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve_parallel(rec):
     """Tensor and expert parallelism (parallel/tp.py, parallel/ep.py) on
     a one-rank NCCL group: every collective runs through NCCL, inside the
     captured decode graphs too. Part 1 the TP Engine against the plain
     Engine (bf16 and fp8 caches), 2 the SP forward and the reduce-scatter
     GEMM, 3 the per-shard GEMM shapes of tp = 2 and 4, 4 the EP Engine
-    against the Mixtral Engine."""
+    against the Mixtral Engine, 5 the dense TP and SP training steps
+    against the plain dense step."""
     dev = torch.device("cuda")
     rec.setdefault("launches", {})
     out = {}
     seconds = {}
-    with _one_rank_group():
-        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "tp"))
-        cfg = llama.LlamaConfig.llama3_8b()
-        t0 = time.perf_counter()
-        params, init_s = _tp_model(cfg, mesh, dev)
-        log(f"[serve_parallel] quantize_params_tp (tp = 1) of the 32-layer "
-            f"Llama-3-8B in {init_s:.1f} s; device memory "
-            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-        out.update(init_s=init_s, smi=smi_line(),
-                   collective_host_us=_collective_host_us(mesh, dev))
-        out["tp"] = _parallel_tp_engines(rec, cfg, mesh, params,
-                                         _serve_requests(cfg))
-        seconds["tp engines"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out["sp_rs"] = _parallel_sp_rs(cfg, mesh, params, dev)
-        del params
-        gc.collect()
-        seconds["sp and rs"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out["shards"] = _parallel_shard_shapes(dev)
-        seconds["shards"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out["ep"] = _parallel_ep_engine(rec, dev)
-        seconds["ep engine"] = time.perf_counter() - t0
-        del mesh
+    _one_rank_group()
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "tp"))
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params, init_s = _tp_model(cfg, mesh, dev)
+    log(f"[serve_parallel] quantize_params_tp (tp = 1) of the 32-layer "
+        f"Llama-3-8B in {init_s:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    out.update(init_s=init_s, smi=smi_line(),
+               collective_host_us=_collective_host_us(mesh, dev))
+    out["tp"] = _parallel_tp_engines(rec, cfg, mesh, params,
+                                     _serve_requests(cfg))
+    seconds["tp engines"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sp_rs"] = _parallel_sp_rs(cfg, mesh, params, dev)
+    del params
+    gc.collect()
+    seconds["sp and rs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["shards"] = _parallel_shard_shapes(dev)
+    seconds["shards"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ep"] = _parallel_ep_engine(rec, dev)
+    seconds["ep engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = _parallel_train(mesh, dev)
+    seconds["train"] = time.perf_counter() - t0
     out["seconds"] = seconds
     log("[serve_parallel] seconds by part: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))
     rec["serve_parallel"] = out
+
+
+def _pp_tie_check(path, params, cfg, prompts, toks):
+    """Every token a pipelined decode emitted against the plain cacheless
+    llama.forward over the prompt and the tokens before it: the argmax,
+    or within 2^-5 * max|logits| of the top (a near-tie that the GEMM's
+    rounding at another m breaks apart). Returns (argmax tokens, tokens in
+    the band)."""
+    T0 = prompts.shape[1]
+    with torch.inference_mode():
+        logits, _ = llama.forward(params, torch.cat([prompts, toks[:, :-1]],
+                                                    1), cfg)
+        lg = logits[:, T0 - 1:].float()
+        gap = lg.amax(-1) - lg.gather(2, toks.long()[..., None])[..., 0]
+        band = 2 ** -5 * lg.abs().amax(-1)
+    if bool((gap > band).any()):
+        b, j = (gap > band).nonzero()[0].tolist()
+        raise AssertionError(
+            f"{path}: row {b} token {j} ({int(toks[b, j])}) is "
+            f"{gap[b, j].item():.4f} below the top logit (band "
+            f"{band[b, j].item():.4f})")
+    return int((gap == 0).sum()), int(((gap > 0) & (gap <= band)).sum())
+
+
+def _pp_decode(step, placed, cache, prompts, n_new):
+    """prompts (B, T0) teacher-forced through step, then n_new greedy
+    tokens; returns (tokens (B, n_new), wall ms a step of the last
+    n_new - 1, the logits of the last step)."""
+    B, T0 = prompts.shape
+    dev = prompts.device
+
+    def pos(t):
+        return torch.full((B,), t, dtype=torch.int32, device=dev)
+
+    for t in range(T0):
+        logits, cache = step(placed, cache, prompts[:, t], pos(t))
+    toks = [logits.argmax(-1).to(torch.int32)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n_new - 1):
+        logits, cache = step(placed, cache, toks[-1], pos(T0 + t))
+        toks.append(logits.argmax(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (n_new - 1)
+    return torch.stack(toks, 1), ms, logits
+
+
+def _pp_step_profile(step, placed, cache, tok, p):
+    """One PP decode step under torch.profiler (_kernel_profile): wall and
+    device ms, device kernels, idle share, and the launches of the FP4
+    stream body, the flat decode attention and the KV append."""
+    wall, kern, rows = _kernel_profile(lambda: step(placed, cache, tok, p))
+    names = {"fp4_stream_kernel": "fp4_stream_kernel",
+             "decode_attention": "decode_split_kernel",
+             "kv_append": "kv_append_kernel"}
+    return dict(wall_ms=wall, kernel_ms=kern, idle_share=1 - kern / wall,
+                kernels=sum(c for _, _, c in rows),
+                path_kernels={k: sum(c for n, _, c in rows if key in n)
+                              for k, key in names.items()},
+                top=[(n, ms, c) for n, ms, c in rows[:6]])
+
+
+def _pp_decodes(rec, cfg, mesh, params, placed, reqs):
+    """make_pp_step at each PP_MICRO on B = 4: the first 32 tokens of the
+    first 4 requests teacher-forced, then 32 greedy tokens, every token
+    under _pp_tie_check and counted against greedy_decode's; launches a
+    step; ms a step; one step profiled."""
+    B, T0, n_new = 4, 32, 32
+    dev = placed["embed"].device
+    prompts = torch.as_tensor(np.stack([r.tokens[:T0] for r in reqs[:B]]),
+                              device=dev)
+    greedy = llama.greedy_decode(params, cfg, prompts, n_new)
+    out = {}
+    for n_micro in PP_MICRO:
+        path = f"serve_pp PP decode n_micro={n_micro}"
+        step = pp_mod.make_pp_step(cfg, mesh, n_micro, fmt="nvfp4")
+        cache = pp_mod.init_cache_pp(cfg, B, mesh)
+        (toks, ms, _), launches = _run_path(
+            rec, path, lambda: _pp_decode(step, placed, cache, prompts,
+                                          n_new))
+        steps = T0 + n_new - 1
+        per_step = {k: v / steps for k, v in launches.items() if v}
+        want = {"kv_append": cfg.num_layers * n_micro,
+                "decode_attention": cfg.num_layers * n_micro,
+                "fp4_gemm": 4 * cfg.num_layers * n_micro}
+        if any(per_step.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"{path}: launches a step {per_step}, "
+                                 f"expected {want}")
+        exact, tied = _pp_tie_check(path, params, cfg, prompts, toks)
+        same = int((toks == greedy).sum())
+        prof = _pp_step_profile(step, placed, cache, toks[:, -1],
+                                torch.full((B,), T0 + n_new - 1,
+                                           dtype=torch.int32, device=dev))
+        out[n_micro] = dict(step_ms=ms, launches_per_step=per_step,
+                            argmax_tokens=exact, tied_tokens=tied,
+                            tokens_equal_to_greedy_decode=same,
+                            tokens=toks.tolist(), profile=prof)
+        log(f"[{path}] {ms:.2f} ms a step (eager wall, {n_new - 1} steps); "
+            f"{exact} of {toks.numel()} tokens the plain forward's argmax, "
+            f"{tied} within the tie band, {same} equal to greedy_decode's; "
+            f"one step profiled: {prof['kernel_ms']:.2f} ms of kernels in "
+            f"{prof['kernels']} kernels, idle "
+            f"{100 * prof['idle_share']:.1f}%, path kernels "
+            f"{prof['path_kernels']}")
+        del cache
+    return out
+
+
+def _pp_forward(rec, cfg, mesh, params, placed):
+    """make_pp_forward (n_micro 2) on (4, 128) seeded tokens against the
+    cacheless llama.forward, within the GEMM tolerance (rtol 2^-7, atol
+    2^-8 * max|logits|)."""
+    dev = placed["embed"].device
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, size=(4, 128)), device=dev)
+    fwd = pp_mod.make_pp_forward(cfg, mesh, 2, fmt="nvfp4")
+    path = "serve_pp PP forward"
+    got, _ = _run_path(rec, path, lambda: fwd(placed, toks))
+    with torch.inference_mode():
+        want, _ = llama.forward(params, toks, cfg)
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    _close(path, got, want, 2 ** -7, 2 ** -8 * top)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd(placed, toks)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"[{path}] (4, 128) tokens, n_micro 2: max abs err {err:.4g} "
+        f"against the plain forward (max |logit| {top:.3f}), bit for bit "
+        f"{torch.equal(got, want)}; {ms:.1f} ms")
+    return dict(max_abs_err=err, max_logit=top, ms=ms,
+                bit_for_bit=torch.equal(got, want))
+
+
+def _fallback_engine(rec, cfg, params, reqs):
+    """Engine(forward_fn=f), f = llama.forward at kv_window = max_seq_len
+    taking neither kv_window nor write_mask, serving the first 4 requests
+    eager (_serve) and through run(decode_block=8) (_serve_block, its
+    snapshot check bit for bit included; one graph, no window key): every
+    token within the tie rule of the plain Engine's score_forward
+    (_tie_check), and counted against the plain Engine's tokens."""
+    def fallback(p, t, c, q):
+        return llama.forward(p, t, cfg, c, q, kv_window=cfg.max_seq_len)
+
+    def make():
+        eng = serving.Engine(params, cfg, max_batch=4, forward_fn=fallback)
+        if eng._admission_batchable() or eng._kv_window() is not None:
+            raise AssertionError("serve_pp: the fallback Engine batches "
+                                 "admissions or passes a window")
+        return eng
+
+    reqs = reqs[:4]
+    scorer = serving.Engine(params, cfg, max_batch=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = scorer.run(reqs)
+    torch.cuda.synchronize()
+    plain_tok_s = sum(len(v) for v in plain.values()) / (
+        time.perf_counter() - t0)
+    scorer.reset()
+    path = "serve_pp fallback Engine"
+    run, eng = _serve(rec, path, make, reqs, cfg)
+    del eng
+    blk = _serve_block(rec, f"{path} decode_block=8", make, reqs, cfg,
+                       run["tokens"])
+    if blk["graphs"] != [None]:
+        raise AssertionError(f"{path}: decode block graphs {blk['graphs']}, "
+                             "expected one without a window")
+    out = {"eager": run, "decode_block=8": blk,
+           "plain_engine_tok_per_s": plain_tok_s}
+    log(f"[{path}] eager {run['tok_per_s']:.1f} tok/s against the plain "
+        f"Engine's {plain_tok_s:.1f} on the same requests (eager, fresh)")
+    for mode in ("eager", "decode_block=8"):
+        r = out[mode]
+        toks = {i: t for i, t in enumerate(r["tokens"])}
+        r["argmax_tokens"], r["tied_tokens"] = _tie_check(
+            f"{path} {mode}", scorer, reqs, toks)
+        r["tokens_equal_to_plain_engine"] = sum(
+            a == b for i in toks for a, b in zip(toks[i], plain[i]))
+        log(f"[{path} {mode}] {r['argmax_tokens']} tokens the plain "
+            f"Engine's score_forward argmax, {r['tied_tokens']} within the "
+            f"tie band, {r['tokens_equal_to_plain_engine']} of "
+            f"{r['new_tokens']} equal to the plain Engine's")
+    del scorer
+    return out
+
+
+def phase_serve_pp(rec):
+    """Pipeline parallelism (parallel/pp.py) on the one-rank NCCL group at
+    pp = 1, and the Engine's fallback for a forward_fn without kv_window
+    and write_mask. serve's 32-layer Llama-3-8B (nvfp4) through
+    place_params_pp on a ("dp", "pp") mesh of shape (1, 1): make_pp_step
+    at n_micro 1, 2 and 4 (_pp_decodes), make_pp_forward (_pp_forward);
+    then the fallback Engine over serve's model (_fallback_engine)."""
+    dev = torch.device("cuda")
+    rec.setdefault("launches", {})
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    _one_rank_group()
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "pp"))
+    seconds = {}
+    t0 = time.perf_counter()
+    placed = pp_mod.place_params_pp(params, mesh)
+    torch.cuda.synchronize()
+    out = dict(smi=smi_line(), place_s=time.perf_counter() - t0)
+    out["decode"] = _pp_decodes(rec, cfg, mesh, params, placed, reqs)
+    seconds["pp decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["forward"] = _pp_forward(rec, cfg, mesh, params, placed)
+    del placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["pp forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fallback"] = _fallback_engine(rec, cfg, params, reqs)
+    seconds["fallback engine"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log("[serve_pp] seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    rec["serve_pp"] = out
 
 
 def _kernel_profile(steps):
@@ -5954,11 +6316,13 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(unknown)}")
     rec = {}
     phase_device(rec)                    # always: no CUDA, no result
-    for name in PHASES[1:]:
-        if name in phases:
-            t0 = time.perf_counter()
-            globals()[f"phase_{name}"](rec)
-            log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    with _AT_EXIT:
+        for name in PHASES[1:]:
+            if name in phases:
+                t0 = time.perf_counter()
+                globals()[f"phase_{name}"](rec)
+                log(f"[{name}] phase done in "
+                    f"{time.perf_counter() - t0:.1f} s")
     if args.parent_record and "kernels" in rec:
         _beside_parent(rec, args.parent_record)
     if args.record:
@@ -5968,7 +6332,7 @@ def main(argv=None) -> int:
     if all(p in rec for p in ("kernels", "solutions", "serve", "serve_kv",
                               "serve_block", "serve_moe", "serve_w4a8",
                               "serve_hybrid", "train", "load",
-                              "serve_spec", "serve_parallel")):
+                              "serve_spec", "serve_parallel", "serve_pp")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

@@ -25,11 +25,12 @@ stored by the JAX package in its kernel's pi-permuted k order
 (ops/hybrid.py permute_k_for_a), goes back to natural k order, the order
 in which the port's kernels read A. The permuted copy is not carried.
 
-`params_tp_from_jax` and `params_ep_from_jax` take the JAX package's
-quantize_params_tp and quantize_params_ep output, every global array
-gathered to numpy, and return one rank's local tree (parallel/tp.py,
-parallel/ep.py): a rank's column, packed-row or expert block of each
-sharded leaf, the replicated leaves whole.
+`params_tp_from_jax`, `params_ep_from_jax` and `params_pp_from_jax` take
+the JAX package's quantize_params_tp, quantize_params_ep and
+place_params_pp output, every global array gathered to numpy, and return
+one rank's local tree (parallel/tp.py, parallel/ep.py, parallel/pp.py): a
+rank's column, packed-row, expert or layer block of each sharded leaf, the
+replicated leaves whole.
 
 This module imports neither JAX nor ml_dtypes: bfloat16 and float8 arrays
 are read through integer views of their bytes.
@@ -121,4 +122,16 @@ def params_ep_from_jax(tree, ep: int, rank: int, device=None) -> dict:
     out = params_from_jax(tree, device)
     for lp in out["layers"]:
         lp["experts"] = ep_mod.local_experts_ep(lp["experts"], ep, rank)
+    return out
+
+
+def params_pp_from_jax(tree, pp: int, stage: int, device=None) -> dict:
+    """The JAX package's place_params_pp tree (numpy leaves, the stacked
+    layers gathered whole) -> stage `stage`'s tree of a pp-way mesh on
+    `device` (default the CUDA card), as the port's place_params_pp gives
+    it: layers [stage L/pp, (stage+1) L/pp) of each stacked leaf, embed,
+    final_norm and lm_head whole."""
+    from ..parallel import pp as pp_mod
+    out = params_from_jax(tree, device)
+    out["layers"] = pp_mod.local_layers_pp(out["layers"], pp, stage)
     return out

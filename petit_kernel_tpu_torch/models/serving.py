@@ -26,7 +26,9 @@ Engine takes a custom forward_fn (models/moe.make_engine_forward serves
 Mixtral through it; parallel/tp.make_tp_step and parallel/ep.make_ep_step
 serve tensor- and expert-parallel models, an Engine on every rank, their
 collectives captured into the decode graphs) and a cache built by the
-caller. prefill_fmt="w4a8"
+caller; a forward_fn without kv_window or write_mask is served as the JAX
+engine serves it, except that the rows it may not let write are parked at
+the last position (Engine.__init__). prefill_fmt="w4a8"
 runs prefill chunks and batched admissions through the W4A8 GEMM over the
 nvfp4 weights while decode keeps fmt (llama.linear routes chunks of fewer
 than llama.W4A8_MIN_M rows to the exact kernel). fmt="hybrid" serves a
@@ -288,9 +290,14 @@ class _DecodeBlocks:
         t0 = time.perf_counter()
         # before the first graph, the forward alone with every row masked:
         # it writes no cache row (a paged pool's masked rows write its
-        # scratch page) and draws no noise
+        # scratch page) and draws no noise. A forward without write_mask
+        # would park every row at max_seq_len - 1 there, so it runs on the
+        # block's own mask: the first replay rewrites what it writes, with
+        # the same bytes
+        mask = (torch.zeros_like(self.active) if eng._fwd_takes_mask
+                else self.active)
         warm = None if self.graphs else (lambda: eng._block_forward(
-            self, window, torch.zeros_like(self.active)))
+            self, window, mask))
         graph, (logits, nxt) = _capture_graph(
             eng, self.stream, self.pool, warm, lambda: self._step(window))
         self.graphs[window] = (graph, logits, nxt)
@@ -357,9 +364,17 @@ class Engine:
         replaces llama.forward for prefill, batched admission and decode
         (moe.make_engine_forward, and on every rank of a mesh
         parallel.tp.make_tp_step with cache=parallel.tp.init_cache_tp or
-        parallel.ep.make_ep_step); one without kv_window and write_mask
-        raises NotImplementedError (the JAX engine falls back to full-cache
-        steps without them; that fallback is not ported). Sampling:
+        parallel.ep.make_ep_step). A forward_fn that takes neither
+        kv_window nor write_mask, or only one, is served as the JAX engine
+        serves it: without the argument it lacks. Without kv_window it
+        attends through a window of its own choosing, decode blocks
+        capture one graph (no window key) and score_forward passes none;
+        without write_mask admissions run one prompt a chunk, and a
+        forward that passes write_mask on gives the rows that may not
+        write the last position, max_seq_len - 1, instead: a slot writes
+        that position in the same forward before it ever attends it (the
+        JAX engine lets such rows write at their own position, which
+        overwrites the KV of a prompt mid-prefill). Sampling:
         per-request temperature (Request.temperature, 0 = greedy) with an
         engine-wide top_k; the noise comes from a torch.Generator on the
         engine's device seeded with `seed`.
@@ -385,13 +400,10 @@ class Engine:
             forward_fn = _llama_forward(cfg, fmt)
             prefill_fn = _llama_forward(cfg, self.prefill_fmt)
         else:
-            params_ = inspect.signature(forward_fn).parameters
-            if not {"kv_window", "write_mask"} <= set(params_):
-                raise NotImplementedError(
-                    "forward_fn must take kv_window= and write_mask=: the "
-                    "JAX engine's fallback for a forward_fn without them "
-                    "is not ported")
             prefill_fn = forward_fn
+        takes = inspect.signature(forward_fn).parameters
+        self._fwd_takes_window = "kv_window" in takes
+        self._fwd_takes_mask = "write_mask" in takes
         self._forward_fn = forward_fn
         self._prefill_fn = prefill_fn
         self.params = params
@@ -425,20 +437,35 @@ class Engine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
+    def _call(self, fn, toks, cache, pos, kv_window, write_mask):
+        """fn over the engine's params with the arguments it takes: no
+        kv_window for a forward without one; for a forward without
+        write_mask, the rows that may not write at max_seq_len - 1 (the
+        constructor's docstring)."""
+        kw = {}
+        if self._fwd_takes_window:
+            kw["kv_window"] = kv_window
+        if self._fwd_takes_mask:
+            kw["write_mask"] = write_mask
+        elif write_mask is not None:
+            pos = torch.where(write_mask[:, None], pos,
+                              self.cfg.max_seq_len - 1)
+        return fn(self.params, toks, cache, pos, **kw)
+
     # every forward of the engine (forward_fn or llama.forward) runs under
     # inference mode: no step builds an autograd graph, whatever the params
     # require
     @torch.inference_mode()
     def _forward(self, toks, cache, pos, kv_window=None, write_mask=None):
-        return self._forward_fn(self.params, toks, cache, pos,
-                                kv_window=kv_window, write_mask=write_mask)
+        return self._call(self._forward_fn, toks, cache, pos, kv_window,
+                          write_mask)
 
     @torch.inference_mode()
     def _prefill_forward(self, toks, cache, pos, kv_window=None,
                          write_mask=None):
         """_forward in prefill_fmt: prefill chunks and batched admission."""
-        return self._prefill_fn(self.params, toks, cache, pos,
-                                kv_window=kv_window, write_mask=write_mask)
+        return self._call(self._prefill_fn, toks, cache, pos, kv_window,
+                          write_mask)
 
     # -- scheduling ---------------------------------------------------------
 
@@ -522,9 +549,11 @@ class Engine:
         """Whether _advance_prefill may admit same-key jobs together through
         _run_batched_admission: not when a subclass re-routes the per-slot
         chunk (_prefill_chunk), as SpecEngine does to fill its draft cache,
-        which the batched forward would leave empty. PagedEngine batches
+        which the batched forward would leave empty, nor when the forward
+        takes no write_mask (the JAX engine's rule). PagedEngine batches
         through its own _run_batched_admission."""
-        return type(self)._prefill_chunk is Engine._prefill_chunk
+        return (self._fwd_takes_mask
+                and type(self)._prefill_chunk is Engine._prefill_chunk)
 
     def _start_decoding(self, job: _PrefillJob, first: int) -> None:
         slot = job.slot
@@ -650,8 +679,8 @@ class Engine:
         multiple of 128 (llama.decode_window), so attention traffic tracks
         the actual context. `pos` overrides self.pos with projected
         positions (the steps of a decode block, where host state lags the
-        device)."""
-        if not self.active.any():
+        device). None for a forward that takes no kv_window."""
+        if not self._fwd_takes_window or not self.active.any():
             return None
         p = self.pos if pos is None else pos
         return llama.decode_window(int(p[self.active].max()) + 1,

@@ -25,9 +25,24 @@ the KV cache shard over "tp" with the columns; the batch shards over "dp".
 
 The projections run the port's FP4 GEMM kernels at the per-shard shapes;
 lm_head stays a torch.matmul, as the JAX package's jnp.dot outside any
-kernel. Every entry point here runs under torch.inference_mode: the
-all_reduces have no backward yet, so the dense TP training step is not
-ported.
+kernel.
+
+Training: the collectives are torch.autograd.Functions wherever a tensor
+that needs a gradient passes them (Megatron's pairs): an all_reduce of
+partial sums passes its gradient on as it is, sum_grad (the identity)
+before a column block sums its gradient over "tp", an all_gather whose
+output feeds work that every rank repeats (the loss of the gathered
+logits) keeps the rank's block of the gradient, one whose output feeds
+sharded work (the SP gathers) reduce-scatters it, and a reduce_scatter
+all-gathers it. So make_tp_forward and make_tp_forward_sp over
+shard_dense_params shards whose leaves require grad train: loss.backward()
+on every rank leaves on each local leaf the matching slice of the
+unsharded gradient, the gradient the JAX package's jax.value_and_grad
+over GSPMD-sharded params gives (a leaf that several "dp" ranks share has
+its gradient summed over "dp", and in the SP forward a leaf applied to the
+token-sharded stream, embed and the norms, over "tp" too). Without such a
+leaf they run under torch.inference_mode, as make_tp_step and
+mul_fp4_tp_rs always do.
 """
 
 from __future__ import annotations
@@ -75,18 +90,12 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(dev.type, torch.cuda.current_device())
 
 
-def all_reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """Sum of x over the ranks of `axis`, in place (x contiguous)."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis.group)
-    return x
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on x here."""
+    return torch.is_grad_enabled() and x.requires_grad
 
 
-def all_gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    """The ranks' x along `axis` concatenated on `dim` in rank order. The
-    collective works on dim 0 of a contiguous tensor, so `dim` moves to the
-    front and back: gathering another dim in place would interleave the
-    shards. (all_gather_into_tensor and reduce_scatter_tensor: torch 2.13
-    deprecates them for *_single, which torch 2.11 lacks.)"""
+def _gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((axis.size * xt.shape[0], *xt.shape[1:]),
                       dtype=x.dtype, device=x.device)
@@ -94,10 +103,7 @@ def all_gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
-    """Sum of x over the ranks of `axis`, of which this rank keeps block
-    axis.rank of `dim` (x.shape[dim] % axis.size == 0); `dim` moves to the
-    front and back, as in all_gather."""
+def _scatter(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     if xt.shape[0] % axis.size:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
@@ -107,6 +113,149 @@ def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM,
                                group=axis.group)
     return out.movedim(0, dim).contiguous()
+
+
+def _summed(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """Megatron's g: the sum of partial results; what consumes it is the
+    same on every rank, so its gradient passes on as it is."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _summed(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """Megatron's f: the identity, before sharded work on a replicated
+    input, whose ranks' gradients are partial and summed."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.axis), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, grad):
+        ctx.axis, ctx.dim, ctx.grad = axis, dim, grad
+        return _gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim = ctx.axis, ctx.dim
+        if ctx.grad == "sum":
+            return _scatter(g, axis, dim), None, None, None
+        n = g.shape[dim] // axis.size
+        return g.narrow(dim, axis.rank * n, n).contiguous(), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.axis, ctx.dim), None, None
+
+
+def all_reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Sum of x over the ranks of `axis`: in place (x contiguous), or into
+    a new tensor where autograd records it (its gradient passes on as it
+    is: what consumes the sum must be the same on every rank)."""
+    if _tracked(x):
+        return _AllReduce.apply(x, axis)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis.group)
+    return x
+
+
+def sum_grad(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """x itself; where autograd records it, its gradient is summed over
+    the ranks of `axis` (the input of sharded work, or a leaf that those
+    ranks share)."""
+    return _SumGrad.apply(x, axis) if _tracked(x) else x
+
+
+def all_gather(x: torch.Tensor, axis: Axis, dim: int,
+               grad: str = "slice") -> torch.Tensor:
+    """The ranks' x along `axis` concatenated on `dim` in rank order. The
+    collective works on dim 0 of a contiguous tensor, so `dim` moves to the
+    front and back: gathering another dim in place would interleave the
+    shards. (all_gather_into_tensor and reduce_scatter_tensor: torch 2.13
+    deprecates them for *_single, which torch 2.11 lacks.) Where autograd
+    records it, the gradient of x is the rank's block of the output's
+    gradient with grad="slice" (what consumes the output is the same on
+    every rank, such as the loss of gathered logits), the reduce-scatter
+    of it with grad="sum" (what consumes it is sharded: the ranks'
+    gradients are partial)."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"grad must be 'slice' or 'sum', not {grad!r}")
+    if _tracked(x):
+        return _AllGather.apply(x, axis, dim, grad)
+    return _gather(x, axis, dim)
+
+
+def reduce_scatter(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Sum of x over the ranks of `axis`, of which this rank keeps block
+    axis.rank of `dim` (x.shape[dim] % axis.size == 0); `dim` moves to the
+    front and back, as in all_gather. Its gradient is the all-gather of
+    the output's."""
+    if _tracked(x):
+        return _ReduceScatter.apply(x, axis, dim)
+    return _scatter(x, axis, dim)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _trains(params) -> bool:
+    """Whether a leaf of params requires grad: then an entry point records
+    its forward, else it runs under torch.inference_mode."""
+    return any(t.requires_grad for t in _leaves(params))
+
+
+def map_tensors(tree, fn):
+    """tree (dicts, lists and tuples) with fn applied to each tensor leaf;
+    other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(v, fn) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _share_grads(tree, axes):
+    """tree with each leaf that requires grad through sum_grad over each
+    of `axes`: the leaf's gradient summed over the ranks that share it."""
+    def share(t):
+        for ax in axes:
+            t = sum_grad(t, ax)
+        return t
+
+    return map_tensors(tree, share)
 
 
 def _dp_rows(dp: Axis, batch: int) -> slice:
@@ -305,9 +454,10 @@ def _local_forward(params, tokens, cache, pos, cfg, tp: Axis, fmt,
     """One rank's Megatron block over its local rows and shards: heads
     column-sharded through llama.attention / llama.mlp with the per-shard
     config, one all_reduce over "tp" after wo and one after w_down, the
-    vocab-sharded logits all-gathered over "tp". The cached decode step and
-    chunk (kv_window) and the cacheless forward are llama.forward's code
-    paths. Returns (logits (b, T, V) bf16, cache)."""
+    vocab-sharded logits all-gathered over "tp"; each column block's input
+    through sum_grad. The cached decode step and chunk (kv_window) and the
+    cacheless forward are llama.forward's code paths. Returns (logits
+    (b, T, V) bf16, cache)."""
     cfg_l = _local_cfg(cfg, tp.size)
     B, T = tokens.shape
     x = params["embed"][tokens.long()]
@@ -315,15 +465,15 @@ def _local_forward(params, tokens, cache, pos, cfg, tp: Axis, fmt,
         pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     rope_cs = llama._rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     for i, lp in enumerate(params["layers"]):
-        h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        h = sum_grad(llama.rms_norm(x, lp["attn_norm"], cfg.rms_eps), tp)
         a = llama.attention(h, lp, None if cache is None else cache[i], pos,
                             cfg_l, fmt=fmt, kv_window=kv_window,
                             write_mask=write_mask, rope_cs=rope_cs)
         x = x + all_reduce(a.contiguous(), tp)    # row-parallel wo
-        h = llama.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        h = sum_grad(llama.rms_norm(x, lp["mlp_norm"], cfg.rms_eps), tp)
         dn = llama.mlp(h, lp, fmt=fmt)
         x = x + all_reduce(dn.contiguous(), tp)   # and w_down
-    x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = sum_grad(llama.rms_norm(x, params["final_norm"], cfg.rms_eps), tp)
     logits = llama.linear(x, params["lm_head"])
     return all_gather(logits, tp, dim=2), cache
 
@@ -331,18 +481,24 @@ def _local_forward(params, tokens, cache, pos, cfg, tp: Axis, fmt,
 def make_tp_forward(cfg: llama.LlamaConfig, mesh, fmt: str = "nvfp4"):
     """(params, tokens (B, T)) -> logits (B, T, V) bf16, the TP + DP
     prefill-style forward without a cache. Every rank passes the global
-    tokens and its local params (quantize_params_tp); each computes its
-    "dp" rows, and the logits are all-gathered over "dp", so every rank
-    returns the same global logits."""
+    tokens and its local params (quantize_params_tp, or shard_dense_params
+    with fmt "bf16"); each computes its "dp" rows, and the logits are
+    all-gathered over "dp", so every rank returns the same global logits.
+    Where a leaf requires grad the forward is recorded, each leaf's
+    gradient summed over "dp" (the module docstring); else it runs under
+    torch.inference_mode."""
     dp, tp = mesh_axis(mesh, "dp"), mesh_axis(mesh, "tp")
     _local_cfg(cfg, tp.size)
 
-    @torch.inference_mode()
     def forward(params, tokens):
-        rows = _dp_rows(dp, tokens.shape[0])
-        logits, _ = _local_forward(params, tokens[rows], None, None, cfg,
-                                   tp, fmt)
-        return all_gather(logits, dp, dim=0)
+        train = _trains(params)
+        with torch.inference_mode(not train):
+            if train:
+                params = _share_grads(params, [dp])
+            rows = _dp_rows(dp, tokens.shape[0])
+            logits, _ = _local_forward(params, tokens[rows], None, None, cfg,
+                                       tp, fmt)
+            return all_gather(logits, dp, dim=0)
 
     return forward
 
@@ -426,35 +582,60 @@ def make_tp_forward_sp(cfg: llama.LlamaConfig, mesh, fmt: str = "nvfp4"):
     as make_tp_forward, with the residual stream sharded on tokens: each
     rank keeps T/tp tokens of its "dp" rows, all-gathers the normed stream
     over "tp" before each column block and reduce-scatters each row
-    block's partial sums over tokens. Needs T % tp == 0."""
+    block's partial sums over tokens. Needs T % tp == 0. Where a leaf
+    requires grad the forward is recorded: the gathers before sharded work
+    reduce-scatter their gradients, and embed and the norms, applied to
+    the rank's tokens, have their gradients summed over "tp" and "dp", the
+    other leaves over "dp"."""
     dp, tp = mesh_axis(mesh, "dp"), mesh_axis(mesh, "tp")
     cfg_l = _local_cfg(cfg, tp.size)
 
-    @torch.inference_mode()
     def forward(params, tokens):
-        B, T = tokens.shape
-        if T % tp.size:
-            raise ValueError(f"T = {T} does not split over tp = {tp.size}")
-        ts = T // tp.size
-        tok = tokens[_dp_rows(dp, B), tp.rank * ts:(tp.rank + 1) * ts]
-        b = tok.shape[0]
-        x = params["embed"][tok.long()]                # (b, T/tp, H)
-        pos = torch.arange(T, device=tok.device)[None, :].expand(b, T)
-        rope_cs = llama._rope_angles(pos, cfg.head_dim, cfg.rope_theta)
-        for lp in params["layers"]:
-            h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-            hf = all_gather(h, tp, dim=1)              # (b, T, H)
-            a = llama.attention(hf, lp, None, pos, cfg_l, fmt=fmt,
-                                rope_cs=rope_cs)
-            x = x + reduce_scatter(a, tp, dim=1)
-            h = llama.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-            hf = all_gather(h, tp, dim=1)
-            x = x + reduce_scatter(llama.mlp(hf, lp, fmt=fmt), tp, dim=1)
-        x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
-        # tokens and vocab shard over the same axis: gather the tokens
-        # first, then the vocab-sharded logits
-        xf = all_gather(x, tp, dim=1)
-        logits = all_gather(llama.linear(xf, params["lm_head"]), tp, dim=2)
-        return all_gather(logits, dp, dim=0)
+        train = _trains(params)
+        with torch.inference_mode(not train):
+            if train:
+                params = _sp_share_grads(params, dp, tp)
+            return _sp_forward(params, tokens, cfg, cfg_l, dp, tp, fmt)
 
     return forward
+
+
+def _sp_share_grads(params: dict, dp: Axis, tp: Axis) -> dict:
+    """make_tp_forward_sp's params with their gradients shared: embed and
+    the norms over "tp" and "dp", the sharded leaves over "dp"."""
+    both = [tp, dp]
+    out = {"embed": _share_grads(params["embed"], both),
+           "final_norm": _share_grads(params["final_norm"], both),
+           "lm_head": _share_grads(params["lm_head"], [dp]), "layers": []}
+    for lp in params["layers"]:
+        out["layers"].append({
+            k: _share_grads(v, both if k in ("attn_norm", "mlp_norm")
+                            else [dp]) for k, v in lp.items()})
+    return out
+
+
+def _sp_forward(params, tokens, cfg, cfg_l, dp: Axis, tp: Axis, fmt):
+    B, T = tokens.shape
+    if T % tp.size:
+        raise ValueError(f"T = {T} does not split over tp = {tp.size}")
+    ts = T // tp.size
+    tok = tokens[_dp_rows(dp, B), tp.rank * ts:(tp.rank + 1) * ts]
+    b = tok.shape[0]
+    x = params["embed"][tok.long()]                # (b, T/tp, H)
+    pos = torch.arange(T, device=tok.device)[None, :].expand(b, T)
+    rope_cs = llama._rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    for lp in params["layers"]:
+        h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        hf = all_gather(h, tp, dim=1, grad="sum")  # (b, T, H)
+        a = llama.attention(hf, lp, None, pos, cfg_l, fmt=fmt,
+                            rope_cs=rope_cs)
+        x = x + reduce_scatter(a, tp, dim=1)
+        h = llama.rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        hf = all_gather(h, tp, dim=1, grad="sum")
+        x = x + reduce_scatter(llama.mlp(hf, lp, fmt=fmt), tp, dim=1)
+    x = llama.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    # tokens and vocab shard over the same axis: gather the tokens
+    # first, then the vocab-sharded logits
+    xf = all_gather(x, tp, dim=1, grad="sum")
+    logits = all_gather(llama.linear(xf, params["lm_head"]), tp, dim=2)
+    return all_gather(logits, dp, dim=0)

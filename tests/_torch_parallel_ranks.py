@@ -3,8 +3,10 @@
 The tests spawn one process a rank (torch.multiprocessing, spawn), each
 joins a gloo process group over a file store and runs one job of this
 module on "cpu" DeviceMeshes, then saves its results for the test process
-to read. This module imports torch and the port only: a spawned child
-never imports JAX.
+to read. With device="cuda" rank r runs on card r instead, in an NCCL
+group, its inputs moved there and its results back to the CPU (the
+multi-card tests of tests/test_torch_cuda.py). This module imports torch
+and the port only: a spawned child never imports JAX.
 
     ctx = start(job, world, inputs, tmp_dir)   # returns at once
     results = finish(ctx)                      # [rank 0's, rank 1's, ...]
@@ -22,6 +24,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from petit_kernel_tpu_torch.models import llama, moe, serving
 from petit_kernel_tpu_torch.parallel import ep as ep_mod
+from petit_kernel_tpu_torch.parallel import pp as pp_mod
 from petit_kernel_tpu_torch.parallel import tp as tp_mod
 
 
@@ -31,16 +34,17 @@ class _Run:
         self.results = None
 
 
-def start(job: str, world: int, inputs: dict, tmp_dir: str) -> _Run:
+def start(job: str, world: int, inputs: dict, tmp_dir: str,
+          device: str = "cpu") -> _Run:
     """Spawn `world` ranks running JOBS[job] over `inputs` (a dict of
-    torch tensors and plain values, saved to tmp_dir); returns without
-    waiting."""
+    torch tensors and plain values, saved to tmp_dir) on `device`;
+    returns without waiting."""
     os.makedirs(tmp_dir, exist_ok=True)
     path = os.path.join(tmp_dir, "inputs.pt")
     torch.save(inputs, path)
     ctx = mp.start_processes(
-        _main, args=(world, job, path, tmp_dir), nprocs=world, join=False,
-        start_method="spawn")
+        _main, args=(world, job, path, tmp_dir, device), nprocs=world,
+        join=False, start_method="spawn")
     return _Run(ctx, tmp_dir, world)
 
 
@@ -56,14 +60,43 @@ def finish(run: _Run) -> list:
     return run.results
 
 
-def _main(rank: int, world: int, job: str, path: str, out_dir: str):
+# the device type of the calling rank's meshes ("cpu" or "cuda")
+_DEVICE = "cpu"
+
+
+def _leaf_tree(tree, fn):
+    """tree (dicts, lists and tuples) with fn applied to each leaf."""
+    if isinstance(tree, dict):
+        return {k: _leaf_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_leaf_tree(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _to(tree, device):
+    """tree with each tensor leaf moved to `device`."""
+    return _leaf_tree(tree, lambda t: t.to(device)
+                      if isinstance(t, torch.Tensor) else t)
+
+
+def _main(rank: int, world: int, job: str, path: str, out_dir: str,
+          device: str):
+    global _DEVICE
+    _DEVICE = device
     torch.set_num_threads(1)
+    kw = {}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
     dist.init_process_group(
-        "gloo", init_method="file://" + os.path.join(out_dir, "store"),
-        world_size=world, rank=rank)
+        "nccl" if device == "cuda" else "gloo",
+        init_method="file://" + os.path.join(out_dir, "store"),
+        world_size=world, rank=rank, **kw)
     try:
         inputs = torch.load(path, weights_only=False)
-        out = JOBS[job](world, inputs)
+        if device == "cuda":
+            inputs = _to(inputs, torch.device("cuda", rank))
+        out = _to(JOBS[job](world, inputs), "cpu")
         torch.save(out, os.path.join(out_dir, f"r{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -96,7 +129,7 @@ class StandInMesh:
 
 
 def _mesh(shape, names):
-    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+    return init_device_mesh(_DEVICE, shape, mesh_dim_names=names)
 
 
 # ---------------------------------------------------------------------------
@@ -218,4 +251,98 @@ def _ep_local(params: dict, mesh) -> dict:
     return out
 
 
-JOBS = {"tp": _tp_cases, "ep": _ep_cases}
+# ---------------------------------------------------------------------------
+# Pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def _pp_cases(world: int, inp: dict) -> dict:
+    """Every PP case of one world size: for each (dp, pp) mesh of
+    inp["meshes"][world] and each format, the rank's place_params_pp tree
+    and make_pp_forward's logits (n_micro 2); on a ("pp",) mesh of the
+    world, for each format and each n_micro of inp["n_micro"], the
+    pipelined decode of inp["prompt"]: its tokens teacher-forced through
+    make_pp_step, then inp["n_new"] greedy tokens, and the stage's cache
+    after."""
+    cfg = llama.LlamaConfig(**inp["cfg"])
+    out = {}
+    for dp, pp in inp["meshes"][world]:
+        mesh = _mesh((dp, pp), ("dp", "pp"))
+        key = f"{dp}x{pp}"
+        out[f"stage {key}"] = tp_mod.mesh_axis(mesh, "pp").rank
+        for fmt, params in inp["params"].items():
+            placed = pp_mod.place_params_pp(params, mesh)
+            out[f"place {fmt} {key}"] = placed
+            fwd = pp_mod.make_pp_forward(cfg, mesh, 2, fmt=fmt)
+            out[f"fwd {fmt} {key}"] = fwd(placed, inp["tokens"])
+    mesh = _mesh((world,), ("pp",))
+    out["stage"] = tp_mod.mesh_axis(mesh, "pp").rank
+    prompt = inp["prompt"]
+    B, T0 = prompt.shape
+
+    def pos(t):
+        return torch.full((B,), t, dtype=torch.int32, device=prompt.device)
+
+    for fmt, params in inp["params"].items():
+        placed = pp_mod.place_params_pp(params, mesh)
+        for n_micro in inp["n_micro"]:
+            step = pp_mod.make_pp_step(cfg, mesh, n_micro, fmt=fmt)
+            cache = pp_mod.init_cache_pp(cfg, B, mesh)
+            for t in range(T0):
+                logits, cache = step(placed, cache, prompt[:, t], pos(t))
+            toks = [logits.argmax(-1).to(torch.int32)]
+            for t in range(inp["n_new"] - 1):
+                logits, cache = step(placed, cache, toks[-1], pos(T0 + t))
+                toks.append(logits.argmax(-1).to(torch.int32))
+            out[f"decode {fmt} {n_micro}"] = dict(
+                tokens=torch.stack(toks, dim=1), cache=cache,
+                logits=logits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The dense TP and SP training steps
+# ---------------------------------------------------------------------------
+
+def nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The JAX dry run's loss: the mean negative log-likelihood of the
+    targets under f32 log-softmax of the logits."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
+def _train_cases(world: int, inp: dict) -> dict:
+    """For each (dp, tp) mesh of inp["meshes"][world] and each forward
+    (make_tp_forward, make_tp_forward_sp): the rank's shard_dense_params
+    shards as leaves that require grad, the loss of inp["tokens"] (inputs
+    tokens[:, :-1], targets tokens[:, 1:]), every leaf's gradient after
+    loss.backward(), and one SGD step's updated shards (w - lr g, in the
+    leaf's dtype, as the JAX dry run's train_step); and whether both
+    forwards over shards that require no grad ran under inference mode."""
+    cfg = llama.LlamaConfig(**inp["cfg"])
+    toks = inp["tokens"]
+    out = {}
+    for dp, tp in inp["meshes"][world]:
+        mesh = _mesh((dp, tp), ("dp", "tp"))
+        for kind, make in (("tp", tp_mod.make_tp_forward),
+                           ("sp", tp_mod.make_tp_forward_sp)):
+            local = _leaf_tree(tp_mod.shard_dense_params(inp["dense"], mesh),
+                               lambda t: t.detach().clone().requires_grad_())
+            logits = make(cfg, mesh, fmt="bf16")(local, toks[:, :-1])
+            loss = nll(logits, toks[:, 1:])
+            loss.backward()
+            with torch.no_grad():
+                new = _leaf_tree(local, lambda w: w - inp["lr"] * w.grad.to(
+                    w.dtype))
+            out[f"{kind} {dp}x{tp}"] = dict(
+                loss=loss.item(), grads=_leaf_tree(local, lambda w: w.grad),
+                new=new, tp_rank=tp_mod.mesh_axis(mesh, "tp").rank,
+                logits_grad_fn=logits.grad_fn is not None)
+        frozen = tp_mod.shard_dense_params(inp["dense"], mesh)
+        out[f"frozen {dp}x{tp}"] = [
+            make(cfg, mesh, fmt="bf16")(frozen, toks[:, :-1]).is_inference()
+            for make in (tp_mod.make_tp_forward, tp_mod.make_tp_forward_sp)]
+    return out
+
+
+JOBS = {"tp": _tp_cases, "ep": _ep_cases, "pp": _pp_cases,
+        "train": _train_cases}

@@ -79,7 +79,15 @@ for bit the eager tick from the same state (tokens, n_acc at
 force_accept 0.5 with the generator restored, both caches' bytes) at g =
 4 and 11, the KV append counted at capture, streams against the plain
 Engine under the near-tie rule on the target's own score_forward logits,
-and force_accept = 1.0 accepting g - 1 every tick.
+and force_accept = 1.0 accepting g - 1 every tick. On a one-rank NCCL
+group: the TP and EP engines (bit for bit the plain ones), the pipelined
+decode step and forward at pp = 1 (tokens under the tie rule of the
+cacheless forward, the forward within the GEMM tolerance), the dense TP
+and SP training steps at tp = 1 (loss and gradients bit for bit the
+plain step's); the fallback Engine (a forward_fn without kv_window and
+write_mask) against the CPU under the tie rule, its block of 6 bit for
+bit 6 eager steps; and, on a host with four cards only, the pipelined
+forward and decode and the training steps across four ranks.
 """
 
 import dataclasses
@@ -2281,8 +2289,8 @@ _LLAMA8B_UNFUSED = (("wq", 4096, 4096), ("wk", 4096, 1024),
 @pytest.fixture(scope="module")
 def nccl_mesh(tmp_path_factory):
     """A one-rank NCCL process group on the card (its communicator made
-    at once) and its ("dp", "tp") and ("dp", "ep") meshes of shape (1, 1):
-    every collective of parallel/ runs through NCCL."""
+    at once) and its ("dp", "tp"), ("dp", "ep") and ("dp", "pp") meshes of
+    shape (1, 1): every collective of parallel/ runs through NCCL."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: NCCL has no CPU mode")
     import torch.distributed as dist
@@ -2297,7 +2305,9 @@ def nccl_mesh(tmp_path_factory):
         yield {"tp": init_device_mesh("cuda", (1, 1),
                                       mesh_dim_names=("dp", "tp")),
                "ep": init_device_mesh("cuda", (1, 1),
-                                      mesh_dim_names=("dp", "ep"))}
+                                      mesh_dim_names=("dp", "ep")),
+               "pp": init_device_mesh("cuda", (1, 1),
+                                      mesh_dim_names=("dp", "pp"))}
     finally:
         import gc
         gc.collect()
@@ -2467,3 +2477,288 @@ def test_sp_forward_and_rs_gemm_equal_the_tp_path(nccl_mesh,
         ref = tgemm.mul_nvfp4_a16(a, layer["words"], layer["scales"],
                                   layer["gs"], m, n, k, -1)
         assert torch.equal(y.view(torch.int16), ref.view(torch.int16))
+
+
+# -- pipeline parallelism, the dense TP training step, the fallback Engine --
+
+def _tie_band_check(params, cfg, prompts, toks):
+    """Each emitted token (B, n) of prompts (B, T0) is the cacheless
+    llama.forward's argmax over the prompt and the tokens before it, or
+    its logit lies within 2^-5 * max|logits| of the top."""
+    T0 = prompts.shape[1]
+    with torch.inference_mode():
+        lg, _ = tllama.forward(params, torch.cat([prompts, toks[:, :-1]], 1),
+                               cfg)
+    lg = lg[:, T0 - 1:].float()
+    gap = lg.amax(-1) - lg.gather(2, toks.long()[..., None])[..., 0]
+    assert bool((gap <= 2 ** -5 * lg.abs().amax(-1)).all())
+
+
+@pytest.mark.parametrize("n_micro", [1, 2, 4])
+def test_pp_step_and_forward_at_one_stage(nccl_mesh, block_params, n_micro):
+    """make_pp_step at pp = 1 (one stage, no point-to-point, the logits
+    broadcast over a one-rank NCCL group) over the narrow 3-layer Llama
+    (nvfp4), B = 4: 20 prompt tokens teacher-forced, then 12 greedy
+    tokens, each within the tie rule of the cacheless forward (the prompt
+    goes through decode steps, where greedy_decode prefills it, so a
+    near-tie may break the other way). Each microbatch launches the KV
+    append once a layer. make_pp_forward on (4, 64) tokens within the
+    GEMM tolerance of llama.forward."""
+    from petit_kernel_tpu_torch.parallel import pp as tpp
+
+    mesh, cfg = nccl_mesh["pp"], _BLOCK_CFG
+    placed = tpp.place_params_pp(block_params, mesh)
+    assert placed["layers"]["wqkv"]["words"].shape[0] == cfg.num_layers
+    g = torch.Generator(device="cuda").manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 20), device="cuda",
+                            generator=g)
+    step = tpp.make_pp_step(cfg, mesh, n_micro, fmt="nvfp4")
+    cache = tpp.init_cache_pp(cfg, 4, mesh)
+    before = attention.kv_append.launches
+    for t in range(20):
+        logits, cache = step(placed, cache, prompts[:, t],
+                             torch.full((4,), t, dtype=torch.int32,
+                                        device="cuda"))
+    assert attention.kv_append.launches - before == 20 * 3 * n_micro
+    toks = [logits.argmax(-1).to(torch.int32)]
+    for t in range(11):
+        logits, cache = step(placed, cache, toks[-1],
+                             torch.full((4,), 20 + t, dtype=torch.int32,
+                                        device="cuda"))
+        toks.append(logits.argmax(-1).to(torch.int32))
+    toks = torch.stack(toks, 1)
+    _tie_band_check(block_params, cfg, prompts, toks)
+    x = torch.randint(0, cfg.vocab_size, (4, 64), device="cuda",
+                      generator=g)
+    got = tpp.make_pp_forward(cfg, mesh, 2, fmt="nvfp4")(placed, x)
+    with torch.inference_mode():
+        want, _ = tllama.forward(block_params, x, cfg)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=2 ** -7,
+        atol=2 ** -8 * want.float().abs().max().item())
+
+
+def _nll(logits, targets):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
+def _grads(tree):
+    if isinstance(tree, dict):
+        return {k: _grads(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_grads(v) for v in tree]
+    return tree.grad
+
+
+def _leaves_requiring_grad(tree):
+    if isinstance(tree, dict):
+        return {k: _leaves_requiring_grad(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaves_requiring_grad(v) for v in tree]
+    return tree.detach().clone().requires_grad_()
+
+
+def _tree_bits_equal(a, b):
+    if isinstance(a, dict):
+        return all(_tree_bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return all(_tree_bits_equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["tp", "sp"])
+def test_tp_train_step_equals_the_plain_step_on_one_rank(nccl_mesh, kind):
+    """make_tp_forward (or make_tp_forward_sp) over shard_dense_params at
+    tp = 1, leaves that require grad: the loss and every gradient after
+    loss.backward() bit for bit the plain dense step's (llama.forward), on
+    the narrow dense Llama, (2, 64) input tokens: at one rank the NCCL
+    collectives and their backwards copy."""
+    from petit_kernel_tpu_torch.parallel import tp as ttp
+
+    cfg, mesh = _BLOCK_CFG, nccl_mesh["tp"]
+    dense = tllama.init_params(cfg, torch.Generator(device="cuda"
+                                                    ).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device="cuda",
+                         generator=torch.Generator(device="cuda"
+                                                   ).manual_seed(8))
+    plain = _leaves_requiring_grad(dense)
+    want = _nll(tllama.forward(plain, toks[:, :-1], cfg)[0], toks[:, 1:])
+    want.backward()
+    make = {"tp": ttp.make_tp_forward, "sp": ttp.make_tp_forward_sp}[kind]
+    local = _leaves_requiring_grad(ttp.shard_dense_params(dense, mesh))
+    logits = make(cfg, mesh, fmt="bf16")(local, toks[:, :-1])
+    assert logits.grad_fn is not None
+    got = _nll(logits, toks[:, 1:])
+    got.backward()
+    assert torch.equal(got, want)
+    assert _tree_bits_equal(_grads(local), _grads(plain))
+
+
+def _fallback_forward(cfg):
+    def forward(p, toks, cache, pos):
+        return tllama.forward(p, toks, cfg, cache, pos,
+                              kv_window=cfg.max_seq_len)
+    return forward
+
+
+def test_fallback_engine_on_the_card_meets_the_cpu(block_params):
+    """Engine(forward_fn=f), f taking neither kv_window nor write_mask, on
+    the card, eager and in decode blocks of 4 (one step graph, no window
+    key), against the same engine on the CPU: the streams are equal or
+    first diverge where the card Engine's score_forward has a top-2 gap
+    below 2^-5 * max|logits|."""
+    reqs = _block_requests(n_new=12)
+    want = tserving.Engine(_to_cpu(block_params), _BLOCK_CFG, max_batch=2,
+                           forward_fn=_fallback_forward(_BLOCK_CFG)).run(
+        reqs)
+    scorer = tserving.Engine(block_params, _BLOCK_CFG, max_batch=2)
+    for block in (1, 4):
+        eng = tserving.Engine(block_params, _BLOCK_CFG, max_batch=2,
+                              forward_fn=_fallback_forward(_BLOCK_CFG))
+        got = eng.run(reqs, decode_block=block)
+        if block > 1:
+            assert list(eng._blocks.graphs) == [None]
+        for r in reqs:
+            a, b = got[r.uid], want[r.uid]
+            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            if not diff:
+                assert a == b
+                continue
+            i = diff[0]
+            toks = np.concatenate([r.tokens, np.asarray(b[:i], np.int32)])
+            lg = scorer.score_forward(np.stack([toks, toks]))[0, -1].float()
+            top2 = lg.sort().values[-2:]
+            assert (top2[1] - top2[0]).item() < \
+                2 ** -5 * lg.abs().max().item(), (block, r.uid, i)
+
+
+def test_fallback_block_replays_bit_for_bit_eager_steps(block_params):
+    """The fallback Engine's block of 6 steps (flat bf16), each a replay of
+    its one step graph, whose forward parks the rows that may not write at
+    max_seq_len - 1 inside the graph: bit for bit 6 eager steps from a
+    snapshot of the same state (tokens, logits, cache bytes)."""
+    eng = _block_engine(None, None, eng=tserving.Engine(
+        block_params, _BLOCK_CFG, max_batch=2, seed=7,
+        forward_fn=_fallback_forward(_BLOCK_CFG)))
+    want, want_lg, want_kv, got, got_lg, got_kv = _eager_then_block(eng, 6)
+    np.testing.assert_array_equal(got, want)
+    for g, w in zip(got_lg, want_lg):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert _bytes_equal(got_kv, want_kv)
+    assert list(eng._blocks.graphs) == [None]
+
+
+# -- the same across four cards (a 4-card host only) -------------------------
+
+_PP4_CFG = tllama.LlamaConfig.tiny(num_layers=4)
+_TRAIN4_CFG = tllama.LlamaConfig(
+    vocab_size=128, hidden_size=128, intermediate_size=256, num_layers=2,
+    num_heads=8, num_kv_heads=4, head_dim=16, max_seq_len=32)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 4,
+                    reason="needs four CUDA cards in one host")
+def test_pp_and_tp_training_across_four_cards(nccl_mesh, tmp_path):
+    """One rank a card in a 4-rank NCCL group (tests/_torch_parallel_ranks.py
+    with device="cuda"; the activations cross cards by NCCL point to point):
+    make_pp_forward at (dp, pp) = (1, 4) and (2, 2), bf16 and nvfp4,
+    within the Llama forward's bound, 2^-5 * max|logits|, of llama.forward
+    on this process's card (the dense products run cuBLAS at m = 32 rows a
+    microbatch against 64, another algorithm, one bf16 ulp apart on a few
+    logits);
+    make_pp_step at pp = 4, n_micro 2 and 4, its tokens and each stage's
+    cache bit for bit the one-card pipeline's (pp = 1, the same
+    microbatches) over the same layers; the dense TP and SP training steps
+    at (dp, tp) = (2, 2) and (1, 4), every rank's loss within rtol 1e-3
+    and every gradient within 2^-5 * max of its slice of the one-card
+    plain step's (NCCL sums the ranks' partials in its own order)."""
+    import _torch_parallel_ranks as ranks
+    from petit_kernel_tpu_torch.parallel import pp as tpp
+
+    g = torch.Generator().manual_seed(0)
+    dense = tllama.init_params(_PP4_CFG, g)
+    params = {"bf16": dense, "nvfp4": tllama.quantize_params(dense)}
+    tokens = torch.randint(0, _PP4_CFG.vocab_size, (4, 16), generator=g)
+    prompt = torch.randint(0, _PP4_CFG.vocab_size, (4, 6), generator=g)
+    pp_res = ranks.finish(ranks.start("pp", 4, dict(
+        cfg=dataclasses.asdict(_PP4_CFG), params=params,
+        meshes={4: [(1, 4), (2, 2)]}, tokens=tokens, prompt=prompt,
+        n_new=5, n_micro=[2, 4]), str(tmp_path / "pp"), device="cuda"))
+    for fmt, p in params.items():
+        p = _to_cuda(p)
+        with torch.inference_mode():
+            want, _ = tllama.forward(p, tokens.cuda(), _PP4_CFG, fmt=fmt)
+        for key in ("1x4", "2x2"):
+            got = pp_res[0][f"fwd {fmt} {key}"]
+            for r in pp_res[1:]:
+                assert torch.equal(r[f"fwd {fmt} {key}"], got)
+            err = (got.float() - want.float().cpu()).abs().max().item()
+            assert err <= 2 ** -5 * want.float().abs().max().item(), (
+                fmt, key, err)
+        placed = tpp.place_params_pp(p, nccl_mesh["pp"])
+        for n_micro in (2, 4):
+            step = tpp.make_pp_step(_PP4_CFG, nccl_mesh["pp"], n_micro,
+                                    fmt=fmt)
+            cache = tpp.init_cache_pp(_PP4_CFG, 4, nccl_mesh["pp"])
+            run = pp_res[0][f"decode {fmt} {n_micro}"]
+            seq = torch.cat([prompt, run["tokens"][:, :-1]], 1).cuda()
+            for t in range(seq.shape[1]):
+                logits, cache = step(placed, cache, seq[:, t], torch.full(
+                    (4,), t, dtype=torch.int32, device="cuda"))
+            assert torch.equal(logits.argmax(-1).int().cpu(),
+                               run["tokens"][:, -1])
+            for r in pp_res:
+                s = r["stage"]
+                ck, cv = r[f"decode {fmt} {n_micro}"]["cache"]
+                assert torch.equal(r[f"decode {fmt} {n_micro}"]["tokens"],
+                                   run["tokens"])
+                assert torch.equal(ck[0], cache[0][s].cpu())
+                assert torch.equal(cv[0], cache[1][s].cpu())
+
+    tdense = tllama.init_params(_TRAIN4_CFG, g)
+    ttoks = torch.randint(0, _TRAIN4_CFG.vocab_size, (4, 17), generator=g)
+    tr_res = ranks.finish(ranks.start("train", 4, dict(
+        cfg=dataclasses.asdict(_TRAIN4_CFG), dense=tdense, tokens=ttoks,
+        lr=1e-3, meshes={4: [(2, 2), (1, 4)]}), str(tmp_path / "train"),
+        device="cuda"))
+    plain = _leaves_requiring_grad(_to_cuda(tdense))
+    want = ranks.nll(tllama.forward(plain, ttoks[:, :-1].cuda(),
+                                    _TRAIN4_CFG)[0], ttoks[:, 1:].cuda())
+    want.backward()
+    plain_grads = _flat_grads(_grads(plain))
+    for key in ("tp 2x2", "sp 2x2", "tp 1x4", "sp 1x4"):
+        tp = int(key[-1])
+        for r in tr_res:
+            run = r[key]
+            assert abs(run["loss"] - want.item()) <= 1e-3 * want.item()
+            t = run["tp_rank"]
+            for path, got in _flat_grads(run["grads"]).items():
+                w = plain_grads[path].float().cpu()
+                if path.endswith(("wq/w", "wk/w", "wv/w", "w_gate/w",
+                                  "w_up/w", "lm_head/w")):
+                    n = w.shape[1] // tp
+                    w = w[:, t * n:(t + 1) * n]
+                elif path.endswith(("wo/w", "w_down/w")):
+                    n = w.shape[0] // tp
+                    w = w[t * n:(t + 1) * n]
+                err = (got.float() - w).abs().max().item()
+                assert err <= 2 ** -5 * w.abs().max().item(), (key, path)
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cuda(v) for v in tree]
+    return tree.cuda()
+
+
+def _flat_grads(tree, path=""):
+    if isinstance(tree, dict):
+        return {p: g for k, v in tree.items()
+                for p, g in _flat_grads(v, f"{path}/{k}").items()}
+    if isinstance(tree, list):
+        return {p: g for i, v in enumerate(tree)
+                for p, g in _flat_grads(v, f"{path}/{i}").items()}
+    return {path: tree}

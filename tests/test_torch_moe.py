@@ -337,7 +337,13 @@ def test_engine_streams_match_jax_engine(tiny_mixtral):
 
 
 def test_engine_takes_a_cache_and_checks_forward_fn(tiny_mixtral):
-    _, tcfg, _, _, tquant = tiny_mixtral
+    """The Engine serves a caller's cache through forward_fn; and a
+    window-less Mixtral forward_fn (no kv_window, no write_mask) is served
+    as the JAX engine serves one: one prompt a chunk, no window passed,
+    the JAX fallback Engine's tokens on the same requests. The port's
+    cached attention needs a window, so that forward_fn attends through
+    the whole cache."""
+    jcfg, tcfg, _, quant, tquant = tiny_mixtral
     cache = tllama.init_cache(tcfg, 2, device="cpu")
     eng = tserving.Engine(tquant, tcfg, max_batch=2, cache=cache,
                           forward_fn=tmoe.make_engine_forward(tcfg),
@@ -348,10 +354,21 @@ def test_engine_takes_a_cache_and_checks_forward_fn(tiny_mixtral):
     assert len(out[0]) == 2 and cache[0][0].abs().sum() > 0
 
     def no_window(p, toks, cache_, pos):
-        return tmoe.forward(p, toks, tcfg, cache_, pos)
+        return tmoe.forward(p, toks, tcfg, cache_, pos,
+                            kv_window=tcfg.max_seq_len)
 
-    with pytest.raises(NotImplementedError, match="kv_window"):
-        tserving.Engine(tquant, tcfg, max_batch=2, forward_fn=no_window)
+    max_new = 4
+    want = jserving.Engine(
+        quant, jcfg, max_batch=2,
+        forward_fn=lambda p, t, c, q: jmoe.forward(p, t, jcfg, c, q,
+                                                   interpret=True)).run(
+        [jserving.Request(uid=i, tokens=p, max_new_tokens=max_new)
+         for i, p in enumerate(_PROMPTS)])
+    eng = tserving.Engine(tquant, tcfg, max_batch=2, forward_fn=no_window)
+    assert not eng._admission_batchable()
+    got = eng.run([tserving.Request(uid=i, tokens=p, max_new_tokens=max_new)
+                   for i, p in enumerate(_PROMPTS)])
+    assert got == want
 
 
 def test_dense_oracle_matches_jax(tiny_mixtral):

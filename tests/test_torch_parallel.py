@@ -411,13 +411,14 @@ def test_tp_engine_matches_jax(tp_setup, jax_tp_engines, tag, block):
 # (j) imports and devices
 # ---------------------------------------------------------------------------
 
-def test_parallel_modules_import_without_jax():
-    """petit_kernel_tpu_torch.parallel and its modules, and the rank code
-    of these tests, import neither jax nor the JAX package."""
+@pytest.mark.parametrize("module", ["tp", "ep", "pp"])
+def test_parallel_modules_import_without_jax(module):
+    """petit_kernel_tpu_torch.parallel and each of its modules, and the
+    rank code of these tests, import neither jax nor the JAX package."""
     code = ("import sys; sys.path.insert(0, 'tests'); "
             "import petit_kernel_tpu_torch.parallel, "
-            "petit_kernel_tpu_torch.parallel.tp, "
-            "petit_kernel_tpu_torch.parallel.ep, _torch_parallel_ranks; "
+            f"petit_kernel_tpu_torch.parallel.{module}, "
+            "_torch_parallel_ranks; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'petit_kernel_tpu.')) or "
             "m == 'petit_kernel_tpu']; print(bad); assert not bad")
@@ -426,16 +427,40 @@ def test_parallel_modules_import_without_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
-def test_entry_points_build_on_the_card_unless_cpu_mesh(device_type):
-    """init_cache_tp builds on the mesh's device: a "cpu" mesh on the CPU,
-    a "cuda" mesh on the card, which raises here without one."""
-    cfg = tllama.LlamaConfig.tiny()
+def _build_tp(cfg, device_type):
+    """init_cache_tp on a (dp, tp) = (1, 2) mesh: the rank's cache."""
     mesh = ranks.StandInMesh(device_type, dp=1, tp=2)
+    cache = ttp.init_cache_tp(cfg, 2, mesh)
+    assert tuple(cache[0][0].shape) == (2, cfg.max_seq_len, 1, cfg.head_dim)
+    return cache[0][0]
+
+
+def _build_pp(cfg, device_type):
+    """init_cache_pp and place_params_pp (of CPU params) on a pp = 2 mesh:
+    the stage's cache and its stacked layers."""
+    from petit_kernel_tpu_torch.parallel import pp as tpp
+
+    mesh = ranks.StandInMesh(device_type, pp=2)
+    ck, _ = tpp.init_cache_pp(cfg, 2, mesh)
+    assert tuple(ck.shape) == (1, 2, cfg.max_seq_len, cfg.num_kv_heads,
+                               cfg.head_dim)
+    params = tllama.init_params(cfg, torch.Generator().manual_seed(0))
+    placed = tpp.place_params_pp(params, mesh)
+    assert placed["layers"]["wq"]["w"].device == ck.device
+    assert placed["embed"].device == ck.device
+    return ck
+
+
+@pytest.mark.parametrize("entry", ["tp", "pp"])
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+def test_entry_points_build_on_the_card_unless_cpu_mesh(device_type, entry):
+    """init_cache_tp, init_cache_pp and place_params_pp build on the
+    mesh's device: a "cpu" mesh on the CPU, a "cuda" mesh on the card,
+    which raises here without one."""
+    cfg = tllama.LlamaConfig.tiny()
+    build = {"tp": _build_tp, "pp": _build_pp}[entry]
     if device_type == "cuda" and not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            ttp.init_cache_tp(cfg, 2, mesh)
+            build(cfg, device_type)
         return
-    cache = ttp.init_cache_tp(cfg, 2, mesh)
-    assert cache[0][0].device.type == device_type
-    assert tuple(cache[0][0].shape) == (2, cfg.max_seq_len, 1, cfg.head_dim)
+    assert build(cfg, device_type).device.type == device_type
