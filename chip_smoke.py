@@ -259,8 +259,9 @@ Phases (any failure raises and the script exits non-zero):
              dense step's, step ms and peak memory beside it; the seconds
              of each part
  16 serve_pp pipeline parallelism (parallel/pp.py) on the one-rank NCCL
-             group at pp = 1: serve's 32-layer Llama-3-8B (nvfp4) through
-             place_params_pp; make_pp_step at n_micro 1, 2 and 4 on B = 4
+             group at pp = 1: serve's Llama-3-8B (nvfp4) cut to its first
+             8 layers through place_params_pp; make_pp_step at n_micro 1,
+             2 and 4 on B = 4
              over init_cache_pp, the first 32 tokens of serve's first 4
              prompts teacher-forced then 32 greedy tokens, each token the
              plain cacheless forward's argmax or within 2^-5 * max|logits|
@@ -273,7 +274,31 @@ Phases (any failure raises and the script exits non-zero):
              run(decode_block=8) (one graph, no window key; checked as
              serve_block's), every token within the tie rule of the plain
              Engine's score_forward
- 17 profile  the decode step and one 256-token prefill tick under
+ 17 serve_cluster the cluster tier (models/cluster.py, models/rpc.py):
+             (a) a Cluster of two Engine(max_batch=4) replicas over serve's
+             32-layer Llama-3-8B (nvfp4) serving its 8 requests at
+             decode_block=1 and 8, each twice (the second run's tokens the
+             first's bit for bit), each replica's kernels counted apart,
+             every token within the tie rule of the plain Engine's
+             score_forward, tokens/s beside Engine(max_batch=8).run(
+             decode_block=8) on the same requests; (b) subprocess replicas
+             (rpc.SubprocessReplica, children spawned on the card) each
+             building the model from seed 0 at Llama-3-8B widths cut to 2
+             layers: a one-replica Cluster bit for bit Cluster([Engine])
+             over rpc.replica_params of the same spec in this process
+             (decode_block=1 and 8); two children serving the 8 requests
+             with child 0 crashed after the first tick (fatal, replayed,
+             respawned, revived; every token within the tie rule); a
+             transient fault injected into a child (no respawn, no
+             failure); each child's spawn-to-first-ping seconds (these two
+             and (c)'s two start together), the median of 100 ping round
+             trips, the seconds from the crash to the revival; the kernel
+             library neither rebuilt nor rewritten by the children; (c)
+             make_tp_cluster(dp=2, tp=1) over the same
+             2-layer weights: two one-rank NCCL groups in two children on
+             cuda:0, every token within the tie rule of the plain Engine
+             over the same unfused tree; the seconds of each part
+ 18 profile  the decode step and one 256-token prefill tick under
              torch.profiler, in Engine (Llama, bf16; and over the headed
              fp8 cache), PagedEngine (Llama, fp8, page size 16), the
              hybrid Engine and the Mixtral Engine, all but the hybrid
@@ -285,19 +310,19 @@ Phases (any failure raises and the script exits non-zero):
              device's idle share (PERF.md section 5); a trace of ten decode
              steps that holds fewer than ten appends a layer lost records:
              it is taken again, up to three times, then the phase fails
- 18 hybrid_layer (only when named) the hybrid GEMM alone at the seven
+ 19 hybrid_layer (only when named) the hybrid GEMM alone at the seven
              unfused projections, m = 8, default tile and splits, L2-warm
              and L2-flushed: for an A/B against an older tree, which a
              copy of this script in that tree's checkout times
- 19 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
+ 20 fp4_layer (only when named) fp4_gemm's decode layer alone, the four
              Llama-3-8B projections at m = 8, default tile and splits,
              L2-warm, L2-flushed and as a CUDA graph: the same kind of A/B
- 20 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
+ 21 grouped_layer (only when named) one Mixtral-8x7B layer's three grouped
              calls at cap 8 (mxfp4, E = 8) through grouped_mul's defaults,
              every bucket row filled, warm and as a CUDA graph of the three;
              where the tree's grouped_mul takes `rows`, also the routed
              buckets of phase 3 with their rows: the same kind of A/B
- 21 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
+ 22 w4a8_layer (only when named) the W4A8 GEMM's tiles alone, the four
              Llama-3-8B projections (nvfp4): the 64-row tiles at m = 512
              and 2048, the 16-row tiles at m = 16 (plain) and 64 (weight
              cache) at their default splits, at block_n 64 and 128, plain
@@ -306,13 +331,13 @@ Phases (any failure raises and the script exits non-zero):
              summed over the four, the 16-row ones also as a CUDA graph of
              the four: the same kind of A/B, also of copies of the tile
              bodies edited to find what bounds them (it checks no bits)
- 22 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
+ 23 hybrid_prefill_layer (only when named) the hybrid GEMM's 64-row
              tiles alone, the seven unfused projections at m = 512, the
              heuristic's tile, L2-warm, summed over the layer, with the
              dense columns alone (a launch with no FP4 columns) beside
              torch.matmul(a, wd[:k]) and the FP4 columns alone (fused_mul):
              the same kind of A/B
- 23 append_layer (only when named) the KV writes alone, each as a CUDA
+ 24 append_layer (only when named) the KV writes alone, each as a CUDA
              graph of 20 launches: kv_append flat bf16 and headed bf16 and
              fp8, kv_append_paged fp8 (page size 16) and the torch glue it
              replaced, each _write_kv as the Llama block calls it (flat
@@ -320,21 +345,21 @@ Phases (any failure raises and the script exits non-zero):
              256-token chunk), and an empty kernel, the launch floor: the
              same kind of A/B, which a copy of this script in an older
              tree's checkout times
- 24 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
+ 25 fp4_wc_layer (only when named) the FP4 weight cache's 16-row tiles
              alone: the four Llama-3-8B projections (nvfp4) at m = 64
              through fused_mul with weight-cache ids 16x64 and 16x128 at
              their default splits, beside the plain 16-row tile, L2-warm
              and as a CUDA graph of the four: the same kind of A/B, also of
              copies of csrc/fp4_stream.cuh with another plan (it checks no
              bits)
- 25 decode_attn_layer (only when named) decode attention alone, at the
+ 26 decode_attn_layer (only when named) decode attention alone, at the
              Engine's decode shape (B = 4, positions 274, 316, 177 and 108,
              window 512) and the kernels phase's (B = 8, S = 2048): flat
              bf16, headed fp8 and paged fp8 (page size 16), each as a CUDA
              graph of 32 launches, one a layer over its own cache, beside
              SDPA over the same bf16 K/V as a graph: the same kind of A/B,
              which a copy of this script in an older tree's checkout times
- 26 hp_layer (only when named) the high-precision GEMM's tiles alone,
+ 27 hp_layer (only when named) the high-precision GEMM's tiles alone,
              the four Llama-3-8B projections (nvfp4, f32 A) through
              fused_mul with hp ids at their default splits: m = 8 at 16x64
              and 16x128, the weight cache at m = 64 (16x64), and the 64-row
@@ -344,7 +369,7 @@ Phases (any failure raises and the script exits non-zero):
              A/B, also of copies of the tile bodies edited to find what
              bounds them (it checks no bits)
 
-Each engine run of phases 6-10 and 12-16 (and the weight-cache run of
+Each engine run of phases 6-10 and 12-17 (and the weight-cache run of
 phase 9, the training run of phase 11 and the sweep and table runs of
 phase 4) sets
 every kernel's launch count to 0 before it and fails if a kernel of its
@@ -387,7 +412,9 @@ from torch.distributed.device_mesh import init_device_mesh
 from petit_kernel_tpu_torch import _cli as port_cli
 from petit_kernel_tpu_torch import bench as port_bench
 from petit_kernel_tpu_torch.models import eval as port_eval
-from petit_kernel_tpu_torch.models import llama, loader, moe, paged, serving
+from petit_kernel_tpu_torch.models import cluster as cluster_mod
+from petit_kernel_tpu_torch.models import llama, loader, moe, paged, rpc
+from petit_kernel_tpu_torch.models import serving
 from petit_kernel_tpu_torch.ops import _build, autotune, gemm
 from petit_kernel_tpu_torch.ops import layout
 from petit_kernel_tpu_torch.ops.kernels import attention, fused, grouped
@@ -403,9 +430,9 @@ from petit_kernel_tpu_torch.utils import benchlib
 PHASES = ("device", "build", "kernels", "solutions", "parity", "serve",
           "serve_kv", "serve_block", "serve_w4a8", "serve_hybrid", "train",
           "serve_moe", "load", "serve_spec", "serve_parallel",
-          "serve_pp", "profile", "hybrid_layer", "fp4_layer", "grouped_layer",
-          "w4a8_layer", "hybrid_prefill_layer", "append_layer",
-          "fp4_wc_layer", "decode_attn_layer", "hp_layer")
+          "serve_pp", "serve_cluster", "profile", "hybrid_layer", "fp4_layer",
+          "grouped_layer", "w4a8_layer", "hybrid_prefill_layer",
+          "append_layer", "fp4_wc_layer", "decode_attn_layer", "hp_layer")
 # run when --phases is not given: all but the nine A/B phases
 DEFAULT_PHASES = PHASES[:-9]
 # the four Llama-3-8B projections as (k, n): wqkv, wo, w_gateup, w_down
@@ -541,7 +568,10 @@ KERNELS = {
 }
 # the microbatch counts of serve_pp's pipelined decode
 PP_MICRO = (1, 2, 4)
-# the kernels each engine run of phases 6-10 and 12-16 (and the
+# the layers of serve's model that serve_pp's pipelined decode and forward
+# run: their eager steps wait on the host, so depth sets the phase's time
+PP_DEPTH = 8
+# the kernels each engine run of phases 6-10 and 12-17 (and the
 # weight-cache run of phase 9 and the training run of phase 11) must launch
 PATHS = {
     "serve bf16 Engine": ("fp4_gemm", "fp4_gemm_prefill", "decode_attention",
@@ -645,6 +675,9 @@ PATHS = {
     "serve_pp fallback Engine decode_block=8": (
         "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
         "prefill_attention", "kv_append"),
+    **{f"serve_cluster in-process Cluster decode_block={b}": (
+        "fp4_gemm", "fp4_gemm_prefill", "decode_attention",
+        "prefill_attention", "kv_append") for b in (1, 8)},
     "solutions sweep": ("fp4_gemm", "fp4_gemm_wc", "fp4_gemm_wc_16row",
                         "fp4_gemm_hp", "fp4_gemm_hp_wc",
                         "fp4_gemm_hp_wc_16row", "fp4_gemm_hp_prefill",
@@ -6025,10 +6058,11 @@ def _fallback_engine(rec, cfg, params, reqs):
 def phase_serve_pp(rec):
     """Pipeline parallelism (parallel/pp.py) on the one-rank NCCL group at
     pp = 1, and the Engine's fallback for a forward_fn without kv_window
-    and write_mask. serve's 32-layer Llama-3-8B (nvfp4) through
-    place_params_pp on a ("dp", "pp") mesh of shape (1, 1): make_pp_step
-    at n_micro 1, 2 and 4 (_pp_decodes), make_pp_forward (_pp_forward);
-    then the fallback Engine over serve's model (_fallback_engine)."""
+    and write_mask. serve's Llama-3-8B (nvfp4) cut to its first PP_DEPTH
+    layers through place_params_pp on a ("dp", "pp") mesh of shape (1, 1):
+    make_pp_step at n_micro 1, 2 and 4 (_pp_decodes), make_pp_forward
+    (_pp_forward); then the fallback Engine over serve's whole model
+    (_fallback_engine)."""
     dev = torch.device("cuda")
     rec.setdefault("launches", {})
     cfg = llama.LlamaConfig.llama3_8b()
@@ -6036,15 +6070,18 @@ def phase_serve_pp(rec):
     reqs = _serve_requests(cfg)
     _one_rank_group()
     mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "pp"))
+    pcfg = dataclasses.replace(cfg, num_layers=PP_DEPTH)
+    pparams = {**params, "layers": params["layers"][:PP_DEPTH]}
     seconds = {}
     t0 = time.perf_counter()
-    placed = pp_mod.place_params_pp(params, mesh)
+    placed = pp_mod.place_params_pp(pparams, mesh)
     torch.cuda.synchronize()
-    out = dict(smi=smi_line(), place_s=time.perf_counter() - t0)
-    out["decode"] = _pp_decodes(rec, cfg, mesh, params, placed, reqs)
+    out = dict(smi=smi_line(), place_s=time.perf_counter() - t0,
+               layers=PP_DEPTH)
+    out["decode"] = _pp_decodes(rec, pcfg, mesh, pparams, placed, reqs)
     seconds["pp decode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["forward"] = _pp_forward(rec, cfg, mesh, params, placed)
+    out["forward"] = _pp_forward(rec, pcfg, mesh, pparams, placed)
     del placed
     gc.collect()
     torch.cuda.empty_cache()
@@ -6056,6 +6093,338 @@ def phase_serve_pp(rec):
     log("[serve_pp] seconds by part: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))
     rec["serve_pp"] = out
+
+
+# ---------------------------------------------------------------------------
+# serve_cluster: the cluster tier
+# ---------------------------------------------------------------------------
+
+# the layers the cluster phase's children build at Llama-3-8B widths
+CLUSTER_DEPTH = 2
+
+
+def _replica_launches(eng, counts: dict) -> None:
+    """Wrap eng.step and eng.step_block so that the kernel launches made
+    inside them (outermost calls only: step_block may call step) add to
+    `counts`."""
+    depth = [0]
+    for name in ("step", "step_block"):
+        inner = getattr(eng, name)
+
+        def counted(*a, _inner=inner, **kw):
+            before = _launch_counts() if depth[0] == 0 else None
+            depth[0] += 1
+            try:
+                return _inner(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if before is not None:
+                    for k, n in _launch_counts().items():
+                        counts[k] += n - before[k]
+
+        setattr(eng, name, counted)
+
+
+def _tie_check_all(path, scorer, reqs, out):
+    """_tie_check over every request, scorer.B at a time; the summed
+    (argmax tokens, tied tokens)."""
+    exact = tied = 0
+    for i in range(0, len(reqs), scorer.B):
+        e, t = _tie_check(path, scorer, reqs[i:i + scorer.B], out)
+        exact, tied = exact + e, tied + t
+    return exact, tied
+
+
+def _timed_run(make_cluster, reqs, block):
+    """One Cluster.run of `reqs` at decode_block=block, on the card's
+    clock: (the cluster, its tokens, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cl = make_cluster()
+    out = cl.run(reqs, decode_block=block)
+    torch.cuda.synchronize()
+    return cl, out, time.perf_counter() - t0
+
+
+def _cluster_inprocess(rec, cfg, params, reqs):
+    """(a) Cluster of two Engine(max_batch=4) over serve's model: each
+    decode_block twice, launches counted a replica in the first run, the
+    tie rule over every token, tokens/s beside an 8-slot Engine."""
+    engines = [serving.Engine(params, cfg, max_batch=4) for _ in range(2)]
+    per = [dict.fromkeys(KERNELS, 0) for _ in engines]
+    for eng, counts in zip(engines, per):
+        _replica_launches(eng, counts)
+    scorer = serving.Engine(params, cfg, max_batch=4)
+    n_tok = len(reqs) * 32
+    out = {}
+    for block in (1, 8):
+        path = f"serve_cluster in-process Cluster decode_block={block}"
+        runs = []
+        for _ in range(2):
+            for counts in per:
+                counts.update(dict.fromkeys(KERNELS, 0))
+            _reset_launches()
+            cl, toks, wall = _timed_run(
+                lambda: cluster_mod.Cluster(engines), reqs, block)
+            launches = _launch_counts()
+            _check_outputs(path, toks, len(reqs), cfg)
+            if cl.failures or cl.transients or cl.replayed:
+                raise AssertionError(f"{path}: failures {cl.failures}, "
+                                     f"transients {cl.transients}")
+            runs.append(dict(wall_s=wall, tok_per_s=n_tok / wall,
+                             tokens=[toks[i] for i in sorted(toks)],
+                             launches=launches,
+                             replica_launches=[dict(c) for c in per]))
+        del cl
+        first, second = runs
+        for i, counts in enumerate(first["replica_launches"]):
+            missing = [k for k in PATHS[path] if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"{path}: replica {i} never launched "
+                                     f"{missing} ({counts})")
+        for name, n in first["launches"].items():
+            rec["launches"][name] = rec["launches"].get(name, 0) + n
+        if second["tokens"] != first["tokens"]:
+            raise AssertionError(f"{path}: a second run gave other tokens")
+        toks = dict(enumerate(first["tokens"]))
+        exact, tied = _tie_check_all(path, scorer, reqs, toks)
+        out[f"decode_block={block}"] = dict(
+            fresh=first, warm_tok_per_s=second["tok_per_s"],
+            warm_wall_s=second["wall_s"], argmax_tokens=exact,
+            tied_tokens=tied)
+        log(f"[{path}] {first['tok_per_s']:.1f} tok/s fresh, "
+            f"{second['tok_per_s']:.1f} warm (bit for bit); {exact} tokens "
+            f"the plain Engine's score_forward argmax, {tied} in the tie "
+            f"band; launches a replica (first run) "
+            + "; ".join(f"replica {i}: " + ", ".join(
+                f"{k} {c[k]}" for k in PATHS[path])
+                for i, c in enumerate(first["replica_launches"])))
+    del engines
+    gc.collect()
+    big = serving.Engine(params, cfg, max_batch=8)
+    single = []
+    for _ in range(2):
+        big.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = big.run(reqs, decode_block=8)
+        torch.cuda.synchronize()
+        single.append(n_tok / (time.perf_counter() - t0))
+    exact, tied = _tie_check_all("serve_cluster Engine(max_batch=8)", scorer,
+                                 reqs, toks)
+    out["engine_max_batch_8"] = dict(tok_per_s=single[0],
+                                     warm_tok_per_s=single[1],
+                                     argmax_tokens=exact, tied_tokens=tied)
+    blk = out["decode_block=8"]
+    log(f"[serve_cluster] decode_block=8: two 4-slot replicas "
+        f"{blk['fresh']['tok_per_s']:.1f} tok/s fresh, "
+        f"{blk['warm_tok_per_s']:.1f} warm; one Engine(max_batch=8) "
+        f"{single[0]:.1f} fresh, {single[1]:.1f} warm (ratio warm "
+        f"{blk['warm_tok_per_s'] / single[1]:.3f})")
+    del big, scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _library_files() -> dict:
+    """The kernel build directory's files and their mtimes."""
+    return {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}
+
+
+def _cluster_subprocess(cfg, reqs, reps, local):
+    """(b) subprocess replicas `reps`, each up: the pipe bit for bit
+    `local`, an in-process Engine over the params of the same spec, a
+    crash replayed and revived, a transient fault, ping times."""
+    out = {}
+    for block in (1, 8):
+        _, want, _ = _timed_run(lambda: cluster_mod.Cluster([local]), reqs,
+                                block)
+        _, got, wall = _timed_run(lambda: cluster_mod.Cluster([reps[0]]),
+                                  reqs, block)
+        if got != want:
+            raise AssertionError(
+                f"serve_cluster: the pipe at decode_block={block} gave "
+                "other tokens than the in-process Engine")
+        out[f"pipe decode_block={block}"] = dict(
+            wall_s=wall, tok_per_s=len(reqs) * 32 / wall)
+    exact, tied = _tie_check_all("serve_cluster subprocess replica", local,
+                                 reqs, want)
+    # crash child 0 after the first tick
+    cl = cluster_mod.Cluster(reps, probe_cooldown=1)
+    cl.submit(reqs)
+    cl.tick()
+    t_crash = time.perf_counter()
+    reps[0].crash()
+    revived_s = None
+    while True:
+        left = cl.tick()
+        if revived_s is None and 0 in cl.revived:
+            revived_s = time.perf_counter() - t_crash
+        if not left:
+            break
+    crashed = dict(cl.finished)
+    _check_outputs("serve_cluster crash", crashed, len(reqs), cfg)
+    if not (cl.failures and cl.failures[0][0] == 0 and cl.replayed
+            and reps[0].respawns >= 1 and 0 in cl.revived
+            and reps[0].ping()):
+        raise AssertionError(
+            f"serve_cluster crash: failures {cl.failures}, replayed "
+            f"{cl.replayed}, respawns {reps[0].respawns}, revived "
+            f"{cl.revived}")
+    c_exact, c_tied = _tie_check_all("serve_cluster crash", local, reqs,
+                                     crashed)
+    out["crash"] = dict(
+        failures=[i for i, _ in cl.failures], replayed=cl.replayed,
+        revived=cl.revived, respawns=reps[0].respawns,
+        crash_to_revival_s=revived_s, argmax_tokens=c_exact,
+        tied_tokens=c_tied, tokens_equal_to_pipe=sum(
+            a == b for u in want for a, b in zip(want[u], crashed[u])))
+    # a transient fault keeps the process
+    rep, pid = reps[1], reps[1]._procs[0].pid
+    cl = cluster_mod.Cluster([rep])
+    cl.submit(reqs[:4])
+    cl.tick()
+    rep.inject_fault("paged KV pool exhausted")
+    while cl.tick():
+        pass
+    if not (cl.transients and not cl.failures and rep.respawns == 0
+            and rep._procs[0].pid == pid):
+        raise AssertionError(
+            f"serve_cluster transient: transients {cl.transients}, "
+            f"failures {cl.failures}, respawns {rep.respawns}")
+    _tie_check_all("serve_cluster transient", local, reqs[:4],
+                   dict(cl.finished))
+    out["transient"] = dict(replayed=cl.replayed, respawns=rep.respawns)
+    pings = []
+    for _ in range(100):
+        t = time.perf_counter()
+        rep.ping()
+        pings.append(time.perf_counter() - t)
+    out["ping_us_median"] = float(np.median(pings)) * 1e6
+    out.update(argmax_tokens=exact, tied_tokens=tied)
+    log(f"[serve_cluster] subprocess replicas ({CLUSTER_DEPTH} layers): the "
+        f"pipe bit for bit the in-process Engine at decode_block=1 and 8; "
+        f"crash -> revival {revived_s:.2f} s, replayed "
+        f"{out['crash']['replayed']}; transient fault kept the process; "
+        f"ping round trip {out['ping_us_median']:.1f} us (median of 100)")
+    return out
+
+
+def _cluster_tp_params(cfg, spec):
+    """spec's dense weights, made on the card and copied to the host (what
+    make_tp_cluster writes to its file), and the plain Engine's unfused
+    tree of them on the card (quantize_params_tp at tp = 1 on the
+    one-rank group)."""
+    dense = rpc.dense_params(spec, torch.device("cuda"))
+    dense["layers"] = list(dense["layers"])
+    _one_rank_group()
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "tp"))
+    unfused = tp_mod.quantize_params_tp(dense, cfg, mesh)
+    return rpc._tree_to(dense, "cpu"), unfused
+
+
+def _cluster_tp(cfg, reqs, cl, unfused):
+    """(c) the TP cluster `cl`, up: every token within the tie rule of the
+    plain Engine over `unfused`."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = cl.run(reqs, decode_block=8)
+    wall = time.perf_counter() - t1
+    _check_outputs("serve_cluster TP cluster", got, len(reqs), cfg)
+    if cl.failures or cl.transients:
+        raise AssertionError(f"serve_cluster TP cluster: {cl.failures}")
+    scorer = serving.Engine(unfused, cfg, max_batch=4)
+    exact, tied = _tie_check_all("serve_cluster TP cluster", scorer, reqs,
+                                 got)
+    plain = scorer.run(reqs, decode_block=8)
+    same = sum(a == b for u in plain for a, b in zip(plain[u], got[u]))
+    log(f"[serve_cluster] make_tp_cluster(dp=2, tp=1): "
+        f"{len(reqs) * 32 / wall:.1f} tok/s; {exact} tokens the plain "
+        f"Engine's argmax, {tied} in the tie band, {same} equal to the plain "
+        "Engine's run")
+    del scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, tok_per_s=len(reqs) * 32 / wall,
+                argmax_tokens=exact, tied_tokens=tied,
+                tokens_equal_to_plain=same)
+
+
+def phase_serve_cluster(rec):
+    """The cluster tier: (a) _cluster_inprocess over serve's 32-layer
+    Llama-3-8B; then four children start together, the TP cluster's two
+    ranks and two SubprocessReplicas, each building the model at
+    CLUSTER_DEPTH layers (the replicas from seed 0, the ranks from the
+    same weights in make_tp_cluster's file): (b) _cluster_subprocess, (c)
+    _cluster_tp. No child may rebuild or rewrite the kernel library."""
+    dev = torch.device("cuda")
+    rec.setdefault("launches", {})
+    cfg = llama.LlamaConfig.llama3_8b()
+    params, _ = _serve_model(cfg, dev)
+    reqs = _serve_requests(cfg)
+    out, seconds = dict(smi=smi_line()), {}
+    t0 = time.perf_counter()
+    out["inprocess"] = _cluster_inprocess(rec, cfg, params, reqs)
+    seconds["in-process cluster"] = time.perf_counter() - t0
+    cut = llama.LlamaConfig.llama3_8b(num_layers=CLUSTER_DEPTH)
+    spec = dict(cfg=dataclasses.asdict(cut), seed=0, fmt="nvfp4",
+                max_batch=4)
+    before = _library_files()
+    dense, unfused = _cluster_tp_params(cut, spec)
+    local = serving.Engine(rpc.replica_params(spec), cut, max_batch=4,
+                           fmt="nvfp4")
+    # the children need the card memory this process has cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    tp_cl = subs = None
+    try:
+        # four children start together: the TP cluster's two (after its
+        # params file is written) and two SubprocessReplicas
+        tp_cl = cluster_mod.make_tp_cluster(dense, cut, dp=2, tp=1,
+                                            max_batch=4)
+        write_s = time.perf_counter() - t0
+        subs = cluster_mod.Cluster([rpc.SubprocessReplica(spec)
+                                    for _ in range(2)])
+        ready = []
+        for r in tp_cl.replicas + subs.replicas:
+            if not r.ping():
+                raise AssertionError("serve_cluster: a child never "
+                                     "answered")
+            ready.append(time.perf_counter() - t0)
+        out["children"] = dict(tp_params_write_s=write_s,
+                               start_to_first_ping_s=ready,
+                               card_free_gib=free / 2**30)
+        log(f"[serve_cluster] four children started together, "
+            f"make_tp_cluster's two ranks (its params file written in "
+            f"{write_s:.2f} s first), then two SubprocessReplicas: start to "
+            "first ping " + ", ".join(f"{x:.2f}" for x in ready) + " s "
+            f"({free / 2**30:.1f} of {total / 2**30:.1f} GiB of the card "
+            "free before)")
+        seconds["children up"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["subprocess"] = _cluster_subprocess(cut, reqs, subs.replicas,
+                                                local)
+        seconds["subprocess replicas"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["tp_cluster"] = _cluster_tp(cut, reqs, tp_cl, unfused)
+        seconds["tp cluster"] = time.perf_counter() - t0
+    finally:
+        for c in (subs, tp_cl):
+            if c is not None:
+                c.shutdown()
+    del dense, unfused, local
+    after = _library_files()
+    if after != before:
+        raise AssertionError(f"serve_cluster: the children changed the "
+                             f"kernel build directory: {before} -> {after}")
+    out["seconds"] = seconds
+    log(f"[serve_cluster] {out['smi']}; the kernel library untouched by "
+        "the children; seconds by part: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()))
+    rec["serve_cluster"] = out
 
 
 def _kernel_profile(steps):
@@ -6332,7 +6701,8 @@ def main(argv=None) -> int:
     if all(p in rec for p in ("kernels", "solutions", "serve", "serve_kv",
                               "serve_block", "serve_moe", "serve_w4a8",
                               "serve_hybrid", "train", "load",
-                              "serve_spec", "serve_parallel", "serve_pp")):
+                              "serve_spec", "serve_parallel", "serve_pp",
+                              "serve_cluster")):
         print(json.dumps({"kernels": [
             dict(name=name, route=info["route"], source=info["source"],
                  replaces=info["replaces"],

@@ -4,8 +4,11 @@ the serving engines (`serving`: Engine serves Mixtral through
 forward_fn=moe.make_engine_forward(cfg)), the eval harness (`eval`:
 log-likelihood, multiple choice, perplexity, the FP4 accuracy delta;
 imported by name, as it shadows the builtin), the HF checkpoint loader
-(`loader`) and JAX-state conversion (`convert`)."""
+(`loader`), JAX-state conversion (`convert`), and the cluster tier: the
+Cluster router over replicas (`cluster`) and replicas in processes of
+their own behind a pipe (`rpc`)."""
 
-from . import convert, llama, loader, moe, paged, serving
+from . import cluster, convert, llama, loader, moe, paged, rpc, serving
 
-__all__ = ["convert", "llama", "loader", "moe", "paged", "serving"]
+__all__ = ["cluster", "convert", "llama", "loader", "moe", "paged", "rpc",
+           "serving"]

@@ -1,4 +1,6 @@
-"""Rank code of the parallel parity tests (tests/test_torch_parallel*.py).
+"""Rank code of the parallel parity tests (tests/test_torch_parallel*.py,
+tests/test_torch_pp.py, and the cluster tier's meshes in
+tests/test_torch_rpc.py).
 
 The tests spawn one process a rank (torch.multiprocessing, spawn), each
 joins a gloo process group over a file store and runs one job of this
@@ -22,7 +24,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
 
-from petit_kernel_tpu_torch.models import llama, moe, serving
+from petit_kernel_tpu_torch.models import cluster, llama, moe, serving
 from petit_kernel_tpu_torch.parallel import ep as ep_mod
 from petit_kernel_tpu_torch.parallel import pp as pp_mod
 from petit_kernel_tpu_torch.parallel import tp as tp_mod
@@ -344,5 +346,43 @@ def _train_cases(world: int, inp: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The cluster tier's meshes
+# ---------------------------------------------------------------------------
+
+def _cluster_meshes(world: int, inp: dict) -> dict:
+    """models/cluster.py's meshes on this job's ranks: hybrid_mesh at each
+    (dp, tp) of inp["hybrid"] (its rank ids, or "ValueError"), and
+    replica_meshes(tp, n) at each (tp, n) of inp["replicas"] (each mesh's
+    rank ids, the index of the mesh that holds the calling rank, the rank's
+    "tp" coordinate there, and the sum of the ranks of its "tp" group
+    through an all_reduce on that mesh's group)."""
+    out = {}
+    for dp, tp in inp["hybrid"]:
+        try:
+            out[f"hybrid {dp}x{tp}"] = cluster.hybrid_mesh(
+                dp, tp, _DEVICE).mesh.tolist()
+        except ValueError:
+            out[f"hybrid {dp}x{tp}"] = "ValueError"
+    rank = dist.get_rank()
+    for tp, n in inp["replicas"]:
+        try:
+            meshes = cluster.replica_meshes(tp, n, _DEVICE)
+        except ValueError:
+            out[f"replicas {tp}x{n}"] = "ValueError"
+            continue
+        ids = [m.mesh.tolist() for m in meshes]
+        mine = [i for i, m in enumerate(meshes)
+                if rank in m.mesh.flatten().tolist()]
+        res = {"ids": ids, "mine": mine}
+        if mine:
+            ax = tp_mod.mesh_axis(meshes[mine[0]], "tp")
+            t = torch.tensor([float(rank)])
+            dist.all_reduce(t, group=ax.group)
+            res.update(tp_rank=ax.rank, tp_sum=t.item())
+        out[f"replicas {tp}x{n}"] = res
+    return out
+
+
 JOBS = {"tp": _tp_cases, "ep": _ep_cases, "pp": _pp_cases,
-        "train": _train_cases}
+        "train": _train_cases, "cluster": _cluster_meshes}

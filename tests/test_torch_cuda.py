@@ -87,7 +87,12 @@ and SP training steps at tp = 1 (loss and gradients bit for bit the
 plain step's); the fallback Engine (a forward_fn without kv_window and
 write_mask) against the CPU under the tie rule, its block of 6 bit for
 bit 6 eager steps; and, on a host with four cards only, the pipelined
-forward and decode and the training steps across four ranks.
+forward and decode and the training steps across four ranks. The cluster
+tier on a narrow 2-layer Llama: a subprocess replica on the card bit for
+bit an in-process Engine of the same spec, a crashed child replayed and
+respawned and a transient fault that keeps the process, make_tp_cluster
+at (dp, tp) = (2, 1) on one card and, with four cards, (2, 2) over NCCL,
+every token within the tie rule of the cacheless forward.
 """
 
 import dataclasses
@@ -2762,3 +2767,137 @@ def _flat_grads(tree, path=""):
         return {p: g for i, v in enumerate(tree)
                 for p, g in _flat_grads(v, f"{path}/{i}").items()}
     return {path: tree}
+
+
+# -- the cluster tier: subprocess replicas and TP replicas on the card ----
+
+_CLUSTER_CFG = tllama.LlamaConfig.tiny(num_layers=2, max_seq_len=256)
+
+
+def _cluster_spec():
+    """A replica's spec: the narrow 2-layer Llama from seed 0, nvfp4, on
+    the card (no "device": the default)."""
+    return dict(cfg=dataclasses.asdict(_CLUSTER_CFG), seed=0, fmt="nvfp4",
+                max_batch=2)
+
+
+def _cluster_requests(n=4, max_new=8):
+    rng = np.random.default_rng(9)
+    return [tserving.Request(uid=i, tokens=rng.integers(
+        1, _CLUSTER_CFG.vocab_size, size=5 + 3 * i).astype(np.int32),
+        max_new_tokens=max_new) for i in range(n)]
+
+
+def _cluster_tie_check(params, reqs, out):
+    """_tie_band_check request by request: every emitted token within the
+    tie rule of the cacheless forward of `params`."""
+    for r in reqs:
+        _tie_band_check(params, _CLUSTER_CFG,
+                        torch.as_tensor(r.tokens).cuda()[None],
+                        torch.as_tensor(out[r.uid], dtype=torch.int32
+                                        ).cuda()[None])
+
+
+@pytest.fixture(scope="module")
+def card_replicas():
+    """Two subprocess replicas of _cluster_spec, spawned on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the replicas serve on it")
+    from petit_kernel_tpu_torch.models import rpc
+
+    reps = [rpc.SubprocessReplica(_cluster_spec()) for _ in range(2)]
+    try:
+        yield reps
+    finally:
+        for r in reps:
+            r.shutdown()
+
+
+def test_subprocess_replica_pipe_bit_for_bit_on_the_card(card_replicas):
+    """A one-replica Cluster over a child on the card gives the tokens of a
+    one-replica Cluster over an Engine in this process, built from the
+    same spec (rpc.replica_params), bit for bit, eager and in decode
+    blocks of 4; every token within the tie rule of the cacheless
+    forward."""
+    from petit_kernel_tpu_torch.models import cluster, rpc
+
+    params = rpc.replica_params(_cluster_spec())
+    local = tserving.Engine(params, _CLUSTER_CFG, max_batch=2, fmt="nvfp4")
+    for block in (1, 4):
+        want = cluster.Cluster([local]).run(_cluster_requests(),
+                                            decode_block=block)
+        got = cluster.Cluster(card_replicas[:1]).run(_cluster_requests(),
+                                                     decode_block=block)
+        assert got == want, block
+    _cluster_tie_check(params, _cluster_requests(), got)
+
+
+def test_subprocess_replica_crash_and_respawn_on_the_card(card_replicas):
+    """Child 0 crashed after the first tick: the failure is fatal, its
+    requests replay on child 1, the re-probe respawns child 0 (after
+    joining the dead one) and it rejoins; every token within the tie rule;
+    a transient fault injected into child 1 then keeps its process."""
+    from petit_kernel_tpu_torch.models import cluster, rpc
+
+    params = rpc.replica_params(_cluster_spec())
+    cl = cluster.Cluster(card_replicas, probe_cooldown=1)
+    cl.submit(_cluster_requests())
+    cl.tick()
+    card_replicas[0].crash()
+    while cl.tick():
+        pass
+    assert cl.failures and cl.failures[0][0] == 0 and cl.replayed
+    assert card_replicas[0].respawns >= 1 and 0 in cl.revived
+    assert card_replicas[0].ping()
+    _cluster_tie_check(params, _cluster_requests(), cl.finished)
+    rep = card_replicas[1]
+    pid = rep._procs[0].pid
+    cl = cluster.Cluster([rep])
+    cl.submit(_cluster_requests(2))
+    cl.tick()
+    rep.inject_fault("paged KV pool exhausted")
+    while cl.tick():
+        pass
+    assert cl.transients and not cl.failures
+    assert rep.respawns == 0 and rep._procs[0].pid == pid
+    _cluster_tie_check(params, _cluster_requests(2), cl.finished)
+
+
+def _tp_cluster_run(nccl_mesh, dp, tp):
+    """make_tp_cluster(dp, tp) over the narrow Llama's dense weights on the
+    card, serving _cluster_requests in decode blocks of 4; its tokens, and
+    the one-card plain Engine's unfused tree (quantize_params_tp at tp = 1
+    on this process's one-rank group)."""
+    from petit_kernel_tpu_torch.models import cluster, rpc
+    from petit_kernel_tpu_torch.parallel import tp as tpm
+
+    dense = rpc.dense_params(_cluster_spec(), torch.device("cuda"))
+    dense["layers"] = list(dense["layers"])
+    plain = tpm.quantize_params_tp(dense, _CLUSTER_CFG, nccl_mesh["tp"])
+    cl = cluster.make_tp_cluster(dense, _CLUSTER_CFG, dp=dp, tp=tp,
+                                 max_batch=2)
+    try:
+        got = cl.run(_cluster_requests(), decode_block=4)
+        assert not cl.failures and cl.alive == [True] * dp
+        assert [len(r._procs) for r in cl.replicas] == [tp] * dp
+    finally:
+        cl.shutdown()
+    return got, plain
+
+
+def test_tp_cluster_on_one_card(nccl_mesh):
+    """make_tp_cluster(dp=2, tp=1): two one-rank NCCL groups in two
+    children on cuda:0; every token within the tie rule of the plain
+    Engine's model over the same unfused tree."""
+    got, plain = _tp_cluster_run(nccl_mesh, 2, 1)
+    _cluster_tie_check(plain, _cluster_requests(), got)
+
+
+def test_tp_cluster_across_four_cards(nccl_mesh):
+    """make_tp_cluster(dp=2, tp=2) over NCCL: replica i's ranks on cards
+    2i and 2i + 1; every token within the tie rule of the one-card plain
+    Engine's model (NCCL sums the two ranks' bf16 partials)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards in one host")
+    got, plain = _tp_cluster_run(nccl_mesh, 2, 2)
+    _cluster_tie_check(plain, _cluster_requests(), got)
