@@ -1,0 +1,5 @@
+"""The share of the traced slice in which no operation ran on the card."""
+
+
+def read(run):
+    return run.idle_share()

@@ -1,0 +1,6 @@
+"""Flash prefill (kernels/prefill_attn.json): its least time over its
+device time in the traced slice, in %."""
+
+
+def read(run):
+    return run.roofline("prefill_attn")
